@@ -1,0 +1,731 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py            # every phase, full width and depth
+
+Phases, each printing one JSON line (any failure exits non-zero):
+
+  build    nvcc the CUDA kernels from ``src/repro_torch/csrc`` (sm_90a)
+  kernels  each cascade phase-1 kernel against its plain torch version on
+           the card at verify shapes (Hq=32, Hkv=8, D=128, Tq 16/64/76,
+           ragged cache lengths, adversarial rolling capacities, a shuffled
+           page table with sentinel entries; fp32 and bf16), then timed
+           beside its bound, its plain version and one
+           scaled_dot_product_attention call (the yardstick, never used by
+           the port)
+  main     greedy D^2SD ``generate`` in fp32 at the full width and depth of
+           paper_target.full() with random seeded weights: 4 prompts of 512
+           tokens, 64 new tokens, paged (page 64) and dense caches through
+           the kernels; tokens held to the gather path and to plain
+           one-token-at-a-time greedy; kernel launch counts read
+  oracle   the same fp32 runs with drafts that hold the greedy reference,
+           spoiled from a depth that varies by row and cycle, so a cycle
+           accepts a path along the trunk and on into a branch: tokens held
+           to the gather path and to plain greedy, alpha to the oracle's
+           own count of what each cycle must accept, and the target and
+           feature caches the cycles commit to a plain prefill of the
+           same tokens
+  bf16     the same run in bfloat16 (the config's dtype): tokens/s and its
+           agreement with the gather path
+  profile  six bf16 decode cycles (kernel path, paged cache) under
+           torch.profiler: device time per cycle, the device's idle share
+           and the kernels that take the most device time
+
+Then a ``{"kernels": [...]}`` line, the card's name and power limit as
+nvidia-smi prints them, and the last line
+``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
+repository's ``src/repro_torch`` next to this file, it exits non-zero and
+prints no result. It takes no arguments.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+DEVICE = "cuda"
+MAX_NEW = 64                                # tokens generated per row
+GAMMA, K_BRANCHES = 16, 4                   # 76 tree nodes per row
+PEAK_BYTES_S = 3.35e12                      # H100 SXM HBM3
+PEAK_FLOPS = {torch.float32: 67e12,         # fp32, CUDA cores
+              torch.bfloat16: 989e12}       # bf16 tensor cores, dense
+NEAR_TIE = 1e-4                             # top-2 logit gap that may flip
+TOL_OUT = 2e-5      # merged output: both sides compute in fp32 on equal
+                    # (bf16 -> fp32 is exact) inputs; only sum order differs
+TOL_PART = 1e-4     # partials (acc, l, m), relative to 1 + |plain|
+TOL_CACHE = 1e-3    # committed fp32 caches vs a prefill of the same tokens,
+                    # relative to the largest value: sum order only
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def fail(msg):
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ------------------------------------------------------------------ timing --
+class Timer:
+    """CUDA-event timing of one launch at a time, with the 50 MB L2 flushed
+    before each (every layer's cache is read once per cycle, cold)."""
+
+    def __init__(self):
+        self.flush = torch.empty(64 * 2 ** 20, dtype=torch.int32,
+                                 device=DEVICE)
+
+    def ms(self, fn, iters=20, warmup=3):
+        for _ in range(warmup):
+            fn()
+        pairs = []
+        for _ in range(iters):
+            self.flush.zero_()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn()
+            e1.record()
+            pairs.append((e0, e1))
+        torch.cuda.synchronize()
+        return float(np.median([a.elapsed_time(b) for a, b in pairs]))
+
+
+# ----------------------------------------------------------- kernel checks --
+def _rand(gen, shape, dtype):
+    return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+
+
+def _shuffled_table(rng, b, mp, lens, page, n_phys):
+    """Disjoint shuffled pages per row; unallocated tail = PAGE_SENTINEL."""
+    from repro_torch.models.kvcache import PAGE_SENTINEL
+    perm = list(rng.permutation(n_phys))
+    pt = np.full((b, mp), PAGE_SENTINEL, np.int64)
+    for i, cl in enumerate(lens):
+        need = -(-int(cl) // page)
+        pt[i, :need] = [perm.pop() for _ in range(need)]
+    return torch.as_tensor(pt, dtype=torch.int32, device=DEVICE)
+
+
+def _compare(kern, plain, q, bk, bv, tmask, scale, ref_out):
+    """Merged outputs (kept in fp32: q upcast, so no final rounding to the
+    input dtype) and live partials of kernel vs plain version."""
+    from repro_torch.kernels import cascade_attention as casc
+    q = q.float()
+    outs = [casc.merge_with_tree_block(q, bk, bv, *parts, tree_mask=tmask,
+                                       attn_softcap=None, scale=scale)
+            for parts in (kern, plain)]
+    err = (outs[0].float() - outs[1].float()).abs().max().item()
+    err_ref = (outs[0].float() - ref_out.float()).abs().max().item()
+    live = plain[1] > -1e29
+    part = 0.0
+    for a, b_ in zip(kern, plain):
+        rel = (a - b_).abs() / (1 + b_.abs())
+        if rel.ndim == 5:
+            rel = rel.amax(-1)
+        part = max(part, rel[live].max().item() if live.any() else 0.0)
+    if not torch.isfinite(outs[0]).all():
+        fail("kernel output is not finite")
+    return err, err_ref, part
+
+
+def check_kernels(timer):
+    from repro_torch.kernels import cascade_attention as casc
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    rng = np.random.default_rng(0)
+    hq, hkv, d = 32, 8, 128
+    scale = d ** -0.5
+    cases = []
+    worst = {"cascade_phase1": 0.0, "cascade_phase1_paged": 0.0}
+
+    def record(name, case, err, err_ref, part):
+        cases.append({"kernel": name, **case, "max_abs_err": err,
+                      "err_vs_ref": err_ref, "partials_rel_err": part})
+        worst[name] = max(worst[name], err, err_ref)
+        if err > TOL_OUT or err_ref > TOL_OUT or part > TOL_PART:
+            fail(f"{name} disagrees with its plain version: {cases[-1]}")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).replace("torch.", "")
+        # dense, ragged lengths around 512-1100
+        for tq in (16, 64, 76):
+            lens = [512, 700, 901, 1100]
+            b, s = len(lens), 1152
+            q = _rand(gen, (b, hq, tq, d), dtype)
+            ck, cv = (_rand(gen, (b, hkv, s, d), dtype) for _ in range(2))
+            bk, bv = (_rand(gen, (b, hkv, tq, d), dtype) for _ in range(2))
+            cl = torch.tensor(lens, device=DEVICE)
+            qa = cl[:, None] + torch.arange(tq, device=DEVICE)
+            tm = torch.ones((tq, tq), dtype=torch.bool, device=DEVICE).tril()
+            kw = dict(cache_len=cl, q_abs=qa, scale=scale)
+            kern = casc.cascade_phase1(q, ck, cv, **kw)
+            plain = casc.cascade_phase1_plain(q, ck, cv, **kw)
+            r = ref.cascade_attention_ref(q.float(), ck, cv, bk, bv, cache_len=cl,
+                                          q_abs=qa, tree_mask=tm)
+            record("cascade_phase1", {"dtype": dn, "tq": tq, "S": s,
+                                      "lens": lens},
+                   *_compare(kern, plain, q, bk, bv, tm, scale, r))
+        # rolling buffers at the adversarial capacities of the JAX tests
+        for cap, window, lens in [(97, 97, (40, 150)), (97, 50, (96, 300)),
+                                  (100, 100, (100, 257)), (131, 96, (70, 200)),
+                                  (505, 505, (505, 711)),
+                                  (509, 200, (300, 1000)), (24, 24, (5, 30))]:
+            b, tq = len(lens), 16
+            q = _rand(gen, (b, hq, tq, d), dtype)
+            ck, cv = (_rand(gen, (b, hkv, cap, d), dtype) for _ in range(2))
+            bk, bv = (_rand(gen, (b, hkv, tq, d), dtype) for _ in range(2))
+            cl = torch.tensor(lens, device=DEVICE)
+            qa = cl[:, None] + torch.arange(tq, device=DEVICE)
+            tm = torch.ones((tq, tq), dtype=torch.bool, device=DEVICE).tril()
+            kw = dict(cache_len=cl, q_abs=qa, scale=scale, window=window,
+                      rolling=True, n_splits=4, bk=64)
+            kern = casc.cascade_phase1(q, ck, cv, **kw)
+            plain = casc.cascade_phase1_plain(q, ck, cv, **kw)
+            r = ref.cascade_attention_ref(q.float(), ck, cv, bk, bv, cache_len=cl,
+                                          q_abs=qa, tree_mask=tm,
+                                          window=window, rolling=True)
+            record("cascade_phase1", {"dtype": dn, "tq": tq, "rolling_cap": cap,
+                                      "window": window, "lens": list(lens)},
+                   *_compare(kern, plain, q, bk, bv, tm, scale, r))
+        # paged: shuffled table with sentinel tails
+        for tq in (16, 64, 76):
+            lens, page = [512, 700, 901, 1100], 64
+            b, mp = len(lens), 19
+            n_phys = b * mp + 3
+            q = _rand(gen, (b, hq, tq, d), dtype)
+            # engine storage [P, page, Hkv, D], handed over as a view
+            pk, pv = (_rand(gen, (n_phys, page, hkv, d), dtype).transpose(1, 2)
+                      for _ in range(2))
+            bk, bv = (_rand(gen, (b, hkv, tq, d), dtype) for _ in range(2))
+            pt = _shuffled_table(rng, b, mp, lens, page, n_phys)
+            cl = torch.tensor(lens, device=DEVICE)
+            qa = cl[:, None] + torch.arange(tq, device=DEVICE)
+            tm = torch.ones((tq, tq), dtype=torch.bool, device=DEVICE).tril()
+            kw = dict(cache_len=cl, q_abs=qa, scale=scale)
+            kern = casc.cascade_phase1_paged(q, pk, pv, pt, **kw)
+            plain = casc.cascade_phase1_paged_plain(q, pk, pv, pt, **kw)
+            r = ref.cascade_attention_paged_ref(
+                q.float(), pk, pv, pt, bk, bv, cache_len=cl, q_abs=qa, tree_mask=tm)
+            record("cascade_phase1_paged", {"dtype": dn, "tq": tq,
+                                            "page": page, "lens": lens},
+                   *_compare(kern, plain, q, bk, bv, tm, scale, r))
+    torch.cuda.synchronize()
+    timing = time_kernels(timer, gen, rng)
+    emit({"phase": "kernels", "ok": True, "n_cases": len(cases),
+          "tol_out": TOL_OUT, "tol_partials": TOL_PART,
+          "max_abs_err": worst, "timing": timing})
+    return worst, timing
+
+
+def _bound(dtype, live_tokens, b, hq, hkv, tq, d, ns):
+    """Least time for the same work: each live K/V byte, q and the outputs
+    moved once, or the QK and PV FLOPs at the dtype's peak."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    byts = (2 * hkv * live_tokens * d * es + b * hq * tq * d * es
+            + b * hq * ns * tq * (d + 2) * 4)
+    flops = 4 * hq * tq * live_tokens * d
+    t_b, t_f = byts / PEAK_BYTES_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def time_kernels(timer, gen, rng):
+    """Each kernel at the main path's verify shapes: B=4 rows, Tq=76 tree
+    nodes (gamma 16, K 4), caches of max_len 616 at lengths 520-600."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import cascade_attention as casc
+    from repro_torch.kernels import ref
+    hq, hkv, d, tq = 32, 8, 128, 76
+    lens = [520, 560, 580, 600]
+    b, s, page = len(lens), 616, 64
+    mp = -(-s // page)
+    scale = d ** -0.5
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).replace("torch.", "")
+        q = _rand(gen, (b, hq, tq, d), dtype)
+        bk, bv = (_rand(gen, (b, hkv, tq, d), dtype) for _ in range(2))
+        cl = torch.tensor(lens, device=DEVICE)
+        qa = cl[:, None] + torch.arange(tq, device=DEVICE)
+        tm = torch.ones((tq, tq), dtype=torch.bool, device=DEVICE).tril()
+        kw = dict(cache_len=cl, q_abs=qa, scale=scale)
+        # dense: the model's [B,S,Hkv,D] buffer as a strided view
+        ck, cv = (_rand(gen, (b, s, hkv, d), dtype).transpose(1, 2)
+                  for _ in range(2))
+        pk, pv = (_rand(gen, (b * mp, page, hkv, d), dtype).transpose(1, 2)
+                  for _ in range(2))
+        pt = _shuffled_table(rng, b, mp, lens, page, b * mp)
+
+        def sdpa(kc, vc):
+            # one library call over the gathered [cache ++ block], bool mask
+            kk = torch.cat([kc, bk], 2).repeat_interleave(hq // hkv, 1)
+            vv = torch.cat([vc, bv], 2).repeat_interleave(hq // hkv, 1)
+            slot = torch.arange(kc.shape[2], device=DEVICE)
+            ok = (slot[None, None] < cl[:, None, None]) & (
+                slot[None, None] <= qa[:, :, None])
+            mask = torch.cat([ok, tm[None].expand(b, tq, tq)], -1)[:, None]
+            return lambda: F.scaled_dot_product_attention(
+                q, kk, vv, attn_mask=mask, scale=scale)
+
+        live = sum(lens)
+        gathered = ref.gather_pages(pk, pt)
+        entries = {
+            "cascade_phase1": (
+                lambda: casc.cascade_phase1(q, ck, cv, **kw),
+                lambda: casc.cascade_phase1_plain(q, ck, cv, **kw),
+                sdpa(ck, cv), casc._split_geometry(s, 8, 512)[1]),
+            "cascade_phase1_paged": (
+                lambda: casc.cascade_phase1_paged(q, pk, pv, pt, **kw),
+                lambda: casc.cascade_phase1_paged_plain(q, pk, pv, pt, **kw),
+                sdpa(gathered, ref.gather_pages(pv, pt)),
+                casc._paged_geometry(mp, 8)[0]),
+        }
+        for name, (kern, plain, lib, ns) in entries.items():
+            bound, by = _bound(dtype, live, b, hq, hkv, tq, d, ns)
+            out.setdefault(name, {})[dn] = {
+                "ms": timer.ms(kern), "plain_ms": timer.ms(plain),
+                "library_ms": timer.ms(lib), "bound_ms": bound,
+                "bound_by": by, "shape": {"B": b, "Hq": hq, "Hkv": hkv,
+                                          "Tq": tq, "D": d, "lens": lens,
+                                          "S": s, "page": page}}
+    return out
+
+
+# ------------------------------------------------------------- main path --
+def greedy_reference(params, cfg, prompts, n):
+    """Plain greedy decoding, one token at a time over a dense cache.
+    Returns (tokens [B, n], top-2 logit gap at each step [B, n])."""
+    from repro_torch.models import lm
+    b, p = prompts.shape
+    states = lm.init_states(cfg, b, p + n + 4, device=prompts.device)
+    out = lm.forward(params, prompts, cfg, states=states, write_kv=True)
+    toks, gaps = [], []
+    logits = out["logits"][:, -1].float()
+    for step in range(n):
+        top = torch.topk(logits, 2, dim=-1).values
+        gaps.append((top[:, 0] - top[:, 1]).cpu())
+        tok = torch.argmax(logits, -1)
+        toks.append(tok.cpu())
+        if step == n - 1:
+            break
+        out = lm.forward(params, tok[:, None], cfg, states=out["states"],
+                         write_kv=True, attend_cache_on_write=True)
+        logits = out["logits"][:, -1].float()
+    return torch.stack(toks, 1).numpy(), torch.stack(gaps, 1).numpy()
+
+
+def agreement(name, toks, ref_toks, gaps):
+    """Rows must match the reference; a first divergence passes only on a
+    near tie (reference top-2 gap < NEAR_TIE), which is reported."""
+    ties = []
+    for r in range(toks.shape[0]):
+        diff = np.nonzero(toks[r] != ref_toks[r])[0]
+        if diff.size == 0:
+            continue
+        j = int(diff[0])
+        gap = float(gaps[r, j])
+        ties.append({"row": r, "pos": j, "ref_top2_gap": gap})
+        if gap >= NEAR_TIE:
+            fail(f"{name}: row {r} diverges at {j} with top-2 gap {gap}")
+    return ties
+
+
+def register_oracle(seq):
+    """Register the draft strategy ``"oracle"`` and return its class.
+
+    It runs the real D^2SD draft (both drafters, reading their feature
+    caches), then puts the greedy reference ``seq`` [B, L] (prompt then
+    greedy tokens, indexed by position) into the tree, spoiled from a
+    depth that varies by row and cycle: on the trunk past ``cut_t <
+    gamma/2``, on the branches past ``cut_b > cut_t``. Whenever a fork lies at or
+    below ``cut_t`` the accepted path runs along the trunk and on into
+    that branch, so a cycle commits up to gamma tokens through tree rows
+    other than the root. ``committed`` and ``row_cycles`` count what the
+    active rows must commit and the active row-cycles, so that
+    ``committed / row_cycles`` is the alpha ``generate`` must report;
+    ``branch_paths`` counts the active row-cycles whose accepted path
+    must end in a branch."""
+    from repro_torch.core import strategies as st
+    from repro_torch.core import tree as tree_lib
+    seq = seq.long()
+
+    @st.register_strategy("oracle")
+    class Oracle(st.D2SDStrategy):
+        committed = row_cycles = branch_paths = 0
+
+        def draft(self, bundle, state):
+            tree = super().draft(bundle, state)
+            g, vocab = bundle.spec.gamma, bundle.target_cfg.vocab_size
+            length = state.length.long()
+            rows = torch.arange(tree.b, device=length.device)
+            pos = (length[:, None] + tree.depth).clamp(max=seq.shape[1] - 1)
+            true = torch.gather(seq, 1, pos)
+            cut_t = (7 * length + 3 * rows) % (g // 2)
+            cut_b = cut_t + 1 + (5 * length + rows) % (g - 1 - cut_t)
+            on_trunk = torch.arange(tree.n, device=length.device) < g
+            good = tree.depth <= torch.where(on_trunk[None], cut_t[:, None],
+                                             cut_b[:, None])
+            tokens = torch.where(good, true, (true + 1) % vocab)
+            tokens = torch.where(tree.valid, tokens, tree.tokens)
+            tokens[:, 0] = tree.tokens[:, 0]
+            acc = tree_lib.propagate_acceptance(tree, good & tree.valid)
+            best, n_acc, _ = tree_lib.best_path(tree, acc)
+            Oracle.committed += int(((n_acc + 1) * state.active).sum())
+            Oracle.row_cycles += int(state.active.sum())
+            Oracle.branch_paths += int(((best >= g) & state.active).sum())
+            return dataclasses.replace(tree, tokens=tokens)
+
+    return Oracle
+
+
+def _kv_views(cache):
+    """(k, v) logical views [L, B, S, Hkv, D] of a stacked drafter feature
+    cache, or [B, S, Hkv, D] of a target layer's cache; dense or paged."""
+    from repro_torch.models import kvcache as kvc
+    if kvc.is_paged(cache):
+        return (kvc.pool_view(cache["k"], cache["pt"]),
+                kvc.pool_view(cache["v"], cache["pt"]))
+    return cache["k"], cache["v"]
+
+
+def committed_cache_error(bundle, prompts, seq, cache_impl,
+                          max_new=MAX_NEW, page_size=64):
+    """Run decode cycles of ``bundle`` (the loop of ``generate``: a row is
+    active until it has ``max_new`` tokens) on ``prompts`` [B, P], then hold
+    what the cycles committed to what a plain prefill of the same tokens
+    ``seq`` writes: the target's K/V in every global layer and both
+    drafters' feature caches, each row up to its committed length.
+    Returns the largest difference relative to the largest value of the
+    prefill's tensor."""
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core.state import engine_init, prefill
+    b, p = prompts.shape
+    dev = prompts.device
+    state = prefill(bundle, engine_init(
+        bundle, b, p + max_new + 2 * bundle.spec.gamma + 8,
+        cache_impl=cache_impl, page_size=page_size, device=dev), prompts)
+    while True:
+        active = state.length < p + max_new - 1
+        if not bool(active.any()):
+            break
+        state, _ = pl.decode_cycle(bundle, state.replace(active=active))
+    lens = state.length.tolist()
+    for feat in (state.d1_feat, state.d2_feat):
+        if feat["length"].tolist() != lens:
+            fail(f"feature cache length {feat['length'].tolist()} is not "
+                 f"the target's {lens}")
+    n = max(lens)
+    plain = pl.with_attn_impl(bundle, "gather")
+    ref = prefill(plain, engine_init(plain, b, n, device=dev), seq[:, :n])
+    pairs = [(_kv_views(a), _kv_views(r)) for kind, a, r in zip(
+        bundle.target_cfg.pattern_for_depth(), state.target["layers"],
+        ref.target["layers"]) if kind == "global"]
+    pairs += [(_kv_views(state.d1_feat), _kv_views(ref.d1_feat)),
+              (_kv_views(state.d2_feat), _kv_views(ref.d2_feat))]
+    worst = 0.0
+    for got2, want2 in pairs:
+        for got, want in zip(got2, want2):
+            got = got if got.ndim == 5 else got[None]
+            want = want if want.ndim == 5 else want[None]
+            for row, n_r in enumerate(lens):
+                w = want[:, row, :n_r].float()
+                err = (got[:, row, :n_r].float() - w).abs().max()
+                worst = max(worst, (err / w.abs().max()).item())
+    return worst
+
+
+def build_bundle(dtype):
+    from repro_torch.config.base import SpecConfig
+    from repro_torch.configs import paper_target
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core.drafter import DrafterConfig, drafter_init
+    from repro_torch.models import lm
+    tcfg = dataclasses.replace(paper_target.full(), dtype=dtype)
+    # two drafters at the target's own widths (4096, 32/8 heads, ff 12288)
+    dcfg = DrafterConfig(d_model=tcfg.d_model, num_layers=2,
+                         num_heads=tcfg.num_heads,
+                         num_kv_heads=tcfg.num_kv_heads, d_ff=tcfg.d_ff,
+                         vocab_size=tcfg.vocab_size,
+                         target_feature_dim=lm.feature_dim(tcfg),
+                         gamma=GAMMA, dtype=dtype)
+    spec = SpecConfig(gamma=GAMMA, top_k_branches=K_BRANCHES, mode="d2sd")
+    return pl.SpecBundle(tcfg, dcfg, dcfg, spec,
+                         lm.lm_init(tcfg, seed=0, device=DEVICE),
+                         drafter_init(dcfg, seed=1, device=DEVICE),
+                         drafter_init(dcfg, seed=2, device=DEVICE))
+
+
+def run_generate(bundle, prompts, impl, cache_impl):
+    from repro_torch.core import pipeline as pl
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = pl.generate(pl.with_attn_impl(bundle, impl), prompts, MAX_NEW,
+                      cache_impl=cache_impl, page_size=64, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    toks = res["tokens"]
+    vocab = bundle.target_cfg.vocab_size
+    if toks.shape != (prompts.shape[0], MAX_NEW) or toks.min() < 0 \
+            or toks.max() >= vocab:
+        fail(f"{impl}/{cache_impl}: bad tokens {toks.shape}")
+    n_tok = toks.size
+    return toks, {"impl": impl, "cache": cache_impl,
+                  "cycles": res["n_cycles"], "alpha": res["alpha"],
+                  "prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
+                  "ms_per_cycle": 1e3 * res["decode_s"] / res["n_cycles"],
+                  "tokens_per_s": n_tok / wall,
+                  "decode_tokens_per_s": (n_tok - toks.shape[0])
+                  / res["decode_s"], "wall_s": wall}
+
+
+def _launches():
+    from repro_torch.kernels import cascade_attention as casc
+    return {"cascade_phase1": casc.cascade_phase1.launches,
+            "cascade_phase1_paged": casc.cascade_phase1_paged.launches}
+
+
+def _zero_launches():
+    from repro_torch.kernels import cascade_attention as casc
+    casc.cascade_phase1.launches = 0
+    casc.cascade_phase1_paged.launches = 0
+
+
+def _check_runs(toks, ref_toks, gaps):
+    """Each run held to plain greedy, each kernel run to its gather run;
+    returns the near ties that passed."""
+    ties = {}
+    for (impl, cache), t in toks.items():
+        ties[f"{impl}/{cache} vs greedy"] = agreement(impl, t, ref_toks, gaps)
+        if impl == "kernel":
+            ties[f"kernel/{cache} vs gather"] = agreement(
+                impl, t, toks[("gather", cache)], gaps)
+    return {k: v for k, v in ties.items() if v}
+
+
+def main_path():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bundle = build_bundle("float32")
+    prompts = np.random.default_rng(0).integers(
+        0, bundle.target_cfg.vocab_size, size=(4, 512))
+    prompts_t = torch.as_tensor(prompts, device=DEVICE)
+
+    # the main path: counts zeroed just before, read just after
+    _zero_launches()
+    runs, toks = [], {}
+    for cache in ("paged", "dense"):
+        toks[("kernel", cache)], info = run_generate(bundle, prompts,
+                                                     "kernel", cache)
+        runs.append(info)
+    launches = _launches()
+    if min(launches.values()) <= 0:
+        fail(f"a kernel of the main path was never launched: {launches}")
+
+    for cache in ("paged", "dense"):
+        toks[("gather", cache)], info = run_generate(bundle, prompts,
+                                                     "gather", cache)
+        runs.append(info)
+    # GAMMA more reference tokens than generated: the oracle's drafts
+    # reach that far past the last committed position
+    ref_toks, gaps = greedy_reference(bundle.target_params,
+                                      bundle.target_cfg, prompts_t,
+                                      MAX_NEW + GAMMA)
+    ties = _check_runs(toks, ref_toks[:, :MAX_NEW], gaps)
+    per_cycle = {"cascade_phase1": launches["cascade_phase1"]
+                 / runs[1]["cycles"],
+                 "cascade_phase1_paged": launches["cascade_phase1_paged"]
+                 / runs[0]["cycles"]}
+    emit({"phase": "main", "ok": True, "dtype": "float32",
+          "layers": bundle.target_cfg.num_layers, "batch": 4, "prompt": 512,
+          "max_new": MAX_NEW, "runs": runs, "launches": launches,
+          "launches_per_cycle": per_cycle, "near_ties": ties,
+          "min_ref_top2_gap": float(gaps[:, :MAX_NEW].min())})
+    oracle_path(bundle, prompts, ref_toks, gaps)
+    return bundle, prompts, launches
+
+
+def oracle_path(bundle, prompts, ref_toks, gaps):
+    """The fp32 runs again with the oracle's drafts, which accept several
+    tokens a cycle through trunk and branch rows of the tree; then the
+    caches those cycles commit, held to a plain prefill."""
+    from repro_torch.core import pipeline as pl
+    seq = torch.as_tensor(np.concatenate([prompts, ref_toks], 1),
+                          device=DEVICE)
+    oracle = register_oracle(seq)
+    bundle = dataclasses.replace(
+        bundle, spec=dataclasses.replace(bundle.spec, mode="oracle"))
+    prompts_t = torch.as_tensor(prompts, device=DEVICE)
+    exact = gaps.min() >= NEAR_TIE      # no near tie: the oracle's count holds
+    runs, toks = [], {}
+    _zero_launches()
+    for impl in ("kernel", "gather"):
+        for cache in ("paged", "dense"):
+            oracle.committed = oracle.row_cycles = oracle.branch_paths = 0
+            toks[(impl, cache)], info = run_generate(bundle, prompts, impl,
+                                                     cache)
+            info["oracle_alpha"] = oracle.committed / oracle.row_cycles
+            info["branch_paths"] = oracle.branch_paths
+            runs.append(info)
+            if exact and info["alpha"] != info["oracle_alpha"]:
+                fail(f"oracle {impl}/{cache}: alpha {info['alpha']} but the "
+                     f"drafts must give {info['oracle_alpha']}")
+            if info["oracle_alpha"] < 2 or oracle.branch_paths == 0:
+                fail(f"oracle {impl}/{cache}: drafts too weak: {info}")
+            info["cache_rel_err"] = committed_cache_error(
+                pl.with_attn_impl(bundle, impl), prompts_t, seq, cache)
+            if info["cache_rel_err"] > TOL_CACHE:
+                fail(f"oracle {impl}/{cache}: committed caches differ from "
+                     f"a prefill of the same tokens: {info}")
+        if impl == "kernel":
+            launches = _launches()
+            if min(launches.values()) <= 0:
+                fail(f"oracle: a kernel was never launched: {launches}")
+    ties = _check_runs(toks, ref_toks[:, :MAX_NEW], gaps)
+    emit({"phase": "oracle", "ok": True, "dtype": "float32",
+          "alpha_checked": bool(exact), "tol_cache": TOL_CACHE,
+          "runs": runs, "launches": launches, "near_ties": ties})
+
+
+def bf16_path(bundle, prompts):
+    """The same run in bfloat16: each weight is replaced by its bf16 copy
+    inside the param dicts, so the fp32 copy is freed as it goes."""
+    def cast_(tree):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        for k, v in list(items):
+            if isinstance(v, (dict, list)):
+                cast_(v)
+            else:
+                tree[k] = v.to(torch.bfloat16)
+
+    for params in (bundle.target_params, bundle.d1_params, bundle.d2_params):
+        cast_(params)
+    torch.cuda.empty_cache()
+    b16 = dataclasses.replace(
+        bundle, target_cfg=dataclasses.replace(bundle.target_cfg,
+                                               dtype="bfloat16"),
+        d1_cfg=dataclasses.replace(bundle.d1_cfg, dtype="bfloat16"),
+        d2_cfg=dataclasses.replace(bundle.d2_cfg, dtype="bfloat16"))
+    kt, kinfo = run_generate(b16, prompts, "kernel", "paged")
+    gt, ginfo = run_generate(b16, prompts, "gather", "paged")
+    same = kt == gt
+    first = [int(np.nonzero(~r)[0][0]) if (~r).any() else None for r in same]
+    emit({"phase": "bf16", "ok": True, "runs": [kinfo, ginfo],
+          "tokens_per_s": kinfo["tokens_per_s"],
+          "decode_tokens_per_s": kinfo["decode_tokens_per_s"],
+          "ms_per_cycle": kinfo["ms_per_cycle"],
+          "agree_with_gather": float(same.mean()),
+          "first_divergence_per_row": first})
+    return b16, kinfo["ms_per_cycle"]
+
+
+def profile_cycles(bundle, prompts, ms_per_cycle, n_cycles=6):
+    """Where a decode cycle's device time goes: ``n_cycles`` cycles of the
+    kernel path on the paged cache under torch.profiler (prefill and one
+    warm-up cycle outside it). The idle share is read against the cycle
+    time of the unprofiled run (``ms_per_cycle``), since the profiler
+    slows the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core.state import engine_init, prefill
+    bundle = pl.with_attn_impl(bundle, "kernel")
+    prompts_t = torch.as_tensor(prompts, device=DEVICE)
+    b, p = prompts_t.shape
+    state = engine_init(bundle, b, p + 2 * n_cycles * bundle.spec.gamma,
+                        cache_impl="paged", page_size=64, device=DEVICE)
+    state, _ = pl.decode_cycle(bundle, prefill(bundle, state, prompts_t))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_cycles):
+            state, out = pl.decode_cycle(bundle, state)
+            out["n_out"].cpu()
+        torch.cuda.synchronize()
+    # device-side events only: a CPU op (aten::mm) also reports the time
+    # of the kernels it launched, which would count them twice
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+    # no device time recorded means the profiler could not trace the card
+    busy = sum(r[1] for r in rows) / n_cycles or None
+    emit({"phase": "profile", "ok": True, "dtype": "bfloat16",
+          "cache": "paged", "impl": "kernel", "cycles": n_cycles,
+          "device_ms_per_cycle": busy,
+          "unprofiled_ms_per_cycle": ms_per_cycle,
+          "idle_share": busy and 1.0 - busy / ms_per_cycle,
+          "top": [{"name": k[:90], "ms_per_cycle": ms / n_cycles,
+                   "calls_per_cycle": c / n_cycles}
+                  for k, ms, c in rows[:16]]})
+
+
+# ------------------------------------------------------------------ main --
+def main():
+    if len(sys.argv) > 1:
+        fail(f"chip_smoke.py takes no arguments: {sys.argv[1:]}")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
+    if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
+        fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
+             "a checkout of the repository")
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+    smi = nvidia_smi_line()
+
+    t0 = time.perf_counter()
+    libs = build.build_all()
+    for stem in libs:
+        build.load(stem)
+    emit({"phase": "build", "ok": True, "seconds": time.perf_counter() - t0,
+          "libs": [str(p.relative_to(ROOT)) for p in libs.values()],
+          "ptxas": [ln.strip() for ln in build.build_log("cascade_phase1")
+                    .splitlines() if "registers" in ln or "spill" in ln],
+          "gpu": smi, "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+
+    worst, timing = check_kernels(Timer())
+    bundle, prompts, launches = main_path()
+    bundle, ms_cycle = bf16_path(bundle, prompts)
+    profile_cycles(bundle, prompts, ms_cycle)
+    del bundle
+    torch.cuda.synchronize()
+
+    src = "src/repro_torch/csrc/cascade_phase1.cu"
+    replaces = {"cascade_phase1": "src/repro/kernels/cascade_attention.py:45",
+                "cascade_phase1_paged":
+                    "src/repro/kernels/cascade_attention.py:243"}
+    rows = []
+    for name in replaces:
+        t = timing.get(name, {}).get("float32", {})
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": replaces[name],
+                     "launches": launches.get(name, 0),
+                     "max_abs_err": worst.get(name),
+                     "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
+                     "bound_ms": t.get("bound_ms"),
+                     "bound_by": t.get("bound_by"),
+                     "library_ms": t.get("library_ms")})
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()
