@@ -13,6 +13,13 @@ Phases, each printing one JSON line (any failure exits non-zero):
            beside its bound, its plain version and one
            scaled_dot_product_attention call (the yardstick, never used by
            the port)
+  flash    each flash kernel (forward, dq, dk/dv) against its plain torch
+           version: the training shape (B 2, Hq 32, Hkv 8, D 128, T 4096,
+           causal, the model's [B,T,H,D] layout) and ragged cases (T 1000,
+           q_offset 24, kv_len (1000, 931), window 512, softcap 50; GQA
+           groups 4 and 1), fp32 and bf16; then timed at the training
+           shape beside its bound, its plain version and
+           scaled_dot_product_attention (forward; its autograd backward)
   main     greedy D^2SD ``generate`` in fp32 at the full width and depth of
            paper_target.full() with random seeded weights: 4 prompts of 512
            tokens, 64 new tokens, paged (page 64) and dense caches through
@@ -30,6 +37,17 @@ Phases, each printing one JSON line (any failure exits non-zero):
   profile  six bf16 decode cycles (kernel path, paged cache) under
            torch.profiler: device time per cycle, the device's idle share
            and the kernels that take the most device time
+  train_fp32   paper_target.full() cut to 8 layers (the only cut; 2.79e9
+           params, AdamW as optimizer_for picks), remat on, batch 2 x 4096
+           tokens of the mixture stream: three steps through the flash
+           kernels and three through the plain chunked attention, from the
+           same seeded weights and batches; loss and grad norm per step
+           and the params after step 3 held to each other
+  train_bf16   the same model in bf16 through the kernels: one warm-up and
+           five timed steps: ms/step, tokens/s, peak memory, and 16 / 8 / 8
+           launches per step of the forward / dq / dk-dv kernels
+  train_profile  one bf16 step under torch.profiler: device time, idle
+           share, top kernels
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi prints them, and the last line
@@ -62,6 +80,19 @@ TOL_OUT = 2e-5      # merged output: both sides compute in fp32 on equal
 TOL_PART = 1e-4     # partials (acc, l, m), relative to 1 + |plain|
 TOL_CACHE = 1e-3    # committed fp32 caches vs a prefill of the same tokens,
                     # relative to the largest value: sum order only
+TOL_FLASH = {       # flash o/dq/dk/dv vs plain, max |diff| / max |plain|:
+    torch.float32: 2e-5,     # fp32 both sides, sums over <= 4096 keys or
+                             # 4 x 4096 queries in another order
+    torch.bfloat16: 8e-3}    # fp32 inside, outputs rounded to bf16: one
+                             # bf16 ulp (2^-8 of the value) either way
+TOL_LSE = 1e-4      # flash lse (fp32 both sides), absolute
+TRAIN_LAYERS = 8    # paper-target cut in depth only: 2.79e9 params
+TOL_TRAIN_LOSS = 1e-5   # fp32 step loss, kernel vs plain path, relative
+TOL_TRAIN_GNORM = 1e-4  # fp32 global grad norm, relative
+TOL_TRAIN_PARAM = 1e-3  # fp32 params after step 3: mean |kernel - plain|
+                        # over mean |move from init|. The max is bounded by
+                        # 2 * sum(lr): an element whose grad is rounding
+                        # from zero may take an Adam step of either sign
 
 
 def emit(obj):
@@ -303,6 +334,186 @@ def time_kernels(timer, gen, rng):
                 "bound_by": by, "shape": {"B": b, "Hq": hq, "Hkv": hkv,
                                           "Tq": tq, "D": d, "lens": lens,
                                           "S": s, "page": page}}
+    return out
+
+
+# ------------------------------------------------------------ flash checks --
+FLASH = ("flash_attention_fwd", "flash_attention_bwd_dq",
+         "flash_attention_bwd_dkv")
+TRAIN_B, TRAIN_T = 2, 4096                  # batch and sequence of a step
+
+
+def live_pairs(tq, tkv, q_offset, window, kv_len, causal=True):
+    """(query, key) pairs the mask keeps, per query head: the work of a
+    flash call on these inputs."""
+    qpos = torch.arange(tq) + q_offset
+    total = 0
+    for kl in kv_len:
+        hi = torch.clamp(qpos + 1, max=kl) if causal else torch.full_like(
+            qpos, kl)
+        lo = torch.clamp(qpos - window + 1, min=0) if window else 0
+        total += int(torch.clamp(hi - lo, min=0).sum())
+    return total
+
+
+def _flash_bound(name, dtype, b, hq, hkv, tq, tkv, d, pairs):
+    """Least time: FLOPs of the GEMMs the kernel computes per live pair
+    (forward 2, dq 3, dk/dv 4) at the dtype's peak, or each input read
+    and each output written once at HBM rate."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    q_b, kv_b, rows = b * hq * tq * d * es, b * hkv * tkv * d * es, b * hq * tq
+    gemms, byts = {
+        "flash_attention_fwd": (2, 2 * q_b + 2 * kv_b + 4 * rows),
+        "flash_attention_bwd_dq": (3, 3 * q_b + 2 * kv_b + 8 * rows),
+        "flash_attention_bwd_dkv": (4, 2 * q_b + 4 * kv_b + 8 * rows)}[name]
+    t_f = 2 * gemms * d * pairs * hq / PEAK_FLOPS[dtype] * 1e3
+    t_b = byts / PEAK_BYTES_S * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def _flash_inputs(gen, b, hq, hkv, t, d, dtype, bthd):
+    """q, k, v, do: [B,H,T,D] views of [B,T,H,D] buffers (the model's
+    layout) when ``bthd``, else contiguous."""
+    def mk(h):
+        if bthd:
+            return _rand(gen, (b, t, h, d), dtype).transpose(1, 2)
+        return _rand(gen, (b, h, t, d), dtype)
+    return mk(hq), mk(hkv), mk(hkv), mk(hq)
+
+
+def check_flash(timer):
+    """Each flash kernel against its plain version on the card: the
+    training shape (B 2, Hq 32, Hkv 8, D 128, T 4096, causal) and ragged
+    cases (T 1000, q_offset 24, kv_len (1000, 931), window 512, softcap
+    50; GQA groups 4 and 1, D 128 and 64), fp32 and bf16. Each backward
+    kernel takes the plain forward's (o, lse), so each kernel is held
+    alone. o, lse and dq are compared over rows with a live key."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(1)
+    cases = []
+    worst = {n: 0.0 for n in FLASH}           # relative, as the tolerance
+    worst_abs = {n: 0.0 for n in FLASH}
+    shapes = [dict(b=TRAIN_B, hq=32, hkv=8, t=TRAIN_T, d=128, bthd=True,
+                   kw=dict(causal=True)),
+              dict(b=2, hq=32, hkv=8, t=1000, d=128, bthd=False,
+                   kw=dict(causal=True, q_offset=24, kv_len=[1000, 931],
+                           window=512, attn_softcap=50.0)),
+              dict(b=2, hq=8, hkv=8, t=1000, d=64, bthd=True,
+                   kw=dict(causal=True, q_offset=24, kv_len=[1000, 931],
+                           window=512, attn_softcap=50.0))]
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = TOL_FLASH[dtype]
+        for sh in shapes:
+            q, k, v, do = _flash_inputs(gen, sh["b"], sh["hq"], sh["hkv"],
+                                        sh["t"], sh["d"], dtype, sh["bthd"])
+            kw = dict(sh["kw"])
+            if "kv_len" in kw:
+                kw["kv_len"] = torch.tensor(kw["kv_len"], device=DEVICE)
+            o_k, lse_k = fa.flash_attention_fwd(q, k, v, **kw)
+            o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, **kw)
+            delta = (do.float() * o_p.float()).sum(-1)
+            args = (q, k, v, do, lse_p, delta)
+            dq_k = fa.flash_attention_bwd_dq(*args, **kw)
+            dq_p = fa.flash_attention_bwd_dq_plain(*args, **kw)
+            dk_k, dv_k = fa.flash_attention_bwd_dkv(*args, **kw)
+            dk_p, dv_p = fa.flash_attention_bwd_dkv_plain(*args, **kw)
+            torch.cuda.synchronize()
+            live = lse_p > -1e29                           # [B,Hq,T]
+
+            def err(pairs, rows=None):
+                """(max |diff| / max |plain|, max |diff|) over pairs."""
+                rel = ab = 0.0
+                for a, b_ in pairs:
+                    a, b_ = a.float(), b_.float()
+                    if rows is not None:
+                        a, b_ = a[rows], b_[rows]
+                    if not (torch.isfinite(a).all() and
+                            torch.isfinite(b_).all()):
+                        fail("a flash output is not finite")
+                    d = (a - b_).abs().max().item()
+                    rel = max(rel, d / b_.abs().max().item())
+                    ab = max(ab, d)
+                return rel, ab
+
+            errs = {"flash_attention_fwd": err([(o_k, o_p)], live),
+                    "flash_attention_bwd_dq": err([(dq_k, dq_p)], live),
+                    "flash_attention_bwd_dkv": err([(dk_k, dk_p),
+                                                    (dv_k, dv_p)])}
+            lse_err = (lse_k[live] - lse_p[live]).abs().max().item()
+            case = {"dtype": str(dtype).replace("torch.", ""),
+                    **{k_: v_ for k_, v_ in sh.items() if k_ != "kw"},
+                    **{k_: (v_ if not torch.is_tensor(v_) else v_.tolist())
+                       for k_, v_ in kw.items()},
+                    "rel_err": {n: e[0] for n, e in errs.items()},
+                    "abs_err": {n: e[1] for n, e in errs.items()},
+                    "lse_abs_err": lse_err,
+                    "live_rows": float(live.float().mean())}
+            cases.append(case)
+            for n, (e, ab) in errs.items():
+                worst[n] = max(worst[n], e)
+                worst_abs[n] = max(worst_abs[n], ab)
+            if max(e[0] for e in errs.values()) > tol or lse_err > TOL_LSE:
+                fail(f"a flash kernel disagrees with its plain version: "
+                     f"{case}")
+            del o_k, o_p, dq_k, dq_p, dk_k, dk_p, dv_k, dv_p
+    timing = time_flash(timer, gen)
+    emit({"phase": "flash", "ok": True, "n_cases": len(cases),
+          "tol": {str(k).replace("torch.", ""): v
+                  for k, v in TOL_FLASH.items()}, "tol_lse": TOL_LSE,
+          "cases": cases, "max_rel_err": worst, "max_abs_err": worst_abs,
+          "timing": timing})
+    return worst_abs, timing
+
+
+def time_flash(timer, gen):
+    """Each flash kernel at the training shape, causal, in the model's
+    layout: its time, its plain version's, one
+    scaled_dot_product_attention call (forward for #3; its autograd
+    backward for #4 and #5 together) and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    b, hq, hkv, t, d = TRAIN_B, 32, 8, TRAIN_T, 128
+    pairs = live_pairs(t, t, 0, None, [t] * b)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).replace("torch.", "")
+        q, k, v, do = _flash_inputs(gen, b, hq, hkv, t, d, dtype, True)
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        delta = (do.float() * o.float()).sum(-1)
+        bw = (q, k, v, do, lse, delta)
+        ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
+        lib_o = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                               enable_gqa=True)
+        entries = {
+            "flash_attention_fwd": (
+                lambda: fa.flash_attention_fwd(q, k, v),
+                lambda: fa.flash_attention_fwd_plain(q, k, v),
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True)),
+            "flash_attention_bwd_dq": (
+                lambda: fa.flash_attention_bwd_dq(*bw),
+                lambda: fa.flash_attention_bwd_dq_plain(*bw),
+                lambda: torch.autograd.grad(lib_o, (ql, kl, vl), do,
+                                            retain_graph=True)),
+            "flash_attention_bwd_dkv": (
+                lambda: fa.flash_attention_bwd_dkv(*bw),
+                lambda: fa.flash_attention_bwd_dkv_plain(*bw), None)}
+        lib_bwd = None
+        for name, (kern, plain, lib) in entries.items():
+            bound, by = _flash_bound(name, dtype, b, hq, hkv, t, t, d, pairs)
+            if lib is not None:
+                lib_ms = timer.ms(lib, warmup=2)
+                lib_bwd = lib_ms
+            else:
+                lib_ms = lib_bwd       # one backward call gives dq, dk, dv
+            out.setdefault(name, {})[dn] = {
+                "ms": timer.ms(kern, warmup=2),
+                "plain_ms": timer.ms(plain, warmup=2),
+                "library_ms": lib_ms, "bound_ms": bound, "bound_by": by,
+                "shape": {"B": b, "Hq": hq, "Hkv": hkv, "T": t, "D": d,
+                          "causal": True, "live_pairs_per_q_head": pairs}}
+        del lib_o, ql, kl, vl
     return out
 
 
@@ -674,6 +885,171 @@ def profile_cycles(bundle, prompts, ms_per_cycle, n_cycles=6):
                   for k, ms, c in rows[:16]]})
 
 
+# ------------------------------------------------------------- train path --
+def _flash_launches():
+    from repro_torch.kernels import flash_attention as fa
+    return {n: getattr(fa, n).launches for n in FLASH}
+
+
+def _zero_flash_launches():
+    from repro_torch.kernels import flash_attention as fa
+    for n in FLASH:
+        getattr(fa, n).launches = 0
+
+
+def train_cfg(dtype):
+    """paper-target at full width, cut to TRAIN_LAYERS layers, remat on."""
+    from repro_torch.configs import paper_target
+    return dataclasses.replace(paper_target.full(), num_layers=TRAIN_LAYERS,
+                               remat=True, dtype=dtype)
+
+
+def _start_training(cfg, impl):
+    """Seeded weights, the step ``optimizer_for`` gives, its state and the
+    mixture data stream, all from seed 0."""
+    from repro_torch.data.synthetic import SyntheticDataset
+    from repro_torch.launch.steps import make_train_step, optimizer_for
+    from repro_torch.models import api
+    if optimizer_for(cfg).name != "adamw":
+        fail(f"optimizer_for picks {optimizer_for(cfg).name} at "
+             f"{cfg.param_count():.3g} params, not adamw")
+    params = api.init_model(cfg, seed=0, device=DEVICE)
+    step, opt_init = make_train_step(cfg, attn_impl=impl, device=DEVICE)
+    return (params, opt_init(params), step,
+            SyntheticDataset("mixture", TRAIN_B, TRAIN_T, seed=0))
+
+
+def _run_steps(params, state, step, ds, n):
+    losses, gnorms = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        params, state, m = step(params, state, ds.next_batch())
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    torch.cuda.synchronize()
+    if not np.isfinite(losses + gnorms).all():
+        fail(f"train: a loss or grad norm is not finite: {losses} {gnorms}")
+    return params, state, losses, gnorms, time.perf_counter() - t0
+
+
+def train_identity():
+    """fp32: three steps through the flash kernels and three through the
+    plain path (``attn_impl="auto"``: chunked attention), from the same
+    seeded weights and batches; loss and grad norm per step and the
+    params after step 3 held to each other."""
+    from repro_torch.models import param as pm
+    from repro_torch.optim.optimizers import lr_schedule
+    cfg = train_cfg("float32")
+    runs, host = {}, {}
+    for impl in ("kernel", "auto"):
+        params, state, step, ds = _start_training(cfg, impl)
+        if impl == "kernel":
+            host["init"] = {k: v.to("cpu", copy=True)
+                            for k, v in pm.flatten(params).items()}
+        params, state, losses, gnorms, secs = _run_steps(params, state, step,
+                                                         ds, 3)
+        runs[impl] = {"losses": losses, "grad_norms": gnorms,
+                      "s_per_step": secs / 3}
+        if impl == "kernel":
+            host["kernel"] = {k: v.to("cpu", copy=True)
+                              for k, v in pm.flatten(params).items()}
+        else:
+            diff_max = diff_sum = move_sum = 0.0
+            n = 0
+            for path, p in pm.flatten(params).items():
+                d = (p - host["kernel"][path].to(DEVICE)).abs()
+                mv = (p - host["init"][path].to(DEVICE)).abs()
+                diff_max = max(diff_max, d.max().item())
+                diff_sum += d.sum().item()
+                move_sum += mv.sum().item()
+                n += p.numel()
+        del params, state, step
+        torch.cuda.empty_cache()
+    del host
+    k, a = runs["kernel"], runs["auto"]
+    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(k["losses"],
+                                                      a["losses"]))
+    gn_rel = max(abs(x - y) / abs(y) for x, y in zip(k["grad_norms"],
+                                                    a["grad_norms"]))
+    from repro_torch.launch.steps import optimizer_for
+    hp = optimizer_for(cfg)
+    sign_bound = 2 * sum(float(lr_schedule(hp, s)) for s in (1, 2, 3))
+    param_rel = diff_sum / max(move_sum, 1e-30)
+    out = {"phase": "train_fp32", "layers": cfg.num_layers,
+           "params": cfg.param_count(), "batch": TRAIN_B, "seq": TRAIN_T,
+           "optimizer": hp.name, "runs": runs, "loss_rel_err": loss_rel,
+           "grad_norm_rel_err": gn_rel, "param_max_abs_diff": diff_max,
+           "param_mean_abs_diff": diff_sum / n,
+           "param_mean_abs_move": move_sum / n,
+           "param_rel_err": param_rel, "param_sign_bound": sign_bound,
+           "tol": {"loss": TOL_TRAIN_LOSS, "grad_norm": TOL_TRAIN_GNORM,
+                   "param": TOL_TRAIN_PARAM}}
+    if loss_rel > TOL_TRAIN_LOSS or gn_rel > TOL_TRAIN_GNORM or \
+            param_rel > TOL_TRAIN_PARAM or diff_max > sign_bound:
+        fail(f"train: the kernel path disagrees with the plain path: {out}")
+    emit({**out, "ok": True})
+
+
+def train_bf16(n_timed=5):
+    """bf16 (the config's dtype) through the kernels: one warm-up step and
+    ``n_timed`` timed ones; the flash launch counts are zeroed just before
+    and read just after. Returns what the profile phase continues from."""
+    cfg = train_cfg("bfloat16")
+    params, state, step, ds = _start_training(cfg, "kernel")
+    torch.cuda.reset_peak_memory_stats()
+    _zero_flash_launches()
+    params, state, warm_losses, _, warm_s = _run_steps(params, state, step,
+                                                       ds, 1)
+    params, state, losses, gnorms, secs = _run_steps(params, state, step, ds,
+                                                     n_timed)
+    launches = _flash_launches()
+    n_steps = 1 + n_timed
+    per_step = {k: v / n_steps for k, v in launches.items()}
+    want = {"flash_attention_fwd": 2 * TRAIN_LAYERS,
+            "flash_attention_bwd_dq": TRAIN_LAYERS,
+            "flash_attention_bwd_dkv": TRAIN_LAYERS}
+    if per_step != want:
+        fail(f"train: flash launches per step {per_step}, expected {want}")
+    ms = 1e3 * secs / n_timed
+    emit({"phase": "train_bf16", "ok": True, "layers": cfg.num_layers,
+          "params": cfg.param_count(), "batch": TRAIN_B, "seq": TRAIN_T,
+          "warmup_s": warm_s, "ms_per_step": ms,
+          "tokens_per_s": TRAIN_B * TRAIN_T * n_timed / secs,
+          "max_memory_allocated_gb":
+              torch.cuda.max_memory_allocated() / 1e9,
+          "losses": warm_losses + losses, "grad_norms": gnorms,
+          "launches": launches, "launches_per_step": per_step})
+    return (params, state, step, ds), launches, ms
+
+
+def profile_train_step(run, ms_per_step):
+    """One bf16 training step under torch.profiler: device time, the
+    idle share against the unprofiled step time, and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    params, state, step, ds = run
+    batch = ds.next_batch()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        params, state, m = step(params, state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows) or None
+    flash = sum(ms for k, ms, _ in rows if "flash_" in k)
+    emit({"phase": "train_profile", "ok": True, "dtype": "bfloat16",
+          "steps": 1, "device_ms_per_step": busy,
+          "unprofiled_ms_per_step": ms_per_step,
+          "idle_share": busy and 1.0 - busy / ms_per_step,
+          "flash_kernels_ms": flash,
+          "top": [{"name": k[:90], "ms": ms, "calls": c}
+                  for k, ms, c in rows[:16]]})
+
+
 # ------------------------------------------------------------------ main --
 def main():
     if len(sys.argv) > 1:
@@ -693,33 +1069,54 @@ def main():
         build.load(stem)
     emit({"phase": "build", "ok": True, "seconds": time.perf_counter() - t0,
           "libs": [str(p.relative_to(ROOT)) for p in libs.values()],
-          "ptxas": [ln.strip() for ln in build.build_log("cascade_phase1")
-                    .splitlines() if "registers" in ln or "spill" in ln],
+          "ptxas": {stem: [ln.strip() for ln in build.build_log(stem)
+                           .splitlines() if "registers" in ln
+                           or "spill" in ln or "Compiling entry" in ln]
+                    for stem in libs},
           "gpu": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
-    worst, timing = check_kernels(Timer())
+    timer = Timer()
+    worst, timing = check_kernels(timer)
+    flash_worst, flash_timing = check_flash(timer)
+    del timer
     bundle, prompts, launches = main_path()
     bundle, ms_cycle = bf16_path(bundle, prompts)
     profile_cycles(bundle, prompts, ms_cycle)
     del bundle
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
-    src = "src/repro_torch/csrc/cascade_phase1.cu"
-    replaces = {"cascade_phase1": "src/repro/kernels/cascade_attention.py:45",
-                "cascade_phase1_paged":
-                    "src/repro/kernels/cascade_attention.py:243"}
+    train_identity()
+    run, flash_launches, ms_step = train_bf16()
+    profile_train_step(run, ms_step)
+    del run
+    torch.cuda.synchronize()
+
+    # cascade rows: the fp32 decode shape; flash rows: bf16, the training
+    # step's dtype (both dtypes are in the kernels and flash phases)
     rows = []
-    for name in replaces:
-        t = timing.get(name, {}).get("float32", {})
+    entries = [
+        ("cascade_phase1", "src/repro_torch/csrc/cascade_phase1.cu",
+         "src/repro/kernels/cascade_attention.py:45",
+         launches, worst, timing, "float32"),
+        ("cascade_phase1_paged", "src/repro_torch/csrc/cascade_phase1.cu",
+         "src/repro/kernels/cascade_attention.py:243",
+         launches, worst, timing, "float32")]
+    for name, line in zip(FLASH, (40, 146, 189)):
+        entries.append((name, "src/repro_torch/csrc/flash_attention.cu",
+                        f"src/repro/kernels/flash_attention.py:{line}",
+                        flash_launches, flash_worst, flash_timing,
+                        "bfloat16"))
+    for name, src, replaces, counts, errs, tim, dn in entries:
+        t = tim.get(name, {}).get(dn, {})
         rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces[name],
-                     "launches": launches.get(name, 0),
-                     "max_abs_err": worst.get(name),
+                     "replaces": replaces, "launches": counts.get(name, 0),
+                     "max_abs_err": errs.get(name),
                      "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
                      "bound_ms": t.get("bound_ms"),
                      "bound_by": t.get("bound_by"),
-                     "library_ms": t.get("library_ms")})
+                     "library_ms": t.get("library_ms"), "dtype": dn})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

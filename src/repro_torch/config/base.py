@@ -1,17 +1,20 @@
-"""Model and speculative-decoding configs of the PyTorch port.
+"""Model, speculative-decoding and training configs of the PyTorch port.
 
 A copy of ``repro/config/base.py`` (``ModelConfig``, ``SpecConfig``,
-``MoEConfig`` and the enums): the port imports nothing of the JAX
-package, so it keeps its own. Field names, defaults and derived
-properties are unchanged; the one difference is the read-path switch
-``attn_impl``, whose values here are ``"gather"`` (plain torch over the
-cache's logical view) and ``"kernel"`` (the CUDA cascade kernels in
-``repro_torch/csrc``).
+``MoEConfig``, ``OptimizerConfig``, ``TrainConfig`` and the enums): the
+port imports nothing of the JAX package, so it keeps its own. Field
+names, defaults and derived properties are unchanged; the differences
+are the read-path switch ``attn_impl``, whose values here are
+``"gather"`` (plain torch over the cache's logical view) and
+``"kernel"`` (the CUDA cascade kernels in ``repro_torch/csrc``), and
+``TrainConfig.checkpoint_dir``, which defaults under the temp directory.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
+import os
+import tempfile
 from typing import Optional, Tuple
 
 
@@ -225,3 +228,37 @@ class SpecConfig:
     @property
     def strategy(self) -> str:
         return self.mode
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "adamw"             # adamw | adamw8bit | adafactor
+    lr: float = 3e-4
+    warmup_steps: int = 20
+    total_steps: int = 300
+    weight_decay: float = 0.01
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    grad_accum: int = 1
+    # int8 gradient all-reduce with error feedback (multi-GPU, not ported)
+    compress_grads: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    batch_size: int = 32
+    seq_len: int = 128
+    seed: int = 0
+    optimizer: OptimizerConfig = dataclasses.field(
+        default_factory=OptimizerConfig)
+    checkpoint_every: int = 100
+    # the JAX default is /tmp/repro_ckpt; here the temp directory's own
+    checkpoint_dir: str = dataclasses.field(
+        default_factory=lambda: os.path.join(tempfile.gettempdir(),
+                                             "repro_ckpt"))
+    async_checkpoint: bool = False
+    log_every: int = 10
+    # fault tolerance
+    max_restarts: int = 3

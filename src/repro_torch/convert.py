@@ -35,6 +35,13 @@ def _tree(x, fn):
 def convert_lm(np_params, cfg: ModelConfig, device="cuda"):
     """JAX ``lm.lm_init`` params (numpy leaves) -> port ``lm`` params."""
     check_supported(cfg)
+    return convert_tree(np_params, cfg, device=device)
+
+
+def convert_tree(np_params, cfg: ModelConfig, device="cuda"):
+    """Any tree shaped like the JAX ``lm`` params (params, grads, AdamW
+    ``m``/``v``; numpy leaves) -> the port's layout, the period axis
+    unstacked into ``layers``."""
     dev = resolve_device(device)
     plen, n_periods = period_spec(cfg)
     out = {k: _tree(v, lambda a: to_tensor(a, dev))

@@ -35,6 +35,18 @@ SIGNATURES = {
             _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
             _I, _P],
     },
+    "flash_attention": {
+        # inputs, their strides, kv_len, outputs, dims and flags, stream
+        "flash_fwd": [
+            _P, _P, _P, *[_LL] * 9, _P, _P, _LL, _LL, _LL, _P,
+            *[_I] * 6, _I, _I, _I, _F, _F, _I, _P],
+        "flash_bwd_dq": [
+            _P, _P, _P, _P, *[_LL] * 12, _P, _P, _P, _P, _LL, _LL, _LL,
+            *[_I] * 6, _I, _I, _I, _F, _F, _I, _P],
+        "flash_bwd_dkv": [
+            _P, _P, _P, _P, *[_LL] * 12, _P, _P, _P, _P, _LL, _LL, _LL,
+            _P, _LL, _LL, _LL, *[_I] * 6, _I, _I, _I, _F, _F, _I, _P],
+    },
 }
 
 _loaded = {}

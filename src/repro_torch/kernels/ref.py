@@ -1,12 +1,54 @@
-"""Plain torch oracles of the cascade kernels (twin of
-``repro/kernels/ref.py``): one softmax over [cache ++ tree block] with the
-kernels' absolute-position masking. Independent of the split arithmetic
-in ``kernels/cascade_attention.py``, so the two check each other."""
+"""Plain torch oracles of the kernels (twin of ``repro/kernels/ref.py``).
+
+:func:`flash_attention_ref` is one softmax over the whole key axis; its
+torch autograd is the gradient oracle of the flash backward. The cascade
+oracles take one softmax over [cache ++ tree block] with the kernels'
+absolute-position masking. Each is independent of the block arithmetic
+in ``kernels/flash_attention.py`` and ``kernels/cascade_attention.py``,
+so the two check each other."""
 from __future__ import annotations
 
 import torch
 
 NEG_INF = -1e30
+
+
+def _flash_mask(b, tq, tkv, *, causal, q_offset, window, kv_len, device):
+    q_off = torch.as_tensor(q_offset, device=device).long().reshape(-1)
+    qpos = (torch.arange(tq, device=device)[None, :, None]
+            + q_off.expand(b)[:, None, None])
+    kpos = torch.arange(tkv, device=device)[None, None, :]
+    m = torch.ones((b, tq, tkv), dtype=torch.bool, device=device)
+    if causal:
+        m = m & (kpos <= qpos)
+    if window is not None:
+        m = m & (kpos > (qpos - window))
+    if kv_len is not None:
+        kl = torch.as_tensor(kv_len, device=device).long().reshape(-1)
+        m = m & (kpos < kl.expand(b)[:, None, None])
+    return m
+
+
+def flash_attention_ref(q, k, v, *, causal=True, q_offset=0, window=None,
+                        kv_len=None, attn_softcap=None, scale=None):
+    """q [B,Hq,Tq,D]; k,v [B,Hkv,Tkv,D] -> (o, lse). Differentiable."""
+    b, hq, tq, d = q.shape
+    hkv, tkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    kq = k.repeat_interleave(g, dim=1).float()
+    vq = v.repeat_interleave(g, dim=1).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float() * scale, kq)
+    if attn_softcap is not None:
+        s = attn_softcap * torch.tanh(s / attn_softcap)
+    m = _flash_mask(b, tq, tkv, causal=causal, q_offset=q_offset,
+                    window=window, kv_len=kv_len, device=q.device)
+    s = torch.where(m[:, None], s, s.new_tensor(NEG_INF))
+    mx = s.amax(dim=-1)
+    p = torch.exp(s - mx[..., None])
+    l = p.sum(dim=-1)
+    o = torch.einsum("bhqk,bhkd->bhqd", p / l.clamp_min(1e-30)[..., None], vq)
+    return o.to(q.dtype), mx + torch.log(l.clamp_min(1e-30))
 
 
 def cascade_attention_ref(q, cache_k, cache_v, blk_k, blk_v, *, cache_len,

@@ -3,9 +3,11 @@ of ``repro/models/attention.py``).
 
 ``attend`` dispatches between ``dense`` (materialized scores) and
 ``chunked`` (running softmax over KV chunks) exactly as the JAX
-``impl="auto"`` rule does. Prefill always takes one of these two: the
-flash-forward kernel (``impl="pallas"`` in JAX) is not on the ported
-path.
+``impl="auto"`` rule does, or, with ``impl="kernel"`` (the twin of JAX
+``impl="pallas"``), to the differentiable flash op of
+``kernels/ops.py``: the CUDA flash forward and backward kernels on a
+card, their plain torch versions on CPU tensors. Training takes that path
+through ``lm.loss_fn(attn_impl="kernel")``.
 
 The decode/verify read path over a KV cache is
 :func:`attend_cache_plus_block` (``attn_impl="gather"``) or the CUDA
@@ -220,7 +222,8 @@ def attend_cache_plus_block(q, kk, vv, *, cache_cap, cache_len, q_abs,
 def attend(q, k, v, *, causal=True, q_offset=0, window=None, kv_len=None,
            extra_mask=None, scale=None, attn_softcap=None, impl="auto",
            kv_chunk=1024):
-    """Unified attention entry point (plain torch)."""
+    """Unified attention entry point: ``impl`` is "auto", "dense",
+    "chunked" or "kernel" (the flash kernels)."""
     tq, tkv = q.shape[1], k.shape[1]
     if impl == "auto":
         impl = "dense" if (tq * tkv <= 256 * 1024) else "chunked"
@@ -237,6 +240,15 @@ def attend(q, k, v, *, causal=True, q_offset=0, window=None, kv_len=None,
                               window=window, kv_len=kv_len,
                               extra_mask=extra_mask, scale=scale,
                               attn_softcap=attn_softcap, kv_chunk=kv_chunk)
+    if impl == "kernel":
+        # JAX's impl="pallas" drops extra_mask silently; the kernels take
+        # no free-form mask, so the port refuses one.
+        if extra_mask is not None:
+            raise ValueError("attend(impl='kernel') takes no extra_mask")
+        from repro_torch.kernels import ops as kops
+        return kops.flash_attention(
+            q, k, v, causal=causal, q_offset=q_offset, window=window,
+            kv_len=kv_len, scale=scale, attn_softcap=attn_softcap)
     raise ValueError(f"unknown attention impl {impl!r}")
 
 

@@ -4,6 +4,10 @@ The JAX stack scans a period of layers; here the stack is a Python loop
 over per-layer params (``models/lm.py``), so one block is one layer.
 
 Modes (driven by arguments, not flags):
+  * train:         state None                     -> causal (or windowed)
+                                                      self-attention; with
+                                                      attn_impl="kernel" the
+                                                      differentiable flash op
   * prefill:       state given, write_kv=True     -> causal self-attention,
                                                       block KV written to the cache
   * replay:        write_kv=True and attend_cache_on_write=True

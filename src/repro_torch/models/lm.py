@@ -6,12 +6,17 @@ Params: ``{"tok": {"embedding"}, "ln_f": {"scale"}, "lm_head",
 (``params["period"]``, a ``lax.scan`` over stacked layers) is a Python
 loop here; ``repro_torch.convert`` unstacks it. States:
 ``{"layers": [per-layer cache dicts], "length": [B] int32}``.
+
+Training: :func:`loss_fn` (cross entropy with z-loss, optionally chunked
+over the sequence) through :func:`forward`, whose layers are
+rematerialized under ``cfg.remat`` as the JAX period scan is.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.config.base import ModelConfig
@@ -84,6 +89,13 @@ def forward(params, tokens, cfg: ModelConfig, *, states=None, cache_len=None,
     Returns dict(logits, states, features, kv_outs, hidden). With
     ``write_kv`` the block K/V are written into ``states``' buffers in
     place and the returned states carry the advanced ``length``.
+
+    Under ``cfg.remat`` each layer runs under ``torch.utils.checkpoint``
+    (non-reentrant), so its activations are recomputed in the backward,
+    as JAX checkpoints each scanned period. Policy "dots" (JAX keeps the
+    matmul outputs) runs as "full" here. It applies to the stateless
+    (training) pass with autograd on; a pass over caches writes them in
+    place and is never recomputed.
     """
     dtype = getattr(torch, cfg.dtype)
     x = embed(params["tok"], tokens, dtype)
@@ -100,15 +112,23 @@ def forward(params, tokens, cfg: ModelConfig, *, states=None, cache_len=None,
                      else cache_len + ar)
     plen, n_periods = period_spec(cfg)
     kinds = cfg.pattern_for_depth()
+    remat = cfg.remat and states is None and torch.is_grad_enabled()
     hiddens = []
     kv_outs = []
     for i, kind in enumerate(kinds):
         st = states["layers"][i] if states is not None else None
-        x, kv = block_apply(
-            params["layers"][i], x, cfg, kind, state=st, cache_len=cache_len,
-            positions=positions, write_kv=write_kv, extra_mask=extra_mask,
-            attn_impl=attn_impl, kv_chunk=kv_chunk,
-            attend_cache_on_write=attend_cache_on_write)
+
+        def layer(x, i=i, kind=kind, st=st):
+            return block_apply(
+                params["layers"][i], x, cfg, kind, state=st,
+                cache_len=cache_len, positions=positions, write_kv=write_kv,
+                extra_mask=extra_mask, attn_impl=attn_impl, kv_chunk=kv_chunk,
+                attend_cache_on_write=attend_cache_on_write)
+
+        if remat:
+            x, kv = checkpoint(layer, x, use_reentrant=False)
+        else:
+            x, kv = layer(x)
         kv_outs.append(kv)
         if want_features and ((i + 1) % plen == 0 or i >= n_periods * plen):
             hiddens.append(x)
@@ -122,9 +142,7 @@ def forward(params, tokens, cfg: ModelConfig, *, states=None, cache_len=None,
 
     logits = None
     if want_logits:
-        head = (params["tok"]["embedding"].T if cfg.tie_embeddings
-                else params["lm_head"])
-        logits = softcap(unembed(head, x), cfg.logit_softcap)
+        logits = softcap(unembed(_head(params, cfg), x), cfg.logit_softcap)
 
     out_states = None
     if states is not None:
@@ -135,6 +153,70 @@ def forward(params, tokens, cfg: ModelConfig, *, states=None, cache_len=None,
                 states["length"].shape).to(torch.int32)
     return {"logits": logits, "states": out_states, "features": features,
             "kv_outs": kv_outs, "hidden": x}
+
+
+def _head(params, cfg: ModelConfig):
+    return (params["tok"]["embedding"].T if cfg.tie_embeddings
+            else params["lm_head"])
+
+
+# ------------------------------------------------------------ loss/train ---
+def _token_nll(logits, labels, z_loss: float = 1e-4):
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    nll = lse - torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    return nll + z_loss * torch.square(lse) if z_loss else nll
+
+
+def cross_entropy(logits, labels, mask=None, z_loss: float = 1e-4):
+    """logits [B,T,V] (any float), labels [B,T] integer; mean NLL (over
+    the mask's ones) plus ``z_loss * lse^2``."""
+    nll = _token_nll(logits, labels, z_loss)
+    if mask is not None:
+        nll = nll * mask
+        denom = mask.sum().clamp_min(1.0)
+    else:
+        denom = nll.numel()
+    return nll.sum() / denom
+
+
+def _chunk_nll(head, hj, lj, mj, logit_softcap):
+    return (_token_nll(softcap(unembed(head, hj), logit_softcap), lj)
+            * mj).sum()
+
+
+def loss_fn(params, batch, cfg: ModelConfig, *, attn_impl="auto",
+            kv_chunk=1024, loss_seq_chunk: Optional[int] = None):
+    """batch: dict(tokens [B,S], labels [B,S], mask [B,S]) of tensors.
+
+    ``loss_seq_chunk``: the cross entropy over sequence chunks of that
+    length, each rematerialized, so [B,S,V] logits never exist at once.
+    """
+    out = forward(params, batch["tokens"], cfg, attn_impl=attn_impl,
+                  kv_chunk=kv_chunk, want_logits=loss_seq_chunk is None)
+    if loss_seq_chunk is None:
+        return cross_entropy(out["logits"], batch["labels"],
+                             batch.get("mask"))
+    h = out["hidden"]
+    head = _head(params, cfg)
+    s = h.shape[1]
+    c = loss_seq_chunk
+    if s % c:
+        raise ValueError(f"sequence {s} is not a multiple of "
+                         f"loss_seq_chunk {c}")
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(batch["labels"].shape, dtype=torch.float32,
+                          device=h.device)
+    tot = h.new_zeros((), dtype=torch.float32)
+    cnt = h.new_zeros((), dtype=torch.float32)
+    for j in range(0, s, c):
+        mj = mask[:, j:j + c]
+        tot = tot + checkpoint(_chunk_nll, head, h[:, j:j + c],
+                               batch["labels"][:, j:j + c], mj,
+                               cfg.logit_softcap, use_reentrant=False)
+        cnt = cnt + mj.sum()
+    return tot / cnt.clamp_min(1.0)
 
 
 def feature_dim(cfg: ModelConfig) -> int:

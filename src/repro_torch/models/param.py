@@ -39,3 +39,55 @@ def make_generator(seed: int, device: torch.device) -> torch.Generator:
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     return gen
+
+
+# ------------------------------------------------------------ trees -------
+# Param trees are nested dicts (and the ``layers`` list) of tensors. These
+# helpers walk them in a fixed order: dict keys sorted, as jax.tree does,
+# list entries by index.
+def _children(node):
+    if isinstance(node, dict):
+        return [(str(k), node[k]) for k in sorted(node)]
+    if isinstance(node, (list, tuple)):
+        return [(str(i), v) for i, v in enumerate(node)]
+    return None
+
+
+def flatten(tree, prefix: str = ""):
+    """{"/"-joined path: leaf} in tree order."""
+    kids = _children(tree)
+    if kids is None:
+        return {prefix: tree}
+    out = {}
+    for k, v in kids:
+        out.update(flatten(v, f"{prefix}/{k}" if prefix else k))
+    return out
+
+
+def tree_map(fn, tree):
+    """The tree's structure with ``fn(leaf)`` at each leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def get_path(tree, path: str):
+    for k in path.split("/") if path else ():
+        tree = tree[int(k)] if isinstance(tree, (list, tuple)) else tree[k]
+    return tree
+
+
+def unflatten_like(tree, flat):
+    """``tree``'s structure with the leaves of ``flat`` ({path: leaf})."""
+    def build(node, prefix):
+        kids = _children(node)
+        if kids is None:
+            return flat[prefix]
+        vals = {k: build(v, f"{prefix}/{k}" if prefix else k)
+                for k, v in kids}
+        if isinstance(node, dict):
+            return {k: vals[str(k)] for k in node}
+        return type(node)(vals[str(i)] for i in range(len(node)))
+    return build(tree, "")

@@ -6,14 +6,19 @@ installed; run it on the card with
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerance: partials relative to 1 + |plain| below 1e-4, compared where the
-split has a live key (``m > -1e29``); both sides compute in fp32 from the
-same inputs and differ only in summation order.
+Tolerances. Cascade partials: relative to 1 + |plain| below 1e-4,
+compared where the split has a live key (``m > -1e29``); both sides
+compute in fp32 from the same inputs and differ only in summation order.
+Flash o/dq/dk/dv: max |kernel - plain| / max |plain| below 2e-5 for fp32
+(summation order) and 8e-3 for bf16 (outputs rounded to bf16 on both
+sides: one bf16 ulp); lse absolute 1e-4; o and dq over rows with a live
+key.
 """
 import pytest
 import torch
 
 from repro_torch.kernels import cascade_attention as tcasc
+from repro_torch.kernels import flash_attention as tfa
 
 
 @pytest.fixture
@@ -64,3 +69,58 @@ def test_cuda_kernel_matches_plain(dev, paged, dtype):
         rel = (a - b_).abs() / (1 + b_.abs())
         rel = rel.amax(-1) if rel.ndim == 5 else rel
         assert rel[live].max().item() < 1e-4
+
+
+FLASH_CASES = {
+    # the training shape's geometry at T 512, in the model's layout
+    "causal": (2, 8, 2, 512, 128, True, dict(causal=True)),
+    # ragged: T not a multiple of 64, q_offset, kv_len, window, softcap
+    "ragged": (2, 4, 4, 300, 64, False,
+               dict(causal=True, q_offset=24, kv_len=[300, 231],
+                    window=128, attn_softcap=50.0)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_kernels_match_plain(dev, case, dtype):
+    b, hq, hkv, t, d, bthd, kw = FLASH_CASES[case]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def mk(h):
+        if bthd:
+            return torch.randn((b, t, h, d), generator=gen,
+                               device=dev).to(dtype).transpose(1, 2)
+        return torch.randn((b, h, t, d), generator=gen, device=dev).to(dtype)
+
+    q, k, v, do = mk(hq), mk(hkv), mk(hkv), mk(hq)
+    kw = dict(kw)
+    if "kv_len" in kw:
+        kw["kv_len"] = torch.tensor(kw["kv_len"], device=dev)
+    names = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+    before = [getattr(tfa, n).launches for n in names]
+    o, lse = tfa.flash_attention_fwd(q, k, v, **kw)
+    o_p, lse_p = tfa.flash_attention_fwd_plain(q, k, v, **kw)
+    delta = (do.float() * o_p.float()).sum(-1)
+    args = (q, k, v, do, lse_p, delta)
+    dq = tfa.flash_attention_bwd_dq(*args, **kw)
+    dk, dv = tfa.flash_attention_bwd_dkv(*args, **kw)
+    dq_p = tfa.flash_attention_bwd_dq_plain(*args, **kw)
+    dk_p, dv_p = tfa.flash_attention_bwd_dkv_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert [getattr(tfa, n).launches for n in names] == [x + 1 for x in before]
+    live = lse_p > -1e29
+    tol = 2e-5 if dtype == torch.float32 else 8e-3
+
+    def rel(a, b_):
+        a, b_ = a.float(), b_.float()
+        assert torch.isfinite(a).all()
+        return ((a - b_).abs().max() / b_.abs().max()).item()
+
+    assert rel(o[live], o_p[live]) < tol
+    assert (lse[live] - lse_p[live]).abs().max().item() < 1e-4
+    assert rel(dq[live], dq_p[live]) < tol
+    assert rel(dk, dk_p) < tol and rel(dv, dv_p) < tol

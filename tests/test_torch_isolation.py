@@ -64,7 +64,9 @@ def _entry_points():
     from repro_torch.config.base import SpecConfig
     from repro_torch.configs import paper_target
     from repro_torch.core import drafter, pipeline, state
-    from repro_torch.models import lm
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import api, lm
     tcfg = paper_target.smoke()
     dcfg = paper_target.drafter_small(gamma=4)
     bundle = pipeline.SpecBundle(tcfg, dcfg, dcfg,
@@ -78,12 +80,16 @@ def _entry_points():
         "generate": lambda: pipeline.generate(bundle, [[1, 2]], 2),
         "convert_lm": lambda: convert.convert_lm({}, tcfg),
         "convert_drafter": lambda: convert.convert_drafter({}),
+        "init_model": lambda: api.init_model(tcfg),
+        "make_train_step": lambda: steps.make_train_step(tcfg),
+        "launch_train": lambda: launch_train.main(["--steps", "1"]),
     }
 
 
 @pytest.mark.parametrize("name", ["lm_init", "init_states", "drafter_init",
                                   "engine_init", "generate", "convert_lm",
-                                  "convert_drafter"])
+                                  "convert_drafter", "init_model",
+                                  "make_train_step", "launch_train"])
 def test_entry_point_without_device_raises_here(name):
     """Without ``device=`` an entry point asks for the card; on a machine
     without one it raises instead of running on the CPU."""
@@ -109,6 +115,23 @@ def test_kernel_wrapper_never_falls_back_on_a_device_tensor(paged):
                                       cache_len=lens, q_abs=qa)
         else:
             casc.cascade_phase1(q, kv, kv, cache_len=lens, q_abs=qa)
+
+
+@pytest.mark.parametrize("which", ["fwd", "bwd_dq", "bwd_dkv"])
+def test_flash_wrappers_never_fall_back_on_a_device_tensor(which):
+    """The flash wrappers, like the cascade ones, take the plain version
+    only for CPU tensors."""
+    from repro_torch.kernels import flash_attention as fa
+    q = torch.empty((1, 4, 8, 16), device="meta")
+    kv = torch.empty((1, 2, 8, 16), device="meta")
+    rows = torch.empty((1, 4, 8), device="meta")
+    with pytest.raises(RuntimeError, match="CUDA or CPU"):
+        if which == "fwd":
+            fa.flash_attention_fwd(q, kv, kv)
+        elif which == "bwd_dq":
+            fa.flash_attention_bwd_dq(q, kv, kv, q, rows, rows)
+        else:
+            fa.flash_attention_bwd_dkv(q, kv, kv, q, rows, rows)
 
 
 def test_chip_smoke_fails_without_a_card():
