@@ -15,10 +15,13 @@ Phases, each printing one JSON line (any failure exits non-zero):
            the port)
   flash    each flash kernel (forward, dq, dk/dv) against its plain torch
            version: the training shape (B 2, Hq 32, Hkv 8, D 128, T 4096,
-           causal, the model's [B,T,H,D] layout) and ragged cases (T 1000,
+           causal, the model's [B,T,H,D] layout), ragged cases (T 1000,
            q_offset 24, kv_len (1000, 931), window 512, softcap 50; GQA
-           groups 4 and 1), fp32 and bf16; then timed at the training
-           shape beside its bound, its plain version and
+           groups 4 and 1) and tile edges (T 129, a single query row, Tkv
+           300 with kv_len ending mid-tile, D 64 and 96), fp32 and bf16 (the
+           bf16 forward and dq are the tensor-core kernels of
+           flash_attention_sm90.cu); then timed at the training shape
+           beside its bound, its plain version and
            scaled_dot_product_attention (forward; its autograd backward)
   main     greedy D^2SD ``generate`` in fp32 at the full width and depth of
            paper_target.full() with random seeded weights: 4 prompts of 512
@@ -39,13 +42,15 @@ Phases, each printing one JSON line (any failure exits non-zero):
            and the kernels that take the most device time
   train_fp32   paper_target.full() cut to 8 layers (the only cut; 2.79e9
            params, AdamW as optimizer_for picks), remat on, batch 2 x 4096
-           tokens of the mixture stream: three steps through the flash
+           tokens of the mixture stream: three steps through the fp32 flash
            kernels and three through the plain chunked attention, from the
            same seeded weights and batches; loss and grad norm per step
            and the params after step 3 held to each other
-  train_bf16   the same model in bf16 through the kernels: one warm-up and
-           five timed steps: ms/step, tokens/s, peak memory, and 16 / 8 / 8
-           launches per step of the forward / dq / dk-dv kernels
+  train_bf16   the same model in bf16: three steps through the plain
+           chunked attention, then through the kernels one warm-up and
+           five timed steps; the first three losses held to the plain
+           path's, ms/step, tokens/s, peak memory, and 16 / 8 / 8 launches
+           per step of the forward / dq / dk-dv kernels
   train_profile  one bf16 step under torch.profiler: device time, idle
            share, top kernels
 
@@ -93,6 +98,9 @@ TOL_TRAIN_PARAM = 1e-3  # fp32 params after step 3: mean |kernel - plain|
                         # over mean |move from init|. The max is bounded by
                         # 2 * sum(lr): an element whose grad is rounding
                         # from zero may take an Adam step of either sign
+TOL_TRAIN_BF16_LOSS = 2e-2  # bf16 step loss, kernel vs plain path, first
+                        # three steps, relative: the kernels round P and dS
+                        # to bf16 where the plain path keeps fp32
 
 
 def emit(obj):
@@ -340,6 +348,19 @@ def time_kernels(timer, gen, rng):
 # ------------------------------------------------------------ flash checks --
 FLASH = ("flash_attention_fwd", "flash_attention_bwd_dq",
          "flash_attention_bwd_dkv")
+# each flash kernel by its C entry point: (wrapper, dtype, source, line of
+# the Pallas body it replaces in src/repro/kernels/flash_attention.py)
+FLASH_KERNELS = {
+    "flash_fwd_sm90": ("flash_attention_fwd", torch.bfloat16,
+                       "flash_attention_sm90.cu", 40),
+    "flash_bwd_dq_sm90": ("flash_attention_bwd_dq", torch.bfloat16,
+                          "flash_attention_sm90.cu", 146),
+    "flash_bwd_dkv": ("flash_attention_bwd_dkv", torch.bfloat16,
+                      "flash_attention.cu", 189),
+    "flash_fwd": ("flash_attention_fwd", torch.float32,
+                  "flash_attention.cu", 40),
+    "flash_bwd_dq": ("flash_attention_bwd_dq", torch.float32,
+                     "flash_attention.cu", 146)}
 TRAIN_B, TRAIN_T = 2, 4096                  # batch and sequence of a step
 
 
@@ -371,42 +392,58 @@ def _flash_bound(name, dtype, b, hq, hkv, tq, tkv, d, pairs):
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
-def _flash_inputs(gen, b, hq, hkv, t, d, dtype, bthd):
+def _flash_inputs(gen, b, hq, hkv, tq, tkv, d, dtype, bthd):
     """q, k, v, do: [B,H,T,D] views of [B,T,H,D] buffers (the model's
     layout) when ``bthd``, else contiguous."""
-    def mk(h):
+    def mk(h, t):
         if bthd:
             return _rand(gen, (b, t, h, d), dtype).transpose(1, 2)
         return _rand(gen, (b, h, t, d), dtype)
-    return mk(hq), mk(hkv), mk(hkv), mk(hq)
+    return mk(hq, tq), mk(hkv, tkv), mk(hkv, tkv), mk(hq, tq)
 
 
 def check_flash(timer):
     """Each flash kernel against its plain version on the card: the
-    training shape (B 2, Hq 32, Hkv 8, D 128, T 4096, causal) and ragged
+    training shape (B 2, Hq 32, Hkv 8, D 128, T 4096, causal), ragged
     cases (T 1000, q_offset 24, kv_len (1000, 931), window 512, softcap
-    50; GQA groups 4 and 1, D 128 and 64), fp32 and bf16. Each backward
-    kernel takes the plain forward's (o, lse), so each kernel is held
-    alone. o, lse and dq are compared over rows with a live key."""
+    50; GQA groups 4 and 1, D 128 and 64) and the tensor-core kernels'
+    tile edges (T 129: a 128-row block and one row more; one query row
+    over 300 keys; Tq 200 over Tkv 300 with kv_len 237 ending inside a
+    key tile; D 64 and D 96, the last zero-filled to 128, in the
+    [B,T,H,D] layout), fp32 and bf16. Each backward kernel takes the
+    plain forward's (o, lse), so each kernel is held alone. o, lse and dq
+    are compared over rows with a live key."""
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(1)
     cases = []
-    worst = {n: 0.0 for n in FLASH}           # relative, as the tolerance
-    worst_abs = {n: 0.0 for n in FLASH}
-    shapes = [dict(b=TRAIN_B, hq=32, hkv=8, t=TRAIN_T, d=128, bthd=True,
+    worst = {n: {} for n in FLASH}            # relative, as the tolerance
+    worst_abs = {n: {} for n in FLASH}
+    ragged = dict(causal=True, q_offset=24, kv_len=[1000, 931], window=512,
+                  attn_softcap=50.0)
+    shapes = [dict(b=TRAIN_B, hq=32, hkv=8, tq=TRAIN_T, tkv=TRAIN_T, d=128,
+                   bthd=True, kw=dict(causal=True)),
+              dict(b=2, hq=32, hkv=8, tq=1000, tkv=1000, d=128, bthd=False,
+                   kw=ragged),
+              dict(b=2, hq=8, hkv=8, tq=1000, tkv=1000, d=64, bthd=True,
+                   kw=ragged),
+              dict(b=2, hq=8, hkv=2, tq=129, tkv=129, d=128, bthd=True,
                    kw=dict(causal=True)),
-              dict(b=2, hq=32, hkv=8, t=1000, d=128, bthd=False,
-                   kw=dict(causal=True, q_offset=24, kv_len=[1000, 931],
-                           window=512, attn_softcap=50.0)),
-              dict(b=2, hq=8, hkv=8, t=1000, d=64, bthd=True,
-                   kw=dict(causal=True, q_offset=24, kv_len=[1000, 931],
-                           window=512, attn_softcap=50.0))]
+              dict(b=2, hq=8, hkv=2, tq=1, tkv=300, d=128, bthd=True,
+                   kw=dict(causal=True, q_offset=299)),
+              dict(b=2, hq=8, hkv=2, tq=200, tkv=300, d=128, bthd=True,
+                   kw=dict(causal=True, q_offset=100, kv_len=[300, 237])),
+              dict(b=2, hq=8, hkv=2, tq=129, tkv=129, d=64, bthd=True,
+                   kw=dict(causal=True)),
+              dict(b=2, hq=8, hkv=2, tq=129, tkv=129, d=96, bthd=True,
+                   kw=dict(causal=False, kv_len=[129, 70]))]
     for dtype in (torch.float32, torch.bfloat16):
         tol = TOL_FLASH[dtype]
+        dn = str(dtype).replace("torch.", "")
         for sh in shapes:
             q, k, v, do = _flash_inputs(gen, sh["b"], sh["hq"], sh["hkv"],
-                                        sh["t"], sh["d"], dtype, sh["bthd"])
+                                        sh["tq"], sh["tkv"], sh["d"], dtype,
+                                        sh["bthd"])
             kw = dict(sh["kw"])
             if "kv_len" in kw:
                 kw["kv_len"] = torch.tensor(kw["kv_len"], device=DEVICE)
@@ -441,7 +478,7 @@ def check_flash(timer):
                     "flash_attention_bwd_dkv": err([(dk_k, dk_p),
                                                     (dv_k, dv_p)])}
             lse_err = (lse_k[live] - lse_p[live]).abs().max().item()
-            case = {"dtype": str(dtype).replace("torch.", ""),
+            case = {"dtype": dn,
                     **{k_: v_ for k_, v_ in sh.items() if k_ != "kw"},
                     **{k_: (v_ if not torch.is_tensor(v_) else v_.tolist())
                        for k_, v_ in kw.items()},
@@ -451,8 +488,8 @@ def check_flash(timer):
                     "live_rows": float(live.float().mean())}
             cases.append(case)
             for n, (e, ab) in errs.items():
-                worst[n] = max(worst[n], e)
-                worst_abs[n] = max(worst_abs[n], ab)
+                worst[n][dn] = max(worst[n].get(dn, 0.0), e)
+                worst_abs[n][dn] = max(worst_abs[n].get(dn, 0.0), ab)
             if max(e[0] for e in errs.values()) > tol or lse_err > TOL_LSE:
                 fail(f"a flash kernel disagrees with its plain version: "
                      f"{case}")
@@ -478,7 +515,7 @@ def time_flash(timer, gen):
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).replace("torch.", "")
-        q, k, v, do = _flash_inputs(gen, b, hq, hkv, t, d, dtype, True)
+        q, k, v, do = _flash_inputs(gen, b, hq, hkv, t, t, d, dtype, True)
         o, lse = fa.flash_attention_fwd(q, k, v)
         delta = (do.float() * o.float()).sum(-1)
         bw = (q, k, v, do, lse, delta)
@@ -887,14 +924,36 @@ def profile_cycles(bundle, prompts, ms_per_cycle, n_cycles=6):
 
 # ------------------------------------------------------------- train path --
 def _flash_launches():
+    """Launches by C entry point: the bf16 forward and dq wrappers count
+    their tensor-core launches apart from the rest."""
     from repro_torch.kernels import flash_attention as fa
-    return {n: getattr(fa, n).launches for n in FLASH}
+    fwd, dq = fa.flash_attention_fwd, fa.flash_attention_bwd_dq
+    return {"flash_fwd_sm90": fwd.sm90_launches,
+            "flash_fwd": fwd.launches - fwd.sm90_launches,
+            "flash_bwd_dq_sm90": dq.sm90_launches,
+            "flash_bwd_dq": dq.launches - dq.sm90_launches,
+            "flash_bwd_dkv": fa.flash_attention_bwd_dkv.launches}
 
 
 def _zero_flash_launches():
     from repro_torch.kernels import flash_attention as fa
     for n in FLASH:
         getattr(fa, n).launches = 0
+    for n in FLASH[:2]:
+        getattr(fa, n).sm90_launches = 0
+
+
+def _check_flash_launches(launches, n_steps, sm90):
+    """16 forward (remat runs it twice), 8 dq and 8 dk/dv launches per
+    step, each through the kernel of the step's dtype."""
+    sfx = "_sm90" if sm90 else ""
+    want = {f"flash_fwd{sfx}": 2 * TRAIN_LAYERS,
+            f"flash_bwd_dq{sfx}": TRAIN_LAYERS,
+            "flash_bwd_dkv": TRAIN_LAYERS}
+    per_step = {k: v / n_steps for k, v in launches.items() if v}
+    if per_step != want:
+        fail(f"train: flash launches per step {per_step}, expected {want}")
+    return per_step
 
 
 def train_cfg(dtype):
@@ -947,11 +1006,14 @@ def train_identity():
         if impl == "kernel":
             host["init"] = {k: v.to("cpu", copy=True)
                             for k, v in pm.flatten(params).items()}
+            _zero_flash_launches()
         params, state, losses, gnorms, secs = _run_steps(params, state, step,
                                                          ds, 3)
         runs[impl] = {"losses": losses, "grad_norms": gnorms,
                       "s_per_step": secs / 3}
         if impl == "kernel":
+            launches = _flash_launches()
+            per_step = _check_flash_launches(launches, 3, sm90=False)
             host["kernel"] = {k: v.to("cpu", copy=True)
                               for k, v in pm.flatten(params).items()}
         else:
@@ -983,19 +1045,28 @@ def train_identity():
            "param_mean_abs_diff": diff_sum / n,
            "param_mean_abs_move": move_sum / n,
            "param_rel_err": param_rel, "param_sign_bound": sign_bound,
+           "launches": launches, "launches_per_step": per_step,
            "tol": {"loss": TOL_TRAIN_LOSS, "grad_norm": TOL_TRAIN_GNORM,
                    "param": TOL_TRAIN_PARAM}}
     if loss_rel > TOL_TRAIN_LOSS or gn_rel > TOL_TRAIN_GNORM or \
             param_rel > TOL_TRAIN_PARAM or diff_max > sign_bound:
         fail(f"train: the kernel path disagrees with the plain path: {out}")
     emit({**out, "ok": True})
+    return launches
 
 
 def train_bf16(n_timed=5):
-    """bf16 (the config's dtype) through the kernels: one warm-up step and
-    ``n_timed`` timed ones; the flash launch counts are zeroed just before
-    and read just after. Returns what the profile phase continues from."""
+    """bf16 (the config's dtype): three steps through the plain chunked
+    attention, freed, then through the kernels one warm-up step and
+    ``n_timed`` timed ones from the same seeded weights and batches; the
+    kernel run's first three losses are held to the plain run's, and the
+    flash launch counts are zeroed just before the kernel run and read
+    just after. Returns what the profile phase continues from."""
     cfg = train_cfg("bfloat16")
+    params, state, step, ds = _start_training(cfg, "chunked")
+    _, _, plain_losses, _, plain_s = _run_steps(params, state, step, ds, 3)
+    del params, state, step, ds
+    torch.cuda.empty_cache()
     params, state, step, ds = _start_training(cfg, "kernel")
     torch.cuda.reset_peak_memory_stats()
     _zero_flash_launches()
@@ -1004,22 +1075,24 @@ def train_bf16(n_timed=5):
     params, state, losses, gnorms, secs = _run_steps(params, state, step, ds,
                                                      n_timed)
     launches = _flash_launches()
-    n_steps = 1 + n_timed
-    per_step = {k: v / n_steps for k, v in launches.items()}
-    want = {"flash_attention_fwd": 2 * TRAIN_LAYERS,
-            "flash_attention_bwd_dq": TRAIN_LAYERS,
-            "flash_attention_bwd_dkv": TRAIN_LAYERS}
-    if per_step != want:
-        fail(f"train: flash launches per step {per_step}, expected {want}")
+    per_step = _check_flash_launches(launches, 1 + n_timed, sm90=True)
     ms = 1e3 * secs / n_timed
-    emit({"phase": "train_bf16", "ok": True, "layers": cfg.num_layers,
-          "params": cfg.param_count(), "batch": TRAIN_B, "seq": TRAIN_T,
-          "warmup_s": warm_s, "ms_per_step": ms,
-          "tokens_per_s": TRAIN_B * TRAIN_T * n_timed / secs,
-          "max_memory_allocated_gb":
-              torch.cuda.max_memory_allocated() / 1e9,
-          "losses": warm_losses + losses, "grad_norms": gnorms,
-          "launches": launches, "launches_per_step": per_step})
+    kernel_losses = warm_losses + losses
+    loss_rel = max(abs(x - y) / abs(y)
+                   for x, y in zip(kernel_losses[:3], plain_losses))
+    out = {"phase": "train_bf16", "layers": cfg.num_layers,
+           "params": cfg.param_count(), "batch": TRAIN_B, "seq": TRAIN_T,
+           "warmup_s": warm_s, "ms_per_step": ms,
+           "tokens_per_s": TRAIN_B * TRAIN_T * n_timed / secs,
+           "max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated() / 1e9,
+           "losses": kernel_losses, "grad_norms": gnorms,
+           "plain_losses": plain_losses, "plain_s_per_step": plain_s / 3,
+           "loss_rel_err": loss_rel, "tol_loss": TOL_TRAIN_BF16_LOSS,
+           "launches": launches, "launches_per_step": per_step}
+    if loss_rel > TOL_TRAIN_BF16_LOSS:
+        fail(f"train: bf16 kernel losses disagree with the plain path: {out}")
+    emit({**out, "ok": True})
     return (params, state, step, ds), launches, ms
 
 
@@ -1051,6 +1124,11 @@ def profile_train_step(run, ms_per_step):
 
 
 # ------------------------------------------------------------------ main --
+def _timing_keys(t):
+    return {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms")}
+
+
 def main():
     if len(sys.argv) > 1:
         fail(f"chip_smoke.py takes no arguments: {sys.argv[1:]}")
@@ -1087,36 +1165,35 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
-    train_identity()
-    run, flash_launches, ms_step = train_bf16()
+    fp32_launches = train_identity()
+    run, bf16_launches, ms_step = train_bf16()
     profile_train_step(run, ms_step)
     del run
     torch.cuda.synchronize()
 
-    # cascade rows: the fp32 decode shape; flash rows: bf16, the training
-    # step's dtype (both dtypes are in the kernels and flash phases)
+    # cascade rows: the fp32 decode shape, launches of the decode path;
+    # flash rows: one per kernel at its dtype, the training shape, launches
+    # of the training path in that dtype (the bf16 step, or the kernel
+    # side of the fp32 identity run)
     rows = []
-    entries = [
-        ("cascade_phase1", "src/repro_torch/csrc/cascade_phase1.cu",
-         "src/repro/kernels/cascade_attention.py:45",
-         launches, worst, timing, "float32"),
-        ("cascade_phase1_paged", "src/repro_torch/csrc/cascade_phase1.cu",
-         "src/repro/kernels/cascade_attention.py:243",
-         launches, worst, timing, "float32")]
-    for name, line in zip(FLASH, (40, 146, 189)):
-        entries.append((name, "src/repro_torch/csrc/flash_attention.cu",
-                        f"src/repro/kernels/flash_attention.py:{line}",
-                        flash_launches, flash_worst, flash_timing,
-                        "bfloat16"))
-    for name, src, replaces, counts, errs, tim, dn in entries:
-        t = tim.get(name, {}).get(dn, {})
-        rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": counts.get(name, 0),
-                     "max_abs_err": errs.get(name),
-                     "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
-                     "bound_ms": t.get("bound_ms"),
-                     "bound_by": t.get("bound_by"),
-                     "library_ms": t.get("library_ms"), "dtype": dn})
+    for name, line in (("cascade_phase1", 45), ("cascade_phase1_paged", 243)):
+        t = timing[name]["float32"]
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/csrc/cascade_phase1.cu",
+                     "replaces": f"src/repro/kernels/cascade_attention.py:"
+                                 f"{line}",
+                     "launches": launches[name], "max_abs_err": worst[name],
+                     "dtype": "float32", **_timing_keys(t)})
+    for name, (wrapper, dtype, src, line) in FLASH_KERNELS.items():
+        dn = str(dtype).replace("torch.", "")
+        counts = bf16_launches if dtype == torch.bfloat16 else fp32_launches
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"src/repro_torch/csrc/{src}",
+                     "replaces": f"src/repro/kernels/flash_attention.py:"
+                                 f"{line}",
+                     "launches": counts[name],
+                     "max_abs_err": flash_worst[wrapper][dn], "dtype": dn,
+                     **_timing_keys(flash_timing[wrapper][dn])})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

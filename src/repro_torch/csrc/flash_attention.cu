@@ -1,21 +1,25 @@
-// Flash attention forward and backward, for Hopper (sm_90a).
+// Flash attention forward and backward on the CUDA cores, for Hopper
+// (sm_90a).
 //
 // Replaces the three Pallas TPU kernels of repro/kernels/flash_attention.py:
-//   * _fwd_kernel      -> flash_fwd       (o [B,Hq,Tq,D] in q's dtype,
-//                                          lse [B,Hq,Tq] fp32)
-//   * _bwd_dq_kernel   -> flash_bwd_dq    (dq in q's dtype)
-//   * _bwd_dkv_kernel  -> flash_bwd_dkv   (dk, dv in k's dtype, summed over
-//                                          the GQA group inside the block)
+//   * _fwd_kernel      -> flash_fwd       (float32: o [B,Hq,Tq,D],
+//                                          lse [B,Hq,Tq])
+//   * _bwd_dq_kernel   -> flash_bwd_dq    (float32: dq)
+//   * _bwd_dkv_kernel  -> flash_bwd_dkv   (float32 or bfloat16: dk, dv in
+//                                          k's dtype, summed over the GQA
+//                                          group inside the block)
 // with GQA (Hq % Hkv == 0), causal masking with a scalar q_offset (query i
 // sits at i + q_offset, key j at j), a sliding window (key live if
 // kpos > qpos - window), a per-row kv_len [B], and the gemma-style softcap
 // applied BEFORE the mask, as _mask_block does.
+// bfloat16 forward and dq run on the tensor cores instead, in
+// flash_attention_sm90.cu.
 //
 // What bounds it on an H100: operations. At the training shape (T 4096,
 // D 128, causal) a (b, q-head) pair does T^2/2 * D * 4 FLOPs forward on
 // 2*T*D*2 input bytes: thousands of FLOPs per byte, far above the card's
-// ridge. This first version is simple and exact, not fast: fp32 on the
-// CUDA cores (bf16 inputs are upcast as they are staged), tiles of 64
+// ridge. These kernels are simple and exact, not fast: fp32 on the
+// CUDA cores (bf16 dk/dv inputs are upcast as they are staged), tiles of 64
 // queries x 64 keys staged in shared memory, each of 256 threads owning a
 // 4 x 4 patch of the score tile and a 4 x (D/16) patch of its accumulator.
 // What the design does for the operation count:
@@ -26,7 +30,9 @@
 //     loops over the GQA group's query heads itself, so dk/dv are summed
 //     in registers and written once: no atomics (a training step is
 //     deterministic) and no per-query-head [B,Hq,Tkv,D] buffer.
-// Tensor cores (mma.sync, then wgmma) and TMA staging are later work.
+// The fp32 kernels stay on the CUDA cores on purpose: TF32 tensor cores
+// would round the products and break the fp32 training identity. The
+// bf16 dk/dv kernel is the next to move to the tensor cores.
 //
 // A TPU grid carries the running softmax across sequential kv steps in
 // scratch; here each block loops over its own key (or query) tiles.
@@ -121,7 +127,7 @@ __device__ __forceinline__ void key_range(const Params& p, int q0, int nq,
 }
 
 // ------------------------------------------------------------- forward ---
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
   constexpr int LDQ = DP + 4, LDK = DP + 1, LDV = DP, LDP = BK + 1, NC = DP / 16;
   extern __shared__ float smem[];
@@ -136,11 +142,11 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
   const int hk = h / (p.Hq / p.Hkv);
   const int nq = min(BQ, p.Tq - q0);
   const int kvl = max(0, min(p.Tkv, p.kv_len[b]));
-  const T* Q = static_cast<const T*>(p.q) + b * p.qs0 + h * p.qs1;
-  const T* K = static_cast<const T*>(p.k) + b * p.ks0 + hk * p.ks1;
-  const T* V = static_cast<const T*>(p.v) + b * p.vs0 + hk * p.vs1;
+  const float* Q = static_cast<const float*>(p.q) + b * p.qs0 + h * p.qs1;
+  const float* K = static_cast<const float*>(p.k) + b * p.ks0 + hk * p.ks1;
+  const float* V = static_cast<const float*>(p.v) + b * p.vs0 + hk * p.vs1;
 
-  stage<T, DP, LDQ>(Qs, Q, p.qs2, q0, p.Tq, p.D, p.scale);
+  stage<float, DP, LDQ>(Qs, Q, p.qs2, q0, p.Tq, p.D, p.scale);
   int kbeg, kend;
   key_range(p, q0, nq, kvl, kbeg, kend);
 
@@ -155,8 +161,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
 
   for (int k0 = kbeg; k0 < kend; k0 += BK) {
     __syncthreads();
-    stage<T, DP, LDK>(Ks, K, p.ks2, k0, p.Tkv, p.D, 1.f);
-    stage<T, DP, LDV>(Vs, V, p.vs2, k0, p.Tkv, p.D, 1.f);
+    stage<float, DP, LDK>(Ks, K, p.ks2, k0, p.Tkv, p.D, 1.f);
+    stage<float, DP, LDV>(Vs, V, p.vs2, k0, p.Tkv, p.D, 1.f);
     __syncthreads();
 
     float s[4][4];
@@ -220,7 +226,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
     }
   }
 
-  T* O = static_cast<T*>(p.o) + b * p.os0 + h * p.os1;
+  float* O = static_cast<float*>(p.o) + b * p.os0 + h * p.os1;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int row = ty * 4 + r;
@@ -229,7 +235,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = tx + 16 * c;
-      if (d < p.D) O[(q0 + row) * p.os2 + d] = from_f<T>(acc[r][c] / ls);
+      if (d < p.D) O[(q0 + row) * p.os2 + d] = acc[r][c] / ls;
     }
     if (tx == 0)
       p.lse_out[((int64_t)b * p.Hq + h) * p.Tq + q0 + row] = m[r] + logf(ls);
@@ -237,7 +243,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
 }
 
 // ---------------------------------------------------------- backward dq ---
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
   constexpr int LDQ = DP + 4, LDK = DP + 1, LDP = BK + 1, NC = DP / 16;
   extern __shared__ float smem[];
@@ -253,14 +259,14 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
   const int hk = h / (p.Hq / p.Hkv);
   const int nq = min(BQ, p.Tq - q0);
   const int kvl = max(0, min(p.Tkv, p.kv_len[b]));
-  const T* Q = static_cast<const T*>(p.q) + b * p.qs0 + h * p.qs1;
-  const T* dO = static_cast<const T*>(p.dout) + b * p.ds0 + h * p.ds1;
-  const T* K = static_cast<const T*>(p.k) + b * p.ks0 + hk * p.ks1;
-  const T* V = static_cast<const T*>(p.v) + b * p.vs0 + hk * p.vs1;
+  const float* Q = static_cast<const float*>(p.q) + b * p.qs0 + h * p.qs1;
+  const float* dO = static_cast<const float*>(p.dout) + b * p.ds0 + h * p.ds1;
+  const float* K = static_cast<const float*>(p.k) + b * p.ks0 + hk * p.ks1;
+  const float* V = static_cast<const float*>(p.v) + b * p.vs0 + hk * p.vs1;
   const int64_t rbase = ((int64_t)b * p.Hq + h) * p.Tq + q0;
 
-  stage<T, DP, LDQ>(Qs, Q, p.qs2, q0, p.Tq, p.D, p.scale);
-  stage<T, DP, LDQ>(dOs, dO, p.ds2, q0, p.Tq, p.D, 1.f);
+  stage<float, DP, LDQ>(Qs, Q, p.qs2, q0, p.Tq, p.D, p.scale);
+  stage<float, DP, LDQ>(dOs, dO, p.ds2, q0, p.Tq, p.D, 1.f);
   float lse[4], dlt[4];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
@@ -279,8 +285,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
 
   for (int k0 = kbeg; k0 < kend; k0 += BK) {
     __syncthreads();
-    stage<T, DP, LDK>(Ks, K, p.ks2, k0, p.Tkv, p.D, 1.f);
-    stage<T, DP, LDK>(Vs, V, p.vs2, k0, p.Tkv, p.D, 1.f);
+    stage<float, DP, LDK>(Ks, K, p.ks2, k0, p.Tkv, p.D, 1.f);
+    stage<float, DP, LDK>(Vs, V, p.vs2, k0, p.Tkv, p.D, 1.f);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -343,7 +349,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
     }
   }
 
-  T* dQ = static_cast<T*>(p.o) + b * p.os0 + h * p.os1;
+  float* dQ = static_cast<float*>(p.o) + b * p.os0 + h * p.os1;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int row = ty * 4 + r;
@@ -351,7 +357,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = tx + 16 * c;
-      if (d < p.D) dQ[(q0 + row) * p.os2 + d] = from_f<T>(dq[r][c] * p.scale);
+      if (d < p.D) dQ[(q0 + row) * p.os2 + d] = dq[r][c] * p.scale;
     }
   }
 }
@@ -537,14 +543,17 @@ template <typename T, int DP>
 int dispatch(Which w, const Params& p, cudaStream_t st) {
   const dim3 gq((p.Tq + BQ - 1) / BQ, p.Hq, p.B);
   const dim3 gk((p.Tkv + BK - 1) / BK, p.Hkv, p.B);
-  if (w == FWD) return launch(flash_fwd_kernel<T, DP>, gq, fwd_smem<DP>(), p, st);
-  if (w == DQ) return launch(flash_bwd_dq_kernel<T, DP>, gq, dq_smem<DP>(), p, st);
+  if constexpr (sizeof(T) == sizeof(float)) {
+    if (w == FWD) return launch(flash_fwd_kernel<DP>, gq, fwd_smem<DP>(), p, st);
+    if (w == DQ) return launch(flash_bwd_dq_kernel<DP>, gq, dq_smem<DP>(), p, st);
+  }
   return launch(flash_bwd_dkv_kernel<T, DP>, gk, dkv_smem<DP>(), p, st);
 }
 
 int run(Which w, const Params& p, int bf16, void* stream) {
+  // bf16 forward and dq are flash_attention_sm90.cu's
   if (p.D < 1 || p.D > 128 || p.Hkv < 1 || p.Hq % p.Hkv != 0 || p.B < 1 ||
-      p.Tq < 1 || p.Tkv < 1)
+      p.Tq < 1 || p.Tkv < 1 || (bf16 && w != DKV))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (p.D <= 64)

@@ -1,0 +1,844 @@
+// Flash attention forward and dq for bfloat16 on Hopper tensor cores
+// (sm_90a): wgmma on TMA-staged, 128-byte-swizzled tiles.
+//
+// Replaces, for bfloat16 inputs, two Pallas TPU kernels of
+// repro/kernels/flash_attention.py:
+//   * _fwd_kernel     -> flash_fwd_sm90     (o in bf16, lse [B,Hq,Tq] fp32)
+//   * _bwd_dq_kernel  -> flash_bwd_dq_sm90  (dq in bf16)
+// float32 inputs, and dk/dv in both dtypes, stay on the CUDA-core kernels
+// of flash_attention.cu. The semantics are those kernels': GQA
+// (Hq % Hkv == 0), causal masking with a scalar q_offset (query i sits at
+// i + q_offset, key j at j), a sliding window (key live if
+// kpos > qpos - window), a per-row kv_len [B], the softcap applied before
+// the mask (and 1 - tanh^2 in dq); masked keys give p = 0 exactly, so a
+// row with no live key gets o = 0, dq = 0; ragged Tq / Tkv need no
+// padding; inputs are read through strides whose head-dim axis is
+// contiguous (the model's [B,T,H,D] tensors come in as transposed views)
+// and outputs are written through the strides of their input.
+//
+// What bounds them on an H100: operations. At the training shape (B 2,
+// Hq 32, Hkv 8, T 4096, D 128, causal) the forward does 2.75e11 FLOPs on
+// 169 MB of inputs and outputs and dq 4.12e11 on 237 MB: over 1,600
+// FLOPs per byte against the card's bf16 ridge of about 295, so only the
+// tensor cores can bring them near their bound. The design:
+//   * one block is 128 query rows of one (row, q-head); it has two
+//     consumer warpgroups of 64 rows each and one producer warp (288
+//     threads, so a consumer thread may hold up to 224 registers without
+//     setmaxnreg);
+//   * the producer warp loads Q (and dO) once and streams K and V tiles
+//     through a two-stage ring in shared memory by TMA (4-D maps over
+//     (D, T, H, B) built on the host from the strides, out-of-bounds rows
+//     and head-dim columns filled with zeros, 128-byte swizzle), one
+//     mbarrier per stage for "full" and one for "empty";
+//   * each consumer computes S = Q K^T with wgmma.m64nNk16 straight from
+//     the swizzled tiles (both K-major along D), runs the softcap, the mask
+//     (only on tiles that cross the causal edge, the window edge or kv_len)
+//     and the online softmax on the accumulator registers (row max and sum
+//     over the four threads of a quad), casts P (dq: dS) to bf16 in
+//     registers and multiplies it into V (dq: K) with the register-A wgmma,
+//     the B tile read MN-major (transpose bit set);
+//   * key tiles wholly past the causal edge, before the window or past
+//     kv_len are never loaded, which halves causal work; blocks are issued
+//     longest first;
+//   * dq: Q and dO stay resident, K and V stream in 64-key tiles, two
+//     wgmma per tile (S = Q K^T, dP = dO V^T), dS = P (dP - delta) dcap in
+//     registers, dQ += dS K; each block owns its rows, so no atomics and
+//     the result is deterministic.
+// P and dS are rounded to bf16 for the second product (the plain version
+// keeps them in fp32); row sums and every accumulator stay fp32.
+// cuTensorMapEncodeTiled is reached through the runtime's driver entry
+// point (cudaGetDriverEntryPoint), so the library links no -lcuda.
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BQ = 128;           // query rows per block
+constexpr int WG_ROWS = 64;       // rows per consumer warpgroup
+constexpr int FWD_BK = 128;       // keys per forward tile
+constexpr int DQ_BK = 64;         // keys per dq tile
+constexpr int NSTAGE = 2;         // K/V ring depth
+constexpr int NTHREADS = 288;     // two consumer warpgroups + a producer warp
+constexpr int PANEL = 64;         // head-dim columns per swizzled panel (128 B)
+constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr long long WATCHDOG_CYCLES = 1ll << 35;   // ~17 s: trap, not hang
+
+struct Params {
+  const int* kv_len;       // [B]
+  void* out;               // forward: o; dq kernel: dq (bf16)
+  long long os0, os1, os2;
+  float* lse_out;          // forward: [B,Hq,Tq]
+  const float* lse_in;     // dq: [B,Hq,Tq]
+  const float* delta;      // dq: [B,Hq,Tq]
+  int B, Hq, Hkv, Tq, Tkv, D;
+  int causal, q_offset, window;   // window <= 0: none
+  float softcap, scale;           // softcap <= 0: none
+};
+
+// --------------------------------------------------------- primitives ---
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Wait for the phase of the given parity to complete. A wait that outlives
+// WATCHDOG_CYCLES traps, so a fault in the pipeline surfaces as a launch
+// error instead of a hung card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  const long long t0 = clock64();
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (done) return;
+    if (clock64() - t0 > WATCHDOG_CYCLES) __trap();
+  }
+}
+
+// TMA: the box at (c0, c1, c2, c3) = (d, t, h, b) of a 4-D map into shared
+// memory, completion counted in bytes on bar.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets, all in 16-byte units.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// Keep the compiler from moving accesses of accumulator registers across
+// the asynchronous wgmma that reads and writes them.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[64 x 16]^T; A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 128] (+)= A[64 x 16] B[128 x 16]^T; A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 64] += A[64 x 16] B[16 x 64]; A in registers (bf16 pairs), B
+// MN-major in shared memory (transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 128] += A[64 x 16] B[16 x 128]; A in registers (bf16 pairs), B
+// MN-major in shared memory (transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  if constexpr (N == 64) wgmma_ss_n64(d, da, db, accumulate);
+  else wgmma_ss_n128(d, da, db, accumulate);
+}
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t* a,
+                                         uint64_t db) {
+  if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else wgmma_rs_n128(d, a, db);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ bool live_key(const Params& p, int qpos, int kpos,
+                                         int kvl) {
+  return kpos < kvl && (!p.causal || kpos <= qpos) &&
+         (p.window <= 0 || kpos > qpos - p.window);
+}
+
+// Key tiles [kbeg, kbeg + n * BK) that the query rows [q0, q0 + nq) can see.
+template <int BK>
+__device__ __forceinline__ int key_tiles(const Params& p, int q0, int nq,
+                                         int kvl, int& kbeg) {
+  const int qmin = q0 + p.q_offset, qmax = q0 + nq - 1 + p.q_offset;
+  int kend = kvl;
+  if (p.causal) kend = min(kend, qmax + 1);
+  kbeg = p.window > 0 ? max(0, qmin - p.window + 1) : 0;
+  kbeg = (kbeg / BK) * BK;
+  return kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
+}
+
+// True when every key of [k0, k0 + BK) is live for every query position
+// in [qlo, qhi]: the tile needs no mask.
+template <int BK>
+__device__ __forceinline__ bool tile_all_live(const Params& p, int k0,
+                                              int qlo, int qhi, int kvl) {
+  return k0 + BK <= kvl && (!p.causal || k0 + BK - 1 <= qlo) &&
+         (p.window <= 0 || k0 > qhi - p.window);
+}
+
+// The block's (query tile, q-head, row) from a 1-D grid whose first blocks
+// hold the last query tiles, the longest under a causal mask.
+__device__ __forceinline__ void block_coords(const Params& p, int& q0, int& h,
+                                             int& b) {
+  const int nqb = (p.Tq + BQ - 1) / BQ;
+  const int per = p.Hq * p.B;
+  const int i = blockIdx.x;
+  q0 = (nqb - 1 - i / per) * BQ;
+  h = (i % per) % p.Hq;
+  b = (i % per) / p.Hq;
+}
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* raw) {
+  const uint32_t a = smem_u32(raw);
+  return raw + (((a + 1023u) & ~1023u) - a);
+}
+
+// ------------------------------------------------------------- forward ---
+// Shared memory: Q [DP/64 panels][128 rows][64], then per stage K and V
+// [DP/64 panels][FWD_BK rows][64]; each panel row is 128 bytes, swizzled.
+template <int DP> struct FwdSmem {
+  static constexpr int NP = DP / PANEL;
+  static constexpr uint32_t Q_BYTES = NP * BQ * 128;
+  static constexpr uint32_t KV_BYTES = NP * FWD_BK * 128;   // one K or V tile
+  static constexpr uint32_t TILES = Q_BYTES + 2 * NSTAGE * KV_BYTES;
+  static constexpr size_t BYTES = TILES + 8 * (1 + 3 * NSTAGE) + 1024;
+};
+
+template <int DP>
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const Params p) {
+  using L = FwdSmem<DP>;
+  constexpr int BK = FWD_BK, NP = L::NP;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = align1024(smem_raw);
+  uint8_t* Qs = base;
+  uint8_t* Ks = Qs + L::Q_BYTES;
+  uint8_t* Vs = Ks + NSTAGE * L::KV_BYTES;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + L::TILES);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = k_full + NSTAGE;
+  uint64_t* empty = v_full + NSTAGE;
+
+  int q0, h, b;
+  block_coords(p, q0, h, b);
+  const int hk = h / (p.Hq / p.Hkv);
+  const int nq = min(BQ, p.Tq - q0);
+  const int kvl = max(0, min(p.Tkv, p.kv_len[b]));
+  int kbeg;
+  const int ntiles = key_tiles<BK>(p, q0, nq, kvl, kbeg);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < NSTAGE; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 8) {                                   // producer
+    if (lane == 0) {
+      mbar_expect_tx(q_full, L::Q_BYTES);
+      for (int c = 0; c < NP; ++c)
+        tma_load(Qs + c * BQ * 128, &tm_q, q_full, c * PANEL, q0, h, b);
+      for (int it = 0; it < ntiles; ++it) {
+        const int s = it % NSTAGE;
+        if (it >= NSTAGE) mbar_wait(&empty[s], ((it / NSTAGE) & 1) ^ 1);
+        const int k0 = kbeg + it * BK;
+        uint8_t* kd = Ks + s * L::KV_BYTES;
+        uint8_t* vd = Vs + s * L::KV_BYTES;
+        mbar_expect_tx(&k_full[s], L::KV_BYTES);
+        for (int c = 0; c < NP; ++c)
+          tma_load(kd + c * BK * 128, &tm_k, &k_full[s], c * PANEL, k0, hk, b);
+        mbar_expect_tx(&v_full[s], L::KV_BYTES);
+        for (int c = 0; c < NP; ++c)
+          tma_load(vd + c * BK * 128, &tm_v, &v_full[s], c * PANEL, k0, hk, b);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows [q0 + 64 wg, q0 + 64 wg + 64); this
+  // thread holds rows ra = 16 w + lane / 4 and ra + 8 of them, and of each
+  // 8-column block of an accumulator the columns 2 (lane % 4) + {0, 1}
+  const int wg = warp / 4, w = warp % 4;
+  const int ra = 16 * w + lane / 4;
+  const int qlo = q0 + WG_ROWS * wg + p.q_offset;   // position of WG row 0
+  const int qa = qlo + ra, qb = qa + 8;
+  const int col = 2 * (lane % 4);
+  const float sl = p.scale * LOG2E;                  // natural -> log2 units
+  const bool cap = p.softcap > 0.f;
+  const float cap_in = cap ? p.scale / p.softcap : 0.f;
+  const float cap_out = p.softcap * LOG2E;
+
+  float o[DP / 2], s[BK / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  // running max (log2 units; a row with no live key keeps NEG_INF in
+  // natural units) and this thread's part of the row sum
+  float m_a = NEG_INF * LOG2E, m_b = NEG_INF * LOG2E, l_a = 0.f, l_b = 0.f;
+
+  const uint8_t* qw = Qs + WG_ROWS * wg * 128;
+  mbar_wait(q_full, 0);
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it % NSTAGE;
+    const uint32_t ph = (it / NSTAGE) & 1;
+    const int k0 = kbeg + it * BK;
+    const uint8_t* kt = Ks + st * L::KV_BYTES;
+    const uint8_t* vt = Vs + st * L::KV_BYTES;
+
+    mbar_wait(&k_full[st], ph);
+    __syncwarp();
+    reg_fence(s);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const int c = kk / 4, off = (kk % 4) * 32;
+      wgmma_ss<BK>(s, sw128_desc(qw + c * BQ * 128 + off, 16, 1024),
+                   sw128_desc(kt + c * BK * 128 + off, 16, 1024), kk > 0);
+    }
+    wg_commit();
+    wg_wait_all();
+    reg_fence(s);
+
+    // scores in log2 units: softcap, mask, running max
+    const bool masked = !tile_all_live<BK>(p, k0, qlo, qlo + WG_ROWS - 1, kvl);
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float xa = s[4 * n + j], xb = s[4 * n + 2 + j];
+        if (cap) {
+          xa = cap_out * tanhf(xa * cap_in);
+          xb = cap_out * tanhf(xb * cap_in);
+        } else {
+          xa *= sl;
+          xb *= sl;
+        }
+        if (masked) {
+          const int kpos = k0 + 8 * n + col + j;
+          if (!live_key(p, qa, kpos, kvl)) xa = -INFINITY;
+          if (!live_key(p, qb, kpos, kvl)) xb = -INFINITY;
+        }
+        s[4 * n + j] = xa;
+        s[4 * n + 2 + j] = xb;
+        mx_a = fmaxf(mx_a, xa);
+        mx_b = fmaxf(mx_b, xb);
+      }
+    }
+    const float mn_a = fmaxf(m_a, quad_max(mx_a));
+    const float mn_b = fmaxf(m_b, quad_max(mx_b));
+    const float al_a = exp2f(m_a - mn_a), al_b = exp2f(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.f, sum_b = 0.f;
+    uint32_t pa[BK / 4];            // P as the A operand: 4 registers per 16 keys
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+      const float p0 = exp2f(s[4 * n] - mn_a), p1 = exp2f(s[4 * n + 1] - mn_a);
+      const float p2 = exp2f(s[4 * n + 2] - mn_b), p3 = exp2f(s[4 * n + 3] - mn_b);
+      sum_a += p0 + p1;
+      sum_b += p2 + p3;
+      // keys 16 kk + [0, 8) go to registers 0 (row a) and 1 (row b),
+      // keys 16 kk + [8, 16) to registers 2 and 3
+      pa[(n / 2) * 4 + (n % 2) * 2] = pack_bf16(p0, p1);
+      pa[(n / 2) * 4 + (n % 2) * 2 + 1] = pack_bf16(p2, p3);
+    }
+    l_a = l_a * al_a + sum_a;
+    l_b = l_b * al_b + sum_b;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      o[4 * n] *= al_a;
+      o[4 * n + 1] *= al_a;
+      o[4 * n + 2] *= al_b;
+      o[4 * n + 3] *= al_b;
+    }
+
+    mbar_wait(&v_full[st], ph);
+    __syncwarp();
+    reg_fence(o);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs<DP>(o, &pa[4 * kk],
+                   sw128_desc(vt + kk * 16 * 128, BK * 128, 1024));
+    wg_commit();
+    wg_wait_all();
+    reg_fence(o);
+    mbar_arrive(&empty[st]);
+  }
+
+  l_a = fmaxf(quad_sum(l_a), 1e-30f);
+  l_b = fmaxf(quad_sum(l_b), 1e-30f);
+  const int row_a = q0 + WG_ROWS * wg + ra, row_b = row_a + 8;
+  __nv_bfloat16* O = static_cast<__nv_bfloat16*>(p.out) + b * p.os0 + h * p.os1;
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) {
+    const int d = 8 * n + col;
+    if (8 * n >= p.D) continue;
+    if (row_a < p.Tq)
+      *reinterpret_cast<uint32_t*>(O + row_a * p.os2 + d) =
+          pack_bf16(o[4 * n] / l_a, o[4 * n + 1] / l_a);
+    if (row_b < p.Tq)
+      *reinterpret_cast<uint32_t*>(O + row_b * p.os2 + d) =
+          pack_bf16(o[4 * n + 2] / l_b, o[4 * n + 3] / l_b);
+  }
+  if (lane % 4 == 0) {
+    const long long rb = (static_cast<long long>(b) * p.Hq + h) * p.Tq;
+    // back to natural units: lse = m ln 2 + ln l
+    if (row_a < p.Tq) p.lse_out[rb + row_a] = m_a / LOG2E + logf(l_a);
+    if (row_b < p.Tq) p.lse_out[rb + row_b] = m_b / LOG2E + logf(l_b);
+  }
+}
+
+// ---------------------------------------------------------- backward dq ---
+// Shared memory: Q and dO [DP/64 panels][128 rows][64], then per stage K
+// and V [DP/64 panels][DQ_BK rows][64], swizzled as in the forward.
+template <int DP> struct DqSmem {
+  static constexpr int NP = DP / PANEL;
+  static constexpr uint32_t Q_BYTES = NP * BQ * 128;
+  static constexpr uint32_t KV_BYTES = NP * DQ_BK * 128;
+  static constexpr uint32_t TILES = 2 * Q_BYTES + 2 * NSTAGE * KV_BYTES;
+  static constexpr size_t BYTES = TILES + 8 * (1 + 2 * NSTAGE) + 1024;
+};
+
+template <int DP>
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_do,
+                         const Params p) {
+  using L = DqSmem<DP>;
+  constexpr int BK = DQ_BK, NP = L::NP;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = align1024(smem_raw);
+  uint8_t* Qs = base;
+  uint8_t* dOs = Qs + L::Q_BYTES;
+  uint8_t* Ks = dOs + L::Q_BYTES;
+  uint8_t* Vs = Ks + NSTAGE * L::KV_BYTES;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + L::TILES);
+  uint64_t* q_full = bars;                 // Q and dO
+  uint64_t* full = bars + 1;               // K and V of a stage
+  uint64_t* empty = full + NSTAGE;
+
+  int q0, h, b;
+  block_coords(p, q0, h, b);
+  const int hk = h / (p.Hq / p.Hkv);
+  const int nq = min(BQ, p.Tq - q0);
+  const int kvl = max(0, min(p.Tkv, p.kv_len[b]));
+  int kbeg;
+  const int ntiles = key_tiles<BK>(p, q0, nq, kvl, kbeg);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < NSTAGE; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 8) {                                   // producer
+    if (lane == 0) {
+      mbar_expect_tx(q_full, 2 * L::Q_BYTES);
+      for (int c = 0; c < NP; ++c) {
+        tma_load(Qs + c * BQ * 128, &tm_q, q_full, c * PANEL, q0, h, b);
+        tma_load(dOs + c * BQ * 128, &tm_do, q_full, c * PANEL, q0, h, b);
+      }
+      for (int it = 0; it < ntiles; ++it) {
+        const int s = it % NSTAGE;
+        if (it >= NSTAGE) mbar_wait(&empty[s], ((it / NSTAGE) & 1) ^ 1);
+        const int k0 = kbeg + it * BK;
+        uint8_t* kd = Ks + s * L::KV_BYTES;
+        uint8_t* vd = Vs + s * L::KV_BYTES;
+        mbar_expect_tx(&full[s], 2 * L::KV_BYTES);
+        for (int c = 0; c < NP; ++c) {
+          tma_load(kd + c * BK * 128, &tm_k, &full[s], c * PANEL, k0, hk, b);
+          tma_load(vd + c * BK * 128, &tm_v, &full[s], c * PANEL, k0, hk, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers, laid out as in the forward
+  const int wg = warp / 4, w = warp % 4;
+  const int ra = 16 * w + lane / 4;
+  const int qlo = q0 + WG_ROWS * wg + p.q_offset;
+  const int qa = qlo + ra, qb = qa + 8;
+  const int row_a = q0 + WG_ROWS * wg + ra, row_b = row_a + 8;
+  const int col = 2 * (lane % 4);
+  const float sl = p.scale * LOG2E;
+  const bool cap = p.softcap > 0.f;
+  const float cap_in = cap ? p.scale / p.softcap : 0.f;
+  const long long rb = (static_cast<long long>(b) * p.Hq + h) * p.Tq;
+  // lse and delta of this thread's rows (rows past Tq are never stored)
+  const float lse_a = row_a < p.Tq ? p.lse_in[rb + row_a] * LOG2E : 0.f;
+  const float lse_b = row_b < p.Tq ? p.lse_in[rb + row_b] * LOG2E : 0.f;
+  const float dl_a = row_a < p.Tq ? p.delta[rb + row_a] : 0.f;
+  const float dl_b = row_b < p.Tq ? p.delta[rb + row_b] : 0.f;
+
+  float dq[DP / 2], s[BK / 2], dp[BK / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dq[i] = 0.f;
+
+  const uint8_t* qw = Qs + WG_ROWS * wg * 128;
+  const uint8_t* dow = dOs + WG_ROWS * wg * 128;
+  mbar_wait(q_full, 0);
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it % NSTAGE;
+    const uint32_t ph = (it / NSTAGE) & 1;
+    const int k0 = kbeg + it * BK;
+    const uint8_t* kt = Ks + st * L::KV_BYTES;
+    const uint8_t* vt = Vs + st * L::KV_BYTES;
+
+    mbar_wait(&full[st], ph);
+    __syncwarp();
+    reg_fence(s);
+    reg_fence(dp);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const int c = kk / 4, off = (kk % 4) * 32;
+      wgmma_ss<BK>(s, sw128_desc(qw + c * BQ * 128 + off, 16, 1024),
+                   sw128_desc(kt + c * BK * 128 + off, 16, 1024), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const int c = kk / 4, off = (kk % 4) * 32;
+      wgmma_ss<BK>(dp, sw128_desc(dow + c * BQ * 128 + off, 16, 1024),
+                   sw128_desc(vt + c * BK * 128 + off, 16, 1024), kk > 0);
+    }
+    wg_commit();
+    wg_wait_all();
+    reg_fence(s);
+    reg_fence(dp);
+
+    // dS = P (dP - delta) dcap, P = exp(s - lse), 0 on masked keys
+    const bool masked = !tile_all_live<BK>(p, k0, qlo, qlo + WG_ROWS - 1, kvl);
+    uint32_t da[BK / 4];            // dS as the A operand
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool rb8 = e >= 2;
+        float x = s[4 * n + e], dcap = 1.f;
+        if (cap) {
+          const float t = tanhf(x * cap_in);
+          x = p.softcap * LOG2E * t;
+          dcap = 1.f - t * t;
+        } else {
+          x *= sl;
+        }
+        float pr = exp2f(x - (rb8 ? lse_b : lse_a));
+        if (masked && !live_key(p, rb8 ? qb : qa, k0 + 8 * n + col + (e & 1), kvl))
+          pr = 0.f;
+        ds[e] = pr * (dp[4 * n + e] - (rb8 ? dl_b : dl_a)) * dcap;
+      }
+      da[(n / 2) * 4 + (n % 2) * 2] = pack_bf16(ds[0], ds[1]);
+      da[(n / 2) * 4 + (n % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    }
+
+    reg_fence(dq);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs<DP>(dq, &da[4 * kk],
+                   sw128_desc(kt + kk * 16 * 128, BK * 128, 1024));
+    wg_commit();
+    wg_wait_all();
+    reg_fence(dq);
+    mbar_arrive(&empty[st]);
+  }
+
+  __nv_bfloat16* dQ = static_cast<__nv_bfloat16*>(p.out) + b * p.os0 + h * p.os1;
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) {
+    const int d = 8 * n + col;
+    if (8 * n >= p.D) continue;
+    if (row_a < p.Tq)
+      *reinterpret_cast<uint32_t*>(dQ + row_a * p.os2 + d) =
+          pack_bf16(dq[4 * n] * p.scale, dq[4 * n + 1] * p.scale);
+    if (row_b < p.Tq)
+      *reinterpret_cast<uint32_t*>(dQ + row_b * p.os2 + d) =
+          pack_bf16(dq[4 * n + 2] * p.scale, dq[4 * n + 3] * p.scale);
+  }
+}
+
+// ------------------------------------------------------------ the host ---
+typedef CUresult (*EncodeTiledFn)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// A bf16 [B, H, T, D] tensor with element strides (s0, s1, s2, 1) as a 4-D
+// map over (D, T, H, B) whose box is 64 head-dim columns x `rows` rows,
+// 128-byte swizzled, zero-filled out of bounds. TMA takes a 16-byte-aligned
+// base and strides that are multiples of 16 bytes; a dimension of size 1
+// has no stride to align, so it gets the largest of the others.
+int make_map(CUtensorMap* map, const void* ptr, int B, int H, int T, int D,
+             long long s0, long long s1, long long s2, int rows) {
+  EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return static_cast<int>(cudaErrorInitializationError);
+  long long st[3] = {s2, s1, s0};                 // T, H, B
+  const int n[3] = {T, H, B};
+  long long widest = 8;
+  for (int i = 0; i < 3; ++i)
+    if (n[i] > 1) widest = st[i] > widest ? st[i] : widest;
+  for (int i = 0; i < 3; ++i)
+    if (n[i] == 1) st[i] = widest;
+  if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0 || D % 8 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  for (int i = 0; i < 3; ++i)
+    if (st[i] <= 0 || st[i] % 8 != 0)
+      return static_cast<int>(cudaErrorMisalignedAddress);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(T),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[0]) * 2,
+                                 static_cast<cuuint64_t>(st[1]) * 2,
+                                 static_cast<cuuint64_t>(st[2]) * 2};
+  const cuuint32_t box[4] = {PANEL, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                         const_cast<void*>(ptr), dims, strides, box, estr,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+int check_dims(int B, int Hq, int Hkv, int Tq, int Tkv, int D, int bf16) {
+  if (!bf16 || D < 8 || D > 128 || D % 8 != 0 || Hkv < 1 || Hq % Hkv != 0 ||
+      B < 1 || Tq < 1 || Tkv < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
+}
+
+Params make(const int* kv_len, void* out, long long os0, long long os1,
+            long long os2, int B, int Hq, int Hkv, int Tq, int Tkv, int D,
+            int causal, int q_offset, int window, float softcap, float scale) {
+  Params p{};
+  p.kv_len = kv_len;
+  p.out = out; p.os0 = os0; p.os1 = os1; p.os2 = os2;
+  p.B = B; p.Hq = Hq; p.Hkv = Hkv; p.Tq = Tq; p.Tkv = Tkv; p.D = D;
+  p.causal = causal; p.q_offset = q_offset; p.window = window;
+  p.softcap = softcap; p.scale = scale;
+  return p;
+}
+
+template <typename Kern, typename... Args>
+int launch(Kern kern, size_t smem, const Params& p, cudaStream_t st,
+           const Args&... maps) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long nblocks =
+      static_cast<long long>((p.Tq + BQ - 1) / BQ) * p.Hq * p.B;
+  if (nblocks > 0x7fffffffll) return static_cast<int>(cudaErrorInvalidValue);
+  kern<<<static_cast<unsigned>(nblocks), NTHREADS, smem, st>>>(maps..., p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+int flash_fwd_sm90(const void* q, const void* k, const void* v,
+                   long long qs0, long long qs1, long long qs2,
+                   long long ks0, long long ks1, long long ks2,
+                   long long vs0, long long vs1, long long vs2,
+                   const int* kv_len, void* o, long long os0, long long os1,
+                   long long os2, float* lse,
+                   int B, int Hq, int Hkv, int Tq, int Tkv, int D,
+                   int causal, int q_offset, int window, float softcap,
+                   float scale, int bf16, void* stream) {
+  int rc = check_dims(B, Hq, Hkv, Tq, Tkv, D, bf16);
+  CUtensorMap mq, mk, mv;
+  if (!rc) rc = make_map(&mq, q, B, Hq, Tq, D, qs0, qs1, qs2, BQ);
+  if (!rc) rc = make_map(&mk, k, B, Hkv, Tkv, D, ks0, ks1, ks2, FWD_BK);
+  if (!rc) rc = make_map(&mv, v, B, Hkv, Tkv, D, vs0, vs1, vs2, FWD_BK);
+  if (rc) return rc;
+  Params p = make(kv_len, o, os0, os1, os2, B, Hq, Hkv, Tq, Tkv, D, causal,
+                  q_offset, window, softcap, scale);
+  p.lse_out = lse;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D <= 64)
+    return launch(flash_fwd_sm90_kernel<64>, FwdSmem<64>::BYTES, p, st, mq, mk, mv);
+  return launch(flash_fwd_sm90_kernel<128>, FwdSmem<128>::BYTES, p, st, mq, mk, mv);
+}
+
+int flash_bwd_dq_sm90(const void* q, const void* k, const void* v,
+                      const void* dout,
+                      long long qs0, long long qs1, long long qs2,
+                      long long ks0, long long ks1, long long ks2,
+                      long long vs0, long long vs1, long long vs2,
+                      long long ds0, long long ds1, long long ds2,
+                      const float* lse, const float* delta, const int* kv_len,
+                      void* dq, long long os0, long long os1, long long os2,
+                      int B, int Hq, int Hkv, int Tq, int Tkv, int D,
+                      int causal, int q_offset, int window, float softcap,
+                      float scale, int bf16, void* stream) {
+  int rc = check_dims(B, Hq, Hkv, Tq, Tkv, D, bf16);
+  CUtensorMap mq, mk, mv, mdo;
+  if (!rc) rc = make_map(&mq, q, B, Hq, Tq, D, qs0, qs1, qs2, BQ);
+  if (!rc) rc = make_map(&mk, k, B, Hkv, Tkv, D, ks0, ks1, ks2, DQ_BK);
+  if (!rc) rc = make_map(&mv, v, B, Hkv, Tkv, D, vs0, vs1, vs2, DQ_BK);
+  if (!rc) rc = make_map(&mdo, dout, B, Hq, Tq, D, ds0, ds1, ds2, BQ);
+  if (rc) return rc;
+  Params p = make(kv_len, dq, os0, os1, os2, B, Hq, Hkv, Tq, Tkv, D, causal,
+                  q_offset, window, softcap, scale);
+  p.lse_in = lse;
+  p.delta = delta;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D <= 64)
+    return launch(flash_bwd_dq_sm90_kernel<64>, DqSmem<64>::BYTES, p, st, mq, mk, mv, mdo);
+  return launch(flash_bwd_dq_sm90_kernel<128>, DqSmem<128>::BYTES, p, st, mq, mk, mv, mdo);
+}
+
+}  // extern "C"

@@ -1,14 +1,19 @@
 """Flash attention forward and backward (twin of
 ``repro/kernels/flash_attention.py``).
 
-Three CUDA kernels (``csrc/flash_attention.cu``) with GQA, causal masking
-at a scalar ``q_offset``, a sliding window, a per-row ``kv_len`` and the
-attention-logit softcap:
+CUDA kernels with GQA, causal masking at a scalar ``q_offset``, a sliding
+window, a per-row ``kv_len`` and the attention-logit softcap, numbered as
+in PERF.md's kernel table:
 
-  :func:`flash_attention_fwd`      ``_fwd_kernel``     -> (o, lse)
-  :func:`flash_attention_bwd_dq`   ``_bwd_dq_kernel``  -> dq
-  :func:`flash_attention_bwd_dkv`  ``_bwd_dkv_kernel`` -> (dk, dv), the GQA
-                                   group summed inside the kernel
+  #3 :func:`flash_attention_fwd`      ``_fwd_kernel``     -> (o, lse)
+  #4 :func:`flash_attention_bwd_dq`   ``_bwd_dq_kernel``  -> dq
+  #5 :func:`flash_attention_bwd_dkv`  ``_bwd_dkv_kernel`` -> (dk, dv), the
+                                      GQA group summed inside the kernel
+
+For bfloat16, #3 and #4 run on the tensor cores (``wgmma`` on TMA-staged
+tiles, ``csrc/flash_attention_sm90.cu``); for float32 they, and #5 in
+both dtypes, run on the CUDA cores (``csrc/flash_attention.cu``), so the
+fp32 path stays exact fp32 arithmetic.
 
 and :func:`flash_attention_bwd`, which computes ``delta = sum(do * o)`` in
 fp32 and composes the two backward kernels, as the JAX wrapper does.
@@ -17,8 +22,13 @@ Every kernel wrapper dispatches on the device of its query tensor: a CPU
 tensor runs the plain torch version (``*_plain``: the running softmax
 over 128-key blocks forward, ``p = exp(s - lse)`` and the explicit ``ds``
 backward, the arithmetic the kernels do, and the oracle they are held to
-on the card); a CUDA tensor launches the kernel or raises. There is no
-fallback. Each wrapper counts its launches in ``<wrapper>.launches``.
+on the card); a CUDA tensor launches the kernel for its dtype or raises.
+There is no fallback. Each wrapper counts its launches in
+``<wrapper>.launches``; #3 and #4 count those of the tensor-core kernel
+again in ``<wrapper>.sm90_launches``. The tensor-core kernels read their
+inputs by TMA, which takes 16-byte-aligned bases, head dims that are a
+multiple of 8 and strides that are multiples of 8 elements; the wrappers
+raise on anything else.
 
 Layouts are the kernel layout of the JAX module: q [B,Hq,Tq,D], k/v
 [B,Hkv,Tkv,D], with any strides whose head-dim axis is contiguous (the
@@ -111,15 +121,18 @@ def flash_attention_fwd(q, k, v, *, causal=True, q_offset=0, window=None,
     b, hq, tq, d = q.shape
     o = torch.empty_like(q)                   # q's memory layout
     lse = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
-    lib, head, kvl, tail = _common(q, k, v, None, kw)
-    rc = lib.flash_fwd(*head, kvl.data_ptr(), o.data_ptr(), *o.stride()[:3],
-                       lse.data_ptr(), *tail)
-    _raise_on(rc, "flash_fwd")
+    fn, sm90 = _entry("flash_fwd", q, k, v)
+    head, kvl, tail = _common(q, k, v, None, kw)
+    rc = fn(*head, kvl.data_ptr(), o.data_ptr(), *o.stride()[:3],
+            lse.data_ptr(), *tail)
+    _raise_on(rc, fn.__name__)
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.sm90_launches += sm90
     return o, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.sm90_launches = 0
 
 
 # -------------------------------------------------------------- backward ---
@@ -193,17 +206,19 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal=True,
         return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
     _check_cuda(q, k, v, do)
     dq = torch.empty_like(q)
-    lib, head, kvl, tail = _common(q, k, v, do, kw)
+    fn, sm90 = _entry("flash_bwd_dq", q, k, v, do)
+    head, kvl, tail = _common(q, k, v, do, kw)
     lse, delta = _rows(lse, q), _rows(delta, q)
-    rc = lib.flash_bwd_dq(*head, lse.data_ptr(), delta.data_ptr(),
-                          kvl.data_ptr(), dq.data_ptr(), *dq.stride()[:3],
-                          *tail)
-    _raise_on(rc, "flash_bwd_dq")
+    rc = fn(*head, lse.data_ptr(), delta.data_ptr(), kvl.data_ptr(),
+            dq.data_ptr(), *dq.stride()[:3], *tail)
+    _raise_on(rc, fn.__name__)
     flash_attention_bwd_dq.launches += 1
+    flash_attention_bwd_dq.sm90_launches += sm90
     return dq
 
 
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.sm90_launches = 0
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal=True,
@@ -216,9 +231,11 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal=True,
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)
     _check_cuda(q, k, v, do)
+    from repro_torch.kernels import build
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    lib, head, kvl, tail = _common(q, k, v, do, kw)
+    head, kvl, tail = _common(q, k, v, do, kw)
     lse, delta = _rows(lse, q), _rows(delta, q)
+    lib = build.load("flash_attention")
     rc = lib.flash_bwd_dkv(*head, lse.data_ptr(), delta.data_ptr(),
                            kvl.data_ptr(), dk.data_ptr(), *dk.stride()[:3],
                            dv.data_ptr(), *dv.stride()[:3], *tail)
@@ -270,11 +287,29 @@ def _rows(x, q):
     return x.to(torch.float32).reshape(q.shape[:3]).contiguous()
 
 
-def _common(q, k, v, do, kw):
-    """The loaded library and what the three C functions share: the input
-    pointers then their strides, ``kv_len`` as int32 [B] (the caller keeps
-    the tensor alive through the launch), and the dims, flags and stream."""
+def _entry(name, *ts):
+    """(C function, is it the tensor-core kernel) for ``name`` at the
+    tensors' dtype: bf16 goes to ``csrc/flash_attention_sm90.cu`` (after
+    the checks its TMA loads need), fp32 to ``csrc/flash_attention.cu``."""
     from repro_torch.kernels import build
+    if ts[0].dtype != torch.bfloat16:
+        return getattr(build.load("flash_attention"), name), False
+    for t in ts:
+        bad = [s for n, s in zip(t.shape[:3], t.stride()[:3])
+               if n > 1 and s % 8]
+        if t.data_ptr() % 16 or t.shape[-1] % 8 or bad:
+            raise ValueError(
+                "the bf16 flash kernels load by TMA: each of q/k/v/do needs "
+                "a 16-byte-aligned base, a head dim that is a multiple of 8 "
+                f"and strides that are multiples of 8, not shape "
+                f"{tuple(t.shape)} stride {t.stride()} at {t.data_ptr():#x}")
+    return getattr(build.load("flash_attention_sm90"), name + "_sm90"), True
+
+
+def _common(q, k, v, do, kw):
+    """What the C functions share: the input pointers then their strides,
+    ``kv_len`` as int32 [B] (the caller keeps the tensor alive through the
+    launch), and the dims, flags and stream."""
     b, hq, tq, d = q.shape
     hkv, tkv = k.shape[1], k.shape[2]
     scale = kw["scale"] if kw["scale"] is not None else d ** -0.5
@@ -290,7 +325,7 @@ def _common(q, k, v, do, kw):
             float(cap) if cap is not None else 0.0, float(scale),
             int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream]
-    return build.load("flash_attention"), ptrs + strides, kvl, tail
+    return ptrs + strides, kvl, tail
 
 
 def _raise_on(rc, name):

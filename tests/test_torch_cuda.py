@@ -12,7 +12,10 @@ compute in fp32 from the same inputs and differ only in summation order.
 Flash o/dq/dk/dv: max |kernel - plain| / max |plain| below 2e-5 for fp32
 (summation order) and 8e-3 for bf16 (outputs rounded to bf16 on both
 sides: one bf16 ulp); lse absolute 1e-4; o and dq over rows with a live
-key.
+key. bf16 forward and dq run the tensor-core kernels
+(``csrc/flash_attention_sm90.cu``); the tile-edge cases hold them at a
+partial 128-row block, a single query row, a kv_len that ends inside a
+key tile, and head dims 64 and 96 (the latter zero-filled to 128).
 """
 import pytest
 import torch
@@ -71,13 +74,27 @@ def test_cuda_kernel_matches_plain(dev, paged, dtype):
         assert rel[live].max().item() < 1e-4
 
 
-FLASH_CASES = {
+FLASH_CASES = {   # b, hq, hkv, tq, tkv, d, [B,T,H,D] layout, options
     # the training shape's geometry at T 512, in the model's layout
-    "causal": (2, 8, 2, 512, 128, True, dict(causal=True)),
+    "causal": (2, 8, 2, 512, 512, 128, True, dict(causal=True)),
     # ragged: T not a multiple of 64, q_offset, kv_len, window, softcap
-    "ragged": (2, 4, 4, 300, 64, False,
+    "ragged": (2, 4, 4, 300, 300, 64, False,
                dict(causal=True, q_offset=24, kv_len=[300, 231],
                     window=128, attn_softcap=50.0)),
+    # tile edges of the tensor-core kernels (128-row blocks, 128- and
+    # 64-key tiles)
+    "t129": (2, 8, 2, 129, 129, 128, True, dict(causal=True)),
+    "one_row": (2, 8, 2, 1, 300, 128, True,
+                dict(causal=True, q_offset=299)),
+    "kv_len_mid_tile": (2, 8, 2, 200, 300, 128, True,
+                        dict(causal=True, q_offset=100, kv_len=[300, 237])),
+    "d64": (2, 8, 2, 129, 129, 64, True, dict(causal=True)),
+    "d96": (2, 8, 2, 129, 129, 96, True,
+            dict(causal=False, kv_len=[129, 70])),
+    # a head dim under one 64-column panel; size-1 batch and head dims,
+    # whose strides TMA never steps
+    "d32": (2, 4, 2, 130, 130, 32, False, dict(causal=True)),
+    "single_head": (1, 1, 1, 300, 300, 128, True, dict(causal=True)),
 }
 
 
@@ -85,23 +102,24 @@ FLASH_CASES = {
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", sorted(FLASH_CASES))
 def test_flash_kernels_match_plain(dev, case, dtype):
-    b, hq, hkv, t, d, bthd, kw = FLASH_CASES[case]
+    b, hq, hkv, tq, tkv, d, bthd, kw = FLASH_CASES[case]
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
 
-    def mk(h):
+    def mk(h, t):
         if bthd:
             return torch.randn((b, t, h, d), generator=gen,
                                device=dev).to(dtype).transpose(1, 2)
         return torch.randn((b, h, t, d), generator=gen, device=dev).to(dtype)
 
-    q, k, v, do = mk(hq), mk(hkv), mk(hkv), mk(hq)
+    q, k, v, do = mk(hq, tq), mk(hkv, tkv), mk(hkv, tkv), mk(hq, tq)
     kw = dict(kw)
     if "kv_len" in kw:
         kw["kv_len"] = torch.tensor(kw["kv_len"], device=dev)
     names = ("flash_attention_fwd", "flash_attention_bwd_dq",
              "flash_attention_bwd_dkv")
     before = [getattr(tfa, n).launches for n in names]
+    sm90_before = [getattr(tfa, n).sm90_launches for n in names[:2]]
     o, lse = tfa.flash_attention_fwd(q, k, v, **kw)
     o_p, lse_p = tfa.flash_attention_fwd_plain(q, k, v, **kw)
     delta = (do.float() * o_p.float()).sum(-1)
@@ -112,6 +130,9 @@ def test_flash_kernels_match_plain(dev, case, dtype):
     dk_p, dv_p = tfa.flash_attention_bwd_dkv_plain(*args, **kw)
     torch.cuda.synchronize()
     assert [getattr(tfa, n).launches for n in names] == [x + 1 for x in before]
+    sm90 = int(dtype == torch.bfloat16)    # bf16 fwd and dq: tensor cores
+    assert [getattr(tfa, n).sm90_launches for n in names[:2]] == [
+        x + sm90 for x in sm90_before]
     live = lse_p > -1e29
     tol = 2e-5 if dtype == torch.float32 else 8e-3
 
@@ -124,3 +145,18 @@ def test_flash_kernels_match_plain(dev, case, dtype):
     assert (lse[live] - lse_p[live]).abs().max().item() < 1e-4
     assert rel(dq[live], dq_p[live]) < tol
     assert rel(dk, dk_p) < tol and rel(dv, dv_p) < tol
+
+
+@pytest.mark.cuda
+def test_flash_bf16_refuses_what_tma_cannot_load(dev):
+    """The bf16 forward and dq load by TMA: a row stride that is not a
+    multiple of 8 elements raises before any launch."""
+    q = torch.randn((1, 2, 16, 20), device=dev).to(torch.bfloat16)[..., :16]
+    k = torch.randn((1, 2, 16, 16), device=dev).to(torch.bfloat16)
+    before = tfa.flash_attention_fwd.launches
+    with pytest.raises(ValueError, match="TMA"):
+        tfa.flash_attention_fwd(q, k, k)
+    rows = torch.zeros((1, 2, 16), device=dev)
+    with pytest.raises(ValueError, match="TMA"):
+        tfa.flash_attention_bwd_dq(q, k, k, q, rows, rows)
+    assert tfa.flash_attention_fwd.launches == before
