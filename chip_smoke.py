@@ -18,10 +18,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
            causal, the model's [B,T,H,D] layout), ragged cases (T 1000,
            q_offset 24, kv_len (1000, 931), window 512, softcap 50; GQA
            groups 4 and 1) and tile edges (T 129, a single query row, Tkv
-           300 with kv_len ending mid-tile, D 64 and 96), fp32 and bf16 (the
-           bf16 forward and dq are the tensor-core kernels of
-           flash_attention_sm90.cu); then timed at the training shape
-           beside its bound, its plain version and
+           300 with kv_len ending mid-tile, Tq 128 over Tkv 384 so that
+           two key tiles see no query, D 64 and 96), fp32 (the CUDA-core
+           kernels of flash_attention.cu) and bf16 (the tensor-core
+           kernels of flash_attention_sm90.cu); then timed at the
+           training shape beside its bound, its plain version and
            scaled_dot_product_attention (forward; its autograd backward)
   main     greedy D^2SD ``generate`` in fp32 at the full width and depth of
            paper_target.full() with random seeded weights: 4 prompts of 512
@@ -50,7 +51,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
            chunked attention, then through the kernels one warm-up and
            five timed steps; the first three losses held to the plain
            path's, ms/step, tokens/s, peak memory, and 16 / 8 / 8 launches
-           per step of the forward / dq / dk-dv kernels
+           per step of the tensor-core forward / dq / dk-dv kernels
+           (flash_fwd_sm90, flash_bwd_dq_sm90, flash_bwd_dkv_sm90) and
+           none of the fp32 ones
   train_profile  one bf16 step under torch.profiler: device time, idle
            share, top kernels
 
@@ -355,12 +358,14 @@ FLASH_KERNELS = {
                        "flash_attention_sm90.cu", 40),
     "flash_bwd_dq_sm90": ("flash_attention_bwd_dq", torch.bfloat16,
                           "flash_attention_sm90.cu", 146),
-    "flash_bwd_dkv": ("flash_attention_bwd_dkv", torch.bfloat16,
-                      "flash_attention.cu", 189),
+    "flash_bwd_dkv_sm90": ("flash_attention_bwd_dkv", torch.bfloat16,
+                           "flash_attention_sm90.cu", 189),
     "flash_fwd": ("flash_attention_fwd", torch.float32,
                   "flash_attention.cu", 40),
     "flash_bwd_dq": ("flash_attention_bwd_dq", torch.float32,
-                     "flash_attention.cu", 146)}
+                     "flash_attention.cu", 146),
+    "flash_bwd_dkv": ("flash_attention_bwd_dkv", torch.float32,
+                      "flash_attention.cu", 189)}
 TRAIN_B, TRAIN_T = 2, 4096                  # batch and sequence of a step
 
 
@@ -409,10 +414,11 @@ def check_flash(timer):
     50; GQA groups 4 and 1, D 128 and 64) and the tensor-core kernels'
     tile edges (T 129: a 128-row block and one row more; one query row
     over 300 keys; Tq 200 over Tkv 300 with kv_len 237 ending inside a
-    key tile; D 64 and D 96, the last zero-filled to 128, in the
-    [B,T,H,D] layout), fp32 and bf16. Each backward kernel takes the
-    plain forward's (o, lse), so each kernel is held alone. o, lse and dq
-    are compared over rows with a live key."""
+    key tile; Tq 128 over Tkv 384, whose last two key tiles no query
+    sees, so dk/dv must be zero there; D 64 and D 96, the last
+    zero-filled to 128, in the [B,T,H,D] layout), fp32 and bf16. Each
+    backward kernel takes the plain forward's (o, lse), so each kernel is
+    held alone. o, lse and dq are compared over rows with a live key."""
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(1)
@@ -433,6 +439,8 @@ def check_flash(timer):
                    kw=dict(causal=True, q_offset=299)),
               dict(b=2, hq=8, hkv=2, tq=200, tkv=300, d=128, bthd=True,
                    kw=dict(causal=True, q_offset=100, kv_len=[300, 237])),
+              dict(b=2, hq=8, hkv=2, tq=128, tkv=384, d=128, bthd=True,
+                   kw=dict(causal=True)),
               dict(b=2, hq=8, hkv=2, tq=129, tkv=129, d=64, bthd=True,
                    kw=dict(causal=True)),
               dict(b=2, hq=8, hkv=2, tq=129, tkv=129, d=96, bthd=True,
@@ -924,32 +932,33 @@ def profile_cycles(bundle, prompts, ms_per_cycle, n_cycles=6):
 
 # ------------------------------------------------------------- train path --
 def _flash_launches():
-    """Launches by C entry point: the bf16 forward and dq wrappers count
-    their tensor-core launches apart from the rest."""
+    """Launches by C entry point: each flash wrapper counts its
+    tensor-core (bf16) launches apart from the rest (fp32)."""
     from repro_torch.kernels import flash_attention as fa
-    fwd, dq = fa.flash_attention_fwd, fa.flash_attention_bwd_dq
-    return {"flash_fwd_sm90": fwd.sm90_launches,
-            "flash_fwd": fwd.launches - fwd.sm90_launches,
-            "flash_bwd_dq_sm90": dq.sm90_launches,
-            "flash_bwd_dq": dq.launches - dq.sm90_launches,
-            "flash_bwd_dkv": fa.flash_attention_bwd_dkv.launches}
+    out = {}
+    for wrapper, entry in zip(FLASH, ("flash_fwd", "flash_bwd_dq",
+                                      "flash_bwd_dkv")):
+        fn = getattr(fa, wrapper)
+        out[f"{entry}_sm90"] = fn.sm90_launches
+        out[entry] = fn.launches - fn.sm90_launches
+    return out
 
 
 def _zero_flash_launches():
     from repro_torch.kernels import flash_attention as fa
     for n in FLASH:
         getattr(fa, n).launches = 0
-    for n in FLASH[:2]:
         getattr(fa, n).sm90_launches = 0
 
 
 def _check_flash_launches(launches, n_steps, sm90):
     """16 forward (remat runs it twice), 8 dq and 8 dk/dv launches per
-    step, each through the kernel of the step's dtype."""
+    step, each through the kernel of the step's dtype, and none through
+    the other dtype's."""
     sfx = "_sm90" if sm90 else ""
     want = {f"flash_fwd{sfx}": 2 * TRAIN_LAYERS,
             f"flash_bwd_dq{sfx}": TRAIN_LAYERS,
-            "flash_bwd_dkv": TRAIN_LAYERS}
+            f"flash_bwd_dkv{sfx}": TRAIN_LAYERS}
     per_step = {k: v / n_steps for k, v in launches.items() if v}
     if per_step != want:
         fail(f"train: flash launches per step {per_step}, expected {want}")
@@ -1149,7 +1158,8 @@ def main():
           "libs": [str(p.relative_to(ROOT)) for p in libs.values()],
           "ptxas": {stem: [ln.strip() for ln in build.build_log(stem)
                            .splitlines() if "registers" in ln
-                           or "spill" in ln or "Compiling entry" in ln]
+                           or "spill" in ln or "Compiling entry" in ln
+                           or "Performance" in ln]
                     for stem in libs},
           "gpu": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda})

@@ -1,0 +1,108 @@
+#!/usr/bin/env python3
+"""Time the bf16 flash kernels of two checkouts on one card, in turns.
+
+    python3 scripts/flash_ab.py OTHER_ROOT [--rounds N]
+
+Each round times OTHER_ROOT's kernels, then this checkout's twice, then
+OTHER_ROOT's again (A B B A), each run in a process of its own that
+imports that checkout's ``repro_torch``, so both are measured on the same
+card within one call. A run times ``flash_attention_fwd``,
+``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv`` in bf16 at the
+training shape of ``chip_smoke.py`` (B 2, Hq 32, Hkv 8, T 4096, D 128,
+causal, the model's [B,T,H,D] layout): CUDA events around one launch,
+the 50 MB L2 flushed before each, median of 20 after 3 warm-up launches.
+It prints one JSON line per run, then the medians per checkout, the
+card's name and power limit, and exits non-zero without a CUDA device.
+
+``--time ROOT`` runs one timing of ROOT's kernels in this process.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent.parent
+
+
+def time_checkout(root: Path) -> dict:
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(root / "src"))
+    from repro_torch.kernels import flash_attention as fa
+    b, hq, hkv, t, d = 2, 32, 8, 4096, 128
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+
+    def mk(h):
+        return torch.randn((b, t, h, d), generator=gen, device="cuda").to(
+            torch.bfloat16).transpose(1, 2)
+
+    q, k, v, do = mk(hq), mk(hkv), mk(hkv), mk(hq)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    delta = (do.float() * o.float()).sum(-1)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+
+    def ms(fn, iters=20, warmup=3):
+        for _ in range(warmup):
+            fn()
+        pairs = []
+        for _ in range(iters):
+            flush.zero_()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn()
+            e1.record()
+            pairs.append((e0, e1))
+        torch.cuda.synchronize()
+        return float(np.median([x.elapsed_time(y) for x, y in pairs]))
+
+    bw = (q, k, v, do, lse, delta)
+    return {"root": str(root),
+            "flash_attention_fwd": ms(lambda: fa.flash_attention_fwd(q, k, v)),
+            "flash_attention_bwd_dq": ms(
+                lambda: fa.flash_attention_bwd_dq(*bw)),
+            "flash_attention_bwd_dkv": ms(
+                lambda: fa.flash_attention_bwd_dkv(*bw))}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("other", nargs="?", type=Path)
+    ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--time", type=Path, help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("flash_ab.py: no CUDA device")
+    if args.time is not None:
+        print(json.dumps(time_checkout(args.time.resolve())), flush=True)
+        return
+    if args.other is None:
+        ap.error("give the other checkout's root")
+    roots = {"A": args.other.resolve(), "B": HERE}
+    runs = []
+    for _ in range(args.rounds):
+        for tag in "ABBA":
+            out = subprocess.run(
+                [sys.executable, __file__, "--time", str(roots[tag])],
+                capture_output=True, text=True, check=True).stdout
+            res = {"checkout": tag, **json.loads(out.strip().splitlines()[-1])}
+            print(json.dumps(res), flush=True)
+            runs.append(res)
+    import numpy as np
+    names = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+    print(json.dumps({tag: {n: float(np.median([r[n] for r in runs
+                                                if r["checkout"] == tag]))
+                            for n in names} for tag in "AB"}), flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+
+
+if __name__ == "__main__":
+    main()

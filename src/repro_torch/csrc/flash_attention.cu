@@ -1,27 +1,26 @@
-// Flash attention forward and backward on the CUDA cores, for Hopper
-// (sm_90a).
+// Flash attention forward and backward in float32 on the CUDA cores, for
+// Hopper (sm_90a).
 //
-// Replaces the three Pallas TPU kernels of repro/kernels/flash_attention.py:
-//   * _fwd_kernel      -> flash_fwd       (float32: o [B,Hq,Tq,D],
-//                                          lse [B,Hq,Tq])
-//   * _bwd_dq_kernel   -> flash_bwd_dq    (float32: dq)
-//   * _bwd_dkv_kernel  -> flash_bwd_dkv   (float32 or bfloat16: dk, dv in
-//                                          k's dtype, summed over the GQA
+// Replaces, for float32 inputs, the three Pallas TPU kernels of
+// repro/kernels/flash_attention.py:
+//   * _fwd_kernel      -> flash_fwd       (o [B,Hq,Tq,D], lse [B,Hq,Tq])
+//   * _bwd_dq_kernel   -> flash_bwd_dq    (dq)
+//   * _bwd_dkv_kernel  -> flash_bwd_dkv   (dk, dv, summed over the GQA
 //                                          group inside the block)
 // with GQA (Hq % Hkv == 0), causal masking with a scalar q_offset (query i
 // sits at i + q_offset, key j at j), a sliding window (key live if
 // kpos > qpos - window), a per-row kv_len [B], and the gemma-style softcap
 // applied BEFORE the mask, as _mask_block does.
-// bfloat16 forward and dq run on the tensor cores instead, in
-// flash_attention_sm90.cu.
+// bfloat16 inputs run all three on the tensor cores instead, in
+// flash_attention_sm90.cu; these entry points refuse them.
 //
 // What bounds it on an H100: operations. At the training shape (T 4096,
 // D 128, causal) a (b, q-head) pair does T^2/2 * D * 4 FLOPs forward on
-// 2*T*D*2 input bytes: thousands of FLOPs per byte, far above the card's
+// 2*T*D*4 input bytes: thousands of FLOPs per byte, far above the card's
 // ridge. These kernels are simple and exact, not fast: fp32 on the
-// CUDA cores (bf16 dk/dv inputs are upcast as they are staged), tiles of 64
-// queries x 64 keys staged in shared memory, each of 256 threads owning a
-// 4 x 4 patch of the score tile and a 4 x (D/16) patch of its accumulator.
+// CUDA cores, tiles of 64 queries x 64 keys staged in shared memory, each
+// of 256 threads owning a 4 x 4 patch of the score tile and a 4 x (D/16)
+// patch of its accumulator.
 // What the design does for the operation count:
 //   * key tiles that lie wholly past the causal edge, before the window,
 //     or past kv_len are skipped, so causal attention costs half of the
@@ -30,9 +29,8 @@
 //     loops over the GQA group's query heads itself, so dk/dv are summed
 //     in registers and written once: no atomics (a training step is
 //     deterministic) and no per-query-head [B,Hq,Tkv,D] buffer.
-// The fp32 kernels stay on the CUDA cores on purpose: TF32 tensor cores
-// would round the products and break the fp32 training identity. The
-// bf16 dk/dv kernel is the next to move to the tensor cores.
+// They stay on the CUDA cores on purpose: TF32 tensor cores would round
+// the products and break the fp32 training identity.
 //
 // A TPU grid carries the running softmax across sequential kv steps in
 // scratch; here each block loops over its own key (or query) tiles.
@@ -47,7 +45,6 @@
 // multiples and gives padded rows lse = 1.0; these kernels loop to Tq and
 // Tkv exactly and have no padded rows, so they need no such value.
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -57,17 +54,6 @@ constexpr int BQ = 64;        // query rows per tile
 constexpr int BK = 64;        // keys per tile
 constexpr int NT = 256;       // threads per block: 16 x 16
 constexpr float NEG_INF = -1e30f;
-
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // max / sum over the 16 lanes of a half warp (the threads of one ty row)
 __device__ __forceinline__ float group_max(float x) {
@@ -97,13 +83,13 @@ struct Params {
 
 // Stage rows [row0, row0 + BQ) of a [T, D] slice (row stride rs) into a
 // [BQ][LD] fp32 tile, times mul; rows >= T and columns >= D read as 0.
-template <typename T, int DP, int LD>
-__device__ __forceinline__ void stage(float* dst, const T* src, int64_t rs,
+template <int DP, int LD>
+__device__ __forceinline__ void stage(float* dst, const float* src, int64_t rs,
                                       int row0, int T_, int D, float mul) {
   for (int i = threadIdx.x; i < BQ * DP; i += NT) {
     const int r = i / DP, d = i - r * DP;
     const int t = row0 + r;
-    dst[r * LD + d] = (t < T_ && d < D) ? to_f(src[t * rs + d]) * mul : 0.f;
+    dst[r * LD + d] = (t < T_ && d < D) ? src[t * rs + d] * mul : 0.f;
   }
 }
 
@@ -146,7 +132,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
   const float* K = static_cast<const float*>(p.k) + b * p.ks0 + hk * p.ks1;
   const float* V = static_cast<const float*>(p.v) + b * p.vs0 + hk * p.vs1;
 
-  stage<float, DP, LDQ>(Qs, Q, p.qs2, q0, p.Tq, p.D, p.scale);
+  stage<DP, LDQ>(Qs, Q, p.qs2, q0, p.Tq, p.D, p.scale);
   int kbeg, kend;
   key_range(p, q0, nq, kvl, kbeg, kend);
 
@@ -161,8 +147,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
 
   for (int k0 = kbeg; k0 < kend; k0 += BK) {
     __syncthreads();
-    stage<float, DP, LDK>(Ks, K, p.ks2, k0, p.Tkv, p.D, 1.f);
-    stage<float, DP, LDV>(Vs, V, p.vs2, k0, p.Tkv, p.D, 1.f);
+    stage<DP, LDK>(Ks, K, p.ks2, k0, p.Tkv, p.D, 1.f);
+    stage<DP, LDV>(Vs, V, p.vs2, k0, p.Tkv, p.D, 1.f);
     __syncthreads();
 
     float s[4][4];
@@ -265,8 +251,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
   const float* V = static_cast<const float*>(p.v) + b * p.vs0 + hk * p.vs1;
   const int64_t rbase = ((int64_t)b * p.Hq + h) * p.Tq + q0;
 
-  stage<float, DP, LDQ>(Qs, Q, p.qs2, q0, p.Tq, p.D, p.scale);
-  stage<float, DP, LDQ>(dOs, dO, p.ds2, q0, p.Tq, p.D, 1.f);
+  stage<DP, LDQ>(Qs, Q, p.qs2, q0, p.Tq, p.D, p.scale);
+  stage<DP, LDQ>(dOs, dO, p.ds2, q0, p.Tq, p.D, 1.f);
   float lse[4], dlt[4];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
@@ -285,8 +271,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
 
   for (int k0 = kbeg; k0 < kend; k0 += BK) {
     __syncthreads();
-    stage<float, DP, LDK>(Ks, K, p.ks2, k0, p.Tkv, p.D, 1.f);
-    stage<float, DP, LDK>(Vs, V, p.vs2, k0, p.Tkv, p.D, 1.f);
+    stage<DP, LDK>(Ks, K, p.ks2, k0, p.Tkv, p.D, 1.f);
+    stage<DP, LDK>(Vs, V, p.vs2, k0, p.Tkv, p.D, 1.f);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -363,7 +349,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
 }
 
 // --------------------------------------------------------- backward dkv ---
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const Params p) {
   constexpr int LDK = DP + 4, LDQ = DP + 1, LDP = BQ + 1, NC = DP / 16;
   extern __shared__ float smem[];
@@ -380,11 +366,11 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const Params p) {
   const int hk = blockIdx.y, b = blockIdx.z;
   const int g = p.Hq / p.Hkv;
   const int kvl = max(0, min(p.Tkv, p.kv_len[b]));
-  const T* K = static_cast<const T*>(p.k) + b * p.ks0 + hk * p.ks1;
-  const T* V = static_cast<const T*>(p.v) + b * p.vs0 + hk * p.vs1;
+  const float* K = static_cast<const float*>(p.k) + b * p.ks0 + hk * p.ks1;
+  const float* V = static_cast<const float*>(p.v) + b * p.vs0 + hk * p.vs1;
 
-  stage<T, DP, LDK>(Ks, K, p.ks2, k0, p.Tkv, p.D, 1.f);
-  stage<T, DP, LDK>(Vs, V, p.vs2, k0, p.Tkv, p.D, 1.f);
+  stage<DP, LDK>(Ks, K, p.ks2, k0, p.Tkv, p.D, 1.f);
+  stage<DP, LDK>(Vs, V, p.vs2, k0, p.Tkv, p.D, 1.f);
 
   // query rows [ibeg, iend) that can see a key of this tile
   const int kmax = min(k0 + BK, kvl) - 1;
@@ -403,14 +389,14 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const Params p) {
 
   for (int hh = 0; hh < g; ++hh) {
     const int h = hk * g + hh;
-    const T* Q = static_cast<const T*>(p.q) + b * p.qs0 + h * p.qs1;
-    const T* dO = static_cast<const T*>(p.dout) + b * p.ds0 + h * p.ds1;
+    const float* Q = static_cast<const float*>(p.q) + b * p.qs0 + h * p.qs1;
+    const float* dO = static_cast<const float*>(p.dout) + b * p.ds0 + h * p.ds1;
     const int64_t rbase = ((int64_t)b * p.Hq + h) * p.Tq;
     for (int qt = qt_beg; qt < qt_end; ++qt) {
       const int q0 = qt * BQ;
       __syncthreads();
-      stage<T, DP, LDQ>(Qs, Q, p.qs2, q0, p.Tq, p.D, p.scale);
-      stage<T, DP, LDQ>(dOs, dO, p.ds2, q0, p.Tq, p.D, 1.f);
+      stage<DP, LDQ>(Qs, Q, p.qs2, q0, p.Tq, p.D, p.scale);
+      stage<DP, LDQ>(dOs, dO, p.ds2, q0, p.Tq, p.D, 1.f);
       if (tid < BQ) {
         const bool in = q0 + tid < p.Tq;
         lse_s[tid] = in ? p.lse_in[rbase + q0 + tid] : 0.f;
@@ -500,8 +486,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const Params p) {
     }
   }
 
-  T* dK = static_cast<T*>(p.o) + b * p.os0 + hk * p.os1;
-  T* dV = static_cast<T*>(p.o2) + b * p.o2s0 + hk * p.o2s1;
+  float* dK = static_cast<float*>(p.o) + b * p.os0 + hk * p.os1;
+  float* dV = static_cast<float*>(p.o2) + b * p.o2s0 + hk * p.o2s1;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int t = k0 + ty * 4 + r;
@@ -510,8 +496,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const Params p) {
     for (int c = 0; c < NC; ++c) {
       const int d = tx + 16 * c;
       if (d < p.D) {
-        dK[t * p.os2 + d] = from_f<T>(dk[r][c]);
-        dV[t * p.o2s2 + d] = from_f<T>(dv[r][c]);
+        dK[t * p.os2 + d] = dk[r][c];
+        dV[t * p.o2s2 + d] = dv[r][c];
       }
     }
   }
@@ -539,26 +525,23 @@ int launch(Kern kern, dim3 grid, size_t smem, const Params& p, cudaStream_t st) 
 
 enum Which { FWD, DQ, DKV };
 
-template <typename T, int DP>
+template <int DP>
 int dispatch(Which w, const Params& p, cudaStream_t st) {
   const dim3 gq((p.Tq + BQ - 1) / BQ, p.Hq, p.B);
   const dim3 gk((p.Tkv + BK - 1) / BK, p.Hkv, p.B);
-  if constexpr (sizeof(T) == sizeof(float)) {
-    if (w == FWD) return launch(flash_fwd_kernel<DP>, gq, fwd_smem<DP>(), p, st);
-    if (w == DQ) return launch(flash_bwd_dq_kernel<DP>, gq, dq_smem<DP>(), p, st);
-  }
-  return launch(flash_bwd_dkv_kernel<T, DP>, gk, dkv_smem<DP>(), p, st);
+  if (w == FWD) return launch(flash_fwd_kernel<DP>, gq, fwd_smem<DP>(), p, st);
+  if (w == DQ) return launch(flash_bwd_dq_kernel<DP>, gq, dq_smem<DP>(), p, st);
+  return launch(flash_bwd_dkv_kernel<DP>, gk, dkv_smem<DP>(), p, st);
 }
 
 int run(Which w, const Params& p, int bf16, void* stream) {
-  // bf16 forward and dq are flash_attention_sm90.cu's
+  // bf16 is flash_attention_sm90.cu's
   if (p.D < 1 || p.D > 128 || p.Hkv < 1 || p.Hq % p.Hkv != 0 || p.B < 1 ||
-      p.Tq < 1 || p.Tkv < 1 || (bf16 && w != DKV))
+      p.Tq < 1 || p.Tkv < 1 || bf16)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (p.D <= 64)
-    return bf16 ? dispatch<__nv_bfloat16, 64>(w, p, st) : dispatch<float, 64>(w, p, st);
-  return bf16 ? dispatch<__nv_bfloat16, 128>(w, p, st) : dispatch<float, 128>(w, p, st);
+  if (p.D <= 64) return dispatch<64>(w, p, st);
+  return dispatch<128>(w, p, st);
 }
 
 Params make(const void* q, const void* k, const void* v, const void* dout,

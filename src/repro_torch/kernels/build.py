@@ -48,13 +48,17 @@ SIGNATURES = {
             _P, _LL, _LL, _LL, *[_I] * 6, _I, _I, _I, _F, _F, _I, _P],
     },
     "flash_attention_sm90": {
-        # the signatures of flash_fwd and flash_bwd_dq; bf16 only
+        # the signatures of flash_fwd, flash_bwd_dq and flash_bwd_dkv;
+        # bf16 only
         "flash_fwd_sm90": [
             _P, _P, _P, *[_LL] * 9, _P, _P, _LL, _LL, _LL, _P,
             *[_I] * 6, _I, _I, _I, _F, _F, _I, _P],
         "flash_bwd_dq_sm90": [
             _P, _P, _P, _P, *[_LL] * 12, _P, _P, _P, _P, _LL, _LL, _LL,
             *[_I] * 6, _I, _I, _I, _F, _F, _I, _P],
+        "flash_bwd_dkv_sm90": [
+            _P, _P, _P, _P, *[_LL] * 12, _P, _P, _P, _P, _LL, _LL, _LL,
+            _P, _LL, _LL, _LL, *[_I] * 6, _I, _I, _I, _F, _F, _I, _P],
     },
 }
 

@@ -10,10 +10,10 @@ in PERF.md's kernel table:
   #5 :func:`flash_attention_bwd_dkv`  ``_bwd_dkv_kernel`` -> (dk, dv), the
                                       GQA group summed inside the kernel
 
-For bfloat16, #3 and #4 run on the tensor cores (``wgmma`` on TMA-staged
-tiles, ``csrc/flash_attention_sm90.cu``); for float32 they, and #5 in
-both dtypes, run on the CUDA cores (``csrc/flash_attention.cu``), so the
-fp32 path stays exact fp32 arithmetic.
+For bfloat16 all three run on the tensor cores (``wgmma`` on TMA-staged
+tiles, ``csrc/flash_attention_sm90.cu``); for float32 they run on the
+CUDA cores (``csrc/flash_attention.cu``), so the fp32 path stays exact
+fp32 arithmetic.
 
 and :func:`flash_attention_bwd`, which computes ``delta = sum(do * o)`` in
 fp32 and composes the two backward kernels, as the JAX wrapper does.
@@ -24,8 +24,8 @@ over 128-key blocks forward, ``p = exp(s - lse)`` and the explicit ``ds``
 backward, the arithmetic the kernels do, and the oracle they are held to
 on the card); a CUDA tensor launches the kernel for its dtype or raises.
 There is no fallback. Each wrapper counts its launches in
-``<wrapper>.launches``; #3 and #4 count those of the tensor-core kernel
-again in ``<wrapper>.sm90_launches``. The tensor-core kernels read their
+``<wrapper>.launches`` and those of its tensor-core kernel again in
+``<wrapper>.sm90_launches``. The tensor-core kernels read their
 inputs by TMA, which takes 16-byte-aligned bases, head dims that are a
 multiple of 8 and strides that are multiples of 8 elements; the wrappers
 raise on anything else.
@@ -231,20 +231,21 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal=True,
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)
     _check_cuda(q, k, v, do)
-    from repro_torch.kernels import build
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fn, sm90 = _entry("flash_bwd_dkv", q, k, v, do)
     head, kvl, tail = _common(q, k, v, do, kw)
     lse, delta = _rows(lse, q), _rows(delta, q)
-    lib = build.load("flash_attention")
-    rc = lib.flash_bwd_dkv(*head, lse.data_ptr(), delta.data_ptr(),
-                           kvl.data_ptr(), dk.data_ptr(), *dk.stride()[:3],
-                           dv.data_ptr(), *dv.stride()[:3], *tail)
-    _raise_on(rc, "flash_bwd_dkv")
+    rc = fn(*head, lse.data_ptr(), delta.data_ptr(), kvl.data_ptr(),
+            dk.data_ptr(), *dk.stride()[:3], dv.data_ptr(), *dv.stride()[:3],
+            *tail)
+    _raise_on(rc, fn.__name__)
     flash_attention_bwd_dkv.launches += 1
+    flash_attention_bwd_dkv.sm90_launches += sm90
     return dk, dv
 
 
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.sm90_launches = 0
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, q_offset=0,

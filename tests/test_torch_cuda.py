@@ -12,10 +12,11 @@ compute in fp32 from the same inputs and differ only in summation order.
 Flash o/dq/dk/dv: max |kernel - plain| / max |plain| below 2e-5 for fp32
 (summation order) and 8e-3 for bf16 (outputs rounded to bf16 on both
 sides: one bf16 ulp); lse absolute 1e-4; o and dq over rows with a live
-key. bf16 forward and dq run the tensor-core kernels
+key. bf16 runs all three flash kernels on the tensor cores
 (``csrc/flash_attention_sm90.cu``); the tile-edge cases hold them at a
 partial 128-row block, a single query row, a kv_len that ends inside a
-key tile, and head dims 64 and 96 (the latter zero-filled to 128).
+key tile, key tiles that no query sees (dk = dv = 0 there), and head
+dims 64 and 96 (the latter zero-filled to 128).
 """
 import pytest
 import torch
@@ -95,6 +96,9 @@ FLASH_CASES = {   # b, hq, hkv, tq, tkv, d, [B,T,H,D] layout, options
     # whose strides TMA never steps
     "d32": (2, 4, 2, 130, 130, 32, False, dict(causal=True)),
     "single_head": (1, 1, 1, 300, 300, 128, True, dict(causal=True)),
+    # key tiles 1 and 2 lie past every query's causal edge: dk/dv must
+    # write zeros there
+    "unseen_keys": (2, 8, 2, 128, 384, 128, True, dict(causal=True)),
 }
 
 
@@ -119,7 +123,7 @@ def test_flash_kernels_match_plain(dev, case, dtype):
     names = ("flash_attention_fwd", "flash_attention_bwd_dq",
              "flash_attention_bwd_dkv")
     before = [getattr(tfa, n).launches for n in names]
-    sm90_before = [getattr(tfa, n).sm90_launches for n in names[:2]]
+    sm90_before = [getattr(tfa, n).sm90_launches for n in names]
     o, lse = tfa.flash_attention_fwd(q, k, v, **kw)
     o_p, lse_p = tfa.flash_attention_fwd_plain(q, k, v, **kw)
     delta = (do.float() * o_p.float()).sum(-1)
@@ -130,8 +134,8 @@ def test_flash_kernels_match_plain(dev, case, dtype):
     dk_p, dv_p = tfa.flash_attention_bwd_dkv_plain(*args, **kw)
     torch.cuda.synchronize()
     assert [getattr(tfa, n).launches for n in names] == [x + 1 for x in before]
-    sm90 = int(dtype == torch.bfloat16)    # bf16 fwd and dq: tensor cores
-    assert [getattr(tfa, n).sm90_launches for n in names[:2]] == [
+    sm90 = int(dtype == torch.bfloat16)    # bf16: the tensor-core kernels
+    assert [getattr(tfa, n).sm90_launches for n in names] == [
         x + sm90 for x in sm90_before]
     live = lse_p > -1e29
     tol = 2e-5 if dtype == torch.float32 else 8e-3
@@ -149,14 +153,18 @@ def test_flash_kernels_match_plain(dev, case, dtype):
 
 @pytest.mark.cuda
 def test_flash_bf16_refuses_what_tma_cannot_load(dev):
-    """The bf16 forward and dq load by TMA: a row stride that is not a
+    """The bf16 flash kernels load by TMA: a row stride that is not a
     multiple of 8 elements raises before any launch."""
     q = torch.randn((1, 2, 16, 20), device=dev).to(torch.bfloat16)[..., :16]
     k = torch.randn((1, 2, 16, 16), device=dev).to(torch.bfloat16)
-    before = tfa.flash_attention_fwd.launches
+    names = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+    before = [getattr(tfa, n).launches for n in names]
     with pytest.raises(ValueError, match="TMA"):
         tfa.flash_attention_fwd(q, k, k)
     rows = torch.zeros((1, 2, 16), device=dev)
     with pytest.raises(ValueError, match="TMA"):
         tfa.flash_attention_bwd_dq(q, k, k, q, rows, rows)
-    assert tfa.flash_attention_fwd.launches == before
+    with pytest.raises(ValueError, match="TMA"):
+        tfa.flash_attention_bwd_dkv(q, k, k, q, rows, rows)
+    assert [getattr(tfa, n).launches for n in names] == before

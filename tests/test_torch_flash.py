@@ -193,14 +193,16 @@ def test_flash_oracle_matches_jax_oracle():
 
 def test_flash_wrappers_count_only_kernel_launches():
     """On CPU tensors the wrappers run their plain versions and count no
-    launch; ``flash_attention_bwd`` composes the two backward wrappers."""
+    launch, of any kernel; ``flash_attention_bwd`` composes the two
+    backward wrappers."""
     q, k, v, do = (torch.from_numpy(x) for x in _inputs(CASES[0], 3))
     names = ("flash_attention_fwd", "flash_attention_bwd_dq",
              "flash_attention_bwd_dkv")
-    before = [getattr(tfa, n).launches for n in names]
+    counts = [(n, c) for n in names for c in ("launches", "sm90_launches")]
+    before = [getattr(getattr(tfa, n), c) for n, c in counts]
     o, lse = tfa.flash_attention_fwd(q, k, v)
     dq, dk, dv = tfa.flash_attention_bwd(q, k, v, o, lse, do)
-    assert [getattr(tfa, n).launches for n in names] == before
+    assert [getattr(getattr(tfa, n), c) for n, c in counts] == before
     delta = (do * o).sum(-1)
     torch.testing.assert_close(
         dq, tfa.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta))
