@@ -6,13 +6,19 @@
 Phases, each printing one JSON line (any failure exits non-zero):
 
   build    nvcc the CUDA kernels from ``src/repro_torch/csrc`` (sm_90a)
-  kernels  each cascade phase-1 kernel against its plain torch version on
-           the card at verify shapes (Hq=32, Hkv=8, D=128, Tq 16/64/76,
-           ragged cache lengths, adversarial rolling capacities, a shuffled
-           page table with sentinel entries; fp32 and bf16), then timed
-           beside its bound, its plain version and one
-           scaled_dot_product_attention call (the yardstick, never used by
-           the port)
+  kernels  each cascade phase-1 kernel against its plain torch version and
+           the oracle on the card, fp32 (cascade_phase1.cu) and bf16 (the
+           tensor-core kernels of cascade_phase1_sm90.cu), the merge
+           included: verify shapes (Hq 32, Hkv 8, D 128, Tq 16/64/76,
+           ragged cache lengths, q in the model's layout), adversarial
+           rolling capacities, a shuffled page table with sentinel
+           entries, softcap 50, window 256 (splits that hold only masked
+           keys), the pos_stride/pos_offset shard contract, pages of 8 and
+           16, Tq 1 and 136, GQA groups 1 and 8, D 64 and 96, and outputs
+           pre-filled with NaN (splits with no key must write acc = l = 0,
+           m = -1e30); then timed at the decode verify shape beside its
+           bound, its plain version and one scaled_dot_product_attention
+           call (the yardstick, never used by the port)
   flash    each flash kernel (forward, dq, dk/dv) against its plain torch
            version: the training shape (B 2, Hq 32, Hkv 8, D 128, T 4096,
            causal, the model's [B,T,H,D] layout), ragged cases (T 1000,
@@ -28,7 +34,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
            paper_target.full() with random seeded weights: 4 prompts of 512
            tokens, 64 new tokens, paged (page 64) and dense caches through
            the kernels; tokens held to the gather path and to plain
-           one-token-at-a-time greedy; kernel launch counts read
+           one-token-at-a-time greedy; launch counts read: both fp32
+           cascade kernels, no tensor-core one
   oracle   the same fp32 runs with drafts that hold the greedy reference,
            spoiled from a depth that varies by row and cycle, so a cycle
            accepts a path along the trunk and on into a branch: tokens held
@@ -36,8 +43,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
            own count of what each cycle must accept, and the target and
            feature caches the cycles commit to a plain prefill of the
            same tokens
-  bf16     the same run in bfloat16 (the config's dtype): tokens/s and its
-           agreement with the gather path
+  bf16     the same runs in bfloat16 (the config's dtype), paged and dense:
+           tokens/s, agreement with the gather path, and at least 40
+           (paged: 36 target layers, 2 x 2 drafter layers) or 36 (dense)
+           launches a cycle through the tensor-core cascade kernels and
+           none through cascade_phase1.cu
   profile  six bf16 decode cycles (kernel path, paged cache) under
            torch.profiler: device time per cycle, the device's idle share
            and the kernels that take the most device time
@@ -83,9 +93,12 @@ PEAK_BYTES_S = 3.35e12                      # H100 SXM HBM3
 PEAK_FLOPS = {torch.float32: 67e12,         # fp32, CUDA cores
               torch.bfloat16: 989e12}       # bf16 tensor cores, dense
 NEAR_TIE = 1e-4                             # top-2 logit gap that may flip
-TOL_OUT = 2e-5      # merged output: both sides compute in fp32 on equal
-                    # (bf16 -> fp32 is exact) inputs; only sum order differs
-TOL_PART = 1e-4     # partials (acc, l, m), relative to 1 + |plain|
+TOL_OUT = 2e-5      # fp32 merged cascade output, absolute: both sides
+                    # compute in fp32; only sum order differs
+TOL_PART = 1e-4     # cascade partials relative to 1 + |plain|: m and l in
+                    # both dtypes (fp32 scores and row sums on both sides),
+                    # acc in fp32 (bf16 acc: TOL_FLASH[bf16], P is rounded
+                    # to bf16 for P V as in the flash kernels)
 TOL_CACHE = 1e-3    # committed fp32 caches vs a prefill of the same tokens,
                     # relative to the largest value: sum order only
 TOL_FLASH = {       # flash o/dq/dk/dv vs plain, max |diff| / max |plain|:
@@ -152,126 +165,131 @@ def _rand(gen, shape, dtype):
     return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
 
 
-def _shuffled_table(rng, b, mp, lens, page, n_phys):
-    """Disjoint shuffled pages per row; unallocated tail = PAGE_SENTINEL."""
-    from repro_torch.models.kvcache import PAGE_SENTINEL
-    perm = list(rng.permutation(n_phys))
-    pt = np.full((b, mp), PAGE_SENTINEL, np.int64)
-    for i, cl in enumerate(lens):
-        need = -(-int(cl) // page)
-        pt[i, :need] = [perm.pop() for _ in range(need)]
-    return torch.as_tensor(pt, dtype=torch.int32, device=DEVICE)
+def _case_inputs(gen, rng, dtype, case):
+    """One case of ``cascade_cases.CASES``: its (kernel, plain, oracle)
+    callables and its merge inputs: q, the tree block, its mask, the
+    scale and the softcap."""
+    from repro_torch.kernels import cascade_cases
+    from repro_torch.kernels import ref
+    kern, plain, args, kw = cascade_cases.case_inputs(gen, rng, dtype,
+                                                      **case)
+    q, ck, cv = args[:3]
+    b, hkv, tq, d = q.shape[0], ck.shape[1], q.shape[2], q.shape[3]
+    bk, bv = (_rand(gen, (b, hkv, tq, d), dtype) for _ in range(2))
+    tm = torch.ones((tq, tq), dtype=torch.bool, device=DEVICE).tril()
+    oracle_kw = dict(cache_len=kw["cache_len"], q_abs=kw["q_abs"],
+                     tree_mask=tm, window=kw["window"],
+                     attn_softcap=kw["attn_softcap"])
+    if case["kind"] == "paged":
+        oracle = None if "pos_stride" in kw else (
+            lambda: ref.cascade_attention_paged_ref(
+                q.float(), ck, cv, args[3], bk, bv, **oracle_kw))
+    else:
+        oracle = lambda: ref.cascade_attention_ref(
+            q.float(), ck, cv, bk, bv, rolling=kw["rolling"], **oracle_kw)
+    return ((lambda: kern(*args, **kw), lambda: plain(*args, **kw), oracle),
+            (q, bk, bv, tm, kw["scale"], kw["attn_softcap"]))
 
 
-def _compare(kern, plain, q, bk, bv, tmask, scale, ref_out):
-    """Merged outputs (kept in fp32: q upcast, so no final rounding to the
-    input dtype) and live partials of kernel vs plain version."""
+def _nan_outputs():
+    """A stand-in for the wrappers' output allocator that fills with NaN."""
     from repro_torch.kernels import cascade_attention as casc
-    q = q.float()
-    outs = [casc.merge_with_tree_block(q, bk, bv, *parts, tree_mask=tmask,
-                                       attn_softcap=None, scale=scale)
+    real = casc._outputs
+    return lambda *a: tuple(x.fill_(float("nan")) for x in real(*a))
+
+
+def _compare(kern, plain, ref_out, merge_args):
+    """Errors of one case: the merged outputs (kept in fp32: q upcast, so
+    no final rounding to the input dtype) of kernel vs plain version and
+    vs the oracle, absolute and over max |plain|; the live partials (m and
+    l relative to 1 + |plain|; acc the same in fp32, and in bf16 relative
+    to the largest |plain acc| of its row and split). Every partial the
+    kernel wrote must be finite, and a split with no key in range (l = 0)
+    must hold acc = 0 and m = -1e30."""
+    from repro_torch.kernels import cascade_attention as casc
+    q, bk, bv, tm, scale, softcap = merge_args
+    if not all(torch.isfinite(x).all() for x in kern):
+        fail("a cascade kernel wrote a partial that is not finite")
+    empty = kern[2] == 0
+    if not ((kern[0][empty] == 0).all() and (kern[1][empty] == -1e30).all()):
+        fail("a cascade kernel's empty split is not acc = 0, m = -1e30")
+    outs = [casc.merge_with_tree_block(q.float(), bk, bv, *parts,
+                                       tree_mask=tm, attn_softcap=softcap,
+                                       scale=scale).float()
             for parts in (kern, plain)]
-    err = (outs[0].float() - outs[1].float()).abs().max().item()
-    err_ref = (outs[0].float() - ref_out.float()).abs().max().item()
+    err = {"out_abs": (outs[0] - outs[1]).abs().max().item()}
+    err["out_rel"] = err["out_abs"] / outs[1].abs().max().item()
+    if ref_out is not None:
+        d = (outs[0] - ref_out.float()).abs().max().item()
+        err["ref_abs"] = d
+        err["ref_rel"] = d / ref_out.float().abs().max().item()
     live = plain[1] > -1e29
-    part = 0.0
-    for a, b_ in zip(kern, plain):
-        rel = (a - b_).abs() / (1 + b_.abs())
-        if rel.ndim == 5:
-            rel = rel.amax(-1)
-        part = max(part, rel[live].max().item() if live.any() else 0.0)
-    if not torch.isfinite(outs[0]).all():
-        fail("kernel output is not finite")
-    return err, err_ref, part
+    if q.dtype == torch.bfloat16:
+        acc = (kern[0] - plain[0]).abs().amax(-1) / plain[0].abs().amax(
+            -1).clamp_min(1e-30)
+    else:
+        acc = ((kern[0] - plain[0]).abs() / (1 + plain[0].abs())).amax(-1)
+    err["acc"] = acc[live].max().item() if live.any() else 0.0
+    err["m_l"] = max(((a - b_).abs() / (1 + b_.abs()))[live].max().item()
+                     if live.any() else 0.0
+                     for a, b_ in zip(kern[1:], plain[1:]))
+    return err
+
+
+def _within_tol(dtype, err):
+    """fp32: merged outputs within TOL_OUT absolute, partials TOL_PART;
+    bf16: merged outputs and acc within TOL_FLASH[bf16] relative (P is
+    rounded to bf16 for P V), m and l TOL_PART."""
+    if dtype == torch.float32:
+        return (max(err["out_abs"], err.get("ref_abs", 0.0)) <= TOL_OUT
+                and max(err["acc"], err["m_l"]) <= TOL_PART)
+    tol = TOL_FLASH[torch.bfloat16]
+    return (max(err["out_rel"], err.get("ref_rel", 0.0), err["acc"]) <= tol
+            and err["m_l"] <= TOL_PART)
 
 
 def check_kernels(timer):
+    """Every case of ``cascade_cases.CASES`` through both wrappers, in
+    both dtypes, against the plain version and the oracle; then the
+    timings."""
     from repro_torch.kernels import cascade_attention as casc
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import cascade_cases
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)
     rng = np.random.default_rng(0)
-    hq, hkv, d = 32, 8, 128
-    scale = d ** -0.5
     cases = []
-    worst = {"cascade_phase1": 0.0, "cascade_phase1_paged": 0.0}
-
-    def record(name, case, err, err_ref, part):
-        cases.append({"kernel": name, **case, "max_abs_err": err,
-                      "err_vs_ref": err_ref, "partials_rel_err": part})
-        worst[name] = max(worst[name], err, err_ref)
-        if err > TOL_OUT or err_ref > TOL_OUT or part > TOL_PART:
-            fail(f"{name} disagrees with its plain version: {cases[-1]}")
-
+    worst = {}                  # max |merged kernel - plain|, by row name
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).replace("torch.", "")
-        # dense, ragged lengths around 512-1100
-        for tq in (16, 64, 76):
-            lens = [512, 700, 901, 1100]
-            b, s = len(lens), 1152
-            q = _rand(gen, (b, hq, tq, d), dtype)
-            ck, cv = (_rand(gen, (b, hkv, s, d), dtype) for _ in range(2))
-            bk, bv = (_rand(gen, (b, hkv, tq, d), dtype) for _ in range(2))
-            cl = torch.tensor(lens, device=DEVICE)
-            qa = cl[:, None] + torch.arange(tq, device=DEVICE)
-            tm = torch.ones((tq, tq), dtype=torch.bool, device=DEVICE).tril()
-            kw = dict(cache_len=cl, q_abs=qa, scale=scale)
-            kern = casc.cascade_phase1(q, ck, cv, **kw)
-            plain = casc.cascade_phase1_plain(q, ck, cv, **kw)
-            r = ref.cascade_attention_ref(q.float(), ck, cv, bk, bv, cache_len=cl,
-                                          q_abs=qa, tree_mask=tm)
-            record("cascade_phase1", {"dtype": dn, "tq": tq, "S": s,
-                                      "lens": lens},
-                   *_compare(kern, plain, q, bk, bv, tm, scale, r))
-        # rolling buffers at the adversarial capacities of the JAX tests
-        for cap, window, lens in [(97, 97, (40, 150)), (97, 50, (96, 300)),
-                                  (100, 100, (100, 257)), (131, 96, (70, 200)),
-                                  (505, 505, (505, 711)),
-                                  (509, 200, (300, 1000)), (24, 24, (5, 30))]:
-            b, tq = len(lens), 16
-            q = _rand(gen, (b, hq, tq, d), dtype)
-            ck, cv = (_rand(gen, (b, hkv, cap, d), dtype) for _ in range(2))
-            bk, bv = (_rand(gen, (b, hkv, tq, d), dtype) for _ in range(2))
-            cl = torch.tensor(lens, device=DEVICE)
-            qa = cl[:, None] + torch.arange(tq, device=DEVICE)
-            tm = torch.ones((tq, tq), dtype=torch.bool, device=DEVICE).tril()
-            kw = dict(cache_len=cl, q_abs=qa, scale=scale, window=window,
-                      rolling=True, n_splits=4, bk=64)
-            kern = casc.cascade_phase1(q, ck, cv, **kw)
-            plain = casc.cascade_phase1_plain(q, ck, cv, **kw)
-            r = ref.cascade_attention_ref(q.float(), ck, cv, bk, bv, cache_len=cl,
-                                          q_abs=qa, tree_mask=tm,
-                                          window=window, rolling=True)
-            record("cascade_phase1", {"dtype": dn, "tq": tq, "rolling_cap": cap,
-                                      "window": window, "lens": list(lens)},
-                   *_compare(kern, plain, q, bk, bv, tm, scale, r))
-        # paged: shuffled table with sentinel tails
-        for tq in (16, 64, 76):
-            lens, page = [512, 700, 901, 1100], 64
-            b, mp = len(lens), 19
-            n_phys = b * mp + 3
-            q = _rand(gen, (b, hq, tq, d), dtype)
-            # engine storage [P, page, Hkv, D], handed over as a view
-            pk, pv = (_rand(gen, (n_phys, page, hkv, d), dtype).transpose(1, 2)
-                      for _ in range(2))
-            bk, bv = (_rand(gen, (b, hkv, tq, d), dtype) for _ in range(2))
-            pt = _shuffled_table(rng, b, mp, lens, page, n_phys)
-            cl = torch.tensor(lens, device=DEVICE)
-            qa = cl[:, None] + torch.arange(tq, device=DEVICE)
-            tm = torch.ones((tq, tq), dtype=torch.bool, device=DEVICE).tril()
-            kw = dict(cache_len=cl, q_abs=qa, scale=scale)
-            kern = casc.cascade_phase1_paged(q, pk, pv, pt, **kw)
-            plain = casc.cascade_phase1_paged_plain(q, pk, pv, pt, **kw)
-            r = ref.cascade_attention_paged_ref(
-                q.float(), pk, pv, pt, bk, bv, cache_len=cl, q_abs=qa, tree_mask=tm)
-            record("cascade_phase1_paged", {"dtype": dn, "tq": tq,
-                                            "page": page, "lens": lens},
-                   *_compare(kern, plain, q, bk, bv, tm, scale, r))
+        for case_name, case in cascade_cases.CASES.items():
+            (kern_fn, plain_fn, ref_fn), merge_args = _case_inputs(
+                gen, rng, dtype, case)
+            real = casc._outputs
+            if case.get("nan"):
+                casc._outputs = _nan_outputs()
+            try:
+                kern = kern_fn()
+            finally:
+                casc._outputs = real
+            err = _compare(kern, plain_fn(), ref_fn and ref_fn(),
+                           merge_args)
+            wrapper = ("cascade_phase1_paged" if case["kind"] == "paged"
+                       else "cascade_phase1")
+            name = wrapper + ("_sm90" if dtype == torch.bfloat16 else "")
+            rec = {"kernel": name, "dtype": dn, "case": case_name, **err}
+            cases.append(rec)
+            worst[name] = max(worst.get(name, 0.0), err["out_abs"],
+                              err.get("ref_abs", 0.0))
+            if not _within_tol(dtype, err):
+                fail(f"{name} disagrees with its plain version: {rec}")
     torch.cuda.synchronize()
     timing = time_kernels(timer, gen, rng)
     emit({"phase": "kernels", "ok": True, "n_cases": len(cases),
-          "tol_out": TOL_OUT, "tol_partials": TOL_PART,
-          "max_abs_err": worst, "timing": timing})
+          "tol": {"float32": {"out_abs": TOL_OUT, "partials": TOL_PART},
+                  "bfloat16": {"out_rel": TOL_FLASH[torch.bfloat16],
+                               "acc_rel": TOL_FLASH[torch.bfloat16],
+                               "m_l": TOL_PART}},
+          "cases": cases, "max_abs_err": worst, "timing": timing})
     return worst, timing
 
 
@@ -291,6 +309,7 @@ def time_kernels(timer, gen, rng):
     nodes (gamma 16, K 4), caches of max_len 616 at lengths 520-600."""
     import torch.nn.functional as F
     from repro_torch.kernels import cascade_attention as casc
+    from repro_torch.kernels import cascade_cases
     from repro_torch.kernels import ref
     hq, hkv, d, tq = 32, 8, 128, 76
     lens = [520, 560, 580, 600]
@@ -311,7 +330,8 @@ def time_kernels(timer, gen, rng):
                   for _ in range(2))
         pk, pv = (_rand(gen, (b * mp, page, hkv, d), dtype).transpose(1, 2)
                   for _ in range(2))
-        pt = _shuffled_table(rng, b, mp, lens, page, b * mp)
+        pt = cascade_cases.shuffled_table(rng, b, mp, lens, b * mp, page,
+                                          DEVICE)
 
         def sdpa(kc, vc):
             # one library call over the gathered [cache ++ block], bool mask
@@ -346,6 +366,20 @@ def time_kernels(timer, gen, rng):
                                           "Tq": tq, "D": d, "lens": lens,
                                           "S": s, "page": page}}
     return out
+
+
+# each cascade kernel by its name in the kernels line: (wrapper, dtype,
+# source, line of the Pallas body it replaces in
+# src/repro/kernels/cascade_attention.py)
+CASCADE_KERNELS = {
+    "cascade_phase1_sm90": ("cascade_phase1", torch.bfloat16,
+                            "cascade_phase1_sm90.cu", 45),
+    "cascade_phase1_paged_sm90": ("cascade_phase1_paged", torch.bfloat16,
+                                  "cascade_phase1_sm90.cu", 243),
+    "cascade_phase1": ("cascade_phase1", torch.float32,
+                       "cascade_phase1.cu", 45),
+    "cascade_phase1_paged": ("cascade_phase1_paged", torch.float32,
+                             "cascade_phase1.cu", 243)}
 
 
 # ------------------------------------------------------------ flash checks --
@@ -750,15 +784,30 @@ def run_generate(bundle, prompts, impl, cache_impl):
 
 
 def _launches():
+    """Cascade launches by kernel: each wrapper counts its tensor-core
+    (bf16) launches apart from the rest (fp32)."""
     from repro_torch.kernels import cascade_attention as casc
-    return {"cascade_phase1": casc.cascade_phase1.launches,
-            "cascade_phase1_paged": casc.cascade_phase1_paged.launches}
+    out = {}
+    for name in ("cascade_phase1", "cascade_phase1_paged"):
+        fn = getattr(casc, name)
+        out[f"{name}_sm90"] = fn.sm90_launches
+        out[name] = fn.launches - fn.sm90_launches
+    return out
 
 
 def _zero_launches():
     from repro_torch.kernels import cascade_attention as casc
-    casc.cascade_phase1.launches = 0
-    casc.cascade_phase1_paged.launches = 0
+    for fn in (casc.cascade_phase1, casc.cascade_phase1_paged):
+        fn.launches = fn.sm90_launches = 0
+
+
+def _check_fp32_launches(launches, where):
+    """The fp32 runs go through cascade_phase1.cu alone."""
+    if min(launches["cascade_phase1"], launches["cascade_phase1_paged"]) \
+            <= 0 or launches["cascade_phase1_sm90"] \
+            or launches["cascade_phase1_paged_sm90"]:
+        fail(f"{where}: fp32 cascade launches {launches}: expected both "
+             "fp32 kernels and no tensor-core one")
 
 
 def _check_runs(toks, ref_toks, gaps):
@@ -789,8 +838,7 @@ def main_path():
                                                      "kernel", cache)
         runs.append(info)
     launches = _launches()
-    if min(launches.values()) <= 0:
-        fail(f"a kernel of the main path was never launched: {launches}")
+    _check_fp32_launches(launches, "main")
 
     for cache in ("paged", "dense"):
         toks[("gather", cache)], info = run_generate(bundle, prompts,
@@ -849,8 +897,7 @@ def oracle_path(bundle, prompts, ref_toks, gaps):
                      f"a prefill of the same tokens: {info}")
         if impl == "kernel":
             launches = _launches()
-            if min(launches.values()) <= 0:
-                fail(f"oracle: a kernel was never launched: {launches}")
+            _check_fp32_launches(launches, "oracle")
     ties = _check_runs(toks, ref_toks[:, :MAX_NEW], gaps)
     emit({"phase": "oracle", "ok": True, "dtype": "float32",
           "alpha_checked": bool(exact), "tol_cache": TOL_CACHE,
@@ -876,17 +923,39 @@ def bf16_path(bundle, prompts):
                                                dtype="bfloat16"),
         d1_cfg=dataclasses.replace(bundle.d1_cfg, dtype="bfloat16"),
         d2_cfg=dataclasses.replace(bundle.d2_cfg, dtype="bfloat16"))
-    kt, kinfo = run_generate(b16, prompts, "kernel", "paged")
-    gt, ginfo = run_generate(b16, prompts, "gather", "paged")
-    same = kt == gt
-    first = [int(np.nonzero(~r)[0][0]) if (~r).any() else None for r in same]
-    emit({"phase": "bf16", "ok": True, "runs": [kinfo, ginfo],
+    runs, agree, first, launches, per_cycle = [], {}, {}, {}, {}
+    n_target = b16.target_cfg.num_layers
+    n_drafter = b16.d1_cfg.num_layers + b16.d2_cfg.num_layers
+    # each cache's kernel run: the counts zeroed just before, read just
+    # after; the paged run reads the drafters' feature caches too
+    for cache, entry, want in (
+            ("paged", "cascade_phase1_paged", n_target + n_drafter),
+            ("dense", "cascade_phase1", n_target)):
+        _zero_launches()
+        kt, kinfo = run_generate(b16, prompts, "kernel", cache)
+        counts = _launches()
+        gt, ginfo = run_generate(b16, prompts, "gather", cache)
+        runs += [kinfo, ginfo]
+        n = counts[f"{entry}_sm90"]
+        per_cycle[f"{entry}_sm90"] = n / kinfo["cycles"]
+        if n < want * kinfo["cycles"] or counts["cascade_phase1"] \
+                or counts["cascade_phase1_paged"]:
+            fail(f"bf16 {cache}: cascade launches {counts} over "
+                 f"{kinfo['cycles']} cycles: expected >= {want} a cycle "
+                 f"through {entry}_sm90 and none through cascade_phase1.cu")
+        launches[f"{entry}_sm90"] = n
+        same = kt == gt
+        agree[cache] = float(same.mean())
+        first[cache] = [int(np.nonzero(~r)[0][0]) if (~r).any() else None
+                        for r in same]
+    kinfo = runs[0]
+    emit({"phase": "bf16", "ok": True, "runs": runs,
           "tokens_per_s": kinfo["tokens_per_s"],
           "decode_tokens_per_s": kinfo["decode_tokens_per_s"],
           "ms_per_cycle": kinfo["ms_per_cycle"],
-          "agree_with_gather": float(same.mean()),
-          "first_divergence_per_row": first})
-    return b16, kinfo["ms_per_cycle"]
+          "agree_with_gather": agree, "first_divergence_per_row": first,
+          "launches": launches, "launches_per_cycle": per_cycle})
+    return b16, kinfo["ms_per_cycle"], launches, per_cycle
 
 
 def profile_cycles(bundle, prompts, ms_per_cycle, n_cycles=6):
@@ -1169,7 +1238,7 @@ def main():
     flash_worst, flash_timing = check_flash(timer)
     del timer
     bundle, prompts, launches = main_path()
-    bundle, ms_cycle = bf16_path(bundle, prompts)
+    bundle, ms_cycle, bf16_casc, bf16_per_cycle = bf16_path(bundle, prompts)
     profile_cycles(bundle, prompts, ms_cycle)
     del bundle
     torch.cuda.synchronize()
@@ -1181,19 +1250,23 @@ def main():
     del run
     torch.cuda.synchronize()
 
-    # cascade rows: the fp32 decode shape, launches of the decode path;
-    # flash rows: one per kernel at its dtype, the training shape, launches
+    # cascade rows: one per kernel at its dtype, the decode verify shape,
+    # launches of the decode runs in that dtype (the fp32 main path, or the
+    # bf16 kernel runs of both caches); flash rows: one per kernel at its dtype, the training shape, launches
     # of the training path in that dtype (the bf16 step, or the kernel
     # side of the fp32 identity run)
     rows = []
-    for name, line in (("cascade_phase1", 45), ("cascade_phase1_paged", 243)):
-        t = timing[name]["float32"]
+    for name, (wrapper, dtype, src, line) in CASCADE_KERNELS.items():
+        dn = str(dtype).replace("torch.", "")
+        extra = ({"launches": launches[name]} if dtype == torch.float32 else
+                 {"launches": bf16_casc[name],
+                  "launches_per_cycle": bf16_per_cycle[name]})
         rows.append({"name": name, "route": "cuda",
-                     "source": "src/repro_torch/csrc/cascade_phase1.cu",
+                     "source": f"src/repro_torch/csrc/{src}",
                      "replaces": f"src/repro/kernels/cascade_attention.py:"
                                  f"{line}",
-                     "launches": launches[name], "max_abs_err": worst[name],
-                     "dtype": "float32", **_timing_keys(t)})
+                     **extra, "max_abs_err": worst[name], "dtype": dn,
+                     **_timing_keys(timing[wrapper][dn])})
     for name, (wrapper, dtype, src, line) in FLASH_KERNELS.items():
         dn = str(dtype).replace("torch.", "")
         counts = bf16_launches if dtype == torch.bfloat16 else fp32_launches

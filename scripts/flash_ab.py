@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time the bf16 flash kernels of two checkouts on one card, in turns.
+"""Time the bf16 flash and cascade kernels of two checkouts on one card,
+in turns.
 
     python3 scripts/flash_ab.py OTHER_ROOT [--rounds N]
 
@@ -9,8 +10,16 @@ imports that checkout's ``repro_torch``, so both are measured on the same
 card within one call. A run times ``flash_attention_fwd``,
 ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv`` in bf16 at the
 training shape of ``chip_smoke.py`` (B 2, Hq 32, Hkv 8, T 4096, D 128,
-causal, the model's [B,T,H,D] layout): CUDA events around one launch,
-the 50 MB L2 flushed before each, median of 20 after 3 warm-up launches.
+causal, the model's [B,T,H,D] layout), and ``cascade_phase1`` and
+``cascade_phase1_paged`` in bf16 at its decode verify shape (B 4, Hq 32,
+Hkv 8, D 128, Tq 76, caches of 520-600 keys of 616, pages of 64, a
+shuffled page table): CUDA events around one call, the 50 MB L2 flushed
+before each, median of 20 after 3 warm-up calls. For a cascade call,
+whose kernel takes tens of microseconds, that time also holds the host's
+enqueue of the wrapper, so each is also timed twice more: ``*_device_ms``
+puts a device sleep between the flush and the first event, so the events
+bracket the call's device work alone, and ``*_host_us`` is the host's
+time per call over 100 calls made while the card sleeps (median of 5).
 It prints one JSON line per run, then the medians per checkout, the
 card's name and power limit, and exits non-zero without a CUDA device.
 
@@ -22,15 +31,18 @@ import argparse
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
+SLEEP_CYCLES = 1_000_000        # about 0.5 ms of device clock
 
 
 def time_checkout(root: Path) -> dict:
     import numpy as np
     import torch
     sys.path.insert(0, str(root / "src"))
+    from repro_torch.kernels import cascade_attention as casc
     from repro_torch.kernels import flash_attention as fa
     b, hq, hkv, t, d = 2, 32, 8, 4096, 128
     gen = torch.Generator(device="cuda")
@@ -45,12 +57,14 @@ def time_checkout(root: Path) -> dict:
     delta = (do.float() * o.float()).sum(-1)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
 
-    def ms(fn, iters=20, warmup=3):
+    def ms(fn, iters=20, warmup=3, sleep=False):
         for _ in range(warmup):
             fn()
         pairs = []
         for _ in range(iters):
             flush.zero_()
+            if sleep:
+                torch.cuda._sleep(SLEEP_CYCLES)
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
@@ -60,13 +74,51 @@ def time_checkout(root: Path) -> dict:
         torch.cuda.synchronize()
         return float(np.median([x.elapsed_time(y) for x, y in pairs]))
 
+    def host_us(fn, calls=100, reps=5):
+        fn()
+        per = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            torch.cuda._sleep(20 * SLEEP_CYCLES)
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            per.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+        return float(np.median(per))
+
     bw = (q, k, v, do, lse, delta)
-    return {"root": str(root),
-            "flash_attention_fwd": ms(lambda: fa.flash_attention_fwd(q, k, v)),
-            "flash_attention_bwd_dq": ms(
-                lambda: fa.flash_attention_bwd_dq(*bw)),
-            "flash_attention_bwd_dkv": ms(
-                lambda: fa.flash_attention_bwd_dkv(*bw))}
+    out = {"root": str(root),
+           "flash_attention_fwd": ms(lambda: fa.flash_attention_fwd(q, k, v)),
+           "flash_attention_bwd_dq": ms(
+               lambda: fa.flash_attention_bwd_dq(*bw)),
+           "flash_attention_bwd_dkv": ms(
+               lambda: fa.flash_attention_bwd_dkv(*bw))}
+    del q, k, v, do, o, lse, delta, bw
+
+    b, tq, s, page = 4, 76, 616, 64
+    lens = torch.tensor([520, 560, 580, 600], device="cuda")
+    mp = -(-s // page)
+    qc = torch.randn((b, tq, hq, d), generator=gen, device="cuda").to(
+        torch.bfloat16).transpose(1, 2)
+    kv = [torch.randn((b * mp, page, hkv, d), generator=gen,
+                      device="cuda").to(torch.bfloat16) for _ in range(2)]
+    # the dense cache [B,S,Hkv,D] and the pool [P,page,Hkv,D], as views
+    ck, cv = (x.reshape(b, mp * page, hkv, d)[:, :s].transpose(1, 2)
+              for x in kv)
+    pk, pv = (x.transpose(1, 2) for x in kv)
+    table = torch.randperm(b * mp, generator=gen, device="cuda").reshape(
+        b, mp).int()
+    kw = dict(cache_len=lens, q_abs=lens[:, None] + torch.arange(
+        tq, device="cuda"))
+    calls = {"cascade_phase1": lambda: casc.cascade_phase1(qc, ck, cv, **kw),
+             "cascade_phase1_paged": lambda: casc.cascade_phase1_paged(
+                 qc, pk, pv, table, **kw)}
+    for name, fn in calls.items():
+        out[name] = ms(fn)
+        out[name + "_device_ms"] = ms(fn, sleep=True)
+        out[name + "_host_us"] = host_us(fn)
+    return out
 
 
 def main(argv=None):
@@ -94,8 +146,7 @@ def main(argv=None):
             print(json.dumps(res), flush=True)
             runs.append(res)
     import numpy as np
-    names = ("flash_attention_fwd", "flash_attention_bwd_dq",
-             "flash_attention_bwd_dkv")
+    names = [n for n in runs[0] if n not in ("checkout", "root")]
     print(json.dumps({tag: {n: float(np.median([r[n] for r in runs
                                                 if r["checkout"] == tag]))
                             for n in names} for tag in "AB"}), flush=True)

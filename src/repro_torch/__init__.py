@@ -4,11 +4,12 @@ The JAX package ``repro`` is the reference. This package mirrors its
 layout module for module (``repro_torch/models/attention.py`` is the twin
 of ``repro/models/attention.py``) and imports only ``torch``, ``numpy``
 and the standard library. Its kernels are CUDA C++ for ``sm_90a``, in
-three sources built with ``nvcc`` at first use: the cascade phase-1
-kernels (``csrc/cascade_phase1.cu``), and the flash attention forward,
-dq and dk/dv kernels, for bfloat16 on the tensor cores
-(``csrc/flash_attention_sm90.cu``) and for float32 on the CUDA cores
-(``csrc/flash_attention.cu``).
+four sources built with ``nvcc`` at first use: the cascade phase-1
+kernels and the flash attention forward, dq and dk/dv kernels, for
+bfloat16 on the tensor cores (``csrc/cascade_phase1_sm90.cu``,
+``csrc/flash_attention_sm90.cu``, which share ``csrc/sm90_common.cuh``)
+and for float32 on the CUDA cores (``csrc/cascade_phase1.cu``,
+``csrc/flash_attention.cu``).
 
 Entry points place their tensors on ``device="cuda"`` unless the caller
 passes another device; asking for CUDA on a machine without a card

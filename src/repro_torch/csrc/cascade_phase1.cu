@@ -1,6 +1,8 @@
-// Cascade verify attention, phase 1, for Hopper (sm_90a).
+// Cascade verify attention, phase 1, in float32 on the CUDA cores, for
+// Hopper (sm_90a).
 //
-// Replaces the two Pallas TPU kernels of repro/kernels/cascade_attention.py:
+// Replaces, for float32 inputs, the two Pallas TPU kernels of
+// repro/kernels/cascade_attention.py:
 //   * _phase1_kernel        (dense cache [B,Hkv,S,D], rolling buffers)
 //         -> cascade_phase1_dense below
 //   * _phase1_paged_kernel  (page pool [P,Hkv,page,D] + page table [B,MP])
@@ -9,7 +11,9 @@
 // (the D2SD tree, Tq <= ~136 tokens) over a long KV cache:
 //   acc [B,Hq,ns,Tq,D], m/l [B,Hq,ns,Tq] (fp32); the phase-2 log-sum-exp
 // merge with the tree-masked block runs in torch
-// (repro_torch/kernels/cascade_attention.py).
+// (repro_torch/kernels/cascade_attention.py). bfloat16 inputs run on the
+// tensor cores instead, in cascade_phase1_sm90.cu; these entry points take
+// float32 only.
 //
 // What bounds it on an H100: the bytes of LIVE K/V. A verify step reads
 // each committed key and value once per layer (Tq*D*2 FLOPs per byte pair
@@ -23,13 +27,13 @@
 //     [.., S, Hkv, D] storage is read in place with no transpose copy; a
 //     page id is clamped to [0, n_phys-1] before it is multiplied by the
 //     page stride (PAGE_SENTINEL is int32 max).
-// This first version is simple and exact, not fast: one thread block per
+// This version is simple and exact, not fast: one thread block per
 // (query tile of 16 rows, split, batch row * query head); K/V tiles of 32
-// keys staged in shared memory as fp32; scores, online softmax and the
-// accumulator in fp32 on the CUDA cores. A query head's block re-reads its
-// KV head's tiles once per query tile and per GQA group member (L2 absorbs
-// most of it at verify sizes). wgmma/TMA and one block per KV head are
-// later work.
+// keys staged in shared memory; scores, online softmax and the accumulator
+// in fp32 on the CUDA cores. A query head's block re-reads its KV head's
+// tiles once per query tile and per GQA group member (L2 absorbs most of
+// it at verify sizes). It stays on the CUDA cores on purpose: TF32 tensor
+// cores would round the products and break the fp32 token identity.
 //
 // Masking follows the Pallas bodies exactly: masked in-range keys score
 // -1e30 (a fully masked split therefore reports m = -1e30), rolling
@@ -37,7 +41,6 @@
 // truncating % (jax.lax.rem) and the TRUE capacity S, and padded split
 // slots (slot >= S) are dead.
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -51,8 +54,8 @@ constexpr float NEG_INF = -1e30f;
 
 struct Params {
   const float* q;            // [B,Hq,Tq,D] contiguous, fp32, pre-scaled
-  const void* k;
-  const void* v;
+  const float* k;
+  const float* v;
   int64_t ks0, ks1, ks2;     // element strides of the K view (last is 1)
   int64_t vs0, vs1, vs2;
   const int* table;          // paged: [B, mp]
@@ -69,12 +72,6 @@ struct Params {
   float softcap;             // <= 0: none
 };
 
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
   return x;
@@ -84,7 +81,7 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T, bool PAGED>
+template <bool PAGED>
 __global__ void __launch_bounds__(NT) phase1_kernel(const Params p) {
   __shared__ float qs[TQ][DMAX];
   __shared__ float ks[BK][DMAX + 1];   // +1: lanes read different rows
@@ -102,8 +99,8 @@ __global__ void __launch_bounds__(NT) phase1_kernel(const Params p) {
   const int D = p.D;
   const int nq = min(TQ, p.Tq - q0);
   const int clen = p.cache_len[b];
-  const T* K = static_cast<const T*>(p.k);
-  const T* V = static_cast<const T*>(p.v);
+  const float* K = p.k;
+  const float* V = p.v;
 
   for (int i = tid; i < TQ * D; i += NT) {
     const int r = i / D, d = i - r * D;
@@ -152,8 +149,8 @@ __global__ void __launch_bounds__(NT) phase1_kernel(const Params p) {
           ok_ = b * p.ks0 + hk * p.ks1 + t * p.ks2 + d;
           ov_ = b * p.vs0 + hk * p.vs1 + t * p.vs2 + d;
         }
-        kx = to_f(K[ok_]);
-        vx = to_f(V[ov_]);
+        kx = K[ok_];
+        vx = V[ov_];
       }
       ks[j][d] = kx;
       vs[j][d] = vx;
@@ -246,12 +243,9 @@ __global__ void __launch_bounds__(NT) phase1_kernel(const Params p) {
 }
 
 template <bool PAGED>
-int launch(const Params& p, int bf16, cudaStream_t stream) {
+int launch(const Params& p, cudaStream_t stream) {
   const dim3 grid((p.Tq + TQ - 1) / TQ, p.ns, p.B * p.Hq);
-  if (bf16)
-    phase1_kernel<__nv_bfloat16, PAGED><<<grid, NT, 0, stream>>>(p);
-  else
-    phase1_kernel<float, PAGED><<<grid, NT, 0, stream>>>(p);
+  phase1_kernel<PAGED><<<grid, NT, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -260,14 +254,14 @@ int launch(const Params& p, int bf16, cudaStream_t stream) {
 extern "C" {
 
 int cascade_phase1_dense(
-    const float* q, const void* k, const void* v,
+    const float* q, const float* k, const float* v,
     long long ks0, long long ks1, long long ks2,
     long long vs0, long long vs1, long long vs2,
     const int* cache_len, const int* q_abs,
     float* acc, float* m, float* l,
     int B, int Hq, int Hkv, int Tq, int D,
     int S, int bk, int nk_inner, int ns,
-    int rolling, int window, float softcap, int bf16, void* stream) {
+    int rolling, int window, float softcap, void* stream) {
   if (D > DMAX || D < 1 || Hq % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
   Params p{};
   p.q = q; p.k = k; p.v = v;
@@ -279,18 +273,18 @@ int cascade_phase1_dense(
   p.ns = ns; p.nk_inner = nk_inner;
   p.S = S; p.bk = bk; p.rolling = rolling;
   p.window = window; p.softcap = softcap;
-  return launch<false>(p, bf16, static_cast<cudaStream_t>(stream));
+  return launch<false>(p, static_cast<cudaStream_t>(stream));
 }
 
 int cascade_phase1_paged(
-    const float* q, const void* k, const void* v,
+    const float* q, const float* k, const float* v,
     long long ks0, long long ks1, long long ks2,
     long long vs0, long long vs1, long long vs2,
     const int* table, const int* cache_len, const int* q_abs,
     float* acc, float* m, float* l,
     int B, int Hq, int Hkv, int Tq, int D,
     int page, int mp, int n_phys, int nk_inner, int ns,
-    int stride, int off, int window, float softcap, int bf16, void* stream) {
+    int stride, int off, int window, float softcap, void* stream) {
   if (D > DMAX || D < 1 || Hq % Hkv != 0 || n_phys < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{};
@@ -303,7 +297,7 @@ int cascade_phase1_paged(
   p.ns = ns; p.nk_inner = nk_inner;
   p.page = page; p.mp = mp; p.n_phys = n_phys; p.stride = stride; p.off = off;
   p.window = window; p.softcap = softcap;
-  return launch<true>(p, bf16, static_cast<cudaStream_t>(stream));
+  return launch<true>(p, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -3,9 +3,9 @@
 Each ``.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface and loaded with ``ctypes``. The build
 runs at first use, into ``repro_torch/csrc/_build`` (listed in
-``.gitignore``); the library's file name carries a hash of its source,
-so an edited source is rebuilt and an unchanged one is reused within a
-checkout. Nothing here runs at import time: this module imports on a
+``.gitignore``); the library's file name carries a hash of its source and
+of every ``csrc`` header it includes, so an edited source or header is
+rebuilt and an unchanged one is reused within a checkout. Nothing here runs at import time: this module imports on a
 machine with no CUDA toolkit, and only :func:`load` needs one.
 """
 from __future__ import annotations
@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
@@ -27,13 +28,23 @@ _P, _LL, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_flo
 #: C signatures, by source file stem then function name.
 SIGNATURES = {
     "cascade_phase1": {
+        # float32 only
         "cascade_phase1_dense": [
             _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P, _P, _P, _P,
-            _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+            _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
         "cascade_phase1_paged": [
             _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P, _P, _P, _P,
             _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-            _I, _P],
+            _P],
+    },
+    "cascade_phase1_sm90": {
+        # bf16 only: q read in place through its strides, the scale apart
+        "cascade_phase1_dense_sm90": [
+            _P, _P, _P, *[_LL] * 9, _P, _P, _P, _P, _P,
+            *[_I] * 9, _I, _I, _F, _F, _P],
+        "cascade_phase1_paged_sm90": [
+            _P, _P, _P, *[_LL] * 9, _P, _P, _P, _P, _P, _P,
+            *[_I] * 10, _I, _I, _I, _F, _F, _P],
     },
     "flash_attention": {
         # inputs, their strides, kv_len, outputs, dims and flags, stream
@@ -76,10 +87,25 @@ def nvcc_path() -> str:
                        "toolkit on PATH or under /usr/local/cuda")
 
 
+def sources(stem: str) -> list:
+    """``csrc/<stem>.cu`` and every ``csrc`` header it includes (by
+    ``#include "..."``, also through other headers), in include order."""
+    out, todo = [], [CSRC / f"{stem}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in out:
+            continue
+        out.append(path)
+        todo += [CSRC / name for name in re.findall(
+            r'^\s*#\s*include\s+"([^"]+)"', path.read_text(), re.M)]
+    return out
+
+
 def _lib_path(stem: str) -> Path:
-    src = CSRC / f"{stem}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{stem}_{digest}.so"
+    digest = hashlib.sha256()
+    for path in sources(stem):
+        digest.update(path.read_bytes())
+    return BUILD_DIR / f"lib{stem}_{digest.hexdigest()[:16]}.so"
 
 
 def compile_source(stem: str) -> Path:

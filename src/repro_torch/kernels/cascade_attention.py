@@ -1,10 +1,11 @@
 """Cascade tree-verification attention (twin of
 ``repro/kernels/cascade_attention.py``).
 
-phase 1 (CUDA, ``csrc/cascade_phase1.cu``): split-K flash partials of the
-  tree query block over the long KV cache — dense/rolling buffers
-  (:func:`cascade_phase1`) or a page pool read through a page table
-  (:func:`cascade_phase1_paged`).
+phase 1 (CUDA): split-K flash partials of the tree query block over the
+  long KV cache — dense/rolling buffers (:func:`cascade_phase1`) or a page
+  pool read through a page table (:func:`cascade_phase1_paged`). bfloat16
+  runs on the tensor cores (``csrc/cascade_phase1_sm90.cu``), float32 on
+  the CUDA cores (``csrc/cascade_phase1.cu``, exact).
 phase 2 (torch, :func:`merge_with_tree_block`): log-sum-exp merge of the
   split partials with the tree-masked attention over the block itself.
 
@@ -12,14 +13,16 @@ Every kernel wrapper dispatches on the device of its query tensor: a CPU
 tensor runs the plain torch version (``*_plain``, the same arithmetic
 the kernel does, and the oracle the kernel is held to on the card), a
 CUDA tensor launches the kernel or raises. There is no fallback. Each
-wrapper counts its launches in ``<wrapper>.launches``.
+wrapper counts its launches in ``<wrapper>.launches``, and those of them
+that went to the tensor-core kernel in ``<wrapper>.sm90_launches``.
 
 Split semantics match the Pallas kernels so partials compare one to one:
 dense ``ns = min(n_splits, ceil(S/bk))`` splits over the cache padded to
 ``ns*bk`` multiples (padded slots dead); paged ``ns = min(n_splits,
 max_pages)`` splits over the table padded to an ``ns`` multiple with
 out-of-range entries. A split with no live key reports ``m = -1e30``;
-its ``l``/``acc`` are not meaningful and the merge weighs it by 0.
+its ``l``/``acc`` are not meaningful and the merge weighs it by 0 (the
+kernels write ``acc = l = 0`` for a split with no key in range at all).
 """
 from __future__ import annotations
 
@@ -120,9 +123,10 @@ def cascade_phase1(q, cache_k, cache_v, *, cache_len, q_abs, window=None,
                    bk=512):
     """Split-K flash partials over a DENSE cache (kernel #1).
 
-    q [B,Hq,Tq,D] (any float dtype, upcast to fp32); cache [B,Hkv,S,D]
-    float32 or bfloat16, any strides with a contiguous last axis (the
-    model passes a transposed view of its [B,S,Hkv,D] buffer; no copy).
+    q [B,Hq,Tq,D]; cache [B,Hkv,S,D]; q and cache both float32 or both
+    bfloat16, any strides with a contiguous last axis (the model passes
+    transposed views of its [B,T,Hq,D] queries and [B,S,Hkv,D] buffer; no
+    copy).
     ``cache_len`` scalar or [B]; ``q_abs`` [B,Tq] absolute query positions.
     Returns acc [B,Hq,ns,Tq,D], m/l [B,Hq,ns,Tq] in fp32.
     """
@@ -131,33 +135,29 @@ def cascade_phase1(q, cache_k, cache_v, *, cache_len, q_abs, window=None,
               n_splits=n_splits, bk=bk)
     if q.device.type == "cpu":
         return cascade_phase1_plain(q, cache_k, cache_v, **kw)
-    _check_cuda(q, cache_k, cache_v)
+    fn, sm90 = _entry("cascade_phase1_dense", q, cache_k, cache_v)
     b, hq, tq, d = q.shape
     hkv, s_len = cache_k.shape[1], cache_k.shape[2]
-    scale = scale if scale is not None else d ** -0.5
     bk_, ns, nk_inner, _ = _split_geometry(s_len, n_splits, bk)
-    qf = (q.float() * scale).contiguous()
+    qk, q_strides, scale_arg = _q_args(q, scale, sm90)
     clen = _int_rows(cache_len, b, None, q.device)
     qa = _int_rows(q_abs, b, tq, q.device)
     acc, m, l = _outputs(b, hq, ns, tq, d, q.device)
-    from repro_torch.kernels import build
-    lib = build.load("cascade_phase1")
-    rc = lib.cascade_phase1_dense(
-        qf.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
-        *cache_k.stride()[:3], *cache_v.stride()[:3],
-        clen.data_ptr(), qa.data_ptr(), acc.data_ptr(), m.data_ptr(),
-        l.data_ptr(), b, hq, hkv, tq, d, s_len, bk_, nk_inner, ns,
-        int(rolling), int(window) if window is not None else 0,
-        float(attn_softcap) if attn_softcap is not None else 0.0,
-        int(cache_k.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"cascade_phase1_dense launch failed: CUDA error {rc}")
+    rc = fn(qk.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
+            *q_strides, *cache_k.stride()[:3], *cache_v.stride()[:3],
+            clen.data_ptr(), qa.data_ptr(), acc.data_ptr(), m.data_ptr(),
+            l.data_ptr(), b, hq, hkv, tq, d, s_len, bk_, nk_inner, ns,
+            int(rolling), int(window) if window is not None else 0,
+            float(attn_softcap) if attn_softcap is not None else 0.0,
+            *scale_arg, torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(rc, fn)
     cascade_phase1.launches += 1
+    cascade_phase1.sm90_launches += sm90
     return acc, m, l
 
 
 cascade_phase1.launches = 0
+cascade_phase1.sm90_launches = 0
 
 
 def merge_with_tree_block(q, blk_k, blk_v, acc, m, l, *, tree_mask,
@@ -263,38 +263,34 @@ def cascade_phase1_paged(q, pool_k, pool_v, page_table, *, cache_len, q_abs,
               pos_stride=pos_stride, pos_offset=pos_offset)
     if q.device.type == "cpu":
         return cascade_phase1_paged_plain(q, pool_k, pool_v, page_table, **kw)
-    _check_cuda(q, pool_k, pool_v)
+    fn, sm90 = _entry("cascade_phase1_paged", q, pool_k, pool_v)
     b, hq, tq, d = q.shape
     n_phys, hkv, page = pool_k.shape[0], pool_k.shape[1], pool_k.shape[2]
-    scale = scale if scale is not None else d ** -0.5
     mp = page_table.shape[-1]
     ns, nk_inner, _ = _paged_geometry(mp, n_splits)
+    qk, q_strides, scale_arg = _q_args(q, scale, sm90)
     table = torch.as_tensor(page_table, device=q.device).to(
         torch.int32).reshape(-1, mp).expand(b, mp).contiguous()
-    qf = (q.float() * scale).contiguous()
     clen = _int_rows(cache_len, b, None, q.device)
     qa = _int_rows(q_abs, b, tq, q.device)
     acc, m, l = _outputs(b, hq, ns, tq, d, q.device)
-    from repro_torch.kernels import build
-    lib = build.load("cascade_phase1")
-    rc = lib.cascade_phase1_paged(
-        qf.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-        *pool_k.stride()[:3], *pool_v.stride()[:3],
-        table.data_ptr(), clen.data_ptr(), qa.data_ptr(), acc.data_ptr(),
-        m.data_ptr(), l.data_ptr(), b, hq, hkv, tq, d, page, mp, n_phys,
-        nk_inner, ns, page if pos_stride is None else int(pos_stride),
-        0 if pos_offset is None else int(pos_offset),
-        int(window) if window is not None else 0,
-        float(attn_softcap) if attn_softcap is not None else 0.0,
-        int(pool_k.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"cascade_phase1_paged launch failed: CUDA error {rc}")
+    rc = fn(qk.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+            *q_strides, *pool_k.stride()[:3], *pool_v.stride()[:3],
+            table.data_ptr(), clen.data_ptr(), qa.data_ptr(), acc.data_ptr(),
+            m.data_ptr(), l.data_ptr(), b, hq, hkv, tq, d, page, mp, n_phys,
+            nk_inner, ns, page if pos_stride is None else int(pos_stride),
+            0 if pos_offset is None else int(pos_offset),
+            int(window) if window is not None else 0,
+            float(attn_softcap) if attn_softcap is not None else 0.0,
+            *scale_arg, torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(rc, fn)
     cascade_phase1_paged.launches += 1
+    cascade_phase1_paged.sm90_launches += sm90
     return acc, m, l
 
 
 cascade_phase1_paged.launches = 0
+cascade_phase1_paged.sm90_launches = 0
 
 
 def cascade_attention_paged(q, pool_k, pool_v, page_table, blk_k, blk_v, *,
@@ -313,21 +309,61 @@ def cascade_attention_paged(q, pool_k, pool_v, page_table, blk_k, blk_v, *,
 
 
 # ------------------------------------------------------------ helpers ------
-def _check_cuda(q, k, v):
+def _entry(name, q, k, v):
+    """(C function, is it the tensor-core kernel) for the tensors' dtype,
+    after the checks that kernel needs: bf16 q and cache go to
+    ``csrc/cascade_phase1_sm90.cu``, fp32 to ``csrc/cascade_phase1.cu``.
+    Raises before any launch on what neither takes."""
     if q.device.type != "cuda":
         raise RuntimeError(f"cascade kernels run on CUDA or CPU tensors, "
                            f"not {q.device}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must be on one device")
-    if k.dtype != v.dtype or k.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"cache dtype {k.dtype}/{v.dtype}: the kernel takes "
-                        "float32 or bfloat16 K/V of one dtype")
+    if k.dtype != q.dtype or v.dtype != q.dtype or q.dtype not in (
+            torch.float32, torch.bfloat16):
+        raise TypeError("the cascade kernels take float32 or bfloat16 q, k "
+                        f"and v of one dtype, not {q.dtype}/{k.dtype}/"
+                        f"{v.dtype}")
     if k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("the cache's head-dim axis must be contiguous")
     if q.shape[-1] > 128:
         raise ValueError(f"head_dim {q.shape[-1]} > 128 is not supported")
     if q.shape[1] % k.shape[1] != 0:
         raise ValueError("query heads must be a multiple of KV heads")
+    from repro_torch.kernels import build
+    if q.dtype == torch.float32:
+        return getattr(build.load("cascade_phase1"), name), False
+    # one pass over the three tensors: a stride of a size-1 axis is never
+    # stepped, so only the others need to be multiples of 8
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    if (q.stride(-1) != 1 or q.shape[-1] % 8
+            or (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16
+            or any(s % 8 for s in strides) and any(
+                s % 8 and n > 1 for n, s in zip(
+                    (*q.shape[:3], *k.shape[:3], *v.shape[:3]), strides))):
+        raise ValueError(
+            "the bf16 cascade kernels load rows in 16-byte chunks: q, k "
+            "and v need 16-byte-aligned bases, a contiguous head dim that "
+            "is a multiple of 8 and strides that are multiples of 8, not "
+            f"shapes {tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}, "
+            f"strides {q.stride()} {k.stride()} {v.stride()}")
+    return getattr(build.load("cascade_phase1_sm90"), name + "_sm90"), True
+
+
+def _q_args(q, scale, sm90):
+    """(q tensor, its strides, the scale) as the entry point takes them:
+    the tensor-core kernel reads bf16 q in place and scales the fp32
+    scores; the fp32 kernel takes a pre-scaled contiguous copy, no strides
+    and no scale. The caller holds the tensor until the launch."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if sm90:
+        return q, q.stride()[:3], [float(scale)]
+    return (q * scale).contiguous(), (), []
+
+
+def _raise_on(rc, fn):
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {rc}")
 
 
 def _outputs(b, hq, ns, tq, d, device):

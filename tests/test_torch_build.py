@@ -70,6 +70,33 @@ def test_signature_matches_the_c_parameters(stem, name):
                        f"needs {w.__name__}"
 
 
+def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
+    """A library's file name hashes its source and every header it
+    includes, directly or through another header, so an edited header
+    rebuilds each source that includes it; an unrelated file does not."""
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include <math.h>\n#include "a.cuh"\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// b\n")
+    (tmp_path / "other.cuh").write_text("// other\n")
+    assert [p.name for p in build.sources("k")] == ["k.cu", "a.cuh", "b.cuh"]
+    first = build._lib_path("k")
+    (tmp_path / "other.cuh").write_text("// other, edited\n")
+    assert build._lib_path("k") == first
+    (tmp_path / "b.cuh").write_text("// b, edited\n")
+    second = build._lib_path("k")
+    assert second != first
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n// a\n')
+    assert build._lib_path("k") not in (first, second)
+
+
+def test_the_sm90_sources_share_one_header():
+    """Both tensor-core sources include the shared helpers, so the hash
+    of each covers them."""
+    for stem in ("flash_attention_sm90", "cascade_phase1_sm90"):
+        assert "sm90_common.cuh" in [p.name for p in build.sources(stem)]
+
+
 def test_the_parser_sees_every_parameter_kind():
     """The parse is not vacuous: across the sources it finds pointers,
     ``long long``, ``int`` and ``float`` parameters, and the one stream."""

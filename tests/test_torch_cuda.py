@@ -6,9 +6,13 @@ installed; run it on the card with
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances. Cascade partials: relative to 1 + |plain| below 1e-4,
-compared where the split has a live key (``m > -1e29``); both sides
-compute in fp32 from the same inputs and differ only in summation order.
+Tolerances. Cascade partials, compared where the split has a live key
+(``m > -1e29``): m and l relative to 1 + |plain| below 1e-4 in both
+dtypes (fp32 scores and row sums on both sides, summation order only);
+acc the same in fp32, and in bf16 relative to the largest |plain acc| of
+its row and split below 8e-3, since the tensor-core kernels
+(``csrc/cascade_phase1_sm90.cu``) round P to bf16 for P V, as the flash
+kernels do. q comes in the cache's dtype, as every caller passes it.
 Flash o/dq/dk/dv: max |kernel - plain| / max |plain| below 2e-5 for fp32
 (summation order) and 8e-3 for bf16 (outputs rounded to bf16 on both
 sides: one bf16 ulp); lse absolute 1e-4; o and dq over rows with a live
@@ -18,10 +22,11 @@ partial 128-row block, a single query row, a kv_len that ends inside a
 key tile, key tiles that no query sees (dk = dv = 0 there), and head
 dims 64 and 96 (the latter zero-filled to 128).
 """
+import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import cascade_attention as tcasc
+from repro_torch.kernels import cascade_cases
 from repro_torch.kernels import flash_attention as tfa
 
 
@@ -32,47 +37,87 @@ def dev():
     return "cuda"
 
 
-def _inputs(dev, dtype, paged):
+# test id -> a case of cascade_cases.CASES, the table chip_smoke.py runs
+# whole: both caches, softcap, window, the shard contract, small pages, a
+# rolling buffer and the tensor-core kernels' tile edges (Tq 1 and 136,
+# GQA groups 1 and 8, D 64 and 96)
+CARD_CASES = {"dense": "dense_tq76", "paged": "paged_tq76",
+              "softcap": "paged_softcap", "window": "paged_window",
+              "dense_window": "dense_window", "pos_stride": "pos_stride",
+              "page8": "page8", "rolling": "rolling97_w50", "tq1": "tq1",
+              "tq136": "tq136", "group1": "group1", "group8": "group8",
+              "d64": "d64", "d96": "d96"}
+
+
+def _inputs(dev, dtype, kind, **opts):
+    """(wrapper, plain version, args, kwargs) of one case, from a fresh
+    seed: q in the cache's dtype as a view of [B,Tq,Hq,D], the cache of
+    [B,S,Hkv,D] or the pool of [P,page,Hkv,D], as the model hands them
+    over."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    b, hq, hkv, tq, d, page = 3, 8, 2, 76, 128, 64
-    lens = torch.tensor([512, 701, 1100], device=dev)
-    q_abs = lens[:, None] + torch.arange(tq, device=dev)
-    q = torch.randn((b, hq, tq, d), generator=gen, device=dev)
-    if paged:
-        n_phys, mp = 3 * 18, 18
-        pool = [torch.randn((n_phys, page, hkv, d), generator=gen,
-                            device=dev).to(dtype).transpose(1, 2)
-                for _ in range(2)]
-        pt = torch.randperm(n_phys, device=dev, generator=gen)[
-            :b * mp].reshape(b, mp).int()
-        return (q, *pool, pt), dict(cache_len=lens, q_abs=q_abs)
-    cache = [torch.randn((b, 1152, hkv, d), generator=gen,
-                         device=dev).to(dtype).transpose(1, 2)
-             for _ in range(2)]
-    return (q, *cache), dict(cache_len=lens, q_abs=q_abs)
+    return cascade_cases.case_inputs(gen, np.random.default_rng(0), dtype,
+                                     kind, **opts)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("paged", [False, True])
-def test_cuda_kernel_matches_plain(dev, paged, dtype):
-    args, kw = _inputs(dev, dtype, paged)
-    if paged:
-        kern_fn, plain_fn = (tcasc.cascade_phase1_paged,
-                             tcasc.cascade_phase1_paged_plain)
-    else:
-        kern_fn, plain_fn = tcasc.cascade_phase1, tcasc.cascade_phase1_plain
-    before = kern_fn.launches
+@pytest.mark.parametrize("case", sorted(CARD_CASES))
+def test_cuda_kernel_matches_plain(dev, case, dtype):
+    kern_fn, plain_fn, args, kw = _inputs(
+        dev, dtype, **cascade_cases.CASES[CARD_CASES[case]])
+    before = (kern_fn.launches, kern_fn.sm90_launches)
     kern = kern_fn(*args, **kw)
     plain = plain_fn(*args, **kw)
     torch.cuda.synchronize()
-    assert kern_fn.launches == before + 1
+    sm90 = int(dtype == torch.bfloat16)    # bf16: the tensor-core kernel
+    assert (kern_fn.launches, kern_fn.sm90_launches) == (
+        before[0] + 1, before[1] + sm90)
+    assert all(torch.isfinite(x).all() for x in kern)
+    empty = kern[2] == 0                    # no key in the split's range
+    assert (kern[0][empty] == 0).all() and (kern[1][empty] == -1e30).all()
     live = plain[1] > -1e29
-    for a, b_ in zip(kern, plain):
-        rel = (a - b_).abs() / (1 + b_.abs())
-        rel = rel.amax(-1) if rel.ndim == 5 else rel
-        assert rel[live].max().item() < 1e-4
+    for a, b_ in zip(kern[1:], plain[1:]):
+        assert ((a - b_).abs() / (1 + b_.abs()))[live].max().item() < 1e-4
+    if sm90:
+        acc = (kern[0] - plain[0]).abs().amax(-1) / plain[0].abs().amax(-1)
+        assert acc[live].max().item() < 8e-3
+    else:
+        acc = ((kern[0] - plain[0]).abs() / (1 + plain[0].abs())).amax(-1)
+        assert acc[live].max().item() < 1e-4
+
+
+@pytest.mark.cuda
+def test_cascade_refuses_mixed_dtypes(dev):
+    """A bf16 cache with an fp32 q (or the reverse) raises TypeError
+    before any launch: no caller mixes them, and the kernels take one
+    dtype."""
+    for dtype, q_dtype in ((torch.bfloat16, torch.float32),
+                           (torch.float32, torch.bfloat16)):
+        for kind in ("dense", "paged"):
+            kern_fn, _, args, kw = _inputs(dev, dtype, kind, s=128,
+                                           lens=(100,))
+            args = (args[0].to(q_dtype), *args[1:])
+            before = (kern_fn.launches, kern_fn.sm90_launches)
+            with pytest.raises(TypeError, match="one dtype"):
+                kern_fn(*args, **kw)
+            assert (kern_fn.launches, kern_fn.sm90_launches) == before
+
+
+@pytest.mark.cuda
+def test_cascade_bf16_refuses_what_cp_async_cannot_load(dev):
+    """The bf16 cascade kernels load rows in 16-byte chunks: a cache whose
+    row stride is not a multiple of 8 elements raises before any launch,
+    with no fallback."""
+    for kind in ("dense", "paged"):
+        kern_fn, _, args, kw = _inputs(dev, torch.bfloat16, kind, d=20,
+                                       s=128, lens=(100,))
+        args = (args[0][..., :16], *(x[..., :16] for x in args[1:3]),
+                *args[3:])
+        before = (kern_fn.launches, kern_fn.sm90_launches)
+        with pytest.raises(ValueError, match="16-byte chunks"):
+            kern_fn(*args, **kw)
+        assert (kern_fn.launches, kern_fn.sm90_launches) == before
 
 
 FLASH_CASES = {   # b, hq, hkv, tq, tkv, d, [B,T,H,D] layout, options

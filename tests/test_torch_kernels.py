@@ -21,6 +21,7 @@ import torch
 from repro.kernels import cascade_attention as jcasc
 from repro.kernels import ref as jref
 from repro_torch.kernels import cascade_attention as tcasc
+from repro_torch.kernels import cascade_cases
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -271,13 +272,42 @@ def test_kernel_wrappers_count_only_kernel_launches():
     launch; the counters move only where a CUDA kernel is launched."""
     q, ck, cv = (_t(x) for x in _inputs(1, [(1, 2, 4, 16), (1, 2, 64, 16),
                                             (1, 2, 64, 16)]))
-    before = (tcasc.cascade_phase1.launches,
-              tcasc.cascade_phase1_paged.launches)
+    wrappers = (tcasc.cascade_phase1, tcasc.cascade_phase1_paged)
+    before = [(fn.launches, fn.sm90_launches) for fn in wrappers]
     tcasc.cascade_phase1(q, ck, cv, cache_len=torch.tensor([40]),
                          q_abs=torch.arange(4)[None] + 40)
     tcasc.cascade_phase1_paged(
         q, ck.reshape(4, 2, 16, 16), cv.reshape(4, 2, 16, 16),
         torch.arange(4)[None].int(), cache_len=torch.tensor([40]),
         q_abs=torch.arange(4)[None] + 40)
-    assert (tcasc.cascade_phase1.launches,
-            tcasc.cascade_phase1_paged.launches) == before
+    assert [(fn.launches, fn.sm90_launches) for fn in wrappers] == before
+
+
+@pytest.mark.parametrize("name", sorted(cascade_cases.CASES))
+def test_card_case_table_builds_and_runs_on_cpu(name):
+    """Each case of the table the card runs (``chip_smoke.py``,
+    ``tests/test_torch_cuda.py``) builds here and gives finite partials of
+    the split geometry's shape; the paged cases' tables hold a page for
+    every live position and the sentinel after it."""
+    from repro_torch.models.kvcache import PAGE_SENTINEL
+    case = cascade_cases.CASES[name]
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    fn, plain, args, kw = cascade_cases.case_inputs(
+        gen, np.random.default_rng(0), torch.float32, **case)
+    acc, m, l = fn(*args, **kw)
+    q = args[0]
+    b, hq, tq, d = q.shape
+    if case["kind"] == "paged":
+        ns = tcasc._paged_geometry(args[3].shape[1], kw.get("n_splits", 8))[0]
+        span = kw.get("pos_stride", args[1].shape[2])
+        for row, cl in zip(args[3].tolist(), kw["cache_len"].tolist()):
+            need = -(-cl // span)
+            assert PAGE_SENTINEL not in row[:need]
+            assert set(row[need:]) <= {PAGE_SENTINEL}
+    else:
+        ns = tcasc._split_geometry(args[1].shape[2], kw.get("n_splits", 8),
+                                   kw.get("bk", 512))[1]
+    assert acc.shape == (b, hq, ns, tq, d) and m.shape == l.shape == (
+        b, hq, ns, tq)
+    assert all(torch.isfinite(x).all() for x in (acc, m, l))
