@@ -43,14 +43,29 @@ Phases, each printing one JSON line (any failure exits non-zero):
            own count of what each cycle must accept, and the target and
            feature caches the cycles commit to a plain prefill of the
            same tokens
+  graph_fp32  the main and oracle phases' fp32 kernel runs through
+           ``generate_ondevice`` (one CUDA graph replay a cycle), paged and
+           dense: tokens held to the eager run and to plain greedy, cycles
+           to the eager run's, the oracle's alpha to its count and the
+           caches the graph loop commits to a plain prefill
   bf16     the same runs in bfloat16 (the config's dtype), paged and dense:
-           tokens/s, agreement with the gather path, and at least 40
+           tokens/s, agreement with the gather path (where a row first
+           leaves it, the top-2 gap of a plain bf16 forward over the shared
+           context must be a near tie in bf16 ulps), and at least 40
            (paged: 36 target layers, 2 x 2 drafter layers) or 36 (dense)
            launches a cycle through the tensor-core cascade kernels and
            none through cascade_phase1.cu
   profile  six bf16 decode cycles (kernel path, paged cache) under
            torch.profiler: device time per cycle, the device's idle share
            and the kernels that take the most device time
+  graph_bf16  the bf16 kernel runs of both caches through
+           ``generate_ondevice``, beside the eager ones of this run: ms per
+           cycle, decode tokens/s, capture time, graph pool bytes, token
+           agreement with the eager run
+  graph_profile  six graph replays a cache (bf16, kernel path), timed
+           unprofiled and then under torch.profiler: device ms per cycle,
+           idle share, top kernels, and at least 40 (paged) or 36 (dense)
+           phase1_sm90_kernel launches a replay, counted by kernel name
   train_fp32   paper_target.full() cut to 8 layers (the only cut; 2.79e9
            params, AdamW as optimizer_for picks), remat on, batch 2 x 4096
            tokens of the mixture stream: three steps through the fp32 flash
@@ -93,6 +108,14 @@ PEAK_BYTES_S = 3.35e12                      # H100 SXM HBM3
 PEAK_FLOPS = {torch.float32: 67e12,         # fp32, CUDA cores
               torch.bfloat16: 989e12}       # bf16 tensor cores, dense
 NEAR_TIE = 1e-4                             # top-2 logit gap that may flip
+NEAR_TIE_BF16_ULPS = 4      # bf16: the same rule, the gap counted in bf16
+                            # ulps of the top logit (2^-5 at the random
+                            # weights' top logits, 4 to 8): each path rounds
+                            # each logit to bf16 (up to 1 ulp apart, so 2 on
+                            # a gap) and reads a bf16 residual stream that
+                            # the two read paths round differently over 36
+                            # layers (about 2 more); a wrong read moves the
+                            # logits by far more (top-2 spacing ~8 ulps)
 TOL_OUT = 2e-5      # fp32 merged cascade output, absolute: both sides
                     # compute in fp32; only sum order differs
 TOL_PART = 1e-4     # cascade partials relative to 1 + |plain|: m and l in
@@ -645,18 +668,29 @@ def register_oracle(seq):
     gamma/2``, on the branches past ``cut_b > cut_t``. Whenever a fork lies at or
     below ``cut_t`` the accepted path runs along the trunk and on into
     that branch, so a cycle commits up to gamma tokens through tree rows
-    other than the root. ``committed`` and ``row_cycles`` count what the
+    other than the root. Its counters, kept on ``seq``'s device so that a
+    draft makes no host sync and a CUDA graph can capture it: what the
     active rows must commit and the active row-cycles, so that
-    ``committed / row_cycles`` is the alpha ``generate`` must report;
-    ``branch_paths`` counts the active row-cycles whose accepted path
-    must end in a branch."""
+    ``committed / row_cycles`` is the alpha ``generate`` must report, and
+    the active row-cycles whose accepted path must end in a branch
+    (``Oracle.read()``, zeroed by ``Oracle.reset()``)."""
     from repro_torch.core import strategies as st
     from repro_torch.core import tree as tree_lib
     seq = seq.long()
 
     @st.register_strategy("oracle")
     class Oracle(st.D2SDStrategy):
-        committed = row_cycles = branch_paths = 0
+        # committed, row_cycles, branch_paths
+        counts = torch.zeros((3,), dtype=torch.long, device=seq.device)
+
+        @classmethod
+        def reset(cls):
+            cls.counts.zero_()
+
+        @classmethod
+        def read(cls):
+            return dict(zip(("committed", "row_cycles", "branch_paths"),
+                            cls.counts.tolist()))
 
         def draft(self, bundle, state):
             tree = super().draft(bundle, state)
@@ -675,9 +709,9 @@ def register_oracle(seq):
             tokens[:, 0] = tree.tokens[:, 0]
             acc = tree_lib.propagate_acceptance(tree, good & tree.valid)
             best, n_acc, _ = tree_lib.best_path(tree, acc)
-            Oracle.committed += int(((n_acc + 1) * state.active).sum())
-            Oracle.row_cycles += int(state.active.sum())
-            Oracle.branch_paths += int(((best >= g) & state.active).sum())
+            Oracle.counts += torch.stack([
+                ((n_acc + 1) * state.active).sum(), state.active.sum(),
+                ((best >= g) & state.active).sum()])
             return dataclasses.replace(tree, tokens=tokens)
 
     return Oracle
@@ -694,14 +728,15 @@ def _kv_views(cache):
 
 
 def committed_cache_error(bundle, prompts, seq, cache_impl,
-                          max_new=MAX_NEW, page_size=64):
-    """Run decode cycles of ``bundle`` (the loop of ``generate``: a row is
-    active until it has ``max_new`` tokens) on ``prompts`` [B, P], then hold
-    what the cycles committed to what a plain prefill of the same tokens
-    ``seq`` writes: the target's K/V in every global layer and both
-    drafters' feature caches, each row up to its committed length.
-    Returns the largest difference relative to the largest value of the
-    prefill's tensor."""
+                          max_new=MAX_NEW, page_size=64, ondevice=False):
+    """Run decode cycles of ``bundle`` (a row is active until it has
+    ``max_new`` tokens: the loop of ``generate``, or with ``ondevice`` the
+    ``OnDeviceLoop`` of ``generate_ondevice``, a CUDA graph on a card) on
+    ``prompts`` [B, P], then hold what the cycles committed to what a
+    plain prefill of the same tokens ``seq`` writes: the target's K/V in
+    every global layer and both drafters' feature caches, each row up to
+    its committed length. Returns the largest difference relative to the
+    largest value of the prefill's tensor."""
     from repro_torch.core import pipeline as pl
     from repro_torch.core.state import engine_init, prefill
     b, p = prompts.shape
@@ -709,11 +744,14 @@ def committed_cache_error(bundle, prompts, seq, cache_impl,
     state = prefill(bundle, engine_init(
         bundle, b, p + max_new + 2 * bundle.spec.gamma + 8,
         cache_impl=cache_impl, page_size=page_size, device=dev), prompts)
-    while True:
-        active = state.length < p + max_new - 1
-        if not bool(active.any()):
-            break
-        state, _ = pl.decode_cycle(bundle, state.replace(active=active))
+    if ondevice:
+        state = pl.OnDeviceLoop(bundle, state, max_new).run().state
+    else:
+        while True:
+            active = state.length < p + max_new - 1
+            if not bool(active.any()):
+                break
+            state, _ = pl.decode_cycle(bundle, state.replace(active=active))
     lens = state.length.tolist()
     for feat in (state.d1_feat, state.d2_feat):
         if feat["length"].tolist() != lens:
@@ -760,12 +798,16 @@ def build_bundle(dtype):
                          drafter_init(dcfg, seed=2, device=DEVICE))
 
 
-def run_generate(bundle, prompts, impl, cache_impl):
+def run_generate(bundle, prompts, impl, cache_impl, ondevice=False):
+    """One ``generate`` call (the host loop) or, with ``ondevice``, one
+    ``generate_ondevice`` call (the CUDA graph loop): its tokens and a
+    record of its times."""
     from repro_torch.core import pipeline as pl
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = pl.generate(pl.with_attn_impl(bundle, impl), prompts, MAX_NEW,
-                      cache_impl=cache_impl, page_size=64, device=DEVICE)
+    fn = pl.generate_ondevice if ondevice else pl.generate
+    res = fn(pl.with_attn_impl(bundle, impl), prompts, MAX_NEW,
+             cache_impl=cache_impl, page_size=64, device=DEVICE)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     toks = res["tokens"]
@@ -774,13 +816,18 @@ def run_generate(bundle, prompts, impl, cache_impl):
             or toks.max() >= vocab:
         fail(f"{impl}/{cache_impl}: bad tokens {toks.shape}")
     n_tok = toks.size
-    return toks, {"impl": impl, "cache": cache_impl,
-                  "cycles": res["n_cycles"], "alpha": res["alpha"],
-                  "prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
-                  "ms_per_cycle": 1e3 * res["decode_s"] / res["n_cycles"],
-                  "tokens_per_s": n_tok / wall,
-                  "decode_tokens_per_s": (n_tok - toks.shape[0])
-                  / res["decode_s"], "wall_s": wall}
+    info = {"impl": impl, "cache": cache_impl,
+            "loop": "graph" if ondevice else "host",
+            "cycles": res["n_cycles"], "alpha": res["alpha"],
+            "prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
+            "ms_per_cycle": 1e3 * res["decode_s"] / res["n_cycles"],
+            "tokens_per_s": n_tok / wall,
+            "decode_tokens_per_s": (n_tok - toks.shape[0]) / res["decode_s"],
+            "wall_s": wall}
+    if ondevice:
+        info["capture_s"] = res["capture_s"]
+        info["graph_pool_bytes"] = res["graph_pool_bytes"]
+    return toks, info
 
 
 def _launches():
@@ -860,7 +907,67 @@ def main_path():
           "launches_per_cycle": per_cycle, "near_ties": ties,
           "min_ref_top2_gap": float(gaps[:, :MAX_NEW].min())})
     oracle_path(bundle, prompts, ref_toks, gaps)
-    return bundle, prompts, launches
+    eager = {cache: (toks[("kernel", cache)], info["cycles"])
+             for cache, info in zip(("paged", "dense"), runs)}
+    return bundle, prompts, launches, (eager, ref_toks, gaps)
+
+
+def graph_fp32(bundle, prompts, eager, ref_toks, gaps):
+    """The main and oracle phases' fp32 kernel runs again through
+    ``generate_ondevice`` (one CUDA graph replay a cycle): tokens held to
+    the eager kernel run and to plain greedy, the cycle count to the eager
+    run's; with the oracle's drafts, alpha held to the oracle's count and
+    the caches the graph loop commits to a plain prefill. The launch
+    counts, zeroed before the two runs and read after, count the eager
+    first cycles and the captures (a replay runs no Python)."""
+    from repro_torch.core import pipeline as pl
+    runs, ties = [], {}
+    _zero_launches()
+    for cache in ("paged", "dense"):
+        gt, info = run_generate(bundle, prompts, "kernel", cache,
+                                ondevice=True)
+        runs.append(info)
+        ties[f"graph/{cache} vs greedy"] = agreement(
+            "graph", gt, ref_toks[:, :MAX_NEW], gaps)
+        ties[f"graph/{cache} vs eager"] = agreement(
+            "graph", gt, eager[cache][0], gaps)
+        if not ties[f"graph/{cache} vs eager"] and \
+                info["cycles"] != eager[cache][1]:
+            fail(f"graph {cache}: {info['cycles']} cycles, the eager loop "
+                 f"{eager[cache][1]}")
+    launches = _launches()
+    _check_fp32_launches(launches, "graph")
+    seq = torch.as_tensor(np.concatenate([prompts, ref_toks], 1),
+                          device=DEVICE)
+    oracle = register_oracle(seq)
+    ob = dataclasses.replace(
+        bundle, spec=dataclasses.replace(bundle.spec, mode="oracle"))
+    exact = gaps.min() >= NEAR_TIE      # no near tie: the oracle's count holds
+    for cache in ("paged", "dense"):
+        oracle.reset()
+        ot, info = run_generate(ob, prompts, "kernel", cache, ondevice=True)
+        count = oracle.read()
+        info["oracle_alpha"] = count["committed"] / count["row_cycles"]
+        info["branch_paths"] = count["branch_paths"]
+        runs.append(info)
+        ties[f"graph oracle/{cache} vs greedy"] = agreement(
+            "graph oracle", ot, ref_toks[:, :MAX_NEW], gaps)
+        if exact and info["alpha"] != info["oracle_alpha"]:
+            fail(f"graph oracle {cache}: alpha {info['alpha']} but the "
+                 f"drafts must give {info['oracle_alpha']}")
+        if info["oracle_alpha"] < 2 or count["branch_paths"] == 0:
+            fail(f"graph oracle {cache}: drafts too weak: {info}")
+        info["cache_rel_err"] = committed_cache_error(
+            pl.with_attn_impl(ob, "kernel"),
+            torch.as_tensor(prompts, device=DEVICE), seq, cache,
+            ondevice=True)
+        if info["cache_rel_err"] > TOL_CACHE:
+            fail(f"graph oracle {cache}: committed caches differ from a "
+                 f"prefill of the same tokens: {info}")
+    emit({"phase": "graph_fp32", "ok": True, "dtype": "float32",
+          "alpha_checked": bool(exact), "tol_cache": TOL_CACHE,
+          "runs": runs, "launches": launches,
+          "near_ties": {k: v for k, v in ties.items() if v}})
 
 
 def oracle_path(bundle, prompts, ref_toks, gaps):
@@ -879,16 +986,17 @@ def oracle_path(bundle, prompts, ref_toks, gaps):
     _zero_launches()
     for impl in ("kernel", "gather"):
         for cache in ("paged", "dense"):
-            oracle.committed = oracle.row_cycles = oracle.branch_paths = 0
+            oracle.reset()
             toks[(impl, cache)], info = run_generate(bundle, prompts, impl,
                                                      cache)
-            info["oracle_alpha"] = oracle.committed / oracle.row_cycles
-            info["branch_paths"] = oracle.branch_paths
+            count = oracle.read()
+            info["oracle_alpha"] = count["committed"] / count["row_cycles"]
+            info["branch_paths"] = count["branch_paths"]
             runs.append(info)
             if exact and info["alpha"] != info["oracle_alpha"]:
                 fail(f"oracle {impl}/{cache}: alpha {info['alpha']} but the "
                      f"drafts must give {info['oracle_alpha']}")
-            if info["oracle_alpha"] < 2 or oracle.branch_paths == 0:
+            if info["oracle_alpha"] < 2 or count["branch_paths"] == 0:
                 fail(f"oracle {impl}/{cache}: drafts too weak: {info}")
             info["cache_rel_err"] = committed_cache_error(
                 pl.with_attn_impl(bundle, impl), prompts_t, seq, cache)
@@ -923,7 +1031,7 @@ def bf16_path(bundle, prompts):
                                                dtype="bfloat16"),
         d1_cfg=dataclasses.replace(bundle.d1_cfg, dtype="bfloat16"),
         d2_cfg=dataclasses.replace(bundle.d2_cfg, dtype="bfloat16"))
-    runs, agree, first, launches, per_cycle = [], {}, {}, {}, {}
+    runs, agree, first, launches, per_cycle, eager = [], {}, {}, {}, {}, {}
     n_target = b16.target_cfg.num_layers
     n_drafter = b16.d1_cfg.num_layers + b16.d2_cfg.num_layers
     # each cache's kernel run: the counts zeroed just before, read just
@@ -946,16 +1054,178 @@ def bf16_path(bundle, prompts):
         launches[f"{entry}_sm90"] = n
         same = kt == gt
         agree[cache] = float(same.mean())
-        first[cache] = [int(np.nonzero(~r)[0][0]) if (~r).any() else None
-                        for r in same]
+        first[cache] = bf16_divergences(b16, prompts, kt, gt, cache)
+        eager[cache] = (kt, kinfo)
     kinfo = runs[0]
     emit({"phase": "bf16", "ok": True, "runs": runs,
           "tokens_per_s": kinfo["tokens_per_s"],
           "decode_tokens_per_s": kinfo["decode_tokens_per_s"],
           "ms_per_cycle": kinfo["ms_per_cycle"],
           "agree_with_gather": agree, "first_divergence_per_row": first,
+          "near_tie_ulps": NEAR_TIE_BF16_ULPS,
           "launches": launches, "launches_per_cycle": per_cycle})
-    return b16, kinfo["ms_per_cycle"], launches, per_cycle
+    return b16, kinfo["ms_per_cycle"], launches, per_cycle, eager
+
+
+def bf16_divergences(bundle, prompts, kt, gt, cache):
+    """Where each row of the bf16 kernel run first leaves the gather run,
+    the top-2 gap of a plain bf16 forward over the context the two runs
+    share (the prompt and the tokens before it), in bf16 ulps of the top
+    logit. A divergence passes only on a gap below NEAR_TIE_BF16_ULPS.
+    Each record also says how far one verify step over that context moves
+    the same gap when the read path changes (``step_shift_ulps``)."""
+    from repro_torch.models import lm
+    out = []
+    for r in range(kt.shape[0]):
+        diff = np.nonzero(kt[r] != gt[r])[0]
+        if diff.size == 0:
+            out.append(None)
+            continue
+        j = int(diff[0])
+        ctx = torch.as_tensor(np.concatenate([prompts[r], kt[r, :j]]),
+                              device=DEVICE)[None]
+        with torch.no_grad():
+            logits = lm.forward(bundle.target_params, ctx,
+                                bundle.target_cfg)["logits"][0, -1]
+        top, ids = torch.topk(logits.float(), 2)
+        top = top.tolist()
+        ulp = float(2.0 ** (np.floor(np.log2(abs(top[0]))) - 7))
+        rec = {"pos": j, "ref_top2_gap": top[0] - top[1],
+               "ref_top_logit": top[0], "ulps": (top[0] - top[1]) / ulp,
+               "step_shift_ulps": _step_gap_shift(bundle, ctx, cache,
+                                                  ids) / ulp}
+        out.append(rec)
+        if rec["ulps"] >= NEAR_TIE_BF16_ULPS:
+            fail(f"bf16 {cache}: row {r}: the kernel run leaves the gather "
+                 f"run on a wide gap: {rec}")
+    return out
+
+
+def _step_gap_shift(bundle, ctx, cache, ids):
+    """|kernel - gather| of the gap between tokens ``ids`` [2] in the
+    logits of one verify step: the last token of ``ctx`` [1, L] read over
+    a cache that a plain prefill of the rest wrote, through each read
+    path."""
+    from repro_torch.core import pipeline as pl
+    from repro_torch.models import lm
+    n = ctx.shape[1]
+    gaps = []
+    for impl in ("kernel", "gather"):
+        cfg = pl.with_attn_impl(bundle, impl).target_cfg
+        states = lm.init_states(cfg, 1, n, cache_impl=cache, page_size=64,
+                                device=DEVICE)
+        with torch.no_grad():
+            states = lm.forward(bundle.target_params, ctx[:, :-1], cfg,
+                                states=states, write_kv=True)["states"]
+            logits = lm.forward(
+                bundle.target_params, ctx[:, -1:], cfg, states=states,
+                extra_mask=torch.ones((1, 1), dtype=torch.bool,
+                                      device=DEVICE),
+                positions=torch.full((1, 1), n - 1, device=DEVICE))[
+                    "logits"][0, -1].float()
+        gaps.append((logits[ids[0]] - logits[ids[1]]).item())
+    return abs(gaps[0] - gaps[1])
+
+
+def graph_bf16(bundle, prompts, eager):
+    """The bf16 kernel runs of both caches through ``generate_ondevice``,
+    in this run beside the eager ones (``eager``: cache -> (tokens,
+    record)): ms per cycle, decode tokens/s, the capture's time and its
+    graph pool, and the share of tokens equal to the eager run's."""
+    runs, agree = [], {}
+    for cache, entry in (("paged", "cascade_phase1_paged"),
+                         ("dense", "cascade_phase1")):
+        _zero_launches()
+        gt, info = run_generate(bundle, prompts, "kernel", cache,
+                                ondevice=True)
+        counts = _launches()
+        if not counts[f"{entry}_sm90"] or counts["cascade_phase1"] \
+                or counts["cascade_phase1_paged"]:
+            fail(f"graph bf16 {cache}: cascade launches {counts}: expected "
+                 f"{entry}_sm90 and none through cascade_phase1.cu")
+        info["reserved_gb_after"] = torch.cuda.memory_reserved() / 1e9
+        et, einfo = eager[cache]
+        agree[cache] = float((gt == et).mean())
+        runs.append({"cache": cache, "graph": info, "eager": {
+            k: einfo[k] for k in ("cycles", "ms_per_cycle", "tokens_per_s",
+                                  "decode_tokens_per_s", "decode_s")}})
+    torch.cuda.empty_cache()
+    emit({"phase": "graph_bf16", "ok": True, "dtype": "bfloat16",
+          "runs": runs, "agree_with_eager": agree,
+          "reserved_gb_after_empty_cache": torch.cuda.memory_reserved() / 1e9})
+
+
+def _device_rows(prof):
+    """(kernel name, device ms, calls) of a trace's device events, most
+    time first: a CPU op (aten::mm) also reports the time of the kernels
+    it launched, which would count them twice."""
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+
+
+def profile_graph(bundle, prompts, n_cycles=6):
+    """``n_cycles`` replays of the bf16 graph loop (kernel path), each
+    followed by the loop's condition read as ``generate_ondevice`` reads
+    it: first unprofiled (host clock, the cycle's wall time), then under
+    torch.profiler (device time, top kernels, and the tensor-core cascade
+    launches a cycle, counted by kernel name: a replay runs no wrapper)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core.state import engine_init, prefill
+    bundle = pl.with_attn_impl(bundle, "kernel")
+    prompts_t = torch.as_tensor(prompts, device=DEVICE)
+    b, p = prompts_t.shape
+    n_drafter = bundle.d1_cfg.num_layers + bundle.d2_cfg.num_layers
+    out = {}
+    for cache, want in (("paged", bundle.target_cfg.num_layers + n_drafter),
+                        ("dense", bundle.target_cfg.num_layers)):
+        state = prefill(bundle, engine_init(
+            bundle, b, p + MAX_NEW + 2 * bundle.spec.gamma + 8,
+            cache_impl=cache, page_size=64, device=DEVICE), prompts_t)
+        loop = pl.OnDeviceLoop(bundle, state, MAX_NEW)
+        try:
+            loop.start()
+            first = {"first_cycle_s": loop.first_s,
+                     "capture_s": loop.capture_s,
+                     "graph_pool_bytes": loop.graph_pool_bytes}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n_cycles):
+                loop.advance()
+                loop.more()
+            wall = 1e3 * (time.perf_counter() - t0) / n_cycles
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(n_cycles):
+                    loop.advance()
+                    loop.more()
+                torch.cuda.synchronize()
+        finally:
+            loop.close()
+        del loop, state
+        rows = _device_rows(prof)
+        busy = sum(r[1] for r in rows) / n_cycles or None
+        sm90 = sum(c for k, _, c in rows if "phase1_sm90_kernel" in k)
+        out[cache] = {
+            **first, "replays": n_cycles, "ms_per_cycle": wall,
+            "device_ms_per_cycle": busy,
+            "idle_share": busy and 1.0 - busy / wall,
+            "kernels_per_cycle": sum(r[2] for r in rows) / n_cycles,
+            "phase1_sm90_launches_per_cycle": sm90 / n_cycles,
+            "top": [{"name": k[:90], "ms_per_cycle": ms / n_cycles,
+                     "calls_per_cycle": c / n_cycles}
+                    for k, ms, c in rows[:16]]}
+        if sm90 < want * n_cycles:
+            fail(f"graph profile {cache}: {sm90} tensor-core cascade "
+                 f"launches in {n_cycles} replays, expected >= {want} a "
+                 "cycle")
+    torch.cuda.empty_cache()
+    emit({"phase": "graph_profile", "ok": True, "dtype": "bfloat16",
+          "impl": "kernel", **out})
+    return out
 
 
 def profile_cycles(bundle, prompts, ms_per_cycle, n_cycles=6):
@@ -981,12 +1251,7 @@ def profile_cycles(bundle, prompts, ms_per_cycle, n_cycles=6):
             state, out = pl.decode_cycle(bundle, state)
             out["n_out"].cpu()
         torch.cuda.synchronize()
-    # device-side events only: a CPU op (aten::mm) also reports the time
-    # of the kernels it launched, which would count them twice
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+    rows = _device_rows(prof)
     # no device time recorded means the profiler could not trace the card
     busy = sum(r[1] for r in rows) / n_cycles or None
     emit({"phase": "profile", "ok": True, "dtype": "bfloat16",
@@ -994,6 +1259,7 @@ def profile_cycles(bundle, prompts, ms_per_cycle, n_cycles=6):
           "device_ms_per_cycle": busy,
           "unprofiled_ms_per_cycle": ms_per_cycle,
           "idle_share": busy and 1.0 - busy / ms_per_cycle,
+          "kernels_per_cycle": sum(r[2] for r in rows) / n_cycles,
           "top": [{"name": k[:90], "ms_per_cycle": ms / n_cycles,
                    "calls_per_cycle": c / n_cycles}
                   for k, ms, c in rows[:16]]})
@@ -1186,10 +1452,7 @@ def profile_train_step(run, ms_per_step):
         params, state, m = step(params, state, batch)
         float(m["loss"])
         torch.cuda.synchronize()
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+    rows = _device_rows(prof)
     busy = sum(r[1] for r in rows) or None
     flash = sum(ms for k, ms, _ in rows if "flash_" in k)
     emit({"phase": "train_profile", "ok": True, "dtype": "bfloat16",
@@ -1237,10 +1500,14 @@ def main():
     worst, timing = check_kernels(timer)
     flash_worst, flash_timing = check_flash(timer)
     del timer
-    bundle, prompts, launches = main_path()
-    bundle, ms_cycle, bf16_casc, bf16_per_cycle = bf16_path(bundle, prompts)
+    bundle, prompts, launches, fp32_runs = main_path()
+    graph_fp32(bundle, prompts, *fp32_runs)
+    bundle, ms_cycle, bf16_casc, bf16_per_cycle, eager = bf16_path(
+        bundle, prompts)
     profile_cycles(bundle, prompts, ms_cycle)
-    del bundle
+    graph_bf16(bundle, prompts, eager)
+    graph_prof = profile_graph(bundle, prompts)
+    del bundle, eager
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -1260,7 +1527,10 @@ def main():
         dn = str(dtype).replace("torch.", "")
         extra = ({"launches": launches[name]} if dtype == torch.float32 else
                  {"launches": bf16_casc[name],
-                  "launches_per_cycle": bf16_per_cycle[name]})
+                  "launches_per_cycle": bf16_per_cycle[name],
+                  "graph_launches_per_cycle": graph_prof[
+                      "paged" if "paged" in name else "dense"][
+                      "phase1_sm90_launches_per_cycle"]})
         rows.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/csrc/{src}",
                      "replaces": f"src/repro/kernels/cascade_attention.py:"

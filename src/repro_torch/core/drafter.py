@@ -126,8 +126,9 @@ def project_features(p, dcfg: DrafterConfig, target_features, positions):
 
 def extend_feat_cache(p, dcfg, cache, target_features, positions, n_new):
     """Append features of newly committed tokens (per-example ragged), in
-    place. positions: [B,P] absolute; n_new: [B] valid counts. Returns the
-    cache dict with ``length`` advanced."""
+    place, by a fixed-shape write (``kvcache.drop_put_``). positions:
+    [B,P] absolute; n_new: [B] valid counts. Returns the cache dict with
+    ``length`` advanced."""
     k_new, v_new = project_features(p, dcfg, target_features, positions)
     b, pl = positions.shape
     dev = positions.device
@@ -136,11 +137,14 @@ def extend_feat_cache(p, dcfg, cache, target_features, positions, n_new):
         kvc.pool_scatter_(cache["k"], cache["pt"], k_new, positions, valid)
         kvc.pool_scatter_(cache["v"], cache["pt"], v_new, positions, valid)
     else:
-        cap = cache["k"].shape[2]
+        l, cap = cache["k"].shape[0], cache["k"].shape[2]
         pos = positions.long()
-        bi, ti = (valid & (pos >= 0) & (pos < cap)).nonzero(as_tuple=True)
-        cache["k"][:, bi, pos[bi, ti]] = k_new[:, bi, ti].to(cache["k"].dtype)
-        cache["v"][:, bi, pos[bi, ti]] = v_new[:, bi, ti].to(cache["v"].dtype)
+        ok = (valid & (pos >= 0) & (pos < cap)).reshape(-1)
+        flat = (torch.arange(b, device=dev)[:, None] * cap + pos).reshape(-1)
+        for name, new in (("k", k_new), ("v", v_new)):
+            buf = cache[name]
+            kvc.drop_put_(buf.view(l, b * cap, *buf.shape[3:]), 1, flat,
+                          new.reshape(l, b * pl, *new.shape[3:]), ok)
     out = dict(cache)
     out["length"] = (cache["length"] + n_new).to(torch.int32)
     return out

@@ -1,17 +1,21 @@
-"""D2SD decode engine: one decode cycle and the host generation loop (twin
-of ``repro/core/pipeline.py``).
+"""D2SD decode engine: one decode cycle, the host generation loop and the
+on-device loop (twin of ``repro/core/pipeline.py``).
 
 A cycle runs the draft strategy (DFlash trunk, boundary posterior, top-K
 forks, batched VP second draft, comb tree), the tree-attention verify
 over the target (the cascade read path), the KV commit of the accepted
 path and the feature-cache extension of both drafters.
 
-``generate_ondevice`` (the JAX ``lax.while_loop`` loop; a CUDA graph
-here) is not ported yet (ROADMAP.md).
+``generate`` drives the cycles from the host and reads each cycle's
+tokens back. ``generate_ondevice`` is the twin of the JAX
+``lax.while_loop`` loop: on a card it replays one CUDA graph of a cycle
+(:class:`OnDeviceLoop`), with no Python and no device-to-host sync
+inside a cycle; on the CPU the same step runs eagerly.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Any, Optional
 
@@ -24,6 +28,7 @@ from repro_torch.core import drafter as dr
 from repro_torch.core import strategies as strat_lib
 from repro_torch.core import verify as verify_lib
 from repro_torch.core.state import EngineState, engine_init, prefill
+from repro_torch.models import kvcache as kvc
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,3 +146,186 @@ def generate(bundle: SpecBundle, prompts, max_new: int,
             "alpha": committed / act_cycles if act_cycles else 0.0,
             "prefill_s": t1 - t0,
             "decode_s": time.perf_counter() - t1}
+
+
+# ------------------------------------------------------- on-device loop ---
+@functools.lru_cache(maxsize=None)
+def _side_stream(dev):
+    """One warm-up stream per card, kept: cuBLAS holds a workspace for
+    every stream it has run on, so a new stream a call would leak one."""
+    return torch.cuda.Stream(dev)
+
+
+class OnDeviceLoop:
+    """The decode loop of :func:`generate_ondevice` over a prefilled
+    ``state`` (the body and condition of JAX ``_ondevice_loop``).
+
+    Every cycle runs :meth:`step`, which reads and writes fixed tensors
+    only: the caches (updated in place), the state's small leaves (the
+    target's and both feature caches' ``length``, ``anchor``, ``active``),
+    the output buffer ``buf`` [B, max_new+gamma+1], ``filled`` [B] and
+    ``counts`` (cycles with an active row, committed tokens, active
+    row-cycles). A row is active while ``filled < max_new``; a finished
+    row commits nothing, so a cycle after the last row finished changes
+    nothing.
+
+    :meth:`start` runs the first cycle; on a card it runs eagerly on a
+    side stream (the warm-up ``torch.cuda.graphs`` asks for, which also
+    builds the kernels) and then captures :meth:`step` into a CUDA graph,
+    which executes nothing. :meth:`advance` runs the next cycle: a replay
+    of that graph on a card, :meth:`step` on the CPU. :meth:`more` reads
+    the loop's condition (one 4-byte copy to the host). A capture or a
+    replay that fails raises; nothing falls back to eager execution.
+    :meth:`close` releases the graph, whose private memory pool then
+    goes back to the allocator. On a card ``first_s`` and ``capture_s``
+    hold the host time of the eager first cycle (to its synchronize) and
+    of the capture, ``graph_pool_bytes`` the memory the capture reserved.
+    """
+
+    def __init__(self, bundle: SpecBundle, state: EngineState, max_new: int):
+        dev = state.anchor.device
+        b = state.anchor.shape[0]
+
+        def own(cache):          # a length of its own, updated in place
+            return dict(cache, length=cache["length"].clone(
+                memory_format=torch.contiguous_format))
+
+        self.bundle, self.max_new, self.device = bundle, max_new, dev
+        self.cycle_cap = max_new + 9     # the host loop's bailout
+        self.state = state.replace(
+            target=own(state.target), d1_feat=own(state.d1_feat),
+            d2_feat=own(state.d2_feat), anchor=state.anchor.clone(),
+            active=torch.ones((b,), dtype=torch.bool, device=dev))
+        self.buf = torch.zeros((b, max_new + bundle.spec.gamma + 1),
+                               dtype=torch.long, device=dev)
+        self.buf[:, 0] = state.anchor
+        self.filled = torch.ones((b,), dtype=torch.long, device=dev)
+        self.counts = torch.zeros((3,), dtype=torch.long, device=dev)
+        self.cond = torch.ones((), dtype=torch.int32, device=dev)
+        self.cycles = 0                  # cycles run, counted on the host
+        self.graph = None
+        self.first_s = self.capture_s = 0.0     # card only: host clock
+        self.graph_pool_bytes = 0
+
+    def step(self):
+        """One cycle, on the loop's fixed tensors only."""
+        st = self.state
+        below = self.filled < self.max_new
+        st.active.copy_(below)
+        new, out = decode_cycle(self.bundle, st)
+        for key in ("target", "d1_feat", "d2_feat"):
+            getattr(st, key)["length"].copy_(getattr(new, key)["length"])
+        st.anchor.copy_(new.anchor)
+        # the cycle's tokens into buf; slots past n_out or past the buffer
+        # are dropped, as JAX's mode="drop" scatter drops them
+        tok, n_out = out["tokens"], out["n_out"]
+        b, t = tok.shape
+        w = self.buf.shape[1]
+        ar = torch.arange(t, device=tok.device)
+        idx = self.filled[:, None] + ar[None, :]
+        ok = (ar[None, :] < n_out[:, None]) & (idx < w)
+        flat = torch.arange(b, device=tok.device)[:, None] * w + idx
+        kvc.drop_put_(self.buf.view(-1), 0, flat.reshape(-1),
+                      tok.reshape(-1), ok.reshape(-1))
+        self.filled.copy_(torch.clamp(self.filled + n_out, max=w))
+        self.counts += torch.stack([below.any().long(), n_out.sum(),
+                                    below.sum()])
+        self.cond.copy_(self.filled.min() < self.max_new)
+
+    def start(self):
+        """Run the first cycle; on a card, then capture the step."""
+        dev = self.device
+        self.cycles = 1
+        if dev.type != "cuda":
+            self.step()
+            return
+        with torch.cuda.device(dev):
+            t0 = time.perf_counter()
+            side = _side_stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                self.step()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            # torch.cuda.graph empties the cache before it captures; done
+            # here first, the memory reserved after the capture less this
+            # is the graph's private pool
+            torch.cuda.synchronize(dev)
+            t1 = time.perf_counter()
+            self.first_s = t1 - t0
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(dev)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                self.step()
+            self.capture_s = time.perf_counter() - t1
+            self.graph_pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+            self.graph = graph
+
+    def advance(self):
+        """Run the next cycle."""
+        if self.graph is not None:
+            self.graph.replay()
+        else:
+            self.step()
+        self.cycles += 1
+
+    def more(self) -> bool:
+        """The loop's condition: a row is short of ``max_new`` tokens and
+        the cycle cap is not reached."""
+        return self.cycles < self.cycle_cap and bool(self.cond.item())
+
+    def run(self):
+        """Every cycle of the loop, then :meth:`close`. Returns self."""
+        try:
+            if self.max_new > 1:         # every row starts with 1 token
+                self.start()
+                while self.more():
+                    self.advance()
+        finally:
+            self.close()
+        return self
+
+    def close(self):
+        if self.graph is not None:
+            self.graph.reset()
+            self.graph = None
+
+
+def generate_ondevice(bundle: SpecBundle, prompts, max_new: int,
+                      max_len: Optional[int] = None,
+                      cache_impl: str = "dense", page_size: int = 64,
+                      device="cuda"):
+    """On-device generation (twin of JAX ``generate_ondevice``): prefill
+    eagerly, then :class:`OnDeviceLoop`; on a card every cycle after the
+    first is one CUDA graph replay, and the token buffer stays on the
+    device until the end. Token-identical to :func:`generate`, with the
+    same ``n_cycles`` (counted on the device) and ``alpha`` (committed
+    tokens per active row-cycle).
+
+    Returns dict(tokens [B, max_new] numpy, n_cycles, alpha, prefill_s,
+    capture_s, decode_s, graph_pool_bytes). prefill_s and decode_s are
+    host clock readings that end at a synchronize (decode_s: the cycles,
+    the eager first one included, not the capture); capture_s is the
+    capture alone and graph_pool_bytes the memory its private pool took
+    (both 0 on the CPU).
+    """
+    dev = resolve_device(device)
+    prompts = torch.as_tensor(np.asarray(prompts), device=dev).long()
+    b, p = prompts.shape
+    max_len = max_len or (p + max_new + 2 * bundle.spec.gamma + 8)
+    t0 = time.perf_counter()
+    state = prefill(bundle, engine_init(bundle, b, max_len,
+                                        cache_impl=cache_impl,
+                                        page_size=page_size, device=dev),
+                    prompts)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
+    loop = OnDeviceLoop(bundle, state, max_new).run()
+    tokens = loop.buf[:, :max_new].cpu().numpy()
+    n_cycles, total, act = loop.counts.tolist()
+    return {"tokens": tokens, "n_cycles": n_cycles,
+            "alpha": total / act if act else 0.0, "prefill_s": t1 - t0,
+            "capture_s": loop.capture_s,
+            "decode_s": time.perf_counter() - t1 - loop.capture_s,
+            "graph_pool_bytes": loop.graph_pool_bytes}

@@ -97,7 +97,7 @@ def ancestor_mask(tree: Tree):
     m = torch.eye(n, dtype=torch.bool, device=dev).expand(b, n, n).clone()
     cur = tree.parent
     for _ in range(tree.max_depth):
-        hot = torch.nn.functional.one_hot(cur.clamp(0, n - 1), n).bool()
+        hot = cur.clamp(0, n - 1)[..., None] == torch.arange(n, device=dev)
         m = m | (hot & (cur >= 0)[..., None])
         cur = torch.where(cur >= 0, _gather(tree.parent, cur.clamp(0, n - 1)),
                           torch.full_like(cur, -1))
@@ -125,7 +125,7 @@ def best_path(tree: Tree, accepted):
     the leaf beyond n_acc).
     """
     acc = accepted & tree.valid
-    acc[:, 0] = True
+    acc[:, 0].fill_(True)
     score = torch.where(acc, tree.depth, torch.full_like(tree.depth, -1))
     best = torch.argmax(score, dim=1)            # first max, as jnp.argmax
     n_acc = _gather(score, best[:, None])[:, 0]
@@ -148,7 +148,7 @@ def propagate_acceptance(tree: Tree, node_ok):
     """accepted[n] = node_ok[n] AND all ancestors ok (root True). [B,N]."""
     n = node_ok.shape[1]
     acc = node_ok.clone()
-    acc[:, 0] = True
+    acc[:, 0].fill_(True)
     parent_c = tree.parent.clamp(0, n - 1)
     has_parent = tree.parent >= 0
     for _ in range(2 * tree.max_depth + 1):

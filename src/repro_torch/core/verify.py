@@ -87,8 +87,7 @@ class TreeAttentionVerifier(VerifierBackend):
                           extra_mask=mask, positions=positions,
                           want_features=True)
         logits = vout["logits"].float()
-        logits = torch.where(tree.valid[:, :, None], logits,
-                             logits.new_tensor(-1e9))
+        logits = torch.where(tree.valid[:, :, None], logits, -1e9)
         res = greedy_verify(tree, logits)
         # inactive rows commit nothing (length frozen, no cache writes)
         n_commit = torch.where(state.active, res["n_acc"] + 1,

@@ -81,7 +81,7 @@ def _mask_scores(sc, kpos, live, clen, qa, window, attn_softcap):
     ok = live[:, None, :] & (kp < clen[:, None, None]) & (kp <= qp)
     if window is not None:
         ok = ok & (kp > (qp - window))
-    return torch.where(ok[:, None, None], sc, sc.new_tensor(NEG_INF))
+    return torch.where(ok[:, None, None], sc, NEG_INF)
 
 
 # ------------------------------------------------------------- dense -------
@@ -177,7 +177,7 @@ def merge_with_tree_block(q, blk_k, blk_v, acc, m, l, *, tree_mask,
     if attn_softcap is not None:
         sc = attn_softcap * torch.tanh(sc / attn_softcap)
     tm = tree_mask if tree_mask.ndim == 3 else tree_mask[None]
-    sc = torch.where(tm[:, None], sc, sc.new_tensor(NEG_INF))
+    sc = torch.where(tm[:, None], sc, NEG_INF)
     m_b = sc.amax(dim=-1)
     p_b = torch.exp(sc - m_b[..., None])
     l_b = p_b.sum(dim=-1)

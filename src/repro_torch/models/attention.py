@@ -32,6 +32,22 @@ def _as_long(x, device):
     return torch.as_tensor(x, device=device).long()
 
 
+def _offset(x, device):
+    """A Python int as it is, anything else as a long tensor on
+    ``device``: a mask built from an int offset makes no tensor from host
+    data (a copy a CUDA graph cannot capture)."""
+    return x if isinstance(x, int) else _as_long(x, device)
+
+
+def _per_row(x) -> bool:
+    return isinstance(x, torch.Tensor) and x.ndim > 0
+
+
+def _rows(x):
+    """A per-row [B] offset as [B, 1, 1]; an int or 0-d one as it is."""
+    return x.reshape(-1, 1, 1) if _per_row(x) else x
+
+
 # ------------------------------------------------------------------ masks --
 def make_attention_mask(tq: int, tkv: int, *, causal: bool, q_offset,
                         window: Optional[int] = None, kv_len=None,
@@ -41,13 +57,13 @@ def make_attention_mask(tq: int, tkv: int, *, causal: bool, q_offset,
 
     Query i has absolute position q_offset + i; key j has absolute position j.
     """
-    q_off = _as_long(q_offset, device)
-    batched = q_off.ndim > 0 or (kv_len is not None
-                                 and torch.as_tensor(kv_len).ndim > 0)
+    q_off = _offset(q_offset, device)
+    kl = None if kv_len is None else _offset(kv_len, device)
+    batched = _per_row(q_off) or _per_row(kl)
     ar_q = torch.arange(tq, device=device)
     ar_k = torch.arange(tkv, device=device)
     if batched:
-        qpos = ar_q[None, :, None] + q_off.reshape(-1, 1, 1)   # [B,Tq,1]
+        qpos = ar_q[None, :, None] + _rows(q_off)             # [B,Tq,1]
         kpos = ar_k[None, None, :]
     else:
         qpos = ar_q[:, None] + q_off                          # [Tq,1]
@@ -58,11 +74,8 @@ def make_attention_mask(tq: int, tkv: int, *, causal: bool, q_offset,
     mask = mask.expand(shape)
     if window is not None:
         mask = mask & (kpos > (qpos - window))
-    if kv_len is not None:
-        kl = _as_long(kv_len, device)
-        if batched:
-            kl = kl.reshape(-1, 1, 1)
-        mask = mask & (kpos < kl)
+    if kl is not None:
+        mask = mask & (kpos < _rows(kl))
     return mask
 
 
@@ -79,8 +92,7 @@ def attend_dense(q, k, v, mask=None, *, scale=None, attn_softcap=None):
     if mask is not None:
         if mask.ndim == 2:
             mask = mask[None]
-        logits = torch.where(mask[:, None, None], logits,
-                             logits.new_tensor(NEG_INF))
+        logits = torch.where(mask[:, None, None], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
     return out.reshape(b, tq, hq, dh).to(q.dtype)
@@ -105,13 +117,9 @@ def attend_chunked(q, k, v, *, causal, q_offset, window=None, kv_len=None,
     n_chunks = (tkv + kv_chunk - 1) // kv_chunk
     if extra_mask is not None and extra_mask.ndim == 2:
         extra_mask = extra_mask[None]
-    eff = _as_long(kv_len if kv_len is not None else tkv, dev)
-    if eff.ndim == 0:
-        eff = eff.expand(b)
-    q_off = _as_long(q_offset, dev)
-    if q_off.ndim == 0:
-        q_off = q_off.expand(b)
-    qpos = torch.arange(tq, device=dev)[None, :, None] + q_off[:, None, None]
+    eff = _rows(_offset(kv_len if kv_len is not None else tkv, dev))
+    qpos = torch.arange(tq, device=dev)[None, :, None] + _rows(
+        _offset(q_offset, dev))
     qf = (q.float() * scale).reshape(b, tq, hkv, g, dh)
 
     m_i = torch.full((b, hkv, g, tq), NEG_INF, dtype=torch.float32,
@@ -124,15 +132,14 @@ def attend_chunked(q, k, v, *, causal, q_offset, window=None, kv_len=None,
         logits = torch.einsum("bqhgd,bkhd->bhgqk", qf, kc)
         logits = softcap(logits, attn_softcap)
         kpos = key_offset + torch.arange(lo, hi, device=dev)[None, None, :]
-        mask = kpos < eff[:, None, None]
+        mask = kpos < eff
         if causal:
             mask = mask & (kpos <= qpos)
         if window is not None:
             mask = mask & (kpos > (qpos - window))
         if extra_mask is not None:
             mask = mask & extra_mask[..., lo:hi]
-        logits = torch.where(mask[:, None, None], logits,
-                             logits.new_tensor(NEG_INF))
+        logits = torch.where(mask[:, None, None], logits, NEG_INF)
         m_new = torch.maximum(m_i, logits.amax(dim=-1))
         p = torch.exp(logits - m_new[..., None])
         alpha = torch.exp(m_i - m_new)

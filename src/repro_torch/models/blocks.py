@@ -211,7 +211,8 @@ def block_apply(p, x, cfg: ModelConfig, kind: str, *, state=None,
 
 def _scatter_kv_(buf, new, start, rolling: bool):
     """Write [B,T,H,D] into [B,cap,H,D] at ``start`` (scalar or [B]; mod
-    cap when rolling), in place. Out-of-range writes are dropped."""
+    cap when rolling), in place. Out-of-range writes are dropped
+    (``kvcache.drop_put_``)."""
     b, cap = buf.shape[:2]
     t = new.shape[1]
     dev = buf.device
@@ -224,6 +225,8 @@ def _scatter_kv_(buf, new, start, rolling: bool):
     idx = start[:, None] + torch.arange(t, device=dev)[None, :]
     if rolling:
         idx = torch.remainder(idx, cap)
-    bi, ti = ((idx >= 0) & (idx < cap)).nonzero(as_tuple=True)
-    buf[bi, idx[bi, ti]] = new[bi, ti].to(buf.dtype)
+    ok = ((idx >= 0) & (idx < cap)).reshape(-1)
+    flat = (torch.arange(b, device=dev)[:, None] * cap + idx).reshape(-1)
+    kvc.drop_put_(buf.view(b * cap, *buf.shape[2:]), 0, flat,
+                  new.reshape(b * t, *new.shape[2:]), ok)
     return buf

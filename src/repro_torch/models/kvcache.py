@@ -13,8 +13,11 @@ both layouts and masked the same way by every reader.
 
 Unlike the JAX twin, writes update the buffers IN PLACE (torch tensors
 are mutable; a functional update would copy a pool per layer per cycle).
-The host-side ``PagePool`` allocator belongs to the serving slice and is
-not ported yet (ROADMAP.md).
+The in-place writes are fixed-shape (:func:`drop_put_`): they drop the
+masked entries as JAX's ``.at[...].set(..., mode="drop")`` does, with no
+data-dependent shape and no device-to-host sync, so a CUDA graph can
+capture them. The host-side ``PagePool`` allocator belongs to the
+serving slice and is not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -102,7 +105,8 @@ def pool_scatter_(pool, table, new, pos, valid=None):
     table: [B, max_pages]; new: [B, T, H, D] or [L, B, T, H, D];
     pos: [B, T] logical positions; valid: optional [B, T] bool. Entries
     that are invalid, or whose position falls outside the row's table or
-    onto an unallocated (out-of-range) page, are dropped.
+    onto an unallocated (out-of-range) page, are dropped
+    (:func:`drop_put_`).
     """
     page = pool.shape[-3]
     n_phys = pool.shape[-4]
@@ -115,10 +119,41 @@ def pool_scatter_(pool, table, new, pos, valid=None):
         ok = ok & valid
     phys = torch.gather(table.long(), 1, pidx.clamp(0, mp - 1))
     ok = ok & (phys >= 0) & (phys < n_phys)
-    bi, ti = ok.nonzero(as_tuple=True)
-    src = new.to(pool.dtype)
+    flat = (phys * page + slot).reshape(-1)
+    tail = pool.shape[-2:]
     if pool.ndim == 4:
-        pool[phys[bi, ti], slot[bi, ti]] = src[bi, ti]
+        drop_put_(pool.view(n_phys * page, *tail), 0, flat,
+                  new.reshape(-1, *tail), ok.reshape(-1))
     else:
-        pool[:, phys[bi, ti], slot[bi, ti]] = src[:, bi, ti]
+        lead = pool.shape[0]
+        drop_put_(pool.view(lead, n_phys * page, *tail), 1, flat,
+                  new.reshape(lead, -1, *tail), ok.reshape(-1))
     return pool
+
+
+def drop_put_(buf, dim, idx, src, ok):
+    """``buf.index_copy_(dim, idx, src)`` of the entries where ``ok``, in
+    place: the twin of JAX's ``.at[idx].set(src, mode="drop")`` with the
+    dropped entries' indices pushed out of range. Returns ``buf``.
+
+    idx: [M] integer (any value where not ``ok``); src: ``buf``'s shape
+    with M at ``dim``; ok: [M] bool. The write has a fixed shape: no
+    data-dependent size and no device-to-host sync. A dropped entry
+    repeats the first kept one (the same index and the same value), so
+    duplicate indices carry identical values and no write races another;
+    when none is kept, every entry rewrites the value already at index 0,
+    read before the write.
+    """
+    if idx.numel() == 0:
+        return buf
+    first = torch.argmax(ok.to(torch.int32)).reshape(1)
+    kept = ok.any()
+    idx = idx.long()
+    src = src.to(buf.dtype)
+    at = torch.where(kept, idx.index_select(0, first), 0)
+    fill = torch.where(kept, src.index_select(dim, first),
+                       buf.index_select(dim, at))
+    shape = [1] * src.ndim
+    shape[dim] = -1
+    return buf.index_copy_(dim, torch.where(ok, idx, at),
+                           torch.where(ok.view(shape), src, fill))

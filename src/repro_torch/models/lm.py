@@ -233,13 +233,14 @@ def commit_kv(states, kv_outs, cfg: ModelConfig, path_idx, n_commit):
 
     path_idx: [B, P] tree-node indices of the best path (anchor first).
     n_commit: [B] tokens to commit per example; entries past it are not
-    written. Returns the states with ``length`` advanced by ``n_commit``.
+    written (a fixed-shape write, ``kvcache.drop_put_``). Returns the states with ``length`` advanced by ``n_commit``.
     """
     length = states["length"].long()
     b, p = path_idx.shape
     dev = path_idx.device
     valid = torch.arange(p, device=dev)[None, :] < n_commit[:, None]
     wpos = length[:, None] + torch.arange(p, device=dev)[None, :]
+    rows = torch.arange(b, device=dev)[:, None]
     gidx = path_idx.long()[:, :, None, None]
     for kind, st, kv in zip(cfg.pattern_for_depth(), states["layers"],
                             kv_outs):
@@ -255,9 +256,12 @@ def commit_kv(states, kv_outs, cfg: ModelConfig, path_idx, n_commit):
             continue
         cap = st["k"].shape[1]
         pos = torch.remainder(wpos, cap) if kind == "local" else wpos
-        bi, ti = (valid & (pos < cap)).nonzero(as_tuple=True)
-        st["k"][bi, pos[bi, ti]] = k_path[bi, ti].to(st["k"].dtype)
-        st["v"][bi, pos[bi, ti]] = v_path[bi, ti].to(st["v"].dtype)
+        flat = (rows * cap + pos).reshape(-1)
+        ok = (valid & (pos < cap)).reshape(-1)
+        for name, new in (("k", k_path), ("v", v_path)):
+            buf = st[name]
+            kvcache.drop_put_(buf.view(b * cap, *buf.shape[2:]), 0, flat,
+                              new.reshape(b * p, *new.shape[2:]), ok)
     out = dict(states)
     out["length"] = (length + n_commit).to(torch.int32)
     return out

@@ -21,7 +21,14 @@ key. bf16 runs all three flash kernels on the tensor cores
 partial 128-row block, a single query row, a kv_len that ends inside a
 key tile, key tiles that no query sees (dk = dv = 0 there), and head
 dims 64 and 96 (the latter zero-filled to 128).
+
+The on-device decode loop (``generate_ondevice``, one CUDA graph replay a
+cycle) is held to the eager host loop at tiny size in fp32, token for
+token, on both caches; a step that syncs with the host cannot be
+captured, and the loop raises.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -213,3 +220,57 @@ def test_flash_bf16_refuses_what_tma_cannot_load(dev):
     with pytest.raises(ValueError, match="TMA"):
         tfa.flash_attention_bwd_dkv(q, k, k, q, rows, rows)
     assert [getattr(tfa, n).launches for n in names] == before
+
+
+def _tiny_bundle(dev, mode="d2sd"):
+    """The study's small target and drafters (fp32, random seeded
+    weights), the cascade kernels as the read path."""
+    from repro_torch.config.base import SpecConfig
+    from repro_torch.configs import paper_target
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core.drafter import drafter_init
+    from repro_torch.models import lm
+    tcfg, dcfg = paper_target.smoke(), paper_target.drafter_small(gamma=4)
+    return pl.with_attn_impl(pl.SpecBundle(
+        tcfg, dcfg, dcfg, SpecConfig(gamma=4, top_k_branches=2, mode=mode),
+        lm.lm_init(tcfg, seed=0, device=dev),
+        drafter_init(dcfg, seed=1, device=dev),
+        drafter_init(dcfg, seed=2, device=dev)), "kernel")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache_impl", ["dense", "paged"])
+def test_graph_loop_matches_eager_loop(dev, cache_impl):
+    from repro_torch.core import pipeline as pl
+    bundle = _tiny_bundle(dev)
+    prompts = np.random.default_rng(0).integers(0, 512, (3, 24))
+    kw = dict(cache_impl=cache_impl, page_size=16, device=dev)
+    host = pl.generate(bundle, prompts, 12, **kw)
+    graph = pl.generate_ondevice(bundle, prompts, 12, **kw)
+    np.testing.assert_array_equal(graph["tokens"], host["tokens"])
+    assert (graph["n_cycles"], graph["alpha"]) == (host["n_cycles"],
+                                                   host["alpha"])
+    assert graph["capture_s"] > 0 and graph["graph_pool_bytes"] > 0
+
+
+@pytest.mark.cuda
+def test_graph_loop_raises_when_capture_fails(dev):
+    """A draft that reads the device from the host runs in the eager first
+    cycle but cannot be captured: the loop raises, with no eager
+    fallback."""
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core import strategies as st
+
+    @st.register_strategy("host_sync")
+    class HostSync(st.D2SDStrategy):
+        def draft(self, bundle, state):
+            int(state.length.max())
+            return super().draft(bundle, state)
+
+    bundle = _tiny_bundle(dev, mode="host_sync")
+    prompts = np.random.default_rng(0).integers(0, 512, (2, 16))
+    with pytest.raises(RuntimeError):
+        pl.generate_ondevice(bundle, prompts, 8, device=dev)
+    bundle = dataclasses.replace(bundle, spec=dataclasses.replace(
+        bundle.spec, mode="d2sd"))
+    assert pl.generate_ondevice(bundle, prompts, 8, device=dev)["n_cycles"]

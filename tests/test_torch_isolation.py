@@ -78,6 +78,8 @@ def _entry_points():
         "drafter_init": lambda: drafter.drafter_init(dcfg),
         "engine_init": lambda: state.engine_init(bundle, 1, 8),
         "generate": lambda: pipeline.generate(bundle, [[1, 2]], 2),
+        "generate_ondevice": lambda: pipeline.generate_ondevice(
+            bundle, [[1, 2]], 2),
         "convert_lm": lambda: convert.convert_lm({}, tcfg),
         "convert_drafter": lambda: convert.convert_drafter({}),
         "init_model": lambda: api.init_model(tcfg),
@@ -87,7 +89,8 @@ def _entry_points():
 
 
 @pytest.mark.parametrize("name", ["lm_init", "init_states", "drafter_init",
-                                  "engine_init", "generate", "convert_lm",
+                                  "engine_init", "generate",
+                                  "generate_ondevice", "convert_lm",
                                   "convert_drafter", "init_model",
                                   "make_train_step", "launch_train"])
 def test_entry_point_without_device_raises_here(name):

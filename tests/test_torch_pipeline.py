@@ -125,8 +125,9 @@ def test_oracle_drafts_accept_into_branches(cache_impl, impl):
                        MAX_NEW, cache_impl=cache_impl, page_size=8,
                        device="cpu")
     np.testing.assert_array_equal(out["tokens"], ref[:, :MAX_NEW])
-    assert out["alpha"] == oracle.committed / oracle.row_cycles
-    assert out["alpha"] > 2 and oracle.branch_paths > 0
+    count = oracle.read()
+    assert out["alpha"] == count["committed"] / count["row_cycles"]
+    assert out["alpha"] > 2 and count["branch_paths"] > 0
     # the caches the cycles committed equal a prefill of the same tokens
     err = _chip_smoke().committed_cache_error(
         tpl.with_attn_impl(bundle, impl), t(_prompts()).long(), seq,
