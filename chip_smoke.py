@@ -7,8 +7,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
 
   build    nvcc the CUDA kernels from ``src/repro_torch/csrc`` (sm_90a)
   kernels  each cascade phase-1 kernel against its plain torch version and
-           the oracle on the card, fp32 (cascade_phase1.cu) and bf16 (the
-           tensor-core kernels of cascade_phase1_sm90.cu), the merge
+           the oracle on the card, fp32 (the 3xTF32 tensor-core kernels of
+           cascade_phase1.cu) and bf16 (the wgmma kernels of
+           cascade_phase1_sm90.cu), the merge
            included: verify shapes (Hq 32, Hkv 8, D 128, Tq 16/64/76,
            ragged cache lengths, q in the model's layout), adversarial
            rolling capacities, a shuffled page table with sentinel
@@ -35,7 +36,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
            tokens, 64 new tokens, paged (page 64) and dense caches through
            the kernels; tokens held to the gather path and to plain
            one-token-at-a-time greedy; launch counts read: both fp32
-           cascade kernels, no tensor-core one
+           cascade kernels (cascade_phase1.cu), no bf16 one
   oracle   the same fp32 runs with drafts that hold the greedy reference,
            spoiled from a depth that varies by row and cycle, so a cycle
            accepts a path along the trunk and on into a branch: tokens held
@@ -48,13 +49,18 @@ Phases, each printing one JSON line (any failure exits non-zero):
            dense: tokens held to the eager run and to plain greedy, cycles
            to the eager run's, the oracle's alpha to its count and the
            caches the graph loop commits to a plain prefill
+  graph_profile_fp32  six fp32 graph replays a cache (kernel path), timed
+           unprofiled and then under torch.profiler: device ms per cycle,
+           idle share, top kernels, and the fp32 phase-1 kernel
+           (phase1_tf32x3_kernel) by name: at least 40 (paged) or 36
+           (dense) launches a replay and its device ms a replay
   bf16     the same runs in bfloat16 (the config's dtype), paged and dense:
            tokens/s, agreement with the gather path (where a row first
            leaves it, the top-2 gap of a plain bf16 forward over the shared
            context must be a near tie in bf16 ulps), and at least 40
            (paged: 36 target layers, 2 x 2 drafter layers) or 36 (dense)
-           launches a cycle through the tensor-core cascade kernels and
-           none through cascade_phase1.cu
+           launches a cycle through the bf16 cascade kernels
+           (cascade_phase1_sm90.cu) and none through cascade_phase1.cu
   profile  six bf16 decode cycles (kernel path, paged cache) under
            torch.profiler: device time per cycle, the device's idle share
            and the kernels that take the most device time
@@ -62,10 +68,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
            ``generate_ondevice``, beside the eager ones of this run: ms per
            cycle, decode tokens/s, capture time, graph pool bytes, token
            agreement with the eager run
-  graph_profile  six graph replays a cache (bf16, kernel path), timed
-           unprofiled and then under torch.profiler: device ms per cycle,
-           idle share, top kernels, and at least 40 (paged) or 36 (dense)
-           phase1_sm90_kernel launches a replay, counted by kernel name
+  graph_profile  the same for six bf16 graph replays a cache, the
+           phase-1 kernel being phase1_sm90_kernel
   train_fp32   paper_target.full() cut to 8 layers (the only cut; 2.79e9
            params, AdamW as optimizer_for picks), remat on, batch 2 x 4096
            tokens of the mixture stream: three steps through the fp32 flash
@@ -107,6 +111,9 @@ GAMMA, K_BRANCHES = 16, 4                   # 76 tree nodes per row
 PEAK_BYTES_S = 3.35e12                      # H100 SXM HBM3
 PEAK_FLOPS = {torch.float32: 67e12,         # fp32, CUDA cores
               torch.bfloat16: 989e12}       # bf16 tensor cores, dense
+PEAK_TF32 = 495e12                          # TF32 tensor cores, dense: the
+                                            # fp32 cascade kernels form each
+                                            # product from three TF32 ones
 NEAR_TIE = 1e-4                             # top-2 logit gap that may flip
 NEAR_TIE_BF16_ULPS = 4      # bf16: the same rule, the gap counted in bf16
                             # ulps of the top logit (2^-5 at the random
@@ -116,12 +123,7 @@ NEAR_TIE_BF16_ULPS = 4      # bf16: the same rule, the gap counted in bf16
                             # the two read paths round differently over 36
                             # layers (about 2 more); a wrong read moves the
                             # logits by far more (top-2 spacing ~8 ulps)
-TOL_OUT = 2e-5      # fp32 merged cascade output, absolute: both sides
-                    # compute in fp32; only sum order differs
-TOL_PART = 1e-4     # cascade partials relative to 1 + |plain|: m and l in
-                    # both dtypes (fp32 scores and row sums on both sides),
-                    # acc in fp32 (bf16 acc: TOL_FLASH[bf16], P is rounded
-                    # to bf16 for P V as in the flash kernels)
+# the cascade gates TOL_OUT and TOL_PART: kernels/cascade_cases.py
 TOL_CACHE = 1e-3    # committed fp32 caches vs a prefill of the same tokens,
                     # relative to the largest value: sum order only
 TOL_FLASH = {       # flash o/dq/dk/dv vs plain, max |diff| / max |plain|:
@@ -263,6 +265,7 @@ def _within_tol(dtype, err):
     """fp32: merged outputs within TOL_OUT absolute, partials TOL_PART;
     bf16: merged outputs and acc within TOL_FLASH[bf16] relative (P is
     rounded to bf16 for P V), m and l TOL_PART."""
+    from repro_torch.kernels.cascade_cases import TOL_OUT, TOL_PART
     if dtype == torch.float32:
         return (max(err["out_abs"], err.get("ref_abs", 0.0)) <= TOL_OUT
                 and max(err["acc"], err["m_l"]) <= TOL_PART)
@@ -308,22 +311,27 @@ def check_kernels(timer):
     torch.cuda.synchronize()
     timing = time_kernels(timer, gen, rng)
     emit({"phase": "kernels", "ok": True, "n_cases": len(cases),
-          "tol": {"float32": {"out_abs": TOL_OUT, "partials": TOL_PART},
+          "tol": {"float32": {"out_abs": cascade_cases.TOL_OUT,
+                              "partials": cascade_cases.TOL_PART},
                   "bfloat16": {"out_rel": TOL_FLASH[torch.bfloat16],
                                "acc_rel": TOL_FLASH[torch.bfloat16],
-                               "m_l": TOL_PART}},
+                               "m_l": cascade_cases.TOL_PART}},
           "cases": cases, "max_abs_err": worst, "timing": timing})
     return worst, timing
 
 
 def _bound(dtype, live_tokens, b, hq, hkv, tq, d, ns):
     """Least time for the same work: each live K/V byte, q and the outputs
-    moved once, or the QK and PV FLOPs at the dtype's peak."""
+    moved once, or the QK and PV FLOPs on the route the kernel takes (bf16
+    on the tensor cores; fp32 as 3xTF32 on the tensor cores, three TF32
+    FLOPs a FLOP)."""
     es = torch.tensor([], dtype=dtype).element_size()
     byts = (2 * hkv * live_tokens * d * es + b * hq * tq * d * es
             + b * hq * ns * tq * (d + 2) * 4)
     flops = 4 * hq * tq * live_tokens * d
-    t_b, t_f = byts / PEAK_BYTES_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+    t_b = byts / PEAK_BYTES_S * 1e3
+    t_f = (3 * flops / PEAK_TF32 if dtype == torch.float32
+           else flops / PEAK_FLOPS[dtype]) * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
@@ -849,12 +857,15 @@ def _zero_launches():
 
 
 def _check_fp32_launches(launches, where):
-    """The fp32 runs go through cascade_phase1.cu alone."""
+    """The fp32 runs go through the fp32 kernels of cascade_phase1.cu alone
+    (3xTF32 on the tensor cores), none through the bf16 ones of
+    cascade_phase1_sm90.cu."""
     if min(launches["cascade_phase1"], launches["cascade_phase1_paged"]) \
             <= 0 or launches["cascade_phase1_sm90"] \
             or launches["cascade_phase1_paged_sm90"]:
         fail(f"{where}: fp32 cascade launches {launches}: expected both "
-             "fp32 kernels and no tensor-core one")
+             "fp32 kernels (cascade_phase1.cu) and no bf16 one "
+             "(cascade_phase1_sm90.cu)")
 
 
 def _check_runs(toks, ref_toks, gaps):
@@ -1165,12 +1176,18 @@ def _device_rows(prof):
     return sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
 
 
+# the phase-1 cascade kernel of each dtype, by its name in a trace
+PHASE1_KERNEL = {"float32": "phase1_tf32x3_kernel",
+                 "bfloat16": "phase1_sm90_kernel"}
+
+
 def profile_graph(bundle, prompts, n_cycles=6):
-    """``n_cycles`` replays of the bf16 graph loop (kernel path), each
-    followed by the loop's condition read as ``generate_ondevice`` reads
-    it: first unprofiled (host clock, the cycle's wall time), then under
-    torch.profiler (device time, top kernels, and the tensor-core cascade
-    launches a cycle, counted by kernel name: a replay runs no wrapper)."""
+    """``n_cycles`` replays of the graph loop (kernel path) in the bundle's
+    dtype, each followed by the loop's condition read as
+    ``generate_ondevice`` reads it: first unprofiled (host clock, the
+    cycle's wall time), then under torch.profiler (device time, top
+    kernels, and the phase-1 cascade kernel's launches and device time a
+    cycle, counted by kernel name: a replay runs no wrapper)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import pipeline as pl
@@ -1179,6 +1196,8 @@ def profile_graph(bundle, prompts, n_cycles=6):
     prompts_t = torch.as_tensor(prompts, device=DEVICE)
     b, p = prompts_t.shape
     n_drafter = bundle.d1_cfg.num_layers + bundle.d2_cfg.num_layers
+    dn = bundle.target_cfg.dtype
+    kernel = PHASE1_KERNEL[dn]
     out = {}
     for cache, want in (("paged", bundle.target_cfg.num_layers + n_drafter),
                         ("dense", bundle.target_cfg.num_layers)):
@@ -1208,23 +1227,25 @@ def profile_graph(bundle, prompts, n_cycles=6):
         del loop, state
         rows = _device_rows(prof)
         busy = sum(r[1] for r in rows) / n_cycles or None
-        sm90 = sum(c for k, _, c in rows if "phase1_sm90_kernel" in k)
+        phase1 = [(ms, c) for k, ms, c in rows if kernel in k]
+        n = sum(c for _, c in phase1)
         out[cache] = {
             **first, "replays": n_cycles, "ms_per_cycle": wall,
             "device_ms_per_cycle": busy,
             "idle_share": busy and 1.0 - busy / wall,
             "kernels_per_cycle": sum(r[2] for r in rows) / n_cycles,
-            "phase1_sm90_launches_per_cycle": sm90 / n_cycles,
+            "phase1_launches_per_cycle": n / n_cycles,
+            "phase1_ms_per_cycle": sum(ms for ms, _ in phase1) / n_cycles,
             "top": [{"name": k[:90], "ms_per_cycle": ms / n_cycles,
                      "calls_per_cycle": c / n_cycles}
                     for k, ms, c in rows[:16]]}
-        if sm90 < want * n_cycles:
-            fail(f"graph profile {cache}: {sm90} tensor-core cascade "
-                 f"launches in {n_cycles} replays, expected >= {want} a "
-                 "cycle")
+        if n < want * n_cycles:
+            fail(f"graph profile {dn} {cache}: {n} {kernel} launches in "
+                 f"{n_cycles} replays, expected >= {want} a cycle")
     torch.cuda.empty_cache()
-    emit({"phase": "graph_profile", "ok": True, "dtype": "bfloat16",
-          "impl": "kernel", **out})
+    emit({"phase": "graph_profile" + ("_fp32" if dn == "float32" else ""),
+          "ok": True, "dtype": dn, "impl": "kernel", "kernel": kernel,
+          **out})
     return out
 
 
@@ -1502,6 +1523,7 @@ def main():
     del timer
     bundle, prompts, launches, fp32_runs = main_path()
     graph_fp32(bundle, prompts, *fp32_runs)
+    graph_prof_fp32 = profile_graph(bundle, prompts)
     bundle, ms_cycle, bf16_casc, bf16_per_cycle, eager = bf16_path(
         bundle, prompts)
     profile_cycles(bundle, prompts, ms_cycle)
@@ -1525,12 +1547,14 @@ def main():
     rows = []
     for name, (wrapper, dtype, src, line) in CASCADE_KERNELS.items():
         dn = str(dtype).replace("torch.", "")
-        extra = ({"launches": launches[name]} if dtype == torch.float32 else
+        cache = "paged" if "paged" in name else "dense"
+        extra = ({"launches": launches[name], "graph_launches_per_cycle":
+                  graph_prof_fp32[cache]["phase1_launches_per_cycle"]}
+                 if dtype == torch.float32 else
                  {"launches": bf16_casc[name],
                   "launches_per_cycle": bf16_per_cycle[name],
-                  "graph_launches_per_cycle": graph_prof[
-                      "paged" if "paged" in name else "dense"][
-                      "phase1_sm90_launches_per_cycle"]})
+                  "graph_launches_per_cycle": graph_prof[cache][
+                      "phase1_launches_per_cycle"]})
         rows.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/csrc/{src}",
                      "replaces": f"src/repro/kernels/cascade_attention.py:"

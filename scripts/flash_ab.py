@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the bf16 flash and cascade kernels of two checkouts on one card,
-in turns.
+"""Time the bf16 flash kernels and the bf16 and fp32 cascade kernels of
+two checkouts on one card, in turns.
 
     python3 scripts/flash_ab.py OTHER_ROOT [--rounds N]
 
@@ -11,15 +11,16 @@ card within one call. A run times ``flash_attention_fwd``,
 ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv`` in bf16 at the
 training shape of ``chip_smoke.py`` (B 2, Hq 32, Hkv 8, T 4096, D 128,
 causal, the model's [B,T,H,D] layout), and ``cascade_phase1`` and
-``cascade_phase1_paged`` in bf16 at its decode verify shape (B 4, Hq 32,
-Hkv 8, D 128, Tq 76, caches of 520-600 keys of 616, pages of 64, a
-shuffled page table): CUDA events around one call, the 50 MB L2 flushed
-before each, median of 20 after 3 warm-up calls. For a cascade call,
-whose kernel takes tens of microseconds, that time also holds the host's
-enqueue of the wrapper, so each is also timed twice more: ``*_device_ms``
-puts a device sleep between the flush and the first event, so the events
-bracket the call's device work alone, and ``*_host_us`` is the host's
-time per call over 100 calls made while the card sleeps (median of 5).
+``cascade_phase1_paged`` in bf16 and in fp32 (the ``*_fp32`` keys) at its
+decode verify shape (B 4, Hq 32, Hkv 8, D 128, Tq 76, caches of 520-600
+keys of 616, pages of 64, a shuffled page table): CUDA events around one
+call, the 50 MB L2 flushed before each, median of 20 after 3 warm-up
+calls. For a cascade call, whose kernel takes tens of microseconds, that
+time also holds the host's enqueue of the wrapper, so each is also timed
+twice more: ``*_device_ms`` puts a device sleep between the flush and the
+first event, so the events bracket the call's device work alone, and
+``*_host_us`` is the host's time per call over 100 calls made while the
+card sleeps (median of 5).
 It prints one JSON line per run, then the medians per checkout, the
 card's name and power limit, and exits non-zero without a CUDA device.
 
@@ -99,25 +100,27 @@ def time_checkout(root: Path) -> dict:
     b, tq, s, page = 4, 76, 616, 64
     lens = torch.tensor([520, 560, 580, 600], device="cuda")
     mp = -(-s // page)
-    qc = torch.randn((b, tq, hq, d), generator=gen, device="cuda").to(
-        torch.bfloat16).transpose(1, 2)
-    kv = [torch.randn((b * mp, page, hkv, d), generator=gen,
-                      device="cuda").to(torch.bfloat16) for _ in range(2)]
-    # the dense cache [B,S,Hkv,D] and the pool [P,page,Hkv,D], as views
-    ck, cv = (x.reshape(b, mp * page, hkv, d)[:, :s].transpose(1, 2)
-              for x in kv)
-    pk, pv = (x.transpose(1, 2) for x in kv)
-    table = torch.randperm(b * mp, generator=gen, device="cuda").reshape(
-        b, mp).int()
     kw = dict(cache_len=lens, q_abs=lens[:, None] + torch.arange(
         tq, device="cuda"))
-    calls = {"cascade_phase1": lambda: casc.cascade_phase1(qc, ck, cv, **kw),
-             "cascade_phase1_paged": lambda: casc.cascade_phase1_paged(
-                 qc, pk, pv, table, **kw)}
-    for name, fn in calls.items():
-        out[name] = ms(fn)
-        out[name + "_device_ms"] = ms(fn, sleep=True)
-        out[name + "_host_us"] = host_us(fn)
+    for dtype, tag in ((torch.bfloat16, ""), (torch.float32, "_fp32")):
+        qc = torch.randn((b, tq, hq, d), generator=gen, device="cuda").to(
+            dtype).transpose(1, 2)
+        kv = [torch.randn((b * mp, page, hkv, d), generator=gen,
+                          device="cuda").to(dtype) for _ in range(2)]
+        # the dense cache [B,S,Hkv,D] and the pool [P,page,Hkv,D], as views
+        ck, cv = (x.reshape(b, mp * page, hkv, d)[:, :s].transpose(1, 2)
+                  for x in kv)
+        pk, pv = (x.transpose(1, 2) for x in kv)
+        table = torch.randperm(b * mp, generator=gen,
+                               device="cuda").reshape(b, mp).int()
+        calls = {"cascade_phase1": lambda: casc.cascade_phase1(
+                     qc, ck, cv, **kw),
+                 "cascade_phase1_paged": lambda: casc.cascade_phase1_paged(
+                     qc, pk, pv, table, **kw)}
+        for name, fn in calls.items():
+            out[name + tag] = ms(fn)
+            out[name + tag + "_device_ms"] = ms(fn, sleep=True)
+            out[name + tag + "_host_us"] = host_us(fn)
     return out
 
 

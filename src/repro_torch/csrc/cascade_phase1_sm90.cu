@@ -7,7 +7,7 @@
 //         -> cascade_phase1_dense_sm90
 //   * _phase1_paged_kernel  (page pool [P,Hkv,page,D] + page table [B,MP])
 //         -> cascade_phase1_paged_sm90
-// float32 inputs stay on the exact CUDA-core kernels of cascade_phase1.cu.
+// float32 inputs run in the 3xTF32 kernels of cascade_phase1.cu.
 // The contract is theirs: the un-normalized split-K flash partials of the
 // tree query block, acc [B,Hq,ns,Tq,D] and m/l [B,Hq,ns,Tq] in fp32, over
 // the split geometry the wrapper computes, with their masking rules: a
@@ -108,20 +108,6 @@ template <int DP> struct Smem {
   static constexpr size_t BYTES = Q_BYTES + 2 * NSTAGE * KV_BYTES + 1024;
 };
 
-// 16 bytes from global to shared memory, or 16 zero bytes when !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
-}
 // Order this thread's landed cp.async writes before wgmma's reads of them.
 __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
@@ -131,72 +117,6 @@ __device__ __forceinline__ void fence_async_shared() {
 // `rows` rows per 64-column panel.
 __device__ __forceinline__ uint32_t sw_offset(int rows, int row, int cc) {
   return (cc / 8) * rows * 128 + row * 128 + (((cc % 8) ^ (row % 8)) << 4);
-}
-
-// Element offsets of logical key t's K and V rows for batch row b, KV head
-// hk: the slot of a dense cache, or the offset in the clamped physical page
-// of the table's entry.
-template <bool PAGED>
-__device__ __forceinline__ void key_rows(const Params& p, int b, int hk,
-                                         int t, long long& ko,
-                                         long long& vo) {
-  if (PAGED) {
-    const int pi = t / p.page, w = t - pi * p.page;
-    int phys = pi < p.mp ? p.table[b * p.mp + pi] : p.n_phys - 1;
-    phys = max(0, min(phys, p.n_phys - 1));
-    ko = phys * p.ks0 + hk * p.ks1 + w * p.ks2;
-    vo = phys * p.vs0 + hk * p.vs1 + w * p.vs2;
-  } else {
-    ko = b * p.ks0 + hk * p.ks1 + t * p.ks2;
-    vo = b * p.vs0 + hk * p.vs1 + t * p.vs2;
-  }
-}
-
-// Absolute position of logical key t (in the split's range) and whether it
-// holds a key at all: kernel semantics of cascade_phase1.cu.
-template <bool PAGED>
-__device__ __forceinline__ bool key_live(const Params& p, int t, int clen,
-                                         int& kpos) {
-  bool live = true;
-  if (PAGED) {
-    const int pi = t / p.page;
-    kpos = pi * p.stride + p.off + (t - pi * p.page);
-  } else if (p.rolling) {
-    const int last = clen - 1;
-    kpos = last - (last - t) % p.S;        // C % truncates: jax.lax.rem
-    live = kpos >= 0;
-  } else {
-    kpos = t;
-  }
-  return live && kpos < clen;
-}
-
-// Whether every key of the tile [t0, t0 + BK) is in the split's range and
-// holds a key, and then its smallest and largest position (positions rise
-// with t on a dense cache and on pages laid no closer than their size; a
-// rolling buffer wraps, so its tiles are always masked key by key).
-template <bool PAGED>
-__device__ __forceinline__ bool tile_span(const Params& p, int t0, int k_end,
-                                          int clen, int& lo, int& hi) {
-  if (t0 + BK > k_end || (PAGED ? p.stride < p.page : p.rolling))
-    return false;
-  const int t1 = t0 + BK - 1;
-  if (PAGED) {
-    lo = t0 / p.page * p.stride + p.off + t0 % p.page;
-    hi = t1 / p.page * p.stride + p.off + t1 % p.page;
-  } else {
-    lo = t0;
-    hi = t1;
-  }
-  return hi < clen;
-}
-
-// Output row of stacked row r: ((b, hk*g + r / Tq), split, r % Tq).
-__device__ __forceinline__ long long out_row(const Params& p, int b, int hk,
-                                             int g, int split, int r) {
-  const int h = hk * g + r / p.Tq;
-  return (static_cast<long long>(b * p.Hq + h) * p.ns + split) * p.Tq +
-         r % p.Tq;
 }
 
 template <int DP, bool PAGED>
@@ -336,7 +256,7 @@ phase1_sm90_kernel(const Params p) {
     // scores in log2 units: scale or softcap, then the mask (not needed
     // for a row that sees every key of the tile); running max
     int lo = 0, hi = 0;
-    const bool span = tile_span<PAGED>(p, t0, k_end, clen, lo, hi);
+    const bool span = tile_span<BK, PAGED>(p, t0, k_end, clen, lo, hi);
     const bool whole = span && hi <= min(qa, qb) &&
                        (p.window <= 0 || lo > max(qa, qb) - p.window);
     float mx_a = -INFINITY, mx_b = -INFINITY;

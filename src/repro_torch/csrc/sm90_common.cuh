@@ -1,5 +1,9 @@
-// Device helpers shared by the bf16 tensor-core kernels for Hopper
-// (sm_90a): flash_attention_sm90.cu and cascade_phase1_sm90.cu.
+// Device helpers shared by the tensor-core kernels for Hopper (sm_90a):
+// the bf16 ones of flash_attention_sm90.cu and cascade_phase1_sm90.cu, and
+// the fp32 (3xTF32) cascade kernels of cascade_phase1.cu, which use the
+// cp.async copies and the quad reductions. Both cascade sources take their
+// key addressing and masking from here (key_rows, key_live, tile_span,
+// out_row), templated on each file's Params and tile width.
 //
 // Tiles live in shared memory as 64-column panels of 128-byte rows, 128-byte
 // swizzled: in each 1024-byte group of 8 rows, the 16-byte chunk c of row r
@@ -156,6 +160,103 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// 16 bytes from global to shared memory, or 16 zero bytes when !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+// N (4, 8 or 16) bytes from global to shared memory, or N zero bytes when
+// !valid; both addresses N-byte aligned
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool valid) {
+  if constexpr (N == 16) {
+    cp_async16(dst, src, valid);
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;"
+                 :: "r"(smem_u32(dst)), "l"(src), "n"(N), "r"(valid ? N : 0)
+                 : "memory");
+  }
+}
+
+// ---- the cascade phase-1 kernels' addressing and masking, for the Params
+// of cascade_phase1.cu (fp32) and cascade_phase1_sm90.cu (bf16) alike ----
+
+// Element offsets of logical key t's K and V rows for batch row b, KV head
+// hk: the slot of a dense cache, or the offset in the clamped physical page
+// of the table's entry.
+template <bool PAGED, class P>
+__device__ __forceinline__ void key_rows(const P& p, int b, int hk, int t,
+                                         long long& ko, long long& vo) {
+  if (PAGED) {
+    const int pi = t / p.page, w = t - pi * p.page;
+    int phys = pi < p.mp ? p.table[b * p.mp + pi] : p.n_phys - 1;
+    phys = max(0, min(phys, p.n_phys - 1));
+    ko = phys * p.ks0 + hk * p.ks1 + w * p.ks2;
+    vo = phys * p.vs0 + hk * p.vs1 + w * p.vs2;
+  } else {
+    ko = b * p.ks0 + hk * p.ks1 + t * p.ks2;
+    vo = b * p.vs0 + hk * p.vs1 + t * p.vs2;
+  }
+}
+
+// Absolute position of logical key t (in the split's range) and whether it
+// holds a key at all.
+template <bool PAGED, class P>
+__device__ __forceinline__ bool key_live(const P& p, int t, int clen,
+                                         int& kpos) {
+  bool live = true;
+  if (PAGED) {
+    const int pi = t / p.page;
+    kpos = pi * p.stride + p.off + (t - pi * p.page);
+  } else if (p.rolling) {
+    const int last = clen - 1;
+    kpos = last - (last - t) % p.S;        // C % truncates: jax.lax.rem
+    live = kpos >= 0;
+  } else {
+    kpos = t;
+  }
+  return live && kpos < clen;
+}
+
+// Whether every key of the tile [t0, t0 + BK) is in the split's range and
+// holds a key, and then its smallest and largest position (positions rise
+// with t on a dense cache and on pages laid no closer than their size; a
+// rolling buffer wraps, so its tiles are always masked key by key).
+template <int BK, bool PAGED, class P>
+__device__ __forceinline__ bool tile_span(const P& p, int t0, int k_end,
+                                          int clen, int& lo, int& hi) {
+  if (t0 + BK > k_end || (PAGED ? p.stride < p.page : p.rolling))
+    return false;
+  const int t1 = t0 + BK - 1;
+  if (PAGED) {
+    lo = t0 / p.page * p.stride + p.off + t0 % p.page;
+    hi = t1 / p.page * p.stride + p.off + t1 % p.page;
+  } else {
+    lo = t0;
+    hi = t1;
+  }
+  return hi < clen;
+}
+
+// Output row of stacked row r: ((b, hk*g + r / Tq), split, r % Tq).
+template <class P>
+__device__ __forceinline__ long long out_row(const P& p, int b, int hk,
+                                             int g, int split, int r) {
+  const int h = hk * g + r / p.Tq;
+  return (static_cast<long long>(b * p.Hq + h) * p.ns + split) * p.Tq +
+         r % p.Tq;
 }
 
 __device__ __forceinline__ uint8_t* align1024(uint8_t* raw) {

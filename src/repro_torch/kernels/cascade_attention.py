@@ -3,9 +3,10 @@
 
 phase 1 (CUDA): split-K flash partials of the tree query block over the
   long KV cache — dense/rolling buffers (:func:`cascade_phase1`) or a page
-  pool read through a page table (:func:`cascade_phase1_paged`). bfloat16
-  runs on the tensor cores (``csrc/cascade_phase1_sm90.cu``), float32 on
-  the CUDA cores (``csrc/cascade_phase1.cu``, exact).
+  pool read through a page table (:func:`cascade_phase1_paged`). Both
+  dtypes run on the tensor cores: bfloat16 with wgmma
+  (``csrc/cascade_phase1_sm90.cu``), float32 in 3xTF32, each product formed
+  from three TF32 ones to fp32 accuracy (``csrc/cascade_phase1.cu``).
 phase 2 (torch, :func:`merge_with_tree_block`): log-sum-exp merge of the
   split partials with the tree-masked attention over the block itself.
 
@@ -14,7 +15,7 @@ tensor runs the plain torch version (``*_plain``, the same arithmetic
 the kernel does, and the oracle the kernel is held to on the card), a
 CUDA tensor launches the kernel or raises. There is no fallback. Each
 wrapper counts its launches in ``<wrapper>.launches``, and those of them
-that went to the tensor-core kernel in ``<wrapper>.sm90_launches``.
+that went to the bf16 kernel in ``<wrapper>.sm90_launches``.
 
 Split semantics match the Pallas kernels so partials compare one to one:
 dense ``ns = min(n_splits, ceil(S/bk))`` splits over the cache padded to
@@ -310,10 +311,11 @@ def cascade_attention_paged(q, pool_k, pool_v, page_table, blk_k, blk_v, *,
 
 # ------------------------------------------------------------ helpers ------
 def _entry(name, q, k, v):
-    """(C function, is it the tensor-core kernel) for the tensors' dtype,
-    after the checks that kernel needs: bf16 q and cache go to
-    ``csrc/cascade_phase1_sm90.cu``, fp32 to ``csrc/cascade_phase1.cu``.
-    Raises before any launch on what neither takes."""
+    """(C function, is it the bf16 kernel) for the tensors' dtype, after
+    the checks that kernel needs: bf16 q and cache go to
+    ``csrc/cascade_phase1_sm90.cu``, fp32 to ``csrc/cascade_phase1.cu``
+    (which takes any strides with a contiguous head dim). Raises before
+    any launch on what neither takes."""
     if q.device.type != "cuda":
         raise RuntimeError(f"cascade kernels run on CUDA or CPU tensors, "
                            f"not {q.device}")
@@ -352,8 +354,8 @@ def _entry(name, q, k, v):
 
 def _q_args(q, scale, sm90):
     """(q tensor, its strides, the scale) as the entry point takes them:
-    the tensor-core kernel reads bf16 q in place and scales the fp32
-    scores; the fp32 kernel takes a pre-scaled contiguous copy, no strides
+    the bf16 kernel reads q in place and scales the fp32 scores; the fp32
+    kernel takes a pre-scaled contiguous copy, no strides
     and no scale. The caller holds the tensor until the launch."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     if sm90:

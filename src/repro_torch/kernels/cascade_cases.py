@@ -2,7 +2,10 @@
 
 One table for both places that run them on the card: ``chip_smoke.py``'s
 kernels phase runs every case in both dtypes (and merges and checks
-against the oracle), and ``tests/test_torch_cuda.py`` runs a subset.
+against the oracle), and ``tests/test_torch_cuda.py`` runs a subset. The
+fp32 gates live here too, with the fp32 kernel's 3xTF32 arithmetic in
+torch (``tf32_split``, ``einsum_3xtf32``), which the tests hold the card
+and the gates to.
 Defaults: B 4 (the lengths in ``LENS``), Tq 76, Hq 32, Hkv 8, D 128, a
 cache of 1152 slots or a pool of 64-key pages, q in the cache's dtype as
 a view of the model's [B,T,Hq,D] queries.
@@ -13,6 +16,15 @@ import numpy as np
 import torch
 
 LENS = (512, 700, 901, 1100)                # ragged cache lengths, S 1152
+
+# The gates of the fp32 kernels (3xTF32 on the card) against the plain
+# version and the fp64 oracle:
+TOL_OUT = 2e-5      # merged output, absolute: both sides compute in fp32;
+                    # only sum order and the 3xTF32 split differ
+TOL_PART = 1e-4     # partials relative to 1 + |plain|: m and l in both
+                    # dtypes (fp32 scores and row sums on both sides), acc
+                    # in fp32 (bf16 acc has a gate of its own: P is rounded
+                    # to bf16 for P V as in the flash kernels)
 
 # name -> options of ``case_inputs`` (``nan``: the caller pre-fills the
 # outputs with NaN, so a split with no key must write finite zeros)
@@ -96,3 +108,28 @@ def case_inputs(gen, rng, dtype, kind, *, tq=76, hq=32, hkv=8, d=128,
         cache = [rand(b, s, hkv, d).transpose(1, 2) for _ in range(2)]
     return (casc.cascade_phase1, casc.cascade_phase1_plain, (q, *cache),
             dict(kw, rolling=rolling))
+
+
+def tf32_split(x):
+    """The fp32 kernel's split of an fp32 operand (``split_tf32`` in
+    ``csrc/cascade_phase1.cu``) as the tensor cores read it: big is x
+    rounded to tf32 (10 mantissa bits) to nearest, ties away (half a tf32
+    ulp added to the bits, the low 13 cleared: cvt.rna); small = x - big,
+    exact in fp32, truncated to tf32."""
+    low = ~0x1FFF                       # clears the low 13 bits, as int32
+    big = ((x.view(torch.int32) + 0x1000) & low).view(torch.float32)
+    small = ((x - big).view(torch.int32) & low).view(torch.float32)
+    return big, small
+
+
+def einsum_3xtf32(eq, a, b):
+    """``torch.einsum`` of fp32 operands as the kernel forms each product:
+    small*big + big*small, then big*big, each of tf32 operands (exact)
+    summed in fp32."""
+    ab, as_ = tf32_split(a)
+    bb, bs = tf32_split(b)
+    ein = _EINSUM
+    return (ein(eq, as_, bb) + ein(eq, ab, bs)) + ein(eq, ab, bb)
+
+
+_EINSUM = torch.einsum      # the real one, when a caller patches torch's

@@ -127,6 +127,52 @@ def test_cascade_bf16_refuses_what_cp_async_cannot_load(dev):
         assert (kern_fn.launches, kern_fn.sm90_launches) == before
 
 
+@pytest.mark.cuda
+def test_tf32x3_split_rule_on_card(dev, monkeypatch):
+    """The fp32 kernel splits each operand for the tf32 tensor cores
+    without a cvt: big is x plus half a tf32 ulp, which the unit must read
+    with its low 13 bits dropped, and small is read truncated (the rule of
+    cascade_cases.tf32_split). On operands whose low 13 bits are set, the
+    kernel's partials must match the plain version with every product
+    formed by that rule to 1e-5. A unit that rounded its operands instead
+    would move big by a tf32 ulp about half the time, as would a kernel
+    that dropped the small terms, and both are 10x or more off; the test
+    checks that its inputs show the latter."""
+    from repro_torch.kernels import cascade_attention as casc
+    rng = np.random.default_rng(0)
+    hq, tq, s, d = 4, 16, 64, 128
+    q = torch.tensor(rng.standard_normal((1, hq, tq, d)) * d ** -0.5,
+                     dtype=torch.float32, device=dev)
+    ck, cv = (torch.tensor(rng.standard_normal((1, 1, s, d)),
+                           dtype=torch.float32, device=dev)
+              for _ in range(2))
+    assert all(((x.view(torch.int32) & 0x1FFF) != 0).float().mean() > 0.99
+               for x in (q, ck, cv))
+    cl = torch.tensor([s], device=dev)
+    kw = dict(cache_len=cl, q_abs=cl[:, None] - 1 + torch.arange(
+        tq, device=dev), scale=1.0)
+    before = casc.cascade_phase1.launches
+    kern = casc.cascade_phase1(q, ck, cv, **kw)
+    torch.cuda.synchronize()
+    assert casc.cascade_phase1.launches == before + 1
+    real = torch.einsum
+
+    def plain_with(einsum):
+        with monkeypatch.context() as mp:
+            mp.setattr(torch, "einsum", einsum)
+            return casc.cascade_phase1_plain(q, ck, cv, **kw)
+
+    def worst(a, b):
+        return max(((x - y).abs() / (1 + y.abs())).max().item()
+                   for x, y in zip(a, b))
+
+    emu = plain_with(cascade_cases.einsum_3xtf32)
+    one = plain_with(lambda eq, a, b: real(
+        eq, cascade_cases.tf32_split(a)[0], cascade_cases.tf32_split(b)[0]))
+    assert worst(kern, emu) < 1e-5, worst(kern, emu)
+    assert worst(one, emu) > 1e-4, worst(one, emu)
+
+
 FLASH_CASES = {   # b, hq, hkv, tq, tkv, d, [B,T,H,D] layout, options
     # the training shape's geometry at T 512, in the model's layout
     "causal": (2, 8, 2, 512, 512, 128, True, dict(causal=True)),

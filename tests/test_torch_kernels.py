@@ -311,3 +311,76 @@ def test_card_case_table_builds_and_runs_on_cpu(name):
     assert acc.shape == (b, hq, ns, tq, d) and m.shape == l.shape == (
         b, hq, ns, tq)
     assert all(torch.isfinite(x).all() for x in (acc, m, l))
+
+
+# ------------------------------------------- the fp32 kernel's error budget --
+# The gates (TOL_OUT, TOL_PART) and the 3xTF32 arithmetic (tf32_split,
+# einsum_3xtf32) come from cascade_cases, as chip_smoke.py's gates do.
+def _budget_errors(parts, out, ref_parts, ref_out):
+    """max |out - ref| and the worst live partial (acc, m, l) relative to
+    1 + |ref|, all against the fp64 reference."""
+    live = ref_parts[1] > -1e29
+    part = max(((x.double() - r).abs() / (1 + r.abs())
+                ).reshape(*live.shape, -1).amax(-1)[live].max().item()
+               for x, r in zip(parts, ref_parts))
+    return (out.double() - ref_out).abs().max().item(), part
+
+
+@pytest.mark.parametrize("name", ["dense_tq76", "paged_tq76",
+                                  "dense_softcap", "rolling97_w50"])
+def test_tf32x3_error_budget(name, monkeypatch):
+    """The fp32 kernel (``csrc/cascade_phase1.cu``) forms Q K^T and P V in
+    3xTF32 on the tensor cores. The plain version with every product made
+    that way, at a card case's sizes, stays within the card's gates of an
+    fp64 reference (the plain version in float64) and within 4x of the
+    plain fp32 version's own error there."""
+    case = cascade_cases.CASES[name]
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    _, plain, args, kw = cascade_cases.case_inputs(
+        gen, np.random.default_rng(0), torch.float32, **case)
+    q, ck = args[0], args[1]
+    b, hkv, tq, d = q.shape[0], ck.shape[1], q.shape[2], q.shape[3]
+    blk = [torch.randn((b, hkv, tq, d), generator=gen) for _ in range(2)]
+    tm = torch.ones((tq, tq), dtype=torch.bool).tril()
+
+    def run(dtype):
+        cast = [x.to(dtype) if x.is_floating_point() else x for x in args]
+        parts = plain(*cast, **kw)
+        out = tcasc.merge_with_tree_block(
+            cast[0], *(x.to(dtype) for x in blk), *parts, tree_mask=tm,
+            attn_softcap=kw["attn_softcap"], scale=kw["scale"])
+        return parts, out
+
+    with monkeypatch.context() as mp:   # the same arithmetic in float64
+        mp.setattr(torch.Tensor, "float", torch.Tensor.double)
+        ref_parts, ref_out = run(torch.float64)
+    assert ref_out.dtype == ref_parts[0].dtype == torch.float64
+    fp32 = _budget_errors(*run(torch.float32), ref_parts, ref_out)
+    with monkeypatch.context() as mp:
+        mp.setattr(torch, "einsum", cascade_cases.einsum_3xtf32)
+        emu_parts, _ = run(torch.float32)
+    # the merge stays fp32 torch on the card: only phase 1 is the kernel's
+    emu_out = tcasc.merge_with_tree_block(
+        q, *blk, *emu_parts, tree_mask=tm, attn_softcap=kw["attn_softcap"],
+        scale=kw["scale"])
+    emu = _budget_errors(emu_parts, emu_out, ref_parts, ref_out)
+    assert emu[0] <= cascade_cases.TOL_OUT, (emu, fp32)
+    assert emu[1] <= cascade_cases.TOL_PART, (emu, fp32)
+    assert emu[0] <= 4 * fp32[0] and emu[1] <= 4 * fp32[1], (emu, fp32)
+
+
+def test_tf32_split_rule():
+    """big holds x to half a tf32 ulp (ties away from zero), small is
+    exactly x - big, and big + small keeps x to 2^-21."""
+    x = torch.tensor([1.0, 1 + 2 ** -11, 1 + 3 * 2 ** -11, -(1 + 2 ** -11),
+                      np.pi, -1e-3, 0.0], dtype=torch.float32)
+    big, small = cascade_cases.tf32_split(x)
+    assert big.tolist()[:4] == [1.0, 1 + 2 ** -10, 1 + 2 ** -9,
+                                -(1 + 2 ** -10)]
+    assert ((big.view(torch.int32) & 0x1FFF) == 0).all()
+    assert ((small.view(torch.int32) & 0x1FFF) == 0).all()
+    assert ((x.double() - big.double()).abs()
+            <= 2 ** -11 * x.double().abs()).all()
+    assert ((x.double() - big.double() - small.double()).abs()
+            <= 2 ** -21 * x.double().abs()).all()
