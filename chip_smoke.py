@@ -26,9 +26,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
            q_offset 24, kv_len (1000, 931), window 512, softcap 50; GQA
            groups 4 and 1) and tile edges (T 129, a single query row, Tkv
            300 with kv_len ending mid-tile, Tq 128 over Tkv 384 so that
-           two key tiles see no query, D 64 and 96), fp32 (the CUDA-core
-           kernels of flash_attention.cu) and bf16 (the tensor-core
-           kernels of flash_attention_sm90.cu); then timed at the
+           two key tiles see no query, D 64 and 96), fp32 (the kernels of
+           flash_attention.cu: the forward on the CUDA cores, dq and dk/dv
+           in 3xTF32 on the tensor cores, these two also called twice at
+           the training shape and held bitwise equal) and bf16 (the
+           wgmma kernels of flash_attention_sm90.cu); then timed at the
            training shape beside its bound, its plain version and
            scaled_dot_product_attention (forward; its autograd backward)
   main     greedy D^2SD ``generate`` in fp32 at the full width and depth of
@@ -112,8 +114,9 @@ PEAK_BYTES_S = 3.35e12                      # H100 SXM HBM3
 PEAK_FLOPS = {torch.float32: 67e12,         # fp32, CUDA cores
               torch.bfloat16: 989e12}       # bf16 tensor cores, dense
 PEAK_TF32 = 495e12                          # TF32 tensor cores, dense: the
-                                            # fp32 cascade kernels form each
-                                            # product from three TF32 ones
+                                            # fp32 cascade kernels and flash
+                                            # backward form each product
+                                            # from three TF32 ones
 NEAR_TIE = 1e-4                             # top-2 logit gap that may flip
 NEAR_TIE_BF16_ULPS = 4      # bf16: the same rule, the gap counted in bf16
                             # ulps of the top logit (2^-5 at the random
@@ -123,15 +126,10 @@ NEAR_TIE_BF16_ULPS = 4      # bf16: the same rule, the gap counted in bf16
                             # the two read paths round differently over 36
                             # layers (about 2 more); a wrong read moves the
                             # logits by far more (top-2 spacing ~8 ulps)
-# the cascade gates TOL_OUT and TOL_PART: kernels/cascade_cases.py
+# the kernel gates TOL_OUT, TOL_PART (cascade), TOL_FLASH and TOL_LSE
+# (flash): kernels/cascade_cases.py
 TOL_CACHE = 1e-3    # committed fp32 caches vs a prefill of the same tokens,
                     # relative to the largest value: sum order only
-TOL_FLASH = {       # flash o/dq/dk/dv vs plain, max |diff| / max |plain|:
-    torch.float32: 2e-5,     # fp32 both sides, sums over <= 4096 keys or
-                             # 4 x 4096 queries in another order
-    torch.bfloat16: 8e-3}    # fp32 inside, outputs rounded to bf16: one
-                             # bf16 ulp (2^-8 of the value) either way
-TOL_LSE = 1e-4      # flash lse (fp32 both sides), absolute
 TRAIN_LAYERS = 8    # paper-target cut in depth only: 2.79e9 params
 TOL_TRAIN_LOSS = 1e-5   # fp32 step loss, kernel vs plain path, relative
 TOL_TRAIN_GNORM = 1e-4  # fp32 global grad norm, relative
@@ -265,7 +263,8 @@ def _within_tol(dtype, err):
     """fp32: merged outputs within TOL_OUT absolute, partials TOL_PART;
     bf16: merged outputs and acc within TOL_FLASH[bf16] relative (P is
     rounded to bf16 for P V), m and l TOL_PART."""
-    from repro_torch.kernels.cascade_cases import TOL_OUT, TOL_PART
+    from repro_torch.kernels.cascade_cases import (TOL_FLASH, TOL_OUT,
+                                                   TOL_PART)
     if dtype == torch.float32:
         return (max(err["out_abs"], err.get("ref_abs", 0.0)) <= TOL_OUT
                 and max(err["acc"], err["m_l"]) <= TOL_PART)
@@ -313,8 +312,10 @@ def check_kernels(timer):
     emit({"phase": "kernels", "ok": True, "n_cases": len(cases),
           "tol": {"float32": {"out_abs": cascade_cases.TOL_OUT,
                               "partials": cascade_cases.TOL_PART},
-                  "bfloat16": {"out_rel": TOL_FLASH[torch.bfloat16],
-                               "acc_rel": TOL_FLASH[torch.bfloat16],
+                  "bfloat16": {"out_rel": cascade_cases.TOL_FLASH[
+                                   torch.bfloat16],
+                               "acc_rel": cascade_cases.TOL_FLASH[
+                                   torch.bfloat16],
                                "m_l": cascade_cases.TOL_PART}},
           "cases": cases, "max_abs_err": worst, "timing": timing})
     return worst, timing
@@ -449,15 +450,21 @@ def live_pairs(tq, tkv, q_offset, window, kv_len, causal=True):
 
 def _flash_bound(name, dtype, b, hq, hkv, tq, tkv, d, pairs):
     """Least time: FLOPs of the GEMMs the kernel computes per live pair
-    (forward 2, dq 3, dk/dv 4) at the dtype's peak, or each input read
-    and each output written once at HBM rate."""
+    (forward 2, dq 3, dk/dv 4) at the peak of its route (bf16 tensor
+    cores; fp32: the forward on the CUDA cores, the backward as 3xTF32 on
+    the tensor cores, three TF32 FLOPs a FLOP), or each input read and
+    each output written once at HBM rate."""
     es = torch.tensor([], dtype=dtype).element_size()
     q_b, kv_b, rows = b * hq * tq * d * es, b * hkv * tkv * d * es, b * hq * tq
     gemms, byts = {
         "flash_attention_fwd": (2, 2 * q_b + 2 * kv_b + 4 * rows),
         "flash_attention_bwd_dq": (3, 3 * q_b + 2 * kv_b + 8 * rows),
         "flash_attention_bwd_dkv": (4, 2 * q_b + 4 * kv_b + 8 * rows)}[name]
-    t_f = 2 * gemms * d * pairs * hq / PEAK_FLOPS[dtype] * 1e3
+    flops = 2 * gemms * d * pairs * hq
+    if dtype == torch.float32 and name != "flash_attention_fwd":
+        t_f = 3 * flops / PEAK_TF32 * 1e3
+    else:
+        t_f = flops / PEAK_FLOPS[dtype] * 1e3
     t_b = byts / PEAK_BYTES_S * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
@@ -483,8 +490,12 @@ def check_flash(timer):
     sees, so dk/dv must be zero there; D 64 and D 96, the last
     zero-filled to 128, in the [B,T,H,D] layout), fp32 and bf16. Each
     backward kernel takes the plain forward's (o, lse), so each kernel is
-    held alone. o, lse and dq are compared over rows with a live key."""
+    held alone. o, lse and dq are compared over rows with a live key.
+    The fp32 backward kernels are also called a second time at the
+    training shape and must give bitwise the same dq, dk and dv (no
+    atomics: the fp32 training step is deterministic)."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.cascade_cases import TOL_FLASH, TOL_LSE
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(1)
     cases = []
@@ -528,6 +539,15 @@ def check_flash(timer):
             dq_p = fa.flash_attention_bwd_dq_plain(*args, **kw)
             dk_k, dv_k = fa.flash_attention_bwd_dkv(*args, **kw)
             dk_p, dv_p = fa.flash_attention_bwd_dkv_plain(*args, **kw)
+            if dtype == torch.float32 and sh is shapes[0]:
+                same = {"dq": torch.equal(
+                            dq_k, fa.flash_attention_bwd_dq(*args, **kw)),
+                        "dk_dv": all(map(torch.equal, (dk_k, dv_k),
+                                         fa.flash_attention_bwd_dkv(
+                                             *args, **kw)))}
+                if not all(same.values()):
+                    fail(f"the fp32 flash backward is not deterministic: "
+                         f"{same}")
             torch.cuda.synchronize()
             live = lse_p > -1e29                           # [B,Hq,T]
 
@@ -569,6 +589,7 @@ def check_flash(timer):
             del o_k, o_p, dq_k, dq_p, dk_k, dk_p, dv_k, dv_p
     timing = time_flash(timer, gen)
     emit({"phase": "flash", "ok": True, "n_cases": len(cases),
+          "fp32_backward_bitwise_repeatable": same,
           "tol": {str(k).replace("torch.", ""): v
                   for k, v in TOL_FLASH.items()}, "tol_lse": TOL_LSE,
           "cases": cases, "max_rel_err": worst, "max_abs_err": worst_abs,
@@ -1169,10 +1190,12 @@ def graph_bf16(bundle, prompts, eager):
 def _device_rows(prof):
     """(kernel name, device ms, calls) of a trace's device events, most
     time first: a CPU op (aten::mm) also reports the time of the kernels
-    it launched, which would count them twice."""
+    it launched, which would count them twice, and so does the device
+    span of a profiler schedule's step (ProfilerStep*)."""
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("ProfilerStep")]
     return sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
 
 
@@ -1187,8 +1210,12 @@ def profile_graph(bundle, prompts, n_cycles=6):
     ``generate_ondevice`` reads it: first unprofiled (host clock, the
     cycle's wall time), then under torch.profiler (device time, top
     kernels, and the phase-1 cascade kernel's launches and device time a
-    cycle, counted by kernel name: a replay runs no wrapper)."""
-    from torch.profiler import ProfilerActivity, profile
+    cycle, counted by kernel name: a replay runs no wrapper). The
+    profiler traces one more replay first and discards it (its warm-up
+    step): the first traced replay of a graph can lose kernels from the
+    trace (a bf16 paged trace once counted 236 of six replays' 240
+    phase-1 launches)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from repro_torch.core import pipeline as pl
     from repro_torch.core.state import engine_init, prefill
@@ -1217,11 +1244,15 @@ def profile_graph(bundle, prompts, n_cycles=6):
                 loop.more()
             wall = 1e3 * (time.perf_counter() - t0) / n_cycles
             with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for _ in range(n_cycles):
+                                     ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1,
+                                           active=n_cycles,
+                                           repeat=1)) as prof:
+                for _ in range(1 + n_cycles):
                     loop.advance()
                     loop.more()
-                torch.cuda.synchronize()
+                    torch.cuda.synchronize()
+                    prof.step()
         finally:
             loop.close()
         del loop, state

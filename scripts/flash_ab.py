@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the bf16 flash kernels and the bf16 and fp32 cascade kernels of
-two checkouts on one card, in turns.
+"""Time the flash kernels and the cascade kernels of two checkouts on one
+card, in turns.
 
     python3 scripts/flash_ab.py OTHER_ROOT [--rounds N]
 
@@ -8,8 +8,9 @@ Each round times OTHER_ROOT's kernels, then this checkout's twice, then
 OTHER_ROOT's again (A B B A), each run in a process of its own that
 imports that checkout's ``repro_torch``, so both are measured on the same
 card within one call. A run times ``flash_attention_fwd``,
-``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv`` in bf16 at the
-training shape of ``chip_smoke.py`` (B 2, Hq 32, Hkv 8, T 4096, D 128,
+``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv`` in bf16 and in
+fp32 (the ``*_fp32`` keys; the backward ones also as ``*_device_ms``) at
+the training shape of ``chip_smoke.py`` (B 2, Hq 32, Hkv 8, T 4096, D 128,
 causal, the model's [B,T,H,D] layout), and ``cascade_phase1`` and
 ``cascade_phase1_paged`` in bf16 and in fp32 (the ``*_fp32`` keys) at its
 decode verify shape (B 4, Hq 32, Hkv 8, D 128, Tq 76, caches of 520-600
@@ -49,15 +50,6 @@ def time_checkout(root: Path) -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
 
-    def mk(h):
-        return torch.randn((b, t, h, d), generator=gen, device="cuda").to(
-            torch.bfloat16).transpose(1, 2)
-
-    q, k, v, do = mk(hq), mk(hkv), mk(hkv), mk(hq)
-    o, lse = fa.flash_attention_fwd(q, k, v)
-    delta = (do.float() * o.float()).sum(-1)
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
-
     def ms(fn, iters=20, warmup=3, sleep=False):
         for _ in range(warmup):
             fn()
@@ -88,14 +80,26 @@ def time_checkout(root: Path) -> dict:
         torch.cuda.synchronize()
         return float(np.median(per))
 
-    bw = (q, k, v, do, lse, delta)
-    out = {"root": str(root),
-           "flash_attention_fwd": ms(lambda: fa.flash_attention_fwd(q, k, v)),
-           "flash_attention_bwd_dq": ms(
-               lambda: fa.flash_attention_bwd_dq(*bw)),
-           "flash_attention_bwd_dkv": ms(
-               lambda: fa.flash_attention_bwd_dkv(*bw))}
-    del q, k, v, do, o, lse, delta, bw
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    out = {"root": str(root)}
+    for dtype, tag in ((torch.bfloat16, ""), (torch.float32, "_fp32")):
+        q, k, v, do = (torch.randn((b, t, h, d), generator=gen,
+                                   device="cuda").to(dtype).transpose(1, 2)
+                       for h in (hq, hkv, hkv, hq))
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        delta = (do.float() * o.float()).sum(-1)
+        bw = (q, k, v, do, lse, delta)
+        calls = {"flash_attention_fwd": lambda: fa.flash_attention_fwd(
+                     q, k, v),
+                 "flash_attention_bwd_dq": lambda: fa.flash_attention_bwd_dq(
+                     *bw),
+                 "flash_attention_bwd_dkv":
+                     lambda: fa.flash_attention_bwd_dkv(*bw)}
+        for name, fn in calls.items():
+            out[name + tag] = ms(fn)
+            if tag and name != "flash_attention_fwd":
+                out[name + tag + "_device_ms"] = ms(fn, sleep=True)
+        del q, k, v, do, o, lse, delta, bw, calls
 
     b, tq, s, page = 4, 76, 616, 64
     lens = torch.tensor([520, 560, 580, 600], device="cuda")

@@ -123,29 +123,6 @@ struct Params {
   int vec;                   // floats per cp.async copy: 4, 2 or 1
 };
 
-// x as big + small for the tf32 tensor cores, which read the top 19 bits
-// of an operand register and ignore the low 13: big is x plus half a tf32
-// ulp (so the unit reads x rounded to nearest, ties away: cvt.rna), small
-// is x minus that rounded value, exact in fp32, read truncated to tf32.
-// This is CUTLASS's 3xTF32 split (cutlass/tfloat32.h:
-// round_half_ulp_truncate for big, its float() that clears the low 13 bits
-// for x - big); tests/test_torch_cuda.py::test_tf32x3_split_rule_on_card
-// holds the unit to it.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
-                                           uint32_t& small) {
-  big = __float_as_uint(x) + 0x1000u;
-  small = __float_as_uint(x - __uint_as_float(big & 0xffffe000u));
-}
-
-// d[16 x 8] += a[16 x 8] b[8 x 8], tf32 operands, fp32 accumulators
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // The slab's Q rows [r0, r0 + BM), VEC floats a copy. A KV head's stacked
 // rows are contiguous in q: row r of head hk is q row (b*Hq + hk*g)*Tq + r.
 template <int VEC>

@@ -1,5 +1,5 @@
-// Flash attention forward and backward in float32 on the CUDA cores, for
-// Hopper (sm_90a).
+// Flash attention forward and backward in float32 for Hopper (sm_90a): the
+// forward on the CUDA cores, the backward on the tensor cores in 3xTF32.
 //
 // Replaces, for float32 inputs, the three Pallas TPU kernels of
 // repro/kernels/flash_attention.py:
@@ -11,26 +11,65 @@
 // sits at i + q_offset, key j at j), a sliding window (key live if
 // kpos > qpos - window), a per-row kv_len [B], and the gemma-style softcap
 // applied BEFORE the mask, as _mask_block does.
-// bfloat16 inputs run all three on the tensor cores instead, in
+// bfloat16 inputs run all three on the tensor cores with wgmma instead, in
 // flash_attention_sm90.cu; these entry points refuse them.
 //
-// What bounds it on an H100: operations. At the training shape (T 4096,
+// What bounds them on an H100: operations. At the training shape (T 4096,
 // D 128, causal) a (b, q-head) pair does T^2/2 * D * 4 FLOPs forward on
 // 2*T*D*4 input bytes: thousands of FLOPs per byte, far above the card's
-// ridge. These kernels are simple and exact, not fast: fp32 on the
-// CUDA cores, tiles of 64 queries x 64 keys staged in shared memory, each
-// of 256 threads owning a 4 x 4 patch of the score tile and a 4 x (D/16)
-// patch of its accumulator.
-// What the design does for the operation count:
-//   * key tiles that lie wholly past the causal edge, before the window,
-//     or past kv_len are skipped, so causal attention costs half of the
-//     full square;
-//   * the dk/dv kernel gives one block to (key tile, KV head, row) and
-//     loops over the GQA group's query heads itself, so dk/dv are summed
-//     in registers and written once: no atomics (a training step is
-//     deterministic) and no per-query-head [B,Hq,Tkv,D] buffer.
-// They stay on the CUDA cores on purpose: TF32 tensor cores would round
-// the products and break the fp32 training identity.
+// ridge. Key tiles (forward, dq) and query tiles (dk/dv) that lie wholly
+// past the causal edge, before the window or past kv_len are skipped, so
+// causal attention costs half of the full square.
+//
+// The forward runs on the CUDA cores: tiles of 64 queries x 64 keys staged
+// in shared memory, each of 256 threads owning a 4 x 4 patch of the score
+// tile and a 4 x (D/16) patch of its accumulator.
+//
+// The backward runs every product on the tensor cores as mma.sync m16n8k8
+// tf32 in 3xTF32, as cascade_phase1.cu does (split_tf32 and mma_tf32 in
+// sm90_common.cuh): each operand x is split as its fragment loads into big
+// (x plus half a tf32 ulp, read truncated by the unit: x rounded to
+// nearest) and small (x - big, exact in fp32, read truncated), and
+// small*big + big*small + big*big go into fp32 accumulators. Each product
+// stays within 2^-21 of its fp32 value, so the fp32 training identity
+// holds (tests/test_torch_flash.py emulates the budget; one tf32 product
+// in place of three would not keep it). The mma units add into their
+// accumulator with truncation, not rounding: summed over the thousands of
+// tiles of a long row (dq) or key (dk, dv) that bias took dk past the fp32
+// gate at T 4096, so each tile's products go to a fresh accumulator that
+// is added to the running sum in fp32 (mma_pb).
+//   * dq: one block per (64 query rows, q head, batch row), the longest
+//     tiles first; four warps of 16 rows. Q*scale and dO are staged once;
+//     16-key K/V tiles come through a two-stage cp.async ring, so the next
+//     tile loads while this one is multiplied. Each warp forms S =
+//     (Q*scale) K^T and dP = dO V^T over D, then dS = P (dP - delta) dcap
+//     in the accumulators, then dQ += dS K over the keys with the dS
+//     accumulator as the A fragment as it stands: its keys 2 tig and
+//     2 tig + 1 are the k indices tig and tig + 4, and K is read at those
+//     keys. The 16 x 128 dq accumulator takes 64 registers a thread; two
+//     blocks an SM (99 KB of shared memory each).
+//   * dk/dv: one block per (32 keys, KV head, batch row), the longest
+//     first; K and V staged once, then a loop over the GQA group's q heads
+//     and their 16-row query tiles (Q*scale, dO, lse and delta in the
+//     two-stage ring). Each 16 keys belong to a pair of warps: one forms
+//     S^T = K (Q*scale)^T, P and dV += P^T dO; it hands P and dcap to its
+//     partner through shared memory (a named barrier of the two warps),
+//     which forms dP^T = V dO^T, dS^T and dK += dS^T (Q*scale). So each
+//     warp holds one 16 x 128 accumulator (dk and dv in one warp would
+//     take 128 registers and spill); three blocks an SM (168 registers,
+//     70 KB of shared memory each). The group is summed in registers and
+//     written once: no atomics (a training step is deterministic) and no
+//     per-q-head [B,Hq,Tkv,D] buffer; key tiles that no query sees are
+//     written as zeros.
+//   * both: rows lie DP + 4 floats apart (132 for D 128, 68 for D <= 64),
+//     so the float4 fragment reads of both product orders are free of bank
+//     conflicts: over D (rows gid, columns 32 kk + 8 tig + 4 h) and over
+//     keys or queries (rows 2 tig, columns 32 c + 4 gid). Copies are 16
+//     bytes where the bases, D and every stepped stride allow, else 8 or 4;
+//     rows past T and columns past D arrive as zeros. A warp skips a tile
+//     in which none of its pairs is live, and the mask where all are. The
+//     two correction products of S and dP go to accumulators of their own,
+//     so the dependent mma chains are half as long.
 //
 // A TPU grid carries the running softmax across sequential kv steps in
 // scratch; here each block loops over its own key (or query) tiles.
@@ -48,12 +87,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90_common.cuh"
+
 namespace {
 
 constexpr int BQ = 64;        // query rows per tile
 constexpr int BK = 64;        // keys per tile
 constexpr int NT = 256;       // threads per block: 16 x 16
-constexpr float NEG_INF = -1e30f;
 
 // max / sum over the 16 lanes of a half warp (the threads of one ty row)
 __device__ __forceinline__ float group_max(float x) {
@@ -79,6 +119,7 @@ struct Params {
   int B, Hq, Hkv, Tq, Tkv, D;
   int causal, q_offset, window;   // window <= 0: none
   float softcap, scale;           // softcap <= 0: none
+  int vec;                 // backward: floats per cp.async copy (4, 2, 1)
 };
 
 // Stage rows [row0, row0 + BQ) of a [T, D] slice (row stride rs) into a
@@ -101,7 +142,9 @@ __device__ __forceinline__ bool live_key(const Params& p, int qpos, int kpos,
   return ok;
 }
 
-// Key range [kbeg, kend) a query tile [q0, q0 + nq) can see.
+// Key range [kbeg, kend) a query tile [q0, q0 + nq) can see, kbeg on a
+// multiple of the key tile.
+template <int TILE>
 __device__ __forceinline__ void key_range(const Params& p, int q0, int nq,
                                           int kvl, int& kbeg, int& kend) {
   const int qmin = q0 + p.q_offset, qmax = q0 + nq - 1 + p.q_offset;
@@ -109,7 +152,7 @@ __device__ __forceinline__ void key_range(const Params& p, int q0, int nq,
   if (p.causal) kend = min(kend, qmax + 1);
   kbeg = 0;
   if (p.window > 0) kbeg = max(0, qmin - p.window + 1);
-  kbeg = (kbeg / BK) * BK;
+  kbeg = (kbeg / TILE) * TILE;
 }
 
 // ------------------------------------------------------------- forward ---
@@ -134,7 +177,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
 
   stage<DP, LDQ>(Qs, Q, p.qs2, q0, p.Tq, p.D, p.scale);
   int kbeg, kend;
-  key_range(p, q0, nq, kvl, kbeg, kend);
+  key_range<BK>(p, q0, nq, kvl, kbeg, kend);
 
   float m[4], l[4], acc[4][NC];
 #pragma unroll
@@ -228,278 +271,447 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
   }
 }
 
+// ------------------------------------------------ backward, 3xTF32 ---
+constexpr int BW_THREADS = 128;  // four warps
+constexpr int DQ_ROWS = 64;      // dq: query rows a block, 16 a warp
+constexpr int KV_ROWS = 32;      // dk/dv: keys a block, 16 a pair of warps
+constexpr int BW_TILE = 16;      // keys (dq) or queries (dk/dv) a tile
+
+// threadIdx.x, read anew where it is used: the staging loops' offsets,
+// derived from it, would otherwise be hoisted out of the tile loops and
+// held in registers (or spilled) for the whole kernel.
+__device__ __forceinline__ int tid_fresh() {
+  int t;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
+  return t;
+}
+
+// Rows [row0, row0 + R) of a [T, D] slice (row stride rs) into an
+// [R][DP + 4] tile by cp.async, VEC floats a copy; rows >= T and columns
+// >= D arrive as zeros.
+template <int R, int DP, int VEC>
+__device__ __forceinline__ void stage_async(float* dst, const float* src,
+                                            int64_t rs, int row0, int T_,
+                                            int D) {
+  constexpr int LD = DP + 4, CPR = DP / VEC;
+#pragma unroll 4
+  for (int i = tid_fresh(); i < R * CPR; i += BW_THREADS) {
+    const int r = i / CPR, c = i % CPR * VEC;
+    const bool ok = row0 + r < T_ && c < D;
+    cp_async<4 * VEC>(dst + r * LD + c, ok ? src + (row0 + r) * rs + c : src,
+                      ok);
+  }
+}
+
+// Multiplies by mul what stage_async<R, DP, VEC> copied in this thread,
+// once the copies have landed.
+template <int R, int DP, int VEC>
+__device__ __forceinline__ void scale_own(float* dst, float mul) {
+  constexpr int LD = DP + 4, CPR = DP / VEC;
+#pragma unroll 4
+  for (int i = tid_fresh(); i < R * CPR; i += BW_THREADS) {
+    const int r = i / CPR, c = i % CPR * VEC;
+#pragma unroll
+    for (int u = 0; u < VEC; ++u) dst[r * LD + c + u] *= mul;
+  }
+}
+
+// stage_async and scale_own, p.vec floats a copy
+template <int R, int DP>
+__device__ __forceinline__ void stage_rows(const Params& p, float* dst,
+                                           const float* src, int64_t rs,
+                                           int row0, int T_) {
+  if (p.vec == 4) stage_async<R, DP, 4>(dst, src, rs, row0, T_, p.D);
+  else if (p.vec == 2) stage_async<R, DP, 2>(dst, src, rs, row0, T_, p.D);
+  else stage_async<R, DP, 1>(dst, src, rs, row0, T_, p.D);
+}
+
+template <int R, int DP>
+__device__ __forceinline__ void scale_rows(const Params& p, float* dst) {
+  if (p.vec == 4) scale_own<R, DP, 4>(dst, p.scale);
+  else if (p.vec == 2) scale_own<R, DP, 2>(dst, p.scale);
+  else scale_own<R, DP, 1>(dst, p.scale);
+}
+
+// c[n] (+ cc[n]) += A[16 x DP] B[16 x DP]^T for the 8-row blocks n = 0, 1
+// of B, in 3xTF32: big*big into c, the two correction products into cc.
+// a points at A + gid * LD + 8 tig (this thread's rows gid and gid + 8),
+// b at B + gid * LD + 8 tig. A k-step pair reads a float4 of each row: k
+// index tig of k-step 2 h + s is column 32 kk + 8 tig + 4 h + 2 s, k index
+// tig + 4 the column after it (a permutation of D that A and B share).
+template <int DP>
+__device__ __forceinline__ void mma_abt(float (&c)[2][4], float (&cc)[2][4],
+                                        const float* a, const float* b) {
+  constexpr int LD = DP + 4;
+#pragma unroll
+  for (int kk = 0; kk < DP / 32; ++kk) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int d = 32 * kk + 4 * h;
+      const float4 xa = *reinterpret_cast<const float4*>(a + d);
+      const float4 xb = *reinterpret_cast<const float4*>(a + 8 * LD + d);
+      // A fragments of the two k-steps: (row gid, k tig), (row gid + 8,
+      // k tig), (row gid, k tig + 4), (row gid + 8, k tig + 4)
+      uint32_t ab[2][4], as[2][4];
+      split_tf32(xa.x, ab[0][0], as[0][0]);
+      split_tf32(xb.x, ab[0][1], as[0][1]);
+      split_tf32(xa.y, ab[0][2], as[0][2]);
+      split_tf32(xb.y, ab[0][3], as[0][3]);
+      split_tf32(xa.z, ab[1][0], as[1][0]);
+      split_tf32(xb.z, ab[1][1], as[1][1]);
+      split_tf32(xa.w, ab[1][2], as[1][2]);
+      split_tf32(xb.w, ab[1][3], as[1][3]);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const float4 y = *reinterpret_cast<const float4*>(b + 8 * n * LD + d);
+        uint32_t bb[2][2], bs[2][2];
+        split_tf32(y.x, bb[0][0], bs[0][0]);
+        split_tf32(y.y, bb[0][1], bs[0][1]);
+        split_tf32(y.z, bb[1][0], bs[1][0]);
+        split_tf32(y.w, bb[1][1], bs[1][1]);
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          mma_tf32(cc[n], as[s], bb[s]);
+          mma_tf32(cc[n], ab[s], bs[s]);
+          mma_tf32(c[n], ab[s], bb[s]);
+        }
+      }
+    }
+  }
+}
+
+// acc += P[16 x 16] B[16 x DP] in 3xTF32, P in mma_abt's accumulator
+// layout: its k-step n is the 8-column block n, whose columns 2 tig and
+// 2 tig + 1 are the k indices tig and tig + 4, so B is read at those rows.
+// b points at B + 2 tig * LD + 4 gid. n-block j of the 32-column group c
+// holds the columns 32 c + 4 gid + j, so a thread reads float4s of B and
+// holds the columns 32 c + 8 tig + [0, 8) of acc. The tile's products go
+// to a fresh accumulator, added to acc in fp32 (round to nearest): the
+// mma units add into their accumulator with truncation, a bias that
+// would grow with the thousands of tiles a long row or key sums.
+template <int DP>
+__device__ __forceinline__ void mma_pb(float (&acc)[DP / 32][4][4],
+                                       float (&pm)[2][4], const float* b) {
+  constexpr int LD = DP + 4;
+#pragma unroll
+  for (int c = 0; c < DP / 32; ++c) {
+    float t[4][4] = {};
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      uint32_t pb[4], ps[4];
+      split_tf32(pm[n][0], pb[0], ps[0]);
+      split_tf32(pm[n][2], pb[1], ps[1]);
+      split_tf32(pm[n][1], pb[2], ps[2]);
+      split_tf32(pm[n][3], pb[3], ps[3]);
+      const float* b0 = b + 8 * n * LD + 32 * c;
+      const float4 y0 = *reinterpret_cast<const float4*>(b0);
+      const float4 y1 = *reinterpret_cast<const float4*>(b0 + LD);
+      const float e0[4] = {y0.x, y0.y, y0.z, y0.w};
+      const float e1[4] = {y1.x, y1.y, y1.z, y1.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t bb[2], bs[2];
+        split_tf32(e0[j], bb[0], bs[0]);
+        split_tf32(e1[j], bb[1], bs[1]);
+        mma_tf32(t[j], ps, bb);
+        mma_tf32(t[j], pb, bs);
+        mma_tf32(t[j], pb, bb);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][j][e] += t[j][e];
+  }
+}
+
+// This thread's row gid (half 0) or gid + 8 (half 1) of an acc that mma_pb
+// filled: its columns 32 c + 8 tig + [0, 8) below D, times mul, to out.
+template <int DP>
+__device__ __forceinline__ void store_row(float* out,
+                                          float (&acc)[DP / 32][4][4],
+                                          int half, int tig, int D,
+                                          float mul) {
+#pragma unroll
+  for (int c = 0; c < DP / 32; ++c) {
+    const int d0 = 32 * c + 8 * tig;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (d0 + j < D) out[d0 + j] = acc[c][j][2 * half] * mul;
+      if (d0 + 4 + j < D) out[d0 + 4 + j] = acc[c][j][2 * half + 1] * mul;
+    }
+  }
+}
+
+// The softcap (x = cap tanh(x / cap), dcap = 1 - tanh^2) of a score.
+__device__ __forceinline__ float capped(const Params& p, float x,
+                                        float& dcap) {
+  dcap = 1.f;
+  if (p.softcap <= 0.f) return x;
+  const float t = tanhf(x / p.softcap);
+  dcap = 1.f - t * t;
+  return p.softcap * t;
+}
+
 // ---------------------------------------------------------- backward dq ---
 template <int DP>
-__global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
-  constexpr int LDQ = DP + 4, LDK = DP + 1, LDP = BK + 1, NC = DP / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + BQ * LDQ;
-  float* Ks = dOs + BQ * LDQ;
-  float* Vs = Ks + BK * LDK;
-  float* dSs = Vs + BK * LDK;
+__global__ void __launch_bounds__(BW_THREADS, 2)
+flash_bwd_dq_kernel(const Params p) {
+  constexpr int LD = DP + 4, KV_TILE = BW_TILE * LD;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);   // Q * scale [64][LD]
+  float* dOs = Qs + DQ_ROWS * LD;
+  float* Ks = dOs + DQ_ROWS * LD;                // two stages each
+  float* Vs = Ks + 2 * KV_TILE;
 
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * DQ_ROWS;  // longest first
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (p.Hq / p.Hkv);
-  const int nq = min(BQ, p.Tq - q0);
+  const int nq = min(DQ_ROWS, p.Tq - q0);
   const int kvl = max(0, min(p.Tkv, p.kv_len[b]));
   const float* Q = static_cast<const float*>(p.q) + b * p.qs0 + h * p.qs1;
   const float* dO = static_cast<const float*>(p.dout) + b * p.ds0 + h * p.ds1;
   const float* K = static_cast<const float*>(p.k) + b * p.ks0 + hk * p.ks1;
   const float* V = static_cast<const float*>(p.v) + b * p.vs0 + hk * p.vs1;
-  const int64_t rbase = ((int64_t)b * p.Hq + h) * p.Tq + q0;
-
-  stage<DP, LDQ>(Qs, Q, p.qs2, q0, p.Tq, p.D, p.scale);
-  stage<DP, LDQ>(dOs, dO, p.ds2, q0, p.Tq, p.D, 1.f);
-  float lse[4], dlt[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = ty * 4 + r;
-    lse[r] = row < nq ? p.lse_in[rbase + row] : 0.f;
-    dlt[r] = row < nq ? p.delta[rbase + row] : 0.f;
-  }
   int kbeg, kend;
-  key_range(p, q0, nq, kvl, kbeg, kend);
+  key_range<BW_TILE>(p, q0, nq, kvl, kbeg, kend);
+  const int ntiles = kend > kbeg ? (kend - kbeg + BW_TILE - 1) / BW_TILE : 0;
 
-  float dq[4][NC];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) dq[r][c] = 0.f;
+  auto load_kv = [&](int it) {
+    const int k0 = kbeg + it * BW_TILE;
+    stage_rows<BW_TILE, DP>(p, Ks + (it & 1) * KV_TILE, K, p.ks2, k0, p.Tkv);
+    stage_rows<BW_TILE, DP>(p, Vs + (it & 1) * KV_TILE, V, p.vs2, k0, p.Tkv);
+  };
+  if (ntiles > 0) {
+    stage_rows<DQ_ROWS, DP>(p, Qs, Q, p.qs2, q0, p.Tq);
+    stage_rows<DQ_ROWS, DP>(p, dOs, dO, p.ds2, q0, p.Tq);
+    load_kv(0);
+    cp_async_commit();                     // group 0: Q, dO and tile 0
+  }
 
-  for (int k0 = kbeg; k0 < kend; k0 += BK) {
-    __syncthreads();
-    stage<DP, LDK>(Ks, K, p.ks2, k0, p.Tkv, p.D, 1.f);
-    stage<DP, LDK>(Vs, V, p.vs2, k0, p.Tkv, p.D, 1.f);
-    __syncthreads();
+  // warp w owns rows 16 w + [0, 16) of the tile; this thread rows ra, rb
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int ra = 16 * warp + gid, rb = ra + 8;
+  const int64_t rbase = ((int64_t)b * p.Hq + h) * p.Tq + q0;
+  const float lse_a = ra < nq ? p.lse_in[rbase + ra] : 0.f;
+  const float lse_b = rb < nq ? p.lse_in[rbase + rb] : 0.f;
+  const float dl_a = ra < nq ? p.delta[rbase + ra] : 0.f;
+  const float dl_b = rb < nq ? p.delta[rbase + rb] : 0.f;
+  const int qa = q0 + ra + p.q_offset, qb = qa + 8;
+  const int wrows = min(16, nq - 16 * warp);   // the warp's rows, positions
+  const int qlo = q0 + 16 * warp + p.q_offset, qhi = qlo + wrows - 1;
 
-    float s[4][4], dp[4][4];
+  float dq[DP / 32][4][4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+  for (int c = 0; c < DP / 32; ++c)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) s[r][c] = dp[r][c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DP; ++d) {
-      float qv[4], ov[4], kv[4], vv[4];
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        qv[r] = Qs[(ty * 4 + r) * LDQ + d];
-        ov[r] = dOs[(ty * 4 + r) * LDQ + d];
+      for (int e = 0; e < 4; ++e) dq[c][j][e] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    cp_async_wait<0>();                    // this thread's part of tile it
+    if (it == 0) scale_rows<DQ_ROWS, DP>(p, Qs);
+    __syncthreads();                       // everyone's; stage it-1 free
+    if (it + 1 < ntiles) load_kv(it + 1);
+    cp_async_commit();
+
+    // skip a tile in which no pair of the warp is live; no mask where all
+    const int k0 = kbeg + it * BW_TILE;
+    const int k1 = min(k0 + BW_TILE, kvl) - 1;
+    if (wrows <= 0 || k1 < k0 || (p.causal && k0 > qhi) ||
+        (p.window > 0 && k1 <= qlo - p.window))
+      continue;
+    const bool whole = wrows == 16 && k0 + BW_TILE <= kvl &&
+                       (!p.causal || k0 + BW_TILE - 1 <= qlo) &&
+                       (p.window <= 0 || k0 > qhi - p.window);
+    const float* kt = Ks + (it & 1) * KV_TILE;
+    const float* vt = Vs + (it & 1) * KV_TILE;
+
+    float s[2][4] = {}, sc[2][4] = {}, dp[2][4] = {}, dpc[2][4] = {};
+    mma_abt<DP>(s, sc, Qs + ra * LD + 8 * tig, kt + gid * LD + 8 * tig);
+    mma_abt<DP>(dp, dpc, dOs + ra * LD + 8 * tig, vt + gid * LD + 8 * tig);
+
+    // dS = P (dP - delta) dcap, in s: element e of n-block n is row
+    // (e < 2 ? ra : rb), key k0 + 8 n + 2 tig + e % 2
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool lo = e < 2;
+        float dcap;
+        const float x = capped(p, s[n][e] + sc[n][e], dcap);
+        const bool ok = whole || ((lo ? ra : rb) < nq &&
+                                  live_key(p, lo ? qa : qb,
+                                           k0 + 8 * n + 2 * tig + e % 2, kvl));
+        const float pr = ok ? expf(x - (lo ? lse_a : lse_b)) : 0.f;
+        s[n][e] = pr * (dp[n][e] + dpc[n][e] - (lo ? dl_a : dl_b)) * dcap;
       }
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        kv[c] = Ks[(tx + 16 * c) * LDK + d];
-        vv[c] = Vs[(tx + 16 * c) * LDK + d];
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          s[r][c] += qv[r] * kv[c];
-          dp[r][c] += ov[r] * vv[c];
-        }
-    }
-
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = ty * 4 + r;
-      const int qpos = q0 + row + p.q_offset;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float x = s[r][c], dcap = 1.f;
-        if (p.softcap > 0.f) {
-          const float t = tanhf(x / p.softcap);
-          x = p.softcap * t;
-          dcap = 1.f - t * t;
-        }
-        const bool ok = row < nq && live_key(p, qpos, k0 + tx + 16 * c, kvl);
-        const float pr = ok ? expf(x - lse[r]) : 0.f;
-        dSs[row * LDP + tx + 16 * c] = pr * (dp[r][c] - dlt[r]) * dcap;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      float sv[4], kv[NC];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) sv[r] = dSs[(ty * 4 + r) * LDP + j];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) kv[c] = Ks[j * LDK + tx + 16 * c];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < NC; ++c) dq[r][c] += sv[r] * kv[c];
-    }
+    mma_pb<DP>(dq, s, kt + 2 * tig * LD + 4 * gid);
   }
 
   float* dQ = static_cast<float*>(p.o) + b * p.os0 + h * p.os1;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = ty * 4 + r;
-    if (row >= nq) continue;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = tx + 16 * c;
-      if (d < p.D) dQ[(q0 + row) * p.os2 + d] = dq[r][c] * p.scale;
-    }
-  }
+  if (ra < nq) store_row<DP>(dQ + (q0 + ra) * p.os2, dq, 0, tig, p.D, p.scale);
+  if (rb < nq) store_row<DP>(dQ + (q0 + rb) * p.os2, dq, 1, tig, p.D, p.scale);
 }
 
 // --------------------------------------------------------- backward dkv ---
-template <int DP>
-__global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const Params p) {
-  constexpr int LDK = DP + 4, LDQ = DP + 1, LDP = BQ + 1, NC = DP / 16;
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + BK * LDK;
-  float* Qs = Vs + BK * LDK;
-  float* dOs = Qs + BQ * LDQ;
-  float* Ps = dOs + BQ * LDQ;          // P^T, then dS^T: [BK][LDP]
-  float* lse_s = Ps + BK * LDP;        // [BQ]
-  float* dlt_s = lse_s + BQ;           // [BQ]
+// named barrier id (1-15; 0 is __syncthreads) for n threads
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;" :: "r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(n) : "memory");
+}
 
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int k0 = blockIdx.x * BK;      // the longest (causal) tiles first
+template <int DP>
+__global__ void __launch_bounds__(BW_THREADS, 3)
+flash_bwd_dkv_kernel(const Params p) {
+  constexpr int LD = DP + 4, Q_TILE = BW_TILE * LD;
+  extern __shared__ float4 smem4[];
+  float* Ks = reinterpret_cast<float*>(smem4);   // [32][LD]
+  float* Vs = Ks + KV_ROWS * LD;
+  float* Qs = Vs + KV_ROWS * LD;                 // Q * scale, two stages
+  float* dOs = Qs + 2 * Q_TILE;                  // two stages
+  float* rows_s = dOs + 2 * Q_TILE;              // lse, delta: two stages
+  // P and dcap from the dV warp of each pair to its dK warp: [2][4][32]
+  // float4s, lane-minor (conflict-free)
+  float4* xbuf = reinterpret_cast<float4*>(rows_s + 4 * BW_TILE);
+
+  const int k0 = blockIdx.x * KV_ROWS;           // the longest (causal) first
   const int hk = blockIdx.y, b = blockIdx.z;
   const int g = p.Hq / p.Hkv;
   const int kvl = max(0, min(p.Tkv, p.kv_len[b]));
   const float* K = static_cast<const float*>(p.k) + b * p.ks0 + hk * p.ks1;
   const float* V = static_cast<const float*>(p.v) + b * p.vs0 + hk * p.vs1;
 
-  stage<DP, LDK>(Ks, K, p.ks2, k0, p.Tkv, p.D, 1.f);
-  stage<DP, LDK>(Vs, V, p.vs2, k0, p.Tkv, p.D, 1.f);
-
-  // query rows [ibeg, iend) that can see a key of this tile
-  const int kmax = min(k0 + BK, kvl) - 1;
+  // query rows [ibeg, iend) that can see a key of this tile, in 16-row
+  // tiles; the block loops over them for each q head of the group
+  const int kmax = min(k0 + KV_ROWS, kvl) - 1;
   int ibeg = 0, iend = p.Tq;
   if (p.causal) ibeg = max(0, k0 - p.q_offset);
   if (p.window > 0) iend = min(iend, kmax - p.q_offset + p.window);
-  if (kmax < k0) iend = ibeg;          // no live key in the tile
-  const int qt_beg = ibeg / BQ;
-  const int qt_end = iend > ibeg ? (iend + BQ - 1) / BQ : qt_beg;
+  if (kmax < k0) iend = ibeg;                    // no live key in the tile
+  const int qt_beg = ibeg / BW_TILE;
+  const int nqt = iend > ibeg ? (iend + BW_TILE - 1) / BW_TILE - qt_beg : 0;
+  const int n_it = g * nqt;
 
-  float dk[4][NC], dv[4][NC];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) dk[r][c] = dv[r][c] = 0.f;
-
-  for (int hh = 0; hh < g; ++hh) {
-    const int h = hk * g + hh;
+  auto load_q = [&](int it) {
+    const int h = hk * g + it / nqt, q0 = (qt_beg + it % nqt) * BW_TILE;
     const float* Q = static_cast<const float*>(p.q) + b * p.qs0 + h * p.qs1;
-    const float* dO = static_cast<const float*>(p.dout) + b * p.ds0 + h * p.ds1;
-    const int64_t rbase = ((int64_t)b * p.Hq + h) * p.Tq;
-    for (int qt = qt_beg; qt < qt_end; ++qt) {
-      const int q0 = qt * BQ;
-      __syncthreads();
-      stage<DP, LDQ>(Qs, Q, p.qs2, q0, p.Tq, p.D, p.scale);
-      stage<DP, LDQ>(dOs, dO, p.ds2, q0, p.Tq, p.D, 1.f);
-      if (tid < BQ) {
-        const bool in = q0 + tid < p.Tq;
-        lse_s[tid] = in ? p.lse_in[rbase + q0 + tid] : 0.f;
-        dlt_s[tid] = in ? p.delta[rbase + q0 + tid] : 0.f;
-      }
-      __syncthreads();
+    const float* dO =
+        static_cast<const float*>(p.dout) + b * p.ds0 + h * p.ds1;
+    stage_rows<BW_TILE, DP>(p, Qs + (it & 1) * Q_TILE, Q, p.qs2, q0, p.Tq);
+    stage_rows<BW_TILE, DP>(p, dOs + (it & 1) * Q_TILE, dO, p.ds2, q0, p.Tq);
+    const int t = threadIdx.x, i = t % BW_TILE;
+    if (t < 2 * BW_TILE) {
+      const bool ok = q0 + i < p.Tq;
+      const float* src = (t < BW_TILE ? p.lse_in : p.delta) +
+                         ((int64_t)b * p.Hq + h) * p.Tq + (ok ? q0 + i : 0);
+      cp_async<4>(rows_s + (it & 1) * 2 * BW_TILE + t, src, ok);
+    }
+  };
+  if (n_it > 0) {
+    stage_rows<KV_ROWS, DP>(p, Ks, K, p.ks2, k0, p.Tkv);
+    stage_rows<KV_ROWS, DP>(p, Vs, V, p.vs2, k0, p.Tkv);
+    load_q(0);
+    cp_async_commit();                     // group 0: K, V and tile 0
+  }
 
-      // S^T and dP^T: rows = this thread's keys, columns = its queries
-      float s[4][4], dp[4][4];
+  // warps w and w + 2 (w = 0, 1) own keys 16 w + [0, 16) of the block:
+  // warp w forms S^T, P and dV, warp w + 2 dP^T, dS and dK, each holding
+  // its 16 x 128 accumulator (64 registers); this thread keys ka, kb
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int kg = warp % 2;
+  const bool dk_warp = warp >= 2;
+  const int ka = 16 * kg + gid, kb = ka + 8;
+  const int kw0 = k0 + 16 * kg;                  // the pair's keys
+  const int kw1 = min(kw0 + 16, kvl) - 1;        // its last that can be live
+  float4* xw = xbuf + kg * 4 * 32 + lane;        // this lane's 4 float4s
+
+  float acc[DP / 32][4][4];                      // dV or dK
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+  for (int c = 0; c < DP / 32; ++c)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) s[r][c] = dp[r][c] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < DP; ++d) {
-        float kv[4], vv[4], qv[4], ov[4];
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          kv[r] = Ks[(ty * 4 + r) * LDK + d];
-          vv[r] = Vs[(ty * 4 + r) * LDK + d];
+      for (int e = 0; e < 4; ++e) acc[c][j][e] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    cp_async_wait<0>();                    // this thread's part of tile it
+    scale_rows<BW_TILE, DP>(p, Qs + (it & 1) * Q_TILE);
+    __syncthreads();                       // everyone's; stage it-1 free
+    if (it + 1 < n_it) load_q(it + 1);
+    cp_async_commit();
+
+    // skip a tile in which no pair of the keys is live (both warps of the
+    // pair alike); no mask where all are
+    const int q0 = (qt_beg + it % nqt) * BW_TILE;
+    const int qn = min(BW_TILE, p.Tq - q0);
+    const int qlo = q0 + p.q_offset, qhi = qlo + qn - 1;
+    if (kw1 < kw0 || (p.causal && kw0 > qhi) ||
+        (p.window > 0 && kw1 <= qlo - p.window))
+      continue;
+    const float* qt = Qs + (it & 1) * Q_TILE;
+    const float* ot = dOs + (it & 1) * Q_TILE;
+    float s[2][4] = {}, sc[2][4] = {};
+    if (!dk_warp) {
+      const bool whole = qn == BW_TILE && kw0 + 16 <= kvl &&
+                         (!p.causal || kw0 + 15 <= qlo) &&
+                         (p.window <= 0 || kw0 > qhi - p.window);
+      const float* lse = rows_s + (it & 1) * 2 * BW_TILE;
+      // S^T: rows the pair's keys, columns the tile's queries; then P^T
+      // in s (element e of n-block n: key (e < 2 ? ka : kb), query
+      // q0 + 8 n + 2 tig + e % 2) and dcap in sc, for the partner too
+      mma_abt<DP>(s, sc, Ks + ka * LD + 8 * tig, qt + gid * LD + 8 * tig);
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 8 * n + 2 * tig + e % 2;
+          const float x = capped(p, s[n][e] + sc[n][e], sc[n][e]);
+          const bool ok = whole || (q0 + i < p.Tq &&
+                                    live_key(p, qlo + i,
+                                             k0 + (e < 2 ? ka : kb), kvl));
+          s[n][e] = ok ? expf(x - lse[i]) : 0.f;
         }
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          qv[c] = Qs[(tx + 16 * c) * LDQ + d];
-          ov[c] = dOs[(tx + 16 * c) * LDQ + d];
-        }
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            s[r][c] += kv[r] * qv[c];
-            dp[r][c] += vv[r] * ov[c];
-          }
+      for (int n = 0; n < 2; ++n) {
+        xw[32 * n] = make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
+        xw[32 * (n + 2)] = make_float4(sc[n][0], sc[n][1], sc[n][2], sc[n][3]);
       }
-
+      bar_arrive(1 + kg, 64);
+      mma_pb<DP>(acc, s, ot + 2 * tig * LD + 4 * gid);     // dV += P^T dO
+    } else {
+      const float* dlt = rows_s + (it & 1) * 2 * BW_TILE + BW_TILE;
+      // dP^T, then (once the partner's P and dcap are in) dS^T =
+      // P (dP - delta) dcap in s
+      mma_abt<DP>(s, sc, Vs + ka * LD + 8 * tig, ot + gid * LD + 8 * tig);
+      bar_sync(1 + kg, 64);
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int kpos = k0 + ty * 4 + r;
+      for (int n = 0; n < 2; ++n) {
+        const float4 pr = xw[32 * n], dc = xw[32 * (n + 2)];
+        const float prs[4] = {pr.x, pr.y, pr.z, pr.w};
+        const float dcs[4] = {dc.x, dc.y, dc.z, dc.w};
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int i = tx + 16 * c;
-          float x = s[r][c], dcap = 1.f;
-          if (p.softcap > 0.f) {
-            const float t = tanhf(x / p.softcap);
-            x = p.softcap * t;
-            dcap = 1.f - t * t;
-          }
-          const bool ok = q0 + i < p.Tq &&
-                          live_key(p, q0 + i + p.q_offset, kpos, kvl);
-          const float pr = ok ? expf(x - lse_s[i]) : 0.f;
-          Ps[(ty * 4 + r) * LDP + i] = pr;
-          s[r][c] = pr * (dp[r][c] - dlt_s[i]) * dcap;   // dS^T
+        for (int e = 0; e < 4; ++e) {
+          const int i = 8 * n + 2 * tig + e % 2;
+          s[n][e] = prs[e] * (s[n][e] + sc[n][e] - dlt[i]) * dcs[e];
         }
       }
-      __syncthreads();
-
-#pragma unroll 4
-      for (int i = 0; i < BQ; ++i) {                   // dV += P^T dO
-        float pv[4], ov[NC];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) pv[r] = Ps[(ty * 4 + r) * LDP + i];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) ov[c] = dOs[i * LDQ + tx + 16 * c];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < NC; ++c) dv[r][c] += pv[r] * ov[c];
-      }
-      __syncthreads();
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) Ps[(ty * 4 + r) * LDP + tx + 16 * c] = s[r][c];
-      __syncthreads();
-#pragma unroll 4
-      for (int i = 0; i < BQ; ++i) {                   // dK += dS^T (q*scale)
-        float sv[4], qv[NC];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) sv[r] = Ps[(ty * 4 + r) * LDP + i];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) qv[c] = Qs[i * LDQ + tx + 16 * c];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < NC; ++c) dk[r][c] += sv[r] * qv[c];
-      }
+      mma_pb<DP>(acc, s, qt + 2 * tig * LD + 4 * gid);     // dK += dS^T Q
     }
   }
 
-  float* dK = static_cast<float*>(p.o) + b * p.os0 + hk * p.os1;
-  float* dV = static_cast<float*>(p.o2) + b * p.o2s0 + hk * p.o2s1;
+  float* out = dk_warp ? static_cast<float*>(p.o) + b * p.os0 + hk * p.os1
+                       : static_cast<float*>(p.o2) + b * p.o2s0 + hk * p.o2s1;
+  const int64_t rs = dk_warp ? p.os2 : p.o2s2;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int t = k0 + ty * 4 + r;
-    if (t >= p.Tkv) continue;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = tx + 16 * c;
-      if (d < p.D) {
-        dK[t * p.os2 + d] = dk[r][c];
-        dV[t * p.o2s2 + d] = dv[r][c];
-      }
-    }
+  for (int half = 0; half < 2; ++half) {
+    const int t = k0 + (half ? kb : ka);
+    if (t < p.Tkv) store_row<DP>(out + t * rs, acc, half, tig, p.D, 1.f);
   }
 }
 
@@ -507,31 +719,72 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const Params p) {
 template <int DP> constexpr size_t fwd_smem() {
   return sizeof(float) * (BQ * (DP + 4) + BK * (DP + 1) + BK * DP + BQ * (BK + 1));
 }
+// dq: Q and dO ([64][DP + 4]) staged once, two stages of K and V tiles
+// ([16][DP + 4]); dk/dv: K and V ([32][DP + 4]) staged once, two stages of
+// Q and dO tiles and of lse and delta, and the pairs' P and dcap
 template <int DP> constexpr size_t dq_smem() {
-  return sizeof(float) * (2 * BQ * (DP + 4) + 2 * BK * (DP + 1) + BQ * (BK + 1));
+  return sizeof(float) * (2 * DQ_ROWS + 4 * BW_TILE) * (DP + 4);
 }
 template <int DP> constexpr size_t dkv_smem() {
-  return sizeof(float) * (2 * BK * (DP + 4) + 2 * BQ * (DP + 1) + BK * (BQ + 1) + 2 * BQ);
+  return sizeof(float) * ((2 * KV_ROWS + 4 * BW_TILE) * (DP + 4) + 4 * BW_TILE +
+                          2 * 4 * 32 * 4);
 }
 
+// The widest cp.async copy (in floats) that every staged row start allows:
+// the bases of q, k, v and do 4 * w-byte aligned, and D and every stride of
+// an axis longer than one a multiple of w.
+int copy_width(const Params& p) {
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(p.q) |
+                          reinterpret_cast<uintptr_t>(p.k) |
+                          reinterpret_cast<uintptr_t>(p.v) |
+                          reinterpret_cast<uintptr_t>(p.dout);
+  long long strides = p.D;
+  const int nq[3] = {p.B, p.Hq, p.Tq}, nk[3] = {p.B, p.Hkv, p.Tkv};
+  const long long qs[3] = {p.qs0, p.qs1, p.qs2}, ds[3] = {p.ds0, p.ds1, p.ds2};
+  const long long ks[3] = {p.ks0, p.ks1, p.ks2}, vs[3] = {p.vs0, p.vs1, p.vs2};
+  for (int i = 0; i < 3; ++i) {
+    if (nq[i] > 1) strides |= qs[i] | ds[i];
+    if (nk[i] > 1) strides |= ks[i] | vs[i];
+  }
+  for (int w = 4; w > 1; w /= 2)
+    if (bases % (4 * w) == 0 && strides % w == 0) return w;
+  return 1;
+}
+
+// The backward kernels also ask for the largest shared-memory carveout
+// (bwd): two blocks an SM.
 template <typename Kern>
-int launch(Kern kern, dim3 grid, size_t smem, const Params& p, cudaStream_t st) {
+int launch(Kern kern, dim3 grid, int threads, size_t smem, bool bwd,
+           const Params& p, cudaStream_t st) {
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e == cudaSuccess && bwd)
+    e = cudaFuncSetAttribute(kern,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return static_cast<int>(e);
-  kern<<<grid, NT, smem, st>>>(p);
+  kern<<<grid, threads, smem, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 enum Which { FWD, DQ, DKV };
 
 template <int DP>
-int dispatch(Which w, const Params& p, cudaStream_t st) {
-  const dim3 gq((p.Tq + BQ - 1) / BQ, p.Hq, p.B);
-  const dim3 gk((p.Tkv + BK - 1) / BK, p.Hkv, p.B);
-  if (w == FWD) return launch(flash_fwd_kernel<DP>, gq, fwd_smem<DP>(), p, st);
-  if (w == DQ) return launch(flash_bwd_dq_kernel<DP>, gq, dq_smem<DP>(), p, st);
-  return launch(flash_bwd_dkv_kernel<DP>, gk, dkv_smem<DP>(), p, st);
+int dispatch(Which w, Params p, cudaStream_t st) {
+  if (w == FWD) {
+    const dim3 grid((p.Tq + BQ - 1) / BQ, p.Hq, p.B);
+    return launch(flash_fwd_kernel<DP>, grid, NT, fwd_smem<DP>(), false, p,
+                  st);
+  }
+  p.vec = copy_width(p);
+  if (w == DQ) {
+    const dim3 grid((p.Tq + DQ_ROWS - 1) / DQ_ROWS, p.Hq, p.B);
+    return launch(flash_bwd_dq_kernel<DP>, grid, BW_THREADS, dq_smem<DP>(),
+                  true, p, st);
+  }
+  const dim3 grid((p.Tkv + KV_ROWS - 1) / KV_ROWS, p.Hkv, p.B);
+  return launch(flash_bwd_dkv_kernel<DP>, grid, BW_THREADS, dkv_smem<DP>(),
+                true, p, st);
 }
 
 int run(Which w, const Params& p, int bf16, void* stream) {

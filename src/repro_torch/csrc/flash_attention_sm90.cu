@@ -7,7 +7,7 @@
 //   * _bwd_dq_kernel   -> flash_bwd_dq_sm90   (dq in bf16)
 //   * _bwd_dkv_kernel  -> flash_bwd_dkv_sm90  (dk, dv in bf16, summed over
 //                                              the GQA group in the block)
-// float32 inputs stay on the exact CUDA-core kernels of flash_attention.cu.
+// float32 inputs run in flash_attention.cu instead, to fp32 accuracy.
 // The semantics are those kernels': GQA (Hq % Hkv == 0), causal masking
 // with a scalar q_offset (query i sits at i + q_offset, key j at j), a
 // sliding window (key live if kpos > qpos - window), a per-row kv_len [B],

@@ -1,9 +1,10 @@
 // Device helpers shared by the tensor-core kernels for Hopper (sm_90a):
 // the bf16 ones of flash_attention_sm90.cu and cascade_phase1_sm90.cu, and
-// the fp32 (3xTF32) cascade kernels of cascade_phase1.cu, which use the
-// cp.async copies and the quad reductions. Both cascade sources take their
-// key addressing and masking from here (key_rows, key_live, tile_span,
-// out_row), templated on each file's Params and tile width.
+// the fp32 (3xTF32) ones of cascade_phase1.cu and flash_attention.cu (the
+// flash backward), which use the cp.async copies, the quad reductions and
+// the tf32 split and product (split_tf32, mma_tf32). Both cascade sources
+// take their key addressing and masking from here (key_rows, key_live,
+// tile_span, out_row), templated on each file's Params and tile width.
 //
 // Tiles live in shared memory as 64-column panels of 128-byte rows, 128-byte
 // swizzled: in each 1024-byte group of 8 rows, the 16-byte chunk c of row r
@@ -188,6 +189,32 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src,
                  :: "r"(smem_u32(dst)), "l"(src), "n"(N), "r"(valid ? N : 0)
                  : "memory");
   }
+}
+
+// ---- 3xTF32: fp32 products on the tf32 tensor cores (the fp32 kernels of
+// cascade_phase1.cu and the fp32 flash backward of flash_attention.cu) ----
+
+// x as big + small for the tf32 tensor cores, which read the top 19 bits
+// of an operand register and ignore the low 13: big is x plus half a tf32
+// ulp (so the unit reads x rounded to nearest, ties away: cvt.rna), small
+// is x minus that rounded value, exact in fp32, read truncated to tf32.
+// This is CUTLASS's 3xTF32 split (cutlass/tfloat32.h:
+// round_half_ulp_truncate for big, its float() that clears the low 13 bits
+// for x - big); tests/test_torch_cuda.py::test_tf32x3_split_rule_on_card
+// and test_flash_bwd_tf32x3_split_on_card hold the unit to it.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = __float_as_uint(x) + 0x1000u;
+  small = __float_as_uint(x - __uint_as_float(big & 0xffffe000u));
+}
+
+// d[16 x 8] += a[16 x 8] b[8 x 8], tf32 operands, fp32 accumulators
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // ---- the cascade phase-1 kernels' addressing and masking, for the Params

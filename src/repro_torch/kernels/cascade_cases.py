@@ -1,11 +1,13 @@
-"""The cases that hold the cascade phase-1 kernels to their plain versions.
+"""The cases that hold the cascade phase-1 kernels to their plain versions,
+and the gates of every kernel on the card.
 
 One table for both places that run them on the card: ``chip_smoke.py``'s
 kernels phase runs every case in both dtypes (and merges and checks
 against the oracle), and ``tests/test_torch_cuda.py`` runs a subset. The
-fp32 gates live here too, with the fp32 kernel's 3xTF32 arithmetic in
-torch (``tf32_split``, ``einsum_3xtf32``), which the tests hold the card
-and the gates to.
+gates of the fp32 cascade kernels and of the flash kernels live here too,
+with the 3xTF32 arithmetic of the fp32 tensor-core kernels (the cascade
+pair and the flash backward) in torch (``tf32_split``, ``einsum_3xtf32``),
+which the tests hold the card and the gates to.
 Defaults: B 4 (the lengths in ``LENS``), Tq 76, Hq 32, Hkv 8, D 128, a
 cache of 1152 slots or a pool of 64-key pages, q in the cache's dtype as
 a view of the model's [B,T,Hq,D] queries.
@@ -17,14 +19,24 @@ import torch
 
 LENS = (512, 700, 901, 1100)                # ragged cache lengths, S 1152
 
-# The gates of the fp32 kernels (3xTF32 on the card) against the plain
-# version and the fp64 oracle:
+# The gates of the fp32 cascade kernels (3xTF32 on the card) against the
+# plain version and the fp64 oracle:
 TOL_OUT = 2e-5      # merged output, absolute: both sides compute in fp32;
                     # only sum order and the 3xTF32 split differ
 TOL_PART = 1e-4     # partials relative to 1 + |plain|: m and l in both
                     # dtypes (fp32 scores and row sums on both sides), acc
                     # in fp32 (bf16 acc has a gate of its own: P is rounded
                     # to bf16 for P V as in the flash kernels)
+# The gates of the flash kernels (o, dq, dk, dv) against their plain
+# versions, max |diff| / max |plain|; the bf16 one also holds the bf16
+# cascade kernels' merged output and acc:
+TOL_FLASH = {
+    torch.float32: 2e-5,     # fp32 both sides, sums over <= 4096 keys or
+                             # 4 x 4096 queries in another order (and the
+                             # backward's 3xTF32 products)
+    torch.bfloat16: 8e-3}    # fp32 inside, outputs rounded to bf16: one
+                             # bf16 ulp (2^-8 of the value) either way
+TOL_LSE = 1e-4      # flash lse (fp32 both sides), absolute
 
 # name -> options of ``case_inputs`` (``nan``: the caller pre-fills the
 # outputs with NaN, so a split with no key must write finite zeros)
@@ -111,11 +123,11 @@ def case_inputs(gen, rng, dtype, kind, *, tq=76, hq=32, hkv=8, d=128,
 
 
 def tf32_split(x):
-    """The fp32 kernel's split of an fp32 operand (``split_tf32`` in
-    ``csrc/cascade_phase1.cu``) as the tensor cores read it: big is x
-    rounded to tf32 (10 mantissa bits) to nearest, ties away (half a tf32
-    ulp added to the bits, the low 13 cleared: cvt.rna); small = x - big,
-    exact in fp32, truncated to tf32."""
+    """The fp32 tensor-core kernels' split of an fp32 operand
+    (``split_tf32`` in ``csrc/sm90_common.cuh``) as the tensor cores read
+    it: big is x rounded to tf32 (10 mantissa bits) to nearest, ties away
+    (half a tf32 ulp added to the bits, the low 13 cleared: cvt.rna);
+    small = x - big, exact in fp32, truncated to tf32."""
     low = ~0x1FFF                       # clears the low 13 bits, as int32
     big = ((x.view(torch.int32) + 0x1000) & low).view(torch.float32)
     small = ((x - big).view(torch.int32) & low).view(torch.float32)
@@ -123,7 +135,7 @@ def tf32_split(x):
 
 
 def einsum_3xtf32(eq, a, b):
-    """``torch.einsum`` of fp32 operands as the kernel forms each product:
+    """``torch.einsum`` of fp32 operands as the kernels form each product:
     small*big + big*small, then big*big, each of tf32 operands (exact)
     summed in fp32."""
     ab, as_ = tf32_split(a)

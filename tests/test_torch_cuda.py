@@ -13,11 +13,14 @@ acc the same in fp32, and in bf16 relative to the largest |plain acc| of
 its row and split below 8e-3, since the tensor-core kernels
 (``csrc/cascade_phase1_sm90.cu``) round P to bf16 for P V, as the flash
 kernels do. q comes in the cache's dtype, as every caller passes it.
-Flash o/dq/dk/dv: max |kernel - plain| / max |plain| below 2e-5 for fp32
-(summation order) and 8e-3 for bf16 (outputs rounded to bf16 on both
-sides: one bf16 ulp); lse absolute 1e-4; o and dq over rows with a live
-key. bf16 runs all three flash kernels on the tensor cores
-(``csrc/flash_attention_sm90.cu``); the tile-edge cases hold them at a
+Flash o/dq/dk/dv: max |kernel - plain| / max |plain| below
+``cascade_cases.TOL_FLASH``, 2e-5 for fp32 (summation order and the
+backward's 3xTF32 products) and 8e-3 for bf16 (outputs rounded to bf16
+on both sides: one bf16 ulp); lse absolute ``TOL_LSE`` 1e-4; o and dq over
+rows with a live key. bf16 runs all three flash kernels on the tensor
+cores (``csrc/flash_attention_sm90.cu``), fp32 the backward ones (in
+3xTF32, ``csrc/flash_attention.cu``, pinned to the split rule and shown
+bitwise repeatable below); the tile-edge cases hold them at a
 partial 128-row block, a single query row, a kv_len that ends inside a
 key tile, key tiles that no query sees (dk = dv = 0 there), and head
 dims 64 and 96 (the latter zero-filled to 128).
@@ -200,10 +203,9 @@ FLASH_CASES = {   # b, hq, hkv, tq, tkv, d, [B,T,H,D] layout, options
 }
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", sorted(FLASH_CASES))
-def test_flash_kernels_match_plain(dev, case, dtype):
+def _flash_case_inputs(dev, case, dtype=torch.float32):
+    """(q, k, v, do) of a FLASH_CASES case from a fresh seed, as views of
+    [B,T,H,D] buffers where the case says so, and its options."""
     b, hq, hkv, tq, tkv, d, bthd, kw = FLASH_CASES[case]
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -218,6 +220,14 @@ def test_flash_kernels_match_plain(dev, case, dtype):
     kw = dict(kw)
     if "kv_len" in kw:
         kw["kv_len"] = torch.tensor(kw["kv_len"], device=dev)
+    return (q, k, v, do), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_kernels_match_plain(dev, case, dtype):
+    (q, k, v, do), kw = _flash_case_inputs(dev, case, dtype)
     names = ("flash_attention_fwd", "flash_attention_bwd_dq",
              "flash_attention_bwd_dkv")
     before = [getattr(tfa, n).launches for n in names]
@@ -236,7 +246,7 @@ def test_flash_kernels_match_plain(dev, case, dtype):
     assert [getattr(tfa, n).sm90_launches for n in names] == [
         x + sm90 for x in sm90_before]
     live = lse_p > -1e29
-    tol = 2e-5 if dtype == torch.float32 else 8e-3
+    tol = cascade_cases.TOL_FLASH[dtype]
 
     def rel(a, b_):
         a, b_ = a.float(), b_.float()
@@ -244,9 +254,73 @@ def test_flash_kernels_match_plain(dev, case, dtype):
         return ((a - b_).abs().max() / b_.abs().max()).item()
 
     assert rel(o[live], o_p[live]) < tol
-    assert (lse[live] - lse_p[live]).abs().max().item() < 1e-4
+    assert (lse[live] - lse_p[live]).abs().max().item() < \
+        cascade_cases.TOL_LSE
     assert rel(dq[live], dq_p[live]) < tol
     assert rel(dk, dk_p) < tol and rel(dv, dv_p) < tol
+
+
+def _bwd_args(q, k, v, do, kw):
+    """The backward kernels' arguments: q, k, v, do and the plain
+    forward's lse and delta."""
+    o, lse = tfa.flash_attention_fwd_plain(q, k, v, **kw)
+    return (q, k, v, do, lse, (do * o).sum(-1))
+
+
+@pytest.mark.cuda
+def test_flash_bwd_tf32x3_split_on_card(dev, monkeypatch):
+    """The fp32 dq and dk/dv kernels split each operand for the tf32
+    tensor cores as the fp32 cascade kernels do (the rule of
+    cascade_cases.tf32_split). On operands whose low 13 bits are set, the
+    kernels' dq, dk and dv must match the plain versions with every
+    product formed by that rule to 1e-5 (max |diff| / max |emulated|);
+    the test checks that its inputs put that emulation more than 1e-4
+    from one tf32 product in place of three."""
+    qkvo, kw = _flash_case_inputs(dev, "causal")
+    assert all(((x.contiguous().view(torch.int32) & 0x1FFF) != 0)
+               .float().mean() > 0.99 for x in qkvo)
+    args = _bwd_args(*qkvo, kw)
+    before = (tfa.flash_attention_bwd_dq.launches,
+              tfa.flash_attention_bwd_dkv.launches)
+    kern = (tfa.flash_attention_bwd_dq(*args, **kw),
+            *tfa.flash_attention_bwd_dkv(*args, **kw))
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention_bwd_dq.launches,
+            tfa.flash_attention_bwd_dkv.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    real = torch.einsum
+
+    def plain_with(einsum):
+        with monkeypatch.context() as mp:
+            mp.setattr(torch, "einsum", einsum)
+            return (tfa.flash_attention_bwd_dq_plain(*args, **kw),
+                    *tfa.flash_attention_bwd_dkv_plain(*args, **kw))
+
+    def rel(a, b):
+        return [((x - y).abs().max() / y.abs().max()).item()
+                for x, y in zip(a, b)]
+
+    emu = plain_with(cascade_cases.einsum_3xtf32)
+    one = plain_with(lambda eq, a, b: real(
+        eq, cascade_cases.tf32_split(a)[0], cascade_cases.tf32_split(b)[0]))
+    assert max(rel(kern, emu)) < 1e-5, rel(kern, emu)
+    assert min(rel(one, emu)) > 1e-4, rel(one, emu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["causal", "ragged"])
+def test_flash_bwd_fp32_is_deterministic(dev, case):
+    """The fp32 dq and dk/dv kernels use no atomics (dk/dv sum the GQA
+    group in the block): two calls on the same inputs give bitwise equal
+    dq, dk and dv."""
+    qkvo, kw = _flash_case_inputs(dev, case)
+    args = _bwd_args(*qkvo, kw)
+    first = (tfa.flash_attention_bwd_dq(*args, **kw),
+             *tfa.flash_attention_bwd_dkv(*args, **kw))
+    second = (tfa.flash_attention_bwd_dq(*args, **kw),
+              *tfa.flash_attention_bwd_dkv(*args, **kw))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.cuda

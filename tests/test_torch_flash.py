@@ -211,6 +211,71 @@ def test_flash_wrappers_count_only_kernel_launches():
         torch.testing.assert_close(a, b_)
 
 
+# ------------------------------ the fp32 backward kernels' error budget --
+# (B, Hq, Hkv, T, D, [B,T,H,D] layout, options): the causal training
+# geometry at T 512, and a ragged case
+BUDGET_CASES = {
+    "causal": (1, 4, 2, 512, 128, True, dict(causal=True)),
+    "ragged": (2, 4, 2, 300, 128, False,
+               dict(causal=True, q_offset=24, kv_len=[300, 231], window=128,
+                    attn_softcap=50.0)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BUDGET_CASES))
+def test_flash_bwd_tf32x3_error_budget(name, monkeypatch):
+    """The fp32 dq and dk/dv kernels (``csrc/flash_attention.cu``) form
+    every product in 3xTF32 on the tensor cores. The plain versions with
+    every product made that way (``torch.einsum`` is each product of
+    ``_scores`` and ``_bwd_blocks``) stay within the card's fp32 gate of a
+    float64 run of the plain versions on the same inputs, and within 4x
+    of the plain fp32 versions' own error there."""
+    from repro_torch.kernels import cascade_cases
+    b, hq, hkv, t, d, bthd, kw = BUDGET_CASES[name]
+    rng = np.random.default_rng(11)
+
+    def mk(h):
+        x = rng.standard_normal((b, t, h, d) if bthd else (b, h, t, d))
+        x = torch.from_numpy(x.astype(np.float32))
+        return x.transpose(1, 2) if bthd else x
+
+    q, k, v, do = mk(hq), mk(hkv), mk(hkv), mk(hq)
+    kw = dict(kw)
+    if "kv_len" in kw:
+        kw["kv_len"] = torch.tensor(kw["kv_len"])
+    o, lse = tfa.flash_attention_fwd_plain(q, k, v, **kw)
+    delta = (do * o).sum(-1)
+    live = lse > -1e29
+
+    def run(dtype):
+        args = [x.to(dtype) for x in (q, k, v, do, lse, delta)]
+        return (tfa.flash_attention_bwd_dq_plain(*args, **kw),
+                *tfa.flash_attention_bwd_dkv_plain(*args, **kw))
+
+    with monkeypatch.context() as mp:   # the same arithmetic in float64
+        zeros = torch.zeros
+        mp.setattr(torch.Tensor, "float", torch.Tensor.double)
+        mp.setattr(torch, "zeros", lambda *a, dtype=None, **k_: zeros(
+            *a, dtype=torch.float64 if dtype == torch.float32 else dtype,
+            **k_))
+        ref = run(torch.float64)
+    assert all(x.dtype == torch.float64 for x in ref)
+
+    def errs(out):
+        """max |out - ref| / max |ref| of dq (rows with a live key), dk
+        and dv."""
+        return [((x.double() - r)[m].abs().max() / r[m].abs().max()).item()
+                for x, r, m in zip(out, ref, (live, True, True))]
+
+    fp32 = errs(run(torch.float32))
+    with monkeypatch.context() as mp:
+        mp.setattr(torch, "einsum", cascade_cases.einsum_3xtf32)
+        emu = errs(run(torch.float32))
+    tol = cascade_cases.TOL_FLASH[torch.float32]
+    assert all(e <= tol for e in emu), (emu, fp32)
+    assert all(e <= 4 * f for e, f in zip(emu, fp32)), (emu, fp32)
+
+
 def test_attend_kernel_refuses_extra_mask():
     """JAX ``attend(impl="pallas")`` drops ``extra_mask`` (a reference
     quirk, ROADMAP queue 3); the port raises instead. Smallest case: two
