@@ -27,10 +27,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
            groups 4 and 1) and tile edges (T 129, a single query row, Tkv
            300 with kv_len ending mid-tile, Tq 128 over Tkv 384 so that
            two key tiles see no query, D 64 and 96), fp32 (the kernels of
-           flash_attention.cu: the forward on the CUDA cores, dq and dk/dv
-           in 3xTF32 on the tensor cores, these two also called twice at
-           the training shape and held bitwise equal) and bf16 (the
-           wgmma kernels of flash_attention_sm90.cu); then timed at the
+           flash_attention.cu: the forward, dq and dk/dv in 3xTF32 on the
+           tensor cores, each also called twice at the training shape and
+           held bitwise equal) and bf16 (the wgmma kernels of
+           flash_attention_sm90.cu); then timed at the
            training shape beside its bound, its plain version and
            scaled_dot_product_attention (forward; its autograd backward)
   main     greedy D^2SD ``generate`` in fp32 at the full width and depth of
@@ -111,12 +111,10 @@ DEVICE = "cuda"
 MAX_NEW = 64                                # tokens generated per row
 GAMMA, K_BRANCHES = 16, 4                   # 76 tree nodes per row
 PEAK_BYTES_S = 3.35e12                      # H100 SXM HBM3
-PEAK_FLOPS = {torch.float32: 67e12,         # fp32, CUDA cores
-              torch.bfloat16: 989e12}       # bf16 tensor cores, dense
+PEAK_BF16 = 989e12                          # bf16 tensor cores, dense
 PEAK_TF32 = 495e12                          # TF32 tensor cores, dense: the
-                                            # fp32 cascade kernels and flash
-                                            # backward form each product
-                                            # from three TF32 ones
+                                            # fp32 kernels form each
+                                            # product from three TF32 ones
 NEAR_TIE = 1e-4                             # top-2 logit gap that may flip
 NEAR_TIE_BF16_ULPS = 4      # bf16: the same rule, the gap counted in bf16
                             # ulps of the top logit (2^-5 at the random
@@ -332,7 +330,7 @@ def _bound(dtype, live_tokens, b, hq, hkv, tq, d, ns):
     flops = 4 * hq * tq * live_tokens * d
     t_b = byts / PEAK_BYTES_S * 1e3
     t_f = (3 * flops / PEAK_TF32 if dtype == torch.float32
-           else flops / PEAK_FLOPS[dtype]) * 1e3
+           else flops / PEAK_BF16) * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
@@ -451,9 +449,8 @@ def live_pairs(tq, tkv, q_offset, window, kv_len, causal=True):
 def _flash_bound(name, dtype, b, hq, hkv, tq, tkv, d, pairs):
     """Least time: FLOPs of the GEMMs the kernel computes per live pair
     (forward 2, dq 3, dk/dv 4) at the peak of its route (bf16 tensor
-    cores; fp32: the forward on the CUDA cores, the backward as 3xTF32 on
-    the tensor cores, three TF32 FLOPs a FLOP), or each input read and
-    each output written once at HBM rate."""
+    cores; fp32 as 3xTF32 on the tensor cores, three TF32 FLOPs a FLOP),
+    or each input read and each output written once at HBM rate."""
     es = torch.tensor([], dtype=dtype).element_size()
     q_b, kv_b, rows = b * hq * tq * d * es, b * hkv * tkv * d * es, b * hq * tq
     gemms, byts = {
@@ -461,10 +458,8 @@ def _flash_bound(name, dtype, b, hq, hkv, tq, tkv, d, pairs):
         "flash_attention_bwd_dq": (3, 3 * q_b + 2 * kv_b + 8 * rows),
         "flash_attention_bwd_dkv": (4, 2 * q_b + 4 * kv_b + 8 * rows)}[name]
     flops = 2 * gemms * d * pairs * hq
-    if dtype == torch.float32 and name != "flash_attention_fwd":
-        t_f = 3 * flops / PEAK_TF32 * 1e3
-    else:
-        t_f = flops / PEAK_FLOPS[dtype] * 1e3
+    t_f = (3 * flops / PEAK_TF32 if dtype == torch.float32
+           else flops / PEAK_BF16) * 1e3
     t_b = byts / PEAK_BYTES_S * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
@@ -491,9 +486,9 @@ def check_flash(timer):
     zero-filled to 128, in the [B,T,H,D] layout), fp32 and bf16. Each
     backward kernel takes the plain forward's (o, lse), so each kernel is
     held alone. o, lse and dq are compared over rows with a live key.
-    The fp32 backward kernels are also called a second time at the
-    training shape and must give bitwise the same dq, dk and dv (no
-    atomics: the fp32 training step is deterministic)."""
+    The fp32 kernels are also called a second time at the training shape
+    and must give bitwise the same o, lse, dq, dk and dv (no atomics: the
+    fp32 training step is deterministic)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.cascade_cases import TOL_FLASH, TOL_LSE
     gen = torch.Generator(device=DEVICE)
@@ -540,13 +535,16 @@ def check_flash(timer):
             dk_k, dv_k = fa.flash_attention_bwd_dkv(*args, **kw)
             dk_p, dv_p = fa.flash_attention_bwd_dkv_plain(*args, **kw)
             if dtype == torch.float32 and sh is shapes[0]:
-                same = {"dq": torch.equal(
+                same = {"o_lse": all(map(torch.equal, (o_k, lse_k),
+                                         fa.flash_attention_fwd(q, k, v,
+                                                                **kw))),
+                        "dq": torch.equal(
                             dq_k, fa.flash_attention_bwd_dq(*args, **kw)),
                         "dk_dv": all(map(torch.equal, (dk_k, dv_k),
                                          fa.flash_attention_bwd_dkv(
                                              *args, **kw)))}
                 if not all(same.values()):
-                    fail(f"the fp32 flash backward is not deterministic: "
+                    fail(f"the fp32 flash kernels are not deterministic: "
                          f"{same}")
             torch.cuda.synchronize()
             live = lse_p > -1e29                           # [B,Hq,T]
@@ -589,7 +587,7 @@ def check_flash(timer):
             del o_k, o_p, dq_k, dq_p, dk_k, dk_p, dv_k, dv_p
     timing = time_flash(timer, gen)
     emit({"phase": "flash", "ok": True, "n_cases": len(cases),
-          "fp32_backward_bitwise_repeatable": same,
+          "fp32_bitwise_repeatable": same,
           "tol": {str(k).replace("torch.", ""): v
                   for k, v in TOL_FLASH.items()}, "tol_lse": TOL_LSE,
           "cases": cases, "max_rel_err": worst, "max_abs_err": worst_abs,

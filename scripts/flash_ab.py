@@ -9,19 +9,19 @@ OTHER_ROOT's again (A B B A), each run in a process of its own that
 imports that checkout's ``repro_torch``, so both are measured on the same
 card within one call. A run times ``flash_attention_fwd``,
 ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv`` in bf16 and in
-fp32 (the ``*_fp32`` keys; the backward ones also as ``*_device_ms``) at
-the training shape of ``chip_smoke.py`` (B 2, Hq 32, Hkv 8, T 4096, D 128,
+fp32 (the ``*_fp32`` keys), each also as ``*_device_ms``, at the training
+shape of ``chip_smoke.py`` (B 2, Hq 32, Hkv 8, T 4096, D 128,
 causal, the model's [B,T,H,D] layout), and ``cascade_phase1`` and
 ``cascade_phase1_paged`` in bf16 and in fp32 (the ``*_fp32`` keys) at its
 decode verify shape (B 4, Hq 32, Hkv 8, D 128, Tq 76, caches of 520-600
 keys of 616, pages of 64, a shuffled page table): CUDA events around one
 call, the 50 MB L2 flushed before each, median of 20 after 3 warm-up
-calls. For a cascade call, whose kernel takes tens of microseconds, that
-time also holds the host's enqueue of the wrapper, so each is also timed
-twice more: ``*_device_ms`` puts a device sleep between the flush and the
-first event, so the events bracket the call's device work alone, and
-``*_host_us`` is the host's time per call over 100 calls made while the
-card sleeps (median of 5).
+calls. That time also holds the host's enqueue of the wrapper, so
+``*_device_ms`` puts a device sleep between the flush and the first
+event, and the events bracket the call's device work alone. For a
+cascade call, whose kernel takes tens of microseconds, ``*_host_us`` is
+also the host's time per call over 100 calls made while the card sleeps
+(median of 5).
 It prints one JSON line per run, then the medians per checkout, the
 card's name and power limit, and exits non-zero without a CUDA device.
 
@@ -97,8 +97,7 @@ def time_checkout(root: Path) -> dict:
                      lambda: fa.flash_attention_bwd_dkv(*bw)}
         for name, fn in calls.items():
             out[name + tag] = ms(fn)
-            if tag and name != "flash_attention_fwd":
-                out[name + tag + "_device_ms"] = ms(fn, sleep=True)
+            out[name + tag + "_device_ms"] = ms(fn, sleep=True)
         del q, k, v, do, o, lse, delta, bw, calls
 
     b, tq, s, page = 4, 76, 616, 64

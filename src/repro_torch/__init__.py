@@ -7,10 +7,8 @@ and the standard library. Its kernels are CUDA C++ for ``sm_90a``, in
 four sources built with ``nvcc`` at first use: the cascade phase-1
 kernels and the flash attention forward, dq and dk/dv kernels, for
 bfloat16 on the tensor cores (``csrc/cascade_phase1_sm90.cu``,
-``csrc/flash_attention_sm90.cu``) and for float32: the cascade kernels and
-the flash backward on the tensor cores in 3xTF32
-(``csrc/cascade_phase1.cu``, ``csrc/flash_attention.cu``), the flash
-forward on the CUDA cores (``csrc/flash_attention.cu``). The tensor-core
+``csrc/flash_attention_sm90.cu``) and for float32 on the tensor cores in
+3xTF32 (``csrc/cascade_phase1.cu``, ``csrc/flash_attention.cu``). The
 sources share ``csrc/sm90_common.cuh``.
 
 Entry points place their tensors on ``device="cuda"`` unless the caller

@@ -1,5 +1,5 @@
-// Flash attention forward and backward in float32 for Hopper (sm_90a): the
-// forward on the CUDA cores, the backward on the tensor cores in 3xTF32.
+// Flash attention forward and backward in float32 for Hopper (sm_90a), on
+// the tensor cores in 3xTF32.
 //
 // Replaces, for float32 inputs, the three Pallas TPU kernels of
 // repro/kernels/flash_attention.py:
@@ -21,12 +21,8 @@
 // past the causal edge, before the window or past kv_len are skipped, so
 // causal attention costs half of the full square.
 //
-// The forward runs on the CUDA cores: tiles of 64 queries x 64 keys staged
-// in shared memory, each of 256 threads owning a 4 x 4 patch of the score
-// tile and a 4 x (D/16) patch of its accumulator.
-//
-// The backward runs every product on the tensor cores as mma.sync m16n8k8
-// tf32 in 3xTF32, as cascade_phase1.cu does (split_tf32 and mma_tf32 in
+// Every product runs on the tensor cores as mma.sync m16n8k8 tf32 in
+// 3xTF32, as cascade_phase1.cu does (split_tf32 and mma_tf32 in
 // sm90_common.cuh): each operand x is split as its fragment loads into big
 // (x plus half a tf32 ulp, read truncated by the unit: x rounded to
 // nearest) and small (x - big, exact in fp32, read truncated), and
@@ -35,19 +31,29 @@
 // holds (tests/test_torch_flash.py emulates the budget; one tf32 product
 // in place of three would not keep it). The mma units add into their
 // accumulator with truncation, not rounding: summed over the thousands of
-// tiles of a long row (dq) or key (dk, dv) that bias took dk past the fp32
-// gate at T 4096, so each tile's products go to a fresh accumulator that
-// is added to the running sum in fp32 (mma_pb).
+// tiles of a long row (o, dq) or key (dk, dv) that bias took dk past the
+// fp32 gate at T 4096, so each tile's products go to a fresh accumulator
+// that is added to the running sum in fp32 (mma_pb).
+//   * forward: one block per (64 query rows, q head, batch row), the
+//     longest tiles first; four warps of 16 rows. Q*scale is staged once;
+//     32-key K/V tiles come through a two-stage cp.async ring, so the next
+//     tile loads while this one is multiplied. Each warp forms S =
+//     (Q*scale) K^T over D, the softcap and (on edge tiles) the mask, then
+//     the online softmax in its registers: a thread holds rows gid and
+//     gid + 8, the row max and sum are taken over its quad of lanes, and
+//     the 16 x 128 o accumulator (64 registers a thread) is rescaled once
+//     a tile. Then O += P V with the S accumulator as the A fragment as it
+//     stands (mma_pb). o = acc / l and lse = m + log l at the end; two
+//     blocks an SM (99 KB of shared memory each).
 //   * dq: one block per (64 query rows, q head, batch row), the longest
 //     tiles first; four warps of 16 rows. Q*scale and dO are staged once;
-//     16-key K/V tiles come through a two-stage cp.async ring, so the next
-//     tile loads while this one is multiplied. Each warp forms S =
-//     (Q*scale) K^T and dP = dO V^T over D, then dS = P (dP - delta) dcap
-//     in the accumulators, then dQ += dS K over the keys with the dS
-//     accumulator as the A fragment as it stands: its keys 2 tig and
-//     2 tig + 1 are the k indices tig and tig + 4, and K is read at those
-//     keys. The 16 x 128 dq accumulator takes 64 registers a thread; two
-//     blocks an SM (99 KB of shared memory each).
+//     16-key K/V tiles come through a two-stage cp.async ring. Each warp
+//     forms S = (Q*scale) K^T and dP = dO V^T over D, then dS = P (dP -
+//     delta) dcap in the accumulators, then dQ += dS K over the keys with
+//     the dS accumulator as the A fragment as it stands: its keys 2 tig
+//     and 2 tig + 1 are the k indices tig and tig + 4, and K is read at
+//     those keys. The 16 x 128 dq accumulator takes 64 registers a thread;
+//     two blocks an SM (99 KB of shared memory each).
 //   * dk/dv: one block per (32 keys, KV head, batch row), the longest
 //     first; K and V staged once, then a loop over the GQA group's q heads
 //     and their 16-row query tiles (Q*scale, dO, lse and delta in the
@@ -61,15 +67,16 @@
 //     written once: no atomics (a training step is deterministic) and no
 //     per-q-head [B,Hq,Tkv,D] buffer; key tiles that no query sees are
 //     written as zeros.
-//   * both: rows lie DP + 4 floats apart (132 for D 128, 68 for D <= 64),
-//     so the float4 fragment reads of both product orders are free of bank
-//     conflicts: over D (rows gid, columns 32 kk + 8 tig + 4 h) and over
-//     keys or queries (rows 2 tig, columns 32 c + 4 gid). Copies are 16
-//     bytes where the bases, D and every stepped stride allow, else 8 or 4;
-//     rows past T and columns past D arrive as zeros. A warp skips a tile
-//     in which none of its pairs is live, and the mask where all are. The
-//     two correction products of S and dP go to accumulators of their own,
-//     so the dependent mma chains are half as long.
+//   * all three: rows lie DP + 4 floats apart (132 for D 128, 68 for
+//     D <= 64), so the float4 fragment reads of both product orders are
+//     free of bank conflicts: over D (rows gid, columns 32 kk + 8 tig +
+//     4 h) and over keys or queries (rows 2 tig, columns 32 c + 4 gid).
+//     Copies are 16 bytes where the bases, D and every stepped stride
+//     allow, else 8 or 4; rows past T and columns past D arrive as zeros.
+//     A warp skips a tile in which none of its pairs is live, and the mask
+//     where all are. The two correction products of S and dP go to
+//     accumulators of their own, so the dependent mma chains are half as
+//     long. Each block owns its outputs: every kernel is deterministic.
 //
 // A TPU grid carries the running softmax across sequential kv steps in
 // scratch; here each block loops over its own key (or query) tiles.
@@ -91,20 +98,6 @@
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per tile
-constexpr int BK = 64;        // keys per tile
-constexpr int NT = 256;       // threads per block: 16 x 16
-
-// max / sum over the 16 lanes of a half warp (the threads of one ty row)
-__device__ __forceinline__ float group_max(float x) {
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float group_sum(float x) {
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 struct Params {
   const void* q; const void* k; const void* v; const void* dout;
   int64_t qs0, qs1, qs2, ks0, ks1, ks2, vs0, vs1, vs2, ds0, ds1, ds2;
@@ -119,20 +112,8 @@ struct Params {
   int B, Hq, Hkv, Tq, Tkv, D;
   int causal, q_offset, window;   // window <= 0: none
   float softcap, scale;           // softcap <= 0: none
-  int vec;                 // backward: floats per cp.async copy (4, 2, 1)
+  int vec;                 // floats per cp.async copy (4, 2, 1)
 };
-
-// Stage rows [row0, row0 + BQ) of a [T, D] slice (row stride rs) into a
-// [BQ][LD] fp32 tile, times mul; rows >= T and columns >= D read as 0.
-template <int DP, int LD>
-__device__ __forceinline__ void stage(float* dst, const float* src, int64_t rs,
-                                      int row0, int T_, int D, float mul) {
-  for (int i = threadIdx.x; i < BQ * DP; i += NT) {
-    const int r = i / DP, d = i - r * DP;
-    const int t = row0 + r;
-    dst[r * LD + d] = (t < T_ && d < D) ? src[t * rs + d] * mul : 0.f;
-  }
-}
 
 __device__ __forceinline__ bool live_key(const Params& p, int qpos, int kpos,
                                          int kvl) {
@@ -155,125 +136,10 @@ __device__ __forceinline__ void key_range(const Params& p, int q0, int nq,
   kbeg = (kbeg / TILE) * TILE;
 }
 
-// ------------------------------------------------------------- forward ---
-template <int DP>
-__global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
-  constexpr int LDQ = DP + 4, LDK = DP + 1, LDV = DP, LDP = BK + 1, NC = DP / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + BQ * LDQ;
-  float* Vs = Ks + BK * LDK;
-  float* Ps = Vs + BK * LDV;
-
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;   // longest tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (p.Hq / p.Hkv);
-  const int nq = min(BQ, p.Tq - q0);
-  const int kvl = max(0, min(p.Tkv, p.kv_len[b]));
-  const float* Q = static_cast<const float*>(p.q) + b * p.qs0 + h * p.qs1;
-  const float* K = static_cast<const float*>(p.k) + b * p.ks0 + hk * p.ks1;
-  const float* V = static_cast<const float*>(p.v) + b * p.vs0 + hk * p.vs1;
-
-  stage<DP, LDQ>(Qs, Q, p.qs2, q0, p.Tq, p.D, p.scale);
-  int kbeg, kend;
-  key_range<BK>(p, q0, nq, kvl, kbeg, kend);
-
-  float m[4], l[4], acc[4][NC];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    m[r] = NEG_INF;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
-  }
-
-  for (int k0 = kbeg; k0 < kend; k0 += BK) {
-    __syncthreads();
-    stage<DP, LDK>(Ks, K, p.ks2, k0, p.Tkv, p.D, 1.f);
-    stage<DP, LDV>(Vs, V, p.vs2, k0, p.Tkv, p.D, 1.f);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < DP; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) qv[r] = Qs[(ty * 4 + r) * LDQ + d];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) kv[c] = Ks[(tx + 16 * c) * LDK + d];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[r][c] += qv[r] * kv[c];
-    }
-
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = ty * 4 + r;
-      const int qpos = q0 + row + p.q_offset;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float x = s[r][c];
-        if (p.softcap > 0.f) x = p.softcap * tanhf(x / p.softcap);
-        const bool ok = row < nq && live_key(p, qpos, k0 + tx + 16 * c, kvl);
-        s[r][c] = ok ? x : -INFINITY;
-        mx = fmaxf(mx, s[r][c]);
-      }
-      const float m_new = fmaxf(m[r], group_max(mx));
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float e = expf(s[r][c] - m_new);      // masked: exp(-inf) = 0
-        Ps[row * LDP + tx + 16 * c] = e;
-        sum += e;
-      }
-      const float alpha = expf(m[r] - m_new);
-      l[r] = l[r] * alpha + group_sum(sum);
-      m[r] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[r][c] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      float pv[4], vv[NC];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) pv[r] = Ps[(ty * 4 + r) * LDP + j];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) vv[c] = Vs[j * LDV + tx + 16 * c];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[r][c] += pv[r] * vv[c];
-    }
-  }
-
-  float* O = static_cast<float*>(p.o) + b * p.os0 + h * p.os1;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = ty * 4 + r;
-    if (row >= nq) continue;
-    const float ls = fmaxf(l[r], 1e-30f);
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = tx + 16 * c;
-      if (d < p.D) O[(q0 + row) * p.os2 + d] = acc[r][c] / ls;
-    }
-    if (tx == 0)
-      p.lse_out[((int64_t)b * p.Hq + h) * p.Tq + q0 + row] = m[r] + logf(ls);
-  }
-}
-
-// ------------------------------------------------ backward, 3xTF32 ---
-constexpr int BW_THREADS = 128;  // four warps
-constexpr int DQ_ROWS = 64;      // dq: query rows a block, 16 a warp
+// ------------------------------------------------ 3xTF32 helpers ---
+constexpr int THREADS = 128;     // four warps
+constexpr int Q_ROWS = 64;       // forward, dq: query rows a block, 16 a warp
+constexpr int FWD_KEYS = 32;     // forward: keys a tile
 constexpr int KV_ROWS = 32;      // dk/dv: keys a block, 16 a pair of warps
 constexpr int BW_TILE = 16;      // keys (dq) or queries (dk/dv) a tile
 
@@ -295,7 +161,7 @@ __device__ __forceinline__ void stage_async(float* dst, const float* src,
                                             int D) {
   constexpr int LD = DP + 4, CPR = DP / VEC;
 #pragma unroll 4
-  for (int i = tid_fresh(); i < R * CPR; i += BW_THREADS) {
+  for (int i = tid_fresh(); i < R * CPR; i += THREADS) {
     const int r = i / CPR, c = i % CPR * VEC;
     const bool ok = row0 + r < T_ && c < D;
     cp_async<4 * VEC>(dst + r * LD + c, ok ? src + (row0 + r) * rs + c : src,
@@ -309,7 +175,7 @@ template <int R, int DP, int VEC>
 __device__ __forceinline__ void scale_own(float* dst, float mul) {
   constexpr int LD = DP + 4, CPR = DP / VEC;
 #pragma unroll 4
-  for (int i = tid_fresh(); i < R * CPR; i += BW_THREADS) {
+  for (int i = tid_fresh(); i < R * CPR; i += THREADS) {
     const int r = i / CPR, c = i % CPR * VEC;
 #pragma unroll
     for (int u = 0; u < VEC; ++u) dst[r * LD + c + u] *= mul;
@@ -333,14 +199,14 @@ __device__ __forceinline__ void scale_rows(const Params& p, float* dst) {
   else scale_own<R, DP, 1>(dst, p.scale);
 }
 
-// c[n] (+ cc[n]) += A[16 x DP] B[16 x DP]^T for the 8-row blocks n = 0, 1
+// c[n] (+ cc[n]) += A[16 x DP] B[8 NB x DP]^T for the 8-row blocks n < NB
 // of B, in 3xTF32: big*big into c, the two correction products into cc.
 // a points at A + gid * LD + 8 tig (this thread's rows gid and gid + 8),
 // b at B + gid * LD + 8 tig. A k-step pair reads a float4 of each row: k
 // index tig of k-step 2 h + s is column 32 kk + 8 tig + 4 h + 2 s, k index
 // tig + 4 the column after it (a permutation of D that A and B share).
-template <int DP>
-__device__ __forceinline__ void mma_abt(float (&c)[2][4], float (&cc)[2][4],
+template <int DP, int NB>
+__device__ __forceinline__ void mma_abt(float (&c)[NB][4], float (&cc)[NB][4],
                                         const float* a, const float* b) {
   constexpr int LD = DP + 4;
 #pragma unroll
@@ -362,7 +228,7 @@ __device__ __forceinline__ void mma_abt(float (&c)[2][4], float (&cc)[2][4],
       split_tf32(xa.w, ab[1][2], as[1][2]);
       split_tf32(xb.w, ab[1][3], as[1][3]);
 #pragma unroll
-      for (int n = 0; n < 2; ++n) {
+      for (int n = 0; n < NB; ++n) {
         const float4 y = *reinterpret_cast<const float4*>(b + 8 * n * LD + d);
         uint32_t bb[2][2], bs[2][2];
         split_tf32(y.x, bb[0][0], bs[0][0]);
@@ -380,7 +246,7 @@ __device__ __forceinline__ void mma_abt(float (&c)[2][4], float (&cc)[2][4],
   }
 }
 
-// acc += P[16 x 16] B[16 x DP] in 3xTF32, P in mma_abt's accumulator
+// acc += P[16 x 8 NB] B[8 NB x DP] in 3xTF32, P in mma_abt's accumulator
 // layout: its k-step n is the 8-column block n, whose columns 2 tig and
 // 2 tig + 1 are the k indices tig and tig + 4, so B is read at those rows.
 // b points at B + 2 tig * LD + 4 gid. n-block j of the 32-column group c
@@ -389,15 +255,15 @@ __device__ __forceinline__ void mma_abt(float (&c)[2][4], float (&cc)[2][4],
 // to a fresh accumulator, added to acc in fp32 (round to nearest): the
 // mma units add into their accumulator with truncation, a bias that
 // would grow with the thousands of tiles a long row or key sums.
-template <int DP>
+template <int DP, int NB>
 __device__ __forceinline__ void mma_pb(float (&acc)[DP / 32][4][4],
-                                       float (&pm)[2][4], const float* b) {
+                                       float (&pm)[NB][4], const float* b) {
   constexpr int LD = DP + 4;
 #pragma unroll
   for (int c = 0; c < DP / 32; ++c) {
     float t[4][4] = {};
 #pragma unroll
-    for (int n = 0; n < 2; ++n) {
+    for (int n = 0; n < NB; ++n) {
       uint32_t pb[4], ps[4];
       split_tf32(pm[n][0], pb[0], ps[0]);
       split_tf32(pm[n][2], pb[1], ps[1]);
@@ -453,21 +319,160 @@ __device__ __forceinline__ float capped(const Params& p, float x,
   return p.softcap * t;
 }
 
+// ------------------------------------------------------------- forward ---
+template <int DP>
+__global__ void __launch_bounds__(THREADS, 2)
+flash_fwd_kernel(const Params p) {
+  constexpr int LD = DP + 4, KV_TILE = FWD_KEYS * LD, NB = FWD_KEYS / 8;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);   // Q * scale [64][LD]
+  float* Ks = Qs + Q_ROWS * LD;                  // two stages each
+  float* Vs = Ks + 2 * KV_TILE;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * Q_ROWS;  // longest first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (p.Hq / p.Hkv);
+  const int nq = min(Q_ROWS, p.Tq - q0);
+  const int kvl = max(0, min(p.Tkv, p.kv_len[b]));
+  const float* Q = static_cast<const float*>(p.q) + b * p.qs0 + h * p.qs1;
+  const float* K = static_cast<const float*>(p.k) + b * p.ks0 + hk * p.ks1;
+  const float* V = static_cast<const float*>(p.v) + b * p.vs0 + hk * p.vs1;
+  int kbeg, kend;
+  key_range<FWD_KEYS>(p, q0, nq, kvl, kbeg, kend);
+  const int ntiles =
+      kend > kbeg ? (kend - kbeg + FWD_KEYS - 1) / FWD_KEYS : 0;
+
+  auto load_kv = [&](int it) {
+    const int k0 = kbeg + it * FWD_KEYS;
+    stage_rows<FWD_KEYS, DP>(p, Ks + (it & 1) * KV_TILE, K, p.ks2, k0, p.Tkv);
+    stage_rows<FWD_KEYS, DP>(p, Vs + (it & 1) * KV_TILE, V, p.vs2, k0, p.Tkv);
+  };
+  if (ntiles > 0) {
+    stage_rows<Q_ROWS, DP>(p, Qs, Q, p.qs2, q0, p.Tq);
+    load_kv(0);
+    cp_async_commit();                     // group 0: Q and tile 0
+  }
+
+  // warp w owns rows 16 w + [0, 16) of the tile; this thread rows ra, rb
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int ra = 16 * warp + gid, rb = ra + 8;
+  const int qa = q0 + ra + p.q_offset, qb = qa + 8;
+  const int wrows = min(16, nq - 16 * warp);   // the warp's rows, positions
+  const int qlo = q0 + 16 * warp + p.q_offset, qhi = qlo + wrows - 1;
+
+  float acc[DP / 32][4][4];
+#pragma unroll
+  for (int c = 0; c < DP / 32; ++c)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][j][e] = 0.f;
+  // the running max of rows ra and rb (NEG_INF until a live key) and this
+  // thread's part of their sums
+  float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.f, l_b = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    cp_async_wait<0>();                    // this thread's part of tile it
+    if (it == 0) scale_rows<Q_ROWS, DP>(p, Qs);
+    __syncthreads();                       // everyone's; stage it-1 free
+    if (it + 1 < ntiles) load_kv(it + 1);
+    cp_async_commit();
+
+    // skip a tile in which no pair of the warp is live; no mask where all
+    const int k0 = kbeg + it * FWD_KEYS;
+    const int k1 = min(k0 + FWD_KEYS, kvl) - 1;
+    if (wrows <= 0 || k1 < k0 || (p.causal && k0 > qhi) ||
+        (p.window > 0 && k1 <= qlo - p.window))
+      continue;
+    const bool whole = wrows == 16 && k0 + FWD_KEYS <= kvl &&
+                       (!p.causal || k0 + FWD_KEYS - 1 <= qlo) &&
+                       (p.window <= 0 || k0 > qhi - p.window);
+    const float* kt = Ks + (it & 1) * KV_TILE;
+    const float* vt = Vs + (it & 1) * KV_TILE;
+
+    float s[NB][4] = {}, sc[NB][4] = {};
+    mma_abt<DP>(s, sc, Qs + ra * LD + 8 * tig, kt + gid * LD + 8 * tig);
+
+    // the softcap, then the mask (masked: -inf, so p = 0 exactly), in s:
+    // element e of n-block n is row (e < 2 ? ra : rb), key
+    // k0 + 8 n + 2 tig + e % 2
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool lo = e < 2;
+        float dcap;
+        const float x = capped(p, s[n][e] + sc[n][e], dcap);
+        const bool ok = whole || ((lo ? ra : rb) < nq &&
+                                  live_key(p, lo ? qa : qb,
+                                           k0 + 8 * n + 2 * tig + e % 2, kvl));
+        s[n][e] = ok ? x : -INFINITY;
+        if (lo) mx_a = fmaxf(mx_a, s[n][e]);
+        else mx_b = fmaxf(mx_b, s[n][e]);
+      }
+
+    // the online softmax over the quad's rows: P in s, acc rescaled
+    const float mn_a = fmaxf(m_a, quad_max(mx_a));
+    const float mn_b = fmaxf(m_b, quad_max(mx_b));
+    const float al_a = expf(m_a - mn_a), al_b = expf(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[n][e] = expf(s[n][e] - mn_a);
+        s[n][2 + e] = expf(s[n][2 + e] - mn_b);
+        sum_a += s[n][e];
+        sum_b += s[n][2 + e];
+      }
+    l_a = l_a * al_a + sum_a;
+    l_b = l_b * al_b + sum_b;
+#pragma unroll
+    for (int c = 0; c < DP / 32; ++c)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[c][j][0] *= al_a;
+        acc[c][j][1] *= al_a;
+        acc[c][j][2] *= al_b;
+        acc[c][j][3] *= al_b;
+      }
+    mma_pb<DP>(acc, s, vt + 2 * tig * LD + 4 * gid);     // O += P V
+  }
+
+  // o = acc / l (0 for a row with no live key) and lse = m + log l
+  const float ls_a = fmaxf(quad_sum(l_a), 1e-30f);
+  const float ls_b = fmaxf(quad_sum(l_b), 1e-30f);
+  float* O = static_cast<float*>(p.o) + b * p.os0 + h * p.os1;
+  float* lse = p.lse_out + ((int64_t)b * p.Hq + h) * p.Tq + q0;
+  if (ra < nq) {
+    store_row<DP>(O + (q0 + ra) * p.os2, acc, 0, tig, p.D, 1.f / ls_a);
+    if (tig == 0) lse[ra] = m_a + logf(ls_a);
+  }
+  if (rb < nq) {
+    store_row<DP>(O + (q0 + rb) * p.os2, acc, 1, tig, p.D, 1.f / ls_b);
+    if (tig == 0) lse[rb] = m_b + logf(ls_b);
+  }
+}
+
 // ---------------------------------------------------------- backward dq ---
 template <int DP>
-__global__ void __launch_bounds__(BW_THREADS, 2)
+__global__ void __launch_bounds__(THREADS, 2)
 flash_bwd_dq_kernel(const Params p) {
   constexpr int LD = DP + 4, KV_TILE = BW_TILE * LD;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);   // Q * scale [64][LD]
-  float* dOs = Qs + DQ_ROWS * LD;
-  float* Ks = dOs + DQ_ROWS * LD;                // two stages each
+  float* dOs = Qs + Q_ROWS * LD;
+  float* Ks = dOs + Q_ROWS * LD;                // two stages each
   float* Vs = Ks + 2 * KV_TILE;
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * DQ_ROWS;  // longest first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * Q_ROWS;  // longest first
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (p.Hq / p.Hkv);
-  const int nq = min(DQ_ROWS, p.Tq - q0);
+  const int nq = min(Q_ROWS, p.Tq - q0);
   const int kvl = max(0, min(p.Tkv, p.kv_len[b]));
   const float* Q = static_cast<const float*>(p.q) + b * p.qs0 + h * p.qs1;
   const float* dO = static_cast<const float*>(p.dout) + b * p.ds0 + h * p.ds1;
@@ -483,8 +488,8 @@ flash_bwd_dq_kernel(const Params p) {
     stage_rows<BW_TILE, DP>(p, Vs + (it & 1) * KV_TILE, V, p.vs2, k0, p.Tkv);
   };
   if (ntiles > 0) {
-    stage_rows<DQ_ROWS, DP>(p, Qs, Q, p.qs2, q0, p.Tq);
-    stage_rows<DQ_ROWS, DP>(p, dOs, dO, p.ds2, q0, p.Tq);
+    stage_rows<Q_ROWS, DP>(p, Qs, Q, p.qs2, q0, p.Tq);
+    stage_rows<Q_ROWS, DP>(p, dOs, dO, p.ds2, q0, p.Tq);
     load_kv(0);
     cp_async_commit();                     // group 0: Q, dO and tile 0
   }
@@ -512,7 +517,7 @@ flash_bwd_dq_kernel(const Params p) {
 
   for (int it = 0; it < ntiles; ++it) {
     cp_async_wait<0>();                    // this thread's part of tile it
-    if (it == 0) scale_rows<DQ_ROWS, DP>(p, Qs);
+    if (it == 0) scale_rows<Q_ROWS, DP>(p, Qs);
     __syncthreads();                       // everyone's; stage it-1 free
     if (it + 1 < ntiles) load_kv(it + 1);
     cp_async_commit();
@@ -566,7 +571,7 @@ __device__ __forceinline__ void bar_sync(int id, int n) {
 }
 
 template <int DP>
-__global__ void __launch_bounds__(BW_THREADS, 3)
+__global__ void __launch_bounds__(THREADS, 3)
 flash_bwd_dkv_kernel(const Params p) {
   constexpr int LD = DP + 4, Q_TILE = BW_TILE * LD;
   extern __shared__ float4 smem4[];
@@ -716,14 +721,15 @@ flash_bwd_dkv_kernel(const Params p) {
 }
 
 // ----------------------------------------------------------- launching ---
-template <int DP> constexpr size_t fwd_smem() {
-  return sizeof(float) * (BQ * (DP + 4) + BK * (DP + 1) + BK * DP + BQ * (BK + 1));
-}
-// dq: Q and dO ([64][DP + 4]) staged once, two stages of K and V tiles
+// forward: Q ([64][DP + 4]) staged once, two stages of K and V tiles
+// ([32][DP + 4]); dq: Q and dO staged once, two stages of K and V tiles
 // ([16][DP + 4]); dk/dv: K and V ([32][DP + 4]) staged once, two stages of
 // Q and dO tiles and of lse and delta, and the pairs' P and dcap
+template <int DP> constexpr size_t fwd_smem() {
+  return sizeof(float) * (Q_ROWS + 4 * FWD_KEYS) * (DP + 4);
+}
 template <int DP> constexpr size_t dq_smem() {
-  return sizeof(float) * (2 * DQ_ROWS + 4 * BW_TILE) * (DP + 4);
+  return sizeof(float) * (2 * Q_ROWS + 4 * BW_TILE) * (DP + 4);
 }
 template <int DP> constexpr size_t dkv_smem() {
   return sizeof(float) * ((2 * KV_ROWS + 4 * BW_TILE) * (DP + 4) + 4 * BW_TILE +
@@ -731,8 +737,8 @@ template <int DP> constexpr size_t dkv_smem() {
 }
 
 // The widest cp.async copy (in floats) that every staged row start allows:
-// the bases of q, k, v and do 4 * w-byte aligned, and D and every stride of
-// an axis longer than one a multiple of w.
+// the bases of q, k, v and do (null in the forward) 4 * w-byte aligned,
+// and D and every stride of an axis longer than one a multiple of w.
 int copy_width(const Params& p) {
   const uintptr_t bases = reinterpret_cast<uintptr_t>(p.q) |
                           reinterpret_cast<uintptr_t>(p.k) |
@@ -751,19 +757,19 @@ int copy_width(const Params& p) {
   return 1;
 }
 
-// The backward kernels also ask for the largest shared-memory carveout
-// (bwd): two blocks an SM.
+// Each kernel also asks for the largest shared-memory carveout, so that
+// two (forward, dq) or three (dk/dv) blocks share an SM.
 template <typename Kern>
-int launch(Kern kern, dim3 grid, int threads, size_t smem, bool bwd,
-           const Params& p, cudaStream_t st) {
+int launch(Kern kern, dim3 grid, size_t smem, const Params& p,
+           cudaStream_t st) {
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (e == cudaSuccess && bwd)
+  if (e == cudaSuccess)
     e = cudaFuncSetAttribute(kern,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return static_cast<int>(e);
-  kern<<<grid, threads, smem, st>>>(p);
+  kern<<<grid, THREADS, smem, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -771,20 +777,17 @@ enum Which { FWD, DQ, DKV };
 
 template <int DP>
 int dispatch(Which w, Params p, cudaStream_t st) {
-  if (w == FWD) {
-    const dim3 grid((p.Tq + BQ - 1) / BQ, p.Hq, p.B);
-    return launch(flash_fwd_kernel<DP>, grid, NT, fwd_smem<DP>(), false, p,
-                  st);
-  }
   p.vec = copy_width(p);
+  if (w == FWD) {
+    const dim3 grid((p.Tq + Q_ROWS - 1) / Q_ROWS, p.Hq, p.B);
+    return launch(flash_fwd_kernel<DP>, grid, fwd_smem<DP>(), p, st);
+  }
   if (w == DQ) {
-    const dim3 grid((p.Tq + DQ_ROWS - 1) / DQ_ROWS, p.Hq, p.B);
-    return launch(flash_bwd_dq_kernel<DP>, grid, BW_THREADS, dq_smem<DP>(),
-                  true, p, st);
+    const dim3 grid((p.Tq + Q_ROWS - 1) / Q_ROWS, p.Hq, p.B);
+    return launch(flash_bwd_dq_kernel<DP>, grid, dq_smem<DP>(), p, st);
   }
   const dim3 grid((p.Tkv + KV_ROWS - 1) / KV_ROWS, p.Hkv, p.B);
-  return launch(flash_bwd_dkv_kernel<DP>, grid, BW_THREADS, dkv_smem<DP>(),
-                true, p, st);
+  return launch(flash_bwd_dkv_kernel<DP>, grid, dkv_smem<DP>(), p, st);
 }
 
 int run(Which w, const Params& p, int bf16, void* stream) {

@@ -1,7 +1,7 @@
 // Device helpers shared by the tensor-core kernels for Hopper (sm_90a):
 // the bf16 ones of flash_attention_sm90.cu and cascade_phase1_sm90.cu, and
-// the fp32 (3xTF32) ones of cascade_phase1.cu and flash_attention.cu (the
-// flash backward), which use the cp.async copies, the quad reductions and
+// the fp32 (3xTF32) ones of cascade_phase1.cu and flash_attention.cu,
+// which use the cp.async copies, the quad reductions and
 // the tf32 split and product (split_tf32, mma_tf32). Both cascade sources
 // take their key addressing and masking from here (key_rows, key_live,
 // tile_span, out_row), templated on each file's Params and tile width.
@@ -192,7 +192,7 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src,
 }
 
 // ---- 3xTF32: fp32 products on the tf32 tensor cores (the fp32 kernels of
-// cascade_phase1.cu and the fp32 flash backward of flash_attention.cu) ----
+// cascade_phase1.cu and the fp32 flash kernels of flash_attention.cu) ----
 
 // x as big + small for the tf32 tensor cores, which read the top 19 bits
 // of an operand register and ignore the low 13: big is x plus half a tf32
@@ -201,7 +201,8 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src,
 // This is CUTLASS's 3xTF32 split (cutlass/tfloat32.h:
 // round_half_ulp_truncate for big, its float() that clears the low 13 bits
 // for x - big); tests/test_torch_cuda.py::test_tf32x3_split_rule_on_card
-// and test_flash_bwd_tf32x3_split_on_card hold the unit to it.
+// and the flash twins test_flash_fwd_tf32x3_split_on_card and
+// test_flash_bwd_tf32x3_split_on_card hold the unit to it.
 __device__ __forceinline__ void split_tf32(float x, uint32_t& big,
                                            uint32_t& small) {
   big = __float_as_uint(x) + 0x1000u;

@@ -6,7 +6,7 @@ kernels phase runs every case in both dtypes (and merges and checks
 against the oracle), and ``tests/test_torch_cuda.py`` runs a subset. The
 gates of the fp32 cascade kernels and of the flash kernels live here too,
 with the 3xTF32 arithmetic of the fp32 tensor-core kernels (the cascade
-pair and the flash backward) in torch (``tf32_split``, ``einsum_3xtf32``),
+pair and the flash kernels) in torch (``tf32_split``, ``einsum_3xtf32``),
 which the tests hold the card and the gates to.
 Defaults: B 4 (the lengths in ``LENS``), Tq 76, Hq 32, Hkv 8, D 128, a
 cache of 1152 slots or a pool of 64-key pages, q in the cache's dtype as
@@ -33,7 +33,7 @@ TOL_PART = 1e-4     # partials relative to 1 + |plain|: m and l in both
 TOL_FLASH = {
     torch.float32: 2e-5,     # fp32 both sides, sums over <= 4096 keys or
                              # 4 x 4096 queries in another order (and the
-                             # backward's 3xTF32 products)
+                             # 3xTF32 products)
     torch.bfloat16: 8e-3}    # fp32 inside, outputs rounded to bf16: one
                              # bf16 ulp (2^-8 of the value) either way
 TOL_LSE = 1e-4      # flash lse (fp32 both sides), absolute

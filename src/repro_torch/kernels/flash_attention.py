@@ -11,11 +11,11 @@ in PERF.md's kernel table:
                                       GQA group summed inside the kernel
 
 For bfloat16 all three run on the tensor cores (``wgmma`` on TMA-staged
-tiles, ``csrc/flash_attention_sm90.cu``). For float32 they run in
-``csrc/flash_attention.cu``: the backward (#4, #5) on the tensor cores in
-3xTF32 (``mma.sync`` tf32, each product formed from three tf32 products,
-within 2^-21 of its fp32 value), the forward (#3) on the CUDA cores; so
-the fp32 path keeps fp32 accuracy and the training identity.
+tiles, ``csrc/flash_attention_sm90.cu``). For float32 all three run on
+the tensor cores in 3xTF32 in ``csrc/flash_attention.cu`` (``mma.sync``
+tf32, each product formed from three tf32 products, within 2^-21 of its
+fp32 value, each key tile's products summed in fp32); so the fp32 path
+keeps fp32 accuracy and the training identity.
 
 and :func:`flash_attention_bwd`, which computes ``delta = sum(do * o)`` in
 fp32 and composes the two backward kernels, as the JAX wrapper does.

@@ -15,10 +15,10 @@ its row and split below 8e-3, since the tensor-core kernels
 kernels do. q comes in the cache's dtype, as every caller passes it.
 Flash o/dq/dk/dv: max |kernel - plain| / max |plain| below
 ``cascade_cases.TOL_FLASH``, 2e-5 for fp32 (summation order and the
-backward's 3xTF32 products) and 8e-3 for bf16 (outputs rounded to bf16
+3xTF32 products) and 8e-3 for bf16 (outputs rounded to bf16
 on both sides: one bf16 ulp); lse absolute ``TOL_LSE`` 1e-4; o and dq over
 rows with a live key. bf16 runs all three flash kernels on the tensor
-cores (``csrc/flash_attention_sm90.cu``), fp32 the backward ones (in
+cores (``csrc/flash_attention_sm90.cu``), fp32 all three too (in
 3xTF32, ``csrc/flash_attention.cu``, pinned to the split rule and shown
 bitwise repeatable below); the tile-edge cases hold them at a
 partial 128-row block, a single query row, a kv_len that ends inside a
@@ -319,6 +319,52 @@ def test_flash_bwd_fp32_is_deterministic(dev, case):
              *tfa.flash_attention_bwd_dkv(*args, **kw))
     second = (tfa.flash_attention_bwd_dq(*args, **kw),
               *tfa.flash_attention_bwd_dkv(*args, **kw))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_flash_fwd_tf32x3_split_on_card(dev, monkeypatch):
+    """The fp32 forward kernel forms S = (Q*scale) K^T and O += P V by the
+    split rule of cascade_cases.tf32_split. On operands whose low 13 bits
+    are set, its o must match the plain forward with both products formed
+    by that rule to 1e-5 (max |diff| / max |emulated| over rows with a
+    live key); the test checks that its inputs put that emulation more
+    than 1e-4 from one tf32 product in place of three."""
+    (q, k, v, _), kw = _flash_case_inputs(dev, "causal")
+    assert all(((x.contiguous().view(torch.int32) & 0x1FFF) != 0)
+               .float().mean() > 0.99 for x in (q, k, v))
+    before = tfa.flash_attention_fwd.launches
+    o, _ = tfa.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_fwd.launches == before + 1
+    real = torch.einsum
+
+    def plain_with(einsum):
+        with monkeypatch.context() as mp:
+            mp.setattr(torch, "einsum", einsum)
+            return tfa.flash_attention_fwd_plain(q, k, v, **kw)
+
+    emu, lse = plain_with(cascade_cases.einsum_3xtf32)
+    one, _ = plain_with(lambda eq, a, b: real(
+        eq, cascade_cases.tf32_split(a)[0], cascade_cases.tf32_split(b)[0]))
+    live = lse > -1e29
+
+    def rel(a, b):
+        return ((a - b)[live].abs().max() / b[live].abs().max()).item()
+
+    assert rel(o, emu) < 1e-5, rel(o, emu)
+    assert rel(one, emu) > 1e-4, rel(one, emu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["causal", "ragged"])
+def test_flash_fwd_fp32_is_deterministic(dev, case):
+    """The fp32 forward kernel uses no atomics: two calls on the same
+    inputs give bitwise equal o and lse."""
+    (q, k, v, _), kw = _flash_case_inputs(dev, case)
+    first = tfa.flash_attention_fwd(q, k, v, **kw)
+    second = tfa.flash_attention_fwd(q, k, v, **kw)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 

@@ -211,7 +211,7 @@ def test_flash_wrappers_count_only_kernel_launches():
         torch.testing.assert_close(a, b_)
 
 
-# ------------------------------ the fp32 backward kernels' error budget --
+# ------------------------------------ the fp32 kernels' error budget --
 # (B, Hq, Hkv, T, D, [B,T,H,D] layout, options): the causal training
 # geometry at T 512, and a ragged case
 BUDGET_CASES = {
@@ -220,6 +220,46 @@ BUDGET_CASES = {
                dict(causal=True, q_offset=24, kv_len=[300, 231], window=128,
                     attn_softcap=50.0)),
 }
+
+
+def _budget_inputs(name):
+    """(q, k, v, do) of a BUDGET_CASES case in fp32 from a numpy seed, and
+    its options."""
+    b, hq, hkv, t, d, bthd, kw = BUDGET_CASES[name]
+    rng = np.random.default_rng(11)
+
+    def mk(h):
+        x = rng.standard_normal((b, t, h, d) if bthd else (b, h, t, d))
+        x = torch.from_numpy(x.astype(np.float32))
+        return x.transpose(1, 2) if bthd else x
+
+    kw = dict(kw)
+    if "kv_len" in kw:
+        kw["kv_len"] = torch.tensor(kw["kv_len"])
+    return (mk(hq), mk(hkv), mk(hkv), mk(hq)), kw
+
+
+def _in_float64(monkeypatch, fn):
+    """``fn()`` with the plain versions' fp32 arithmetic in float64: their
+    ``.float()`` casts and the fp32 buffers they make."""
+    made = {name: getattr(torch, name) for name in ("zeros", "full")}
+
+    def wide(make):
+        return lambda *a, dtype=None, **k_: make(
+            *a, dtype=torch.float64 if dtype == torch.float32 else dtype,
+            **k_)
+
+    with monkeypatch.context() as mp:
+        mp.setattr(torch.Tensor, "float", torch.Tensor.double)
+        for name, make in made.items():
+            mp.setattr(torch, name, wide(make))
+        return fn()
+
+
+def _rel_errs(out, ref, masks):
+    """max |out - ref| / max |ref| of each output over its mask."""
+    return [((x.double() - r)[m].abs().max() / r[m].abs().max()).item()
+            for x, r, m in zip(out, ref, masks)]
 
 
 @pytest.mark.parametrize("name", sorted(BUDGET_CASES))
@@ -231,18 +271,7 @@ def test_flash_bwd_tf32x3_error_budget(name, monkeypatch):
     float64 run of the plain versions on the same inputs, and within 4x
     of the plain fp32 versions' own error there."""
     from repro_torch.kernels import cascade_cases
-    b, hq, hkv, t, d, bthd, kw = BUDGET_CASES[name]
-    rng = np.random.default_rng(11)
-
-    def mk(h):
-        x = rng.standard_normal((b, t, h, d) if bthd else (b, h, t, d))
-        x = torch.from_numpy(x.astype(np.float32))
-        return x.transpose(1, 2) if bthd else x
-
-    q, k, v, do = mk(hq), mk(hkv), mk(hkv), mk(hq)
-    kw = dict(kw)
-    if "kv_len" in kw:
-        kw["kv_len"] = torch.tensor(kw["kv_len"])
+    (q, k, v, do), kw = _budget_inputs(name)
     o, lse = tfa.flash_attention_fwd_plain(q, k, v, **kw)
     delta = (do * o).sum(-1)
     live = lse > -1e29
@@ -252,28 +281,47 @@ def test_flash_bwd_tf32x3_error_budget(name, monkeypatch):
         return (tfa.flash_attention_bwd_dq_plain(*args, **kw),
                 *tfa.flash_attention_bwd_dkv_plain(*args, **kw))
 
-    with monkeypatch.context() as mp:   # the same arithmetic in float64
-        zeros = torch.zeros
-        mp.setattr(torch.Tensor, "float", torch.Tensor.double)
-        mp.setattr(torch, "zeros", lambda *a, dtype=None, **k_: zeros(
-            *a, dtype=torch.float64 if dtype == torch.float32 else dtype,
-            **k_))
-        ref = run(torch.float64)
+    ref = _in_float64(monkeypatch, lambda: run(torch.float64))
     assert all(x.dtype == torch.float64 for x in ref)
-
-    def errs(out):
-        """max |out - ref| / max |ref| of dq (rows with a live key), dk
-        and dv."""
-        return [((x.double() - r)[m].abs().max() / r[m].abs().max()).item()
-                for x, r, m in zip(out, ref, (live, True, True))]
-
-    fp32 = errs(run(torch.float32))
+    masks = (live, True, True)     # dq over rows with a live key
+    fp32 = _rel_errs(run(torch.float32), ref, masks)
     with monkeypatch.context() as mp:
         mp.setattr(torch, "einsum", cascade_cases.einsum_3xtf32)
-        emu = errs(run(torch.float32))
+        emu = _rel_errs(run(torch.float32), ref, masks)
     tol = cascade_cases.TOL_FLASH[torch.float32]
     assert all(e <= tol for e in emu), (emu, fp32)
     assert all(e <= 4 * f for e, f in zip(emu, fp32)), (emu, fp32)
+
+
+@pytest.mark.parametrize("name", sorted(BUDGET_CASES))
+def test_flash_fwd_tf32x3_error_budget(name, monkeypatch):
+    """The fp32 forward kernel forms S = (Q*scale) K^T and O += P V in
+    3xTF32 on the tensor cores. The plain forward with both products made
+    that way keeps o (rows with a live key) within the card's fp32 gate of
+    a float64 run of the plain forward on the same inputs and within 4x of
+    the plain fp32 forward's own error there, and lse within ``TOL_LSE``
+    of the float64 one."""
+    from repro_torch.kernels import cascade_cases
+    (q, k, v, _), kw = _budget_inputs(name)
+
+    def run(dtype):
+        return tfa.flash_attention_fwd_plain(
+            *(x.to(dtype) for x in (q, k, v)), **kw)
+
+    o_ref, lse_ref = _in_float64(monkeypatch, lambda: run(torch.float64))
+    assert o_ref.dtype == lse_ref.dtype == torch.float64
+    live = lse_ref > -1e29
+    assert live.any()
+    o32, _ = run(torch.float32)
+    with monkeypatch.context() as mp:
+        mp.setattr(torch, "einsum", cascade_cases.einsum_3xtf32)
+        o_emu, lse_emu = run(torch.float32)
+    (fp32,) = _rel_errs([o32], [o_ref], [live])
+    (emu,) = _rel_errs([o_emu], [o_ref], [live])
+    assert emu <= cascade_cases.TOL_FLASH[torch.float32], (emu, fp32)
+    assert emu <= 4 * fp32, (emu, fp32)
+    lse_err = (lse_emu.double() - lse_ref)[live].abs().max().item()
+    assert lse_err <= cascade_cases.TOL_LSE, lse_err
 
 
 def test_attend_kernel_refuses_extra_mask():
