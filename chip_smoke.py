@@ -41,7 +41,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
            cascade kernels (cascade_phase1.cu), no bf16 one
   oracle   the same fp32 runs with drafts that hold the greedy reference,
            spoiled from a depth that varies by row and cycle, so a cycle
-           accepts a path along the trunk and on into a branch: tokens held
+           accepts a path along the trunk and on into a branch (and, with
+           the third level, on into a third-level branch): tokens held
            to the gather path and to plain greedy, alpha to the oracle's
            own count of what each cycle must accept, and the target and
            feature caches the cycles commit to a plain prefill of the
@@ -56,6 +57,22 @@ Phases, each printing one JSON line (any failure exits non-zero):
            idle share, top kernels, and the fp32 phase-1 kernel
            (phase1_tf32x3_kernel) by name: at least 40 (paged) or 36
            (dense) launches a replay and its device ms a replay
+  modes    fp32 greedy through ``generate_ondevice`` (kernel path, 32
+           new tokens) in the modes beside d2sd: naive_k, eagle (drafter
+           1 causal), dflash_second (drafter 1 as drafter 2) and d2sd
+           with the third level, paged and dense: tokens held to plain
+           greedy, cascade launches a cycle held to the mode's count
+           (36 dense; paged 38, 66, 40, 42: 36 target layers and 2 a
+           drafter pass), the third level's host loop held to its graph
+           loop; each mode's paged loop profiled (ms and device ms a
+           replay, graph pool bytes, phase-1 launches by name)
+  sampled  fp32 d2sd at temperature 1, paged, kernel path, one seed: the
+           graph loop's tokens and every cycle's acceptance uniforms
+           held to the host loop's (and no two cycles' uniforms equal),
+           the gather path's agreement reported, the graph loop
+           profiled; then the lossless check at tiny size through the
+           kernels (one cycle over 2000 copies of a prompt: TV of the
+           first token against the target's softmax, every mode)
   bf16     the same runs in bfloat16 (the config's dtype), paged and dense:
            tokens/s, agreement with the gather path (where a row first
            leaves it, the top-2 gap of a plain bf16 forward over the shared
@@ -72,6 +89,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
            agreement with the eager run
   graph_profile  the same for six bf16 graph replays a cache, the
            phase-1 kernel being phase1_sm90_kernel
+  modes_bf16  each mode of the modes phase and d2sd sampled in bf16,
+           paged, graph loop: ms a replay, decode tokens/s, launches
+           through the sm90 kernels, profile
   train_fp32   paper_target.full() cut to 8 layers (the only cut; 2.79e9
            params, AdamW as optimizer_for picks), remat on, batch 2 x 4096
            tokens of the mixture stream: three steps through the fp32 flash
@@ -689,26 +709,33 @@ def register_oracle(seq):
     """Register the draft strategy ``"oracle"`` and return its class.
 
     It runs the real D^2SD draft (both drafters, reading their feature
-    caches), then puts the greedy reference ``seq`` [B, L] (prompt then
-    greedy tokens, indexed by position) into the tree, spoiled from a
-    depth that varies by row and cycle: on the trunk past ``cut_t <
-    gamma/2``, on the branches past ``cut_b > cut_t``. Whenever a fork lies at or
-    below ``cut_t`` the accepted path runs along the trunk and on into
-    that branch, so a cycle commits up to gamma tokens through tree rows
+    caches, and with ``spec.third_level`` the third level), then puts the
+    greedy reference ``seq`` [B, L] (prompt then greedy tokens, indexed by
+    position) into the tree, spoiled from a depth that varies by row and
+    cycle: on the trunk past ``cut_t < gamma/2``, on the second-level
+    branches past ``cut_b > cut_t``, and on the third-level branches past
+    ``cut_3 > cut_b`` (with the third level, ``cut_b <= gamma-2``).
+    Whenever a fork lies at or below ``cut_t`` the
+    accepted path runs along the trunk and on into that branch, and on
+    into its third-level branch when that one forks at or below
+    ``cut_b``, so a cycle commits up to gamma tokens through tree rows
     other than the root. Its counters, kept on ``seq``'s device so that a
     draft makes no host sync and a CUDA graph can capture it: what the
     active rows must commit and the active row-cycles, so that
     ``committed / row_cycles`` is the alpha ``generate`` must report, and
     the active row-cycles whose accepted path must end in a branch
-    (``Oracle.read()``, zeroed by ``Oracle.reset()``)."""
+    (``branch_paths``) and in a third-level branch (``third_paths``)
+    (``Oracle.read()``, zeroed by ``Oracle.reset()``). Greedy only: the
+    drafts replace sampled tokens without their distributions."""
     from repro_torch.core import strategies as st
     from repro_torch.core import tree as tree_lib
     seq = seq.long()
+    keys = ("committed", "row_cycles", "branch_paths", "third_paths")
 
     @st.register_strategy("oracle")
     class Oracle(st.D2SDStrategy):
-        # committed, row_cycles, branch_paths
-        counts = torch.zeros((3,), dtype=torch.long, device=seq.device)
+        counts = torch.zeros((len(keys),), dtype=torch.long,
+                             device=seq.device)
 
         @classmethod
         def reset(cls):
@@ -716,21 +743,29 @@ def register_oracle(seq):
 
         @classmethod
         def read(cls):
-            return dict(zip(("committed", "row_cycles", "branch_paths"),
-                            cls.counts.tolist()))
+            return dict(zip(keys, cls.counts.tolist()))
 
-        def draft(self, bundle, state):
-            tree = super().draft(bundle, state)
-            g, vocab = bundle.spec.gamma, bundle.target_cfg.vocab_size
+        def draft(self, bundle, state, gen):
+            res = super().draft(bundle, state, gen)
+            tree = res.tree
+            spec = bundle.spec
+            if spec.temperature > 0:
+                fail("the oracle's drafts are greedy only")
+            g, vocab = spec.gamma, bundle.target_cfg.vocab_size
+            n2 = g + spec.top_k_branches * (g - 1)      # first third-level
             length = state.length.long()
             rows = torch.arange(tree.b, device=length.device)
             pos = (length[:, None] + tree.depth).clamp(max=seq.shape[1] - 1)
             true = torch.gather(seq, 1, pos)
             cut_t = (7 * length + 3 * rows) % (g // 2)
-            cut_b = cut_t + 1 + (5 * length + rows) % (g - 1 - cut_t)
-            on_trunk = torch.arange(tree.n, device=length.device) < g
-            good = tree.depth <= torch.where(on_trunk[None], cut_t[:, None],
-                                             cut_b[:, None])
+            span = g - 1 - cut_t - int(spec.third_level)
+            cut_b = cut_t + 1 + (5 * length + rows) % span
+            cut_3 = cut_b + 1 + (3 * length + 2 * rows) % (g - 1 - cut_b
+                                                           ).clamp(min=1)
+            node = torch.arange(tree.n, device=length.device)[None]
+            cut = torch.where(node < g, cut_t[:, None], torch.where(
+                node < n2, cut_b[:, None], cut_3[:, None]))
+            good = tree.depth <= cut
             tokens = torch.where(good, true, (true + 1) % vocab)
             tokens = torch.where(tree.valid, tokens, tree.tokens)
             tokens[:, 0] = tree.tokens[:, 0]
@@ -738,8 +773,10 @@ def register_oracle(seq):
             best, n_acc, _ = tree_lib.best_path(tree, acc)
             Oracle.counts += torch.stack([
                 ((n_acc + 1) * state.active).sum(), state.active.sum(),
-                ((best >= g) & state.active).sum()])
-            return dataclasses.replace(tree, tokens=tokens)
+                ((best >= g) & state.active).sum(),
+                ((best >= n2) & state.active).sum()])
+            return dataclasses.replace(res, tree=dataclasses.replace(
+                tree, tokens=tokens))
 
     return Oracle
 
@@ -771,14 +808,16 @@ def committed_cache_error(bundle, prompts, seq, cache_impl,
     state = prefill(bundle, engine_init(
         bundle, b, p + max_new + 2 * bundle.spec.gamma + 8,
         cache_impl=cache_impl, page_size=page_size, device=dev), prompts)
+    gen = torch.Generator(device=dev)
     if ondevice:
-        state = pl.OnDeviceLoop(bundle, state, max_new).run().state
+        state = pl.OnDeviceLoop(bundle, state, max_new, gen).run().state
     else:
         while True:
             active = state.length < p + max_new - 1
             if not bool(active.any()):
                 break
-            state, _ = pl.decode_cycle(bundle, state.replace(active=active))
+            state, _ = pl.decode_cycle(bundle, state.replace(active=active),
+                                       gen)
     lens = state.length.tolist()
     for feat in (state.d1_feat, state.d2_feat):
         if feat["length"].tolist() != lens:
@@ -825,7 +864,8 @@ def build_bundle(dtype):
                          drafter_init(dcfg, seed=2, device=DEVICE))
 
 
-def run_generate(bundle, prompts, impl, cache_impl, ondevice=False):
+def run_generate(bundle, prompts, impl, cache_impl, ondevice=False,
+                 max_new=MAX_NEW, seed=0):
     """One ``generate`` call (the host loop) or, with ``ondevice``, one
     ``generate_ondevice`` call (the CUDA graph loop): its tokens and a
     record of its times."""
@@ -833,17 +873,19 @@ def run_generate(bundle, prompts, impl, cache_impl, ondevice=False):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn = pl.generate_ondevice if ondevice else pl.generate
-    res = fn(pl.with_attn_impl(bundle, impl), prompts, MAX_NEW,
+    res = fn(pl.with_attn_impl(bundle, impl), prompts, max_new, seed=seed,
              cache_impl=cache_impl, page_size=64, device=DEVICE)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     toks = res["tokens"]
     vocab = bundle.target_cfg.vocab_size
-    if toks.shape != (prompts.shape[0], MAX_NEW) or toks.min() < 0 \
+    if toks.shape != (prompts.shape[0], max_new) or toks.min() < 0 \
             or toks.max() >= vocab:
         fail(f"{impl}/{cache_impl}: bad tokens {toks.shape}")
     n_tok = toks.size
-    info = {"impl": impl, "cache": cache_impl,
+    info = {"impl": impl, "cache": cache_impl, "mode": bundle.spec.mode,
+            "third_level": bundle.spec.third_level,
+            "temperature": bundle.spec.temperature,
             "loop": "graph" if ondevice else "host",
             "cycles": res["n_cycles"], "alpha": res["alpha"],
             "prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
@@ -1000,43 +1042,329 @@ def graph_fp32(bundle, prompts, eager, ref_toks, gaps):
           "near_ties": {k: v for k, v in ties.items() if v}})
 
 
+# the draft modes beside d2sd: name -> (mode, third_level), wired as the
+# paper's tables run them (``mode_bundle``)
+MODES = {"naive_k": ("naive_k", False), "eagle": ("eagle", False),
+         "dflash_second": ("dflash_second", False),
+         "third_level": ("d2sd", True)}
+MODE_NEW = 32           # tokens a row in the modes and sampled phases
+SAMPLE_T, SAMPLE_SEED = 1.0, 5
+
+
+def mode_bundle(bundle, name, temperature=0.0):
+    """``bundle`` in a mode of ``MODES`` (or a registered mode's name):
+    eagle drafts with drafter 1 made causal, dflash_second reuses drafter
+    1's weights as drafter 2."""
+    mode, third = MODES.get(name, (name, False))
+    out = dataclasses.replace(bundle, spec=dataclasses.replace(
+        bundle.spec, mode=mode, third_level=third, temperature=temperature))
+    if mode == "eagle":
+        out = dataclasses.replace(out, d1_cfg=dataclasses.replace(
+            out.d1_cfg, causal=True))
+    if mode == "dflash_second":
+        out = dataclasses.replace(out, d2_params=out.d1_params)
+    return out
+
+
+def _mode_run(bundle, prompts, cache, sm90=False, **kw):
+    """One graph-loop run of ``bundle`` (kernel path) with the cascade
+    counts zeroed just before and read just after: the eager first cycle
+    and the capture each run a cycle's wrappers once, so each wrapper of
+    the cache must have counted twice ``replay_launches`` and the others
+    nothing (``sm90``: the bf16 kernels' counts)."""
+    from repro_torch.core import pipeline as pl
+    bundle = pl.with_attn_impl(bundle, "kernel")
+    entry = ("cascade_phase1_paged" if cache == "paged"
+             else "cascade_phase1") + ("_sm90" if sm90 else "")
+    want = replay_launches(bundle, cache)
+    _zero_launches()
+    toks, info = run_generate(bundle, prompts, "kernel", cache,
+                              ondevice=True, max_new=MODE_NEW, **kw)
+    counts = _launches()
+    info["launches"] = counts
+    info["replay_launches"] = want
+    if counts[entry] != 2 * want or sum(counts.values()) != counts[entry]:
+        fail(f"{bundle.spec.mode} {cache}: cascade launches {counts} in "
+             f"the eager cycle and the capture, expected {2 * want} through "
+             f"{entry} alone")
+    return toks, info
+
+
+def modes_path(bundle, prompts, ref_toks, gaps):
+    """fp32 greedy, full width and depth, through ``generate_ondevice``
+    (kernel path): each mode of ``MODES`` on the paged and dense caches,
+    tokens held to plain greedy (near ties excepted), the cascade
+    launches of a cycle held to ``replay_launches`` (36 dense; paged 38
+    naive_k, 40 dflash_second, 42 third_level, 66 eagle), the third
+    level's host loop (``generate``) held to its graph run; then each
+    mode's paged loop profiled (``profile_loop``: wall and device ms a
+    replay, the phase-1 kernel's launches by name)."""
+    from repro_torch.core import pipeline as pl
+    runs, ties, profiles = [], {}, {}
+    for name in MODES:
+        mb = pl.with_attn_impl(mode_bundle(bundle, name), "kernel")
+        for cache in ("paged", "dense"):
+            toks, info = _mode_run(mb, prompts, cache)
+            info["name"] = name
+            runs.append(info)
+            ties[f"{name}/{cache} vs greedy"] = agreement(
+                name, toks, ref_toks[:, :MODE_NEW], gaps)
+            if name == "third_level" and cache == "paged":
+                ht, hinfo = run_generate(mb, prompts, "kernel", cache,
+                                         max_new=MODE_NEW)
+                hinfo["name"] = name
+                runs.append(hinfo)
+                if not np.array_equal(ht, toks) or \
+                        hinfo["cycles"] != info["cycles"]:
+                    fail(f"third_level: the host loop ({hinfo['cycles']} "
+                         f"cycles) and the graph loop ({info['cycles']}) "
+                         "commit other tokens")
+        profiles[name] = profile_loop(mb, prompts, "paged",
+                                      replay_launches(mb, "paged"))
+    emit({"phase": "modes", "ok": True, "dtype": "float32",
+          "max_new": MODE_NEW, "runs": runs,
+          "near_ties": {k: v for k, v in ties.items() if v},
+          "profile_paged": profiles})
+    return profiles
+
+
+class DrawLog:
+    """Records the acceptance uniforms of every sampling verify into a
+    device buffer (``index_copy_`` at a device counter, which a CUDA
+    graph captures), so that the graph loop's draws can be held to the
+    host loop's and to each other."""
+
+    def __init__(self, cap, shape):
+        from repro_torch.core import verify as verify_lib
+        self.lib, self.real = verify_lib, verify_lib.sampling_draws
+        self.buf = torch.zeros((cap, *shape), device=DEVICE)
+        self.n = torch.zeros((1,), dtype=torch.long, device=DEVICE)
+        verify_lib.sampling_draws = self._draws
+
+    def _draws(self, gen, tree, vocab, max_children):
+        u, noise = self.real(gen, tree, vocab, max_children)
+        self.buf.index_copy_(0, self.n.clamp(max=self.buf.shape[0] - 1),
+                             u[None])
+        self.n += 1
+        return u, noise
+
+    def read(self):
+        return self.buf[:int(self.n)].clone()
+
+    def close(self):
+        self.lib.sampling_draws = self.real
+
+
+def sampled_path(bundle, prompts):
+    """fp32 at temperature SAMPLE_T, d2sd, paged, kernel path, one seed:
+    the graph loop token-identical to the host loop, both drawing the
+    same acceptance uniforms every cycle and no two cycles the same ones;
+    the gather path's agreement for the same seed reported; the graph
+    loop profiled (``profile_loop``); then the
+    lossless check at tiny size through the kernels (``first_token_tv``
+    for every mode)."""
+    from repro_torch.core import pipeline as pl
+    sb = pl.with_attn_impl(mode_bundle(bundle, "d2sd",
+                                       temperature=SAMPLE_T), "kernel")
+    b, g, k = prompts.shape[0], sb.spec.gamma, sb.spec.top_k_branches
+    log = DrawLog(MODE_NEW + 16, ((g - 1) * (k + 1), b))
+    res = {}
+    try:
+        for loop in ("host", "graph"):
+            log.n.zero_()
+            if loop == "graph":
+                toks, info = _mode_run(sb, prompts, "paged",
+                                       seed=SAMPLE_SEED)
+            else:
+                toks, info = run_generate(sb, prompts, "kernel", "paged",
+                                          max_new=MODE_NEW,
+                                          seed=SAMPLE_SEED)
+            res[loop] = (toks, info, log.read())
+    finally:
+        log.close()
+    (ht, hinfo, hu), (gt, ginfo, gu) = res["host"], res["graph"]
+    flat = gu.reshape(gu.shape[0], -1)
+    same = (flat[:, None] == flat[None]).all(-1)
+    repeats = int(same.sum()) - flat.shape[0]
+    if not np.array_equal(ht, gt) or hinfo["cycles"] != ginfo["cycles"]:
+        fail(f"sampled: the graph loop ({ginfo['cycles']} cycles) and the "
+             f"host loop ({hinfo['cycles']}) commit other tokens")
+    if gu.shape[0] != ginfo["cycles"] or not torch.equal(gu, hu) or repeats:
+        fail(f"sampled: graph draws {tuple(gu.shape)} against the host "
+             f"loop's {tuple(hu.shape)} over {ginfo['cycles']} cycles, "
+             f"equal {torch.equal(gu, hu) if gu.shape == hu.shape else 0}, "
+             f"{repeats} repeated")
+    at, ainfo = run_generate(sb, prompts, "gather", "paged", ondevice=True,
+                             max_new=MODE_NEW, seed=SAMPLE_SEED)
+    prof = profile_loop(sb, prompts, "paged", replay_launches(sb, "paged"),
+                        seed=SAMPLE_SEED)
+    tvs = lossless_on_card()
+    emit({"phase": "sampled", "ok": True, "dtype": "float32",
+          "temperature": SAMPLE_T, "seed": SAMPLE_SEED, "max_new": MODE_NEW,
+          "runs": [hinfo, ginfo, ainfo], "draw_cycles": gu.shape[0],
+          "draws_equal_host": True, "repeated_draws": repeats,
+          "agree_with_gather": float((at == gt).mean()),
+          "profile_paged": prof, "lossless": tvs})
+
+
+# test_lossless.py's tiny model: vocabulary, rows of the one-cycle check
+LOSSLESS_V, LOSSLESS_ROWS = 13, 2000
+LOSSLESS_MODES = [("d2sd", False, 1.0), ("d2sd", True, 1.0),
+                  ("naive_k", False, 1.0), ("naive_k", False, 0.5),
+                  ("eagle", False, 1.0), ("dflash", False, 1.0)]
+
+
+def lossless_bundle(mode, third=False, temperature=1.0, impl="gather",
+                    device=None, d_model=32, d_drafter=16):
+    """``tests/test_lossless.py``'s sampling model (V 13, a 2-layer target,
+    1-layer drafters, gamma 4, K 2) with random seeded weights on
+    ``device`` (default DEVICE), two heads of ``d_model`` / ``d_drafter``
+    width; eagle's drafter causal."""
+    from repro_torch.config.base import ModelConfig, SpecConfig
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core.drafter import DrafterConfig, drafter_init
+    from repro_torch.models import lm
+    device = device or DEVICE
+    tcfg = ModelConfig(num_layers=2, d_model=d_model, num_heads=2,
+                       num_kv_heads=2, d_ff=2 * d_model,
+                       vocab_size=LOSSLESS_V, max_seq_len=64, remat=False,
+                       dtype="float32", attn_impl=impl)
+    dcfg = DrafterConfig(d_model=d_drafter, num_layers=1, num_heads=2,
+                         num_kv_heads=2, d_ff=2 * d_drafter,
+                         vocab_size=LOSSLESS_V,
+                         target_feature_dim=lm.feature_dim(tcfg), gamma=4,
+                         dtype="float32", causal=mode == "eagle",
+                         attn_impl=impl)
+    spec = SpecConfig(gamma=4, top_k_branches=2, mode=mode,
+                      third_level=third, temperature=temperature)
+    return pl.SpecBundle(tcfg, dcfg, dcfg, spec,
+                         lm.lm_init(tcfg, seed=0, device=device),
+                         drafter_init(dcfg, seed=1, device=device),
+                         drafter_init(dcfg, seed=2, device=device))
+
+
+def first_token_tv(bundle, n_rows=LOSSLESS_ROWS, device=None, seed=11,
+                   cache_impl="dense"):
+    """One decode cycle over ``n_rows`` copies of one prompt (a greedy
+    prefill, so every row shares the anchor; each row its own draws):
+    (TV of the first committed token against the target's softmax at the
+    anchor and temperature, the bound max(0.06, 2.5 sqrt(V/4n)) of
+    ``tests/test_lossless.py``)."""
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core.state import engine_init, prefill
+    from repro_torch.models import lm
+    dev = torch.device(device or DEVICE)
+    prompt = torch.as_tensor([[3, 1, 4, 1, 5, 9]], device=dev)
+    v = bundle.target_cfg.vocab_size
+    state = prefill(bundle, engine_init(bundle, n_rows, 32,
+                                        cache_impl=cache_impl, page_size=16,
+                                        device=dev),
+                    prompt.expand(n_rows, -1))
+    full = torch.cat([prompt, state.anchor[:1, None]], 1)
+    logits = lm.forward(bundle.target_params, full, bundle.target_cfg)[
+        "logits"][0, -1].float()
+    p_ref = torch.softmax(logits / bundle.spec.temperature, -1).cpu().numpy()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    _, out = pl.decode_cycle(bundle, state, gen, collect_stats=False)
+    first = out["tokens"][:, 0].cpu().numpy()
+    tv = 0.5 * np.abs(np.bincount(first, minlength=v) / n_rows - p_ref).sum()
+    return float(tv), max(0.06, 2.5 * float(np.sqrt(v / (4 * n_rows))))
+
+
+def lossless_on_card():
+    """``first_token_tv`` of every mode of LOSSLESS_MODES through the
+    kernels on a paged cache (head_dim 64), each cycle's cascade
+    launches counted."""
+    out = []
+    for mode, third, temp in LOSSLESS_MODES:
+        _zero_launches()
+        tv, bound = first_token_tv(lossless_bundle(
+            mode, third, temp, impl="kernel", d_model=128, d_drafter=128),
+            cache_impl="paged")
+        launches = _launches()
+        rec = {"mode": mode, "third_level": third, "temperature": temp,
+               "tv": tv, "bound": bound, "launches": launches}
+        out.append(rec)
+        if tv >= bound or not launches["cascade_phase1_paged"]:
+            fail(f"lossless on the card: {rec}")
+    return out
+
+
+def modes_bf16(bundle, prompts):
+    """bf16, paged, kernel path, graph loop: each mode's ms a replay and
+    decode tokens/s, its cascade launches (through the sm90 kernels) and
+    its profile (``profile_loop``); then the same for d2sd sampled at
+    SAMPLE_T."""
+    from repro_torch.core import pipeline as pl
+    runs, profiles = [], {}
+    for name in MODES:
+        mb = pl.with_attn_impl(mode_bundle(bundle, name), "kernel")
+        _, info = _mode_run(mb, prompts, "paged", sm90=True)
+        info["name"] = name
+        runs.append(info)
+        profiles[name] = profile_loop(mb, prompts, "paged",
+                                      replay_launches(mb, "paged"))
+    sb = pl.with_attn_impl(mode_bundle(bundle, "d2sd",
+                                       temperature=SAMPLE_T), "kernel")
+    _, info = _mode_run(sb, prompts, "paged", sm90=True,
+                        seed=SAMPLE_SEED)
+    info["name"] = "d2sd_sampled"
+    runs.append(info)
+    profiles["d2sd_sampled"] = profile_loop(sb, prompts, "paged",
+                                            replay_launches(sb, "paged"),
+                                            seed=SAMPLE_SEED)
+    emit({"phase": "modes_bf16", "ok": True, "dtype": "bfloat16",
+          "max_new": MODE_NEW, "runs": runs, "profile_paged": profiles})
+
+
 def oracle_path(bundle, prompts, ref_toks, gaps):
     """The fp32 runs again with the oracle's drafts, which accept several
-    tokens a cycle through trunk and branch rows of the tree; then the
-    caches those cycles commit, held to a plain prefill."""
+    tokens a cycle through trunk and branch rows of the tree, and then
+    with the third level too, whose drafts accept paths that end in a
+    third-level branch; after each run the caches those cycles commit,
+    held to a plain prefill."""
     from repro_torch.core import pipeline as pl
     seq = torch.as_tensor(np.concatenate([prompts, ref_toks], 1),
                           device=DEVICE)
     oracle = register_oracle(seq)
-    bundle = dataclasses.replace(
-        bundle, spec=dataclasses.replace(bundle.spec, mode="oracle"))
     prompts_t = torch.as_tensor(prompts, device=DEVICE)
     exact = gaps.min() >= NEAR_TIE      # no near tie: the oracle's count holds
-    runs, toks = [], {}
-    _zero_launches()
-    for impl in ("kernel", "gather"):
-        for cache in ("paged", "dense"):
-            oracle.reset()
-            toks[(impl, cache)], info = run_generate(bundle, prompts, impl,
-                                                     cache)
-            count = oracle.read()
-            info["oracle_alpha"] = count["committed"] / count["row_cycles"]
-            info["branch_paths"] = count["branch_paths"]
-            runs.append(info)
-            if exact and info["alpha"] != info["oracle_alpha"]:
-                fail(f"oracle {impl}/{cache}: alpha {info['alpha']} but the "
-                     f"drafts must give {info['oracle_alpha']}")
-            if info["oracle_alpha"] < 2 or count["branch_paths"] == 0:
-                fail(f"oracle {impl}/{cache}: drafts too weak: {info}")
-            info["cache_rel_err"] = committed_cache_error(
-                pl.with_attn_impl(bundle, impl), prompts_t, seq, cache)
-            if info["cache_rel_err"] > TOL_CACHE:
-                fail(f"oracle {impl}/{cache}: committed caches differ from "
-                     f"a prefill of the same tokens: {info}")
-        if impl == "kernel":
-            launches = _launches()
-            _check_fp32_launches(launches, "oracle")
-    ties = _check_runs(toks, ref_toks[:, :MAX_NEW], gaps)
+    runs, toks, launches, ties = [], {}, {}, {}
+    for third in (False, True):
+        ob = dataclasses.replace(bundle, spec=dataclasses.replace(
+            bundle.spec, mode="oracle", third_level=third))
+        level = "third" if third else "second"
+        _zero_launches()
+        for impl in ("kernel", "gather"):
+            for cache in ("paged", "dense"):
+                oracle.reset()
+                toks[(impl, cache)], info = run_generate(ob, prompts, impl,
+                                                         cache)
+                count = oracle.read()
+                info["oracle_alpha"] = count["committed"] / count[
+                    "row_cycles"]
+                info["branch_paths"] = count["branch_paths"]
+                info["third_paths"] = count["third_paths"]
+                runs.append(info)
+                if exact and info["alpha"] != info["oracle_alpha"]:
+                    fail(f"oracle {level} {impl}/{cache}: alpha "
+                         f"{info['alpha']} but the drafts must give "
+                         f"{info['oracle_alpha']}")
+                if info["oracle_alpha"] < 2 or count["branch_paths"] == 0 \
+                        or (count["third_paths"] > 0) != third:
+                    fail(f"oracle {level} {impl}/{cache}: drafts too weak: "
+                         f"{info}")
+                info["cache_rel_err"] = committed_cache_error(
+                    pl.with_attn_impl(ob, impl), prompts_t, seq, cache)
+                if info["cache_rel_err"] > TOL_CACHE:
+                    fail(f"oracle {level} {impl}/{cache}: committed caches "
+                         f"differ from a prefill of the same tokens: {info}")
+            if impl == "kernel":
+                launches[level] = _launches()
+                _check_fp32_launches(launches[level], f"oracle {level}")
+        ties.update({f"{level} {k}": v for k, v in _check_runs(
+            toks, ref_toks[:, :MAX_NEW], gaps).items()})
     emit({"phase": "oracle", "ok": True, "dtype": "float32",
           "alpha_checked": bool(exact), "tol_cache": TOL_CACHE,
           "runs": runs, "launches": launches, "near_ties": ties})
@@ -1202,9 +1530,9 @@ PHASE1_KERNEL = {"float32": "phase1_tf32x3_kernel",
                  "bfloat16": "phase1_sm90_kernel"}
 
 
-def profile_graph(bundle, prompts, n_cycles=6):
-    """``n_cycles`` replays of the graph loop (kernel path) in the bundle's
-    dtype, each followed by the loop's condition read as
+def profile_loop(bundle, prompts, cache, want, n_cycles=6, seed=0):
+    """``n_cycles`` replays of the graph loop of ``bundle`` (its read path)
+    on ``cache``, each followed by the loop's condition read as
     ``generate_ondevice`` reads it: first unprofiled (host clock, the
     cycle's wall time), then under torch.profiler (device time, top
     kernels, and the phase-1 cascade kernel's launches and device time a
@@ -1212,70 +1540,99 @@ def profile_graph(bundle, prompts, n_cycles=6):
     profiler traces one more replay first and discards it (its warm-up
     step): the first traced replay of a graph can lose kernels from the
     trace (a bf16 paged trace once counted 236 of six replays' 240
-    phase-1 launches)."""
+    phase-1 launches). Fails if the trace holds more than ``want``
+    phase-1 launches a replay; fewer is a trace that lost events, which
+    the caller judges."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from repro_torch.core import pipeline as pl
     from repro_torch.core.state import engine_init, prefill
-    bundle = pl.with_attn_impl(bundle, "kernel")
     prompts_t = torch.as_tensor(prompts, device=DEVICE)
     b, p = prompts_t.shape
-    n_drafter = bundle.d1_cfg.num_layers + bundle.d2_cfg.num_layers
     dn = bundle.target_cfg.dtype
     kernel = PHASE1_KERNEL[dn]
-    out = {}
-    for cache, want in (("paged", bundle.target_cfg.num_layers + n_drafter),
-                        ("dense", bundle.target_cfg.num_layers)):
-        state = prefill(bundle, engine_init(
-            bundle, b, p + MAX_NEW + 2 * bundle.spec.gamma + 8,
-            cache_impl=cache, page_size=64, device=DEVICE), prompts_t)
-        loop = pl.OnDeviceLoop(bundle, state, MAX_NEW)
-        try:
-            loop.start()
-            first = {"first_cycle_s": loop.first_s,
-                     "capture_s": loop.capture_s,
-                     "graph_pool_bytes": loop.graph_pool_bytes}
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(n_cycles):
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    state = prefill(bundle, engine_init(
+        bundle, b, p + MAX_NEW + 2 * bundle.spec.gamma + 8,
+        cache_impl=cache, page_size=64, device=DEVICE), prompts_t, gen,
+        temperature=bundle.spec.temperature)
+    loop = pl.OnDeviceLoop(bundle, state, MAX_NEW, gen)
+    try:
+        loop.start()
+        first = {"first_cycle_s": loop.first_s, "capture_s": loop.capture_s,
+                 "graph_pool_bytes": loop.graph_pool_bytes}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_cycles):
+            loop.advance()
+            loop.more()
+        wall = 1e3 * (time.perf_counter() - t0) / n_cycles
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=n_cycles,
+                                       repeat=1)) as prof:
+            for _ in range(1 + n_cycles):
                 loop.advance()
                 loop.more()
-            wall = 1e3 * (time.perf_counter() - t0) / n_cycles
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA],
-                         schedule=schedule(wait=0, warmup=1,
-                                           active=n_cycles,
-                                           repeat=1)) as prof:
-                for _ in range(1 + n_cycles):
-                    loop.advance()
-                    loop.more()
-                    torch.cuda.synchronize()
-                    prof.step()
-        finally:
-            loop.close()
-        del loop, state
-        rows = _device_rows(prof)
-        busy = sum(r[1] for r in rows) / n_cycles or None
-        phase1 = [(ms, c) for k, ms, c in rows if kernel in k]
-        n = sum(c for _, c in phase1)
-        out[cache] = {
-            **first, "replays": n_cycles, "ms_per_cycle": wall,
-            "device_ms_per_cycle": busy,
-            "idle_share": busy and 1.0 - busy / wall,
-            "kernels_per_cycle": sum(r[2] for r in rows) / n_cycles,
-            "phase1_launches_per_cycle": n / n_cycles,
-            "phase1_ms_per_cycle": sum(ms for ms, _ in phase1) / n_cycles,
-            "top": [{"name": k[:90], "ms_per_cycle": ms / n_cycles,
-                     "calls_per_cycle": c / n_cycles}
-                    for k, ms, c in rows[:16]]}
-        if n < want * n_cycles:
-            fail(f"graph profile {dn} {cache}: {n} {kernel} launches in "
-                 f"{n_cycles} replays, expected >= {want} a cycle")
+                torch.cuda.synchronize()
+                prof.step()
+    finally:
+        loop.close()
+    del loop, state
+    rows = _device_rows(prof)
+    busy = sum(r[1] for r in rows) / n_cycles or None
+    phase1 = [(ms, c) for k, ms, c in rows if kernel in k]
+    n = sum(c for _, c in phase1)
+    out = {**first, "replays": n_cycles, "ms_per_cycle": wall,
+           "device_ms_per_cycle": busy,
+           "idle_share": busy and 1.0 - busy / wall,
+           "kernels_per_cycle": sum(r[2] for r in rows) / n_cycles,
+           "phase1_launches_per_cycle": n / n_cycles,
+           "replay_launches": want,
+           "phase1_ms_per_cycle": sum(ms for ms, _ in phase1) / n_cycles,
+           "top": [{"name": k[:90], "ms_per_cycle": ms / n_cycles,
+                    "calls_per_cycle": c / n_cycles}
+                   for k, ms, c in rows[:16]]}
+    if n > want * n_cycles:
+        fail(f"graph profile {dn} {bundle.spec.mode} {cache}: {n} {kernel} "
+             f"launches in {n_cycles} replays, expected {want} a replay")
     torch.cuda.empty_cache()
-    emit({"phase": "graph_profile" + ("_fp32" if dn == "float32" else ""),
-          "ok": True, "dtype": dn, "impl": "kernel", "kernel": kernel,
-          **out})
     return out
+
+
+def profile_graph(bundle, prompts, n_cycles=6):
+    """:func:`profile_loop` of the kernel path on both caches: at least
+    40 (paged: 36 target layers, 2 x 2 drafter layers) and 36 (dense)
+    phase-1 launches a replay in the trace."""
+    from repro_torch.core import pipeline as pl
+    bundle = pl.with_attn_impl(bundle, "kernel")
+    dn = bundle.target_cfg.dtype
+    out = {}
+    for cache in ("paged", "dense"):
+        want = replay_launches(bundle, cache)
+        out[cache] = profile_loop(bundle, prompts, cache, want, n_cycles)
+        if out[cache]["phase1_launches_per_cycle"] < want:
+            fail(f"graph profile {dn} {cache}: "
+                 f"{out[cache]['phase1_launches_per_cycle']} "
+                 f"{PHASE1_KERNEL[dn]} launches a replay, expected {want}")
+    emit({"phase": "graph_profile" + ("_fp32" if dn == "float32" else ""),
+          "ok": True, "dtype": dn, "impl": "kernel",
+          "kernel": PHASE1_KERNEL[dn], **out})
+    return out
+
+
+def replay_launches(bundle, cache):
+    """Phase-1 cascade launches a cycle: one a target layer (all global),
+    and on a paged cache one more a drafter layer and drafter pass (the
+    draft strategy's ``n_draft_passes``; a dense feature cache
+    gathers)."""
+    from repro_torch.core import strategies as st
+    n = bundle.target_cfg.num_layers
+    if cache == "paged":
+        n += bundle.d1_cfg.num_layers * st.get_strategy(
+            bundle.spec.mode).n_draft_passes(bundle.spec)
+    return n
 
 
 def profile_cycles(bundle, prompts, ms_per_cycle, n_cycles=6):
@@ -1293,12 +1650,14 @@ def profile_cycles(bundle, prompts, ms_per_cycle, n_cycles=6):
     b, p = prompts_t.shape
     state = engine_init(bundle, b, p + 2 * n_cycles * bundle.spec.gamma,
                         cache_impl="paged", page_size=64, device=DEVICE)
-    state, _ = pl.decode_cycle(bundle, prefill(bundle, state, prompts_t))
+    gen = torch.Generator(device=DEVICE)
+    state, _ = pl.decode_cycle(bundle, prefill(bundle, state, prompts_t),
+                               gen)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n_cycles):
-            state, out = pl.decode_cycle(bundle, state)
+            state, out = pl.decode_cycle(bundle, state, gen)
             out["n_out"].cpu()
         torch.cuda.synchronize()
     rows = _device_rows(prof)
@@ -1553,11 +1912,14 @@ def main():
     bundle, prompts, launches, fp32_runs = main_path()
     graph_fp32(bundle, prompts, *fp32_runs)
     graph_prof_fp32 = profile_graph(bundle, prompts)
+    modes_path(bundle, prompts, *fp32_runs[1:])
+    sampled_path(bundle, prompts)
     bundle, ms_cycle, bf16_casc, bf16_per_cycle, eager = bf16_path(
         bundle, prompts)
     profile_cycles(bundle, prompts, ms_cycle)
     graph_bf16(bundle, prompts, eager)
     graph_prof = profile_graph(bundle, prompts)
+    modes_bf16(bundle, prompts)
     del bundle, eager
     torch.cuda.synchronize()
     torch.cuda.empty_cache()

@@ -246,3 +246,29 @@ def vp_blocks(anchor, trunk_tokens, fork_idx, mask_token: int):
     slots = torch.arange(g1 + 1, device=dev)[None, None, :]
     visible = slots <= fork_idx[:, :, None]
     return torch.where(visible, full, torch.full_like(full, mask_token))
+
+
+def ar_chain_draft(p, dcfg: DrafterConfig, anchor, feat_cache, steps: int,
+                   temperature: float = 0.0, gen=None):
+    """EAGLE-style baseline: draft ``steps`` tokens autoregressively, one
+    causal forward over the whole block per token (the JAX twin's
+    ``lax.scan``); slots not drafted yet hold token 0. At temperature > 0
+    each token is drawn from ``gen``. Returns (tokens [B,steps] long,
+    logits [B,steps,V])."""
+    b = anchor.shape[0]
+    g = steps + 1
+    dev = anchor.device
+    blk = torch.zeros((b, g), dtype=torch.long, device=dev)
+    blk[:, 0] = anchor
+    tril = torch.ones((g, g), dtype=torch.bool, device=dev).tril()
+    slot = torch.arange(g, device=dev)
+    seq = []
+    for i in range(steps):
+        li = drafter_forward(p, dcfg, blk, feat_cache, block_mask=tril)[:, i]
+        if temperature > 0:
+            tok = pm.categorical(gen, li.float() / temperature)
+        else:
+            tok = torch.argmax(li, dim=-1)
+        blk = torch.where(slot[None] == i + 1, tok[:, None], blk)
+        seq.append(li)
+    return blk[:, 1:], torch.stack(seq, 1)

@@ -1,10 +1,19 @@
 """D2SD decode engine: one decode cycle, the host generation loop and the
 on-device loop (twin of ``repro/core/pipeline.py``).
 
-A cycle runs the draft strategy (DFlash trunk, boundary posterior, top-K
-forks, batched VP second draft, comb tree), the tree-attention verify
-over the target (the cascade read path), the KV commit of the accepted
+A cycle runs the draft strategy of ``SpecConfig.mode`` (for ``d2sd``:
+DFlash trunk, boundary posterior, top-K forks, batched VP second draft,
+comb tree, and with ``third_level`` one more VP level), the
+tree-attention verify over the target (the cascade read path; greedy at
+temperature 0, rejection sampling above), the KV commit of the accepted
 path and the feature-cache extension of both drafters.
+
+Random numbers come from one ``torch.Generator`` per call, made from
+``seed`` on the run's device and consumed in a fixed order: the prefill's
+anchor, then in each cycle the draft and then the verify. Every draw is a
+fixed-shape ``torch.rand``, so the graph loop (which registers the
+generator with its CUDA graph) draws what the host loop draws and is
+token-identical to it for the same seed.
 
 ``generate`` drives the cycles from the host and reads each cycle's
 tokens back. ``generate_ondevice`` is the twin of the JAX
@@ -29,6 +38,7 @@ from repro_torch.core import strategies as strat_lib
 from repro_torch.core import verify as verify_lib
 from repro_torch.core.state import EngineState, engine_init, prefill
 from repro_torch.models import kvcache as kvc
+from repro_torch.models import param as pm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,20 +63,28 @@ def with_attn_impl(bundle: SpecBundle, impl: str) -> SpecBundle:
 
 
 # -------------------------------------------------------------- the cycle --
-def decode_cycle(bundle: SpecBundle, state: EngineState):
-    """One full speculative decoding cycle (greedy).
+def decode_cycle(bundle: SpecBundle, state: EngineState, gen,
+                 collect_stats: bool = True):
+    """One full speculative decoding cycle; ``gen`` feeds the draft's and
+    then the verify's random draws.
 
     Rows with ``state.active == False`` draft a root-only tree, commit
     nothing and keep their anchor. Returns (state', out) with out =
-    dict(tokens [B, D+1], n_out [B]): row b's first n_out[b] tokens are
-    its accepted draft tokens then the bonus token.
+    dict(tokens [B, D+1], n_out [B], n_acc [B]): row b's first n_out[b]
+    tokens are its accepted draft tokens then the bonus token. With
+    ``collect_stats`` and a strategy that has a diffusion trunk, out also
+    holds ``conf`` [B, gamma-1] (the trunk confidences) and ``trunk_ok``
+    [B, gamma-1] (the trunk nodes' acceptance).
     """
     strategy = strat_lib.get_strategy(bundle.spec.mode)
     backend = verify_lib.select_backend(bundle.target_cfg)
     active = state.active
 
-    tree = strat_lib.mask_inactive(strategy.draft(bundle, state), active)
-    vo = backend.verify(bundle, state, tree)
+    draft = strat_lib.mask_inactive(strategy.draft(bundle, state, gen),
+                                    active)
+    tree = draft.tree
+    vo = backend.verify(bundle, state, tree, draft.dprobs,
+                        draft.max_children, gen)
     res = vo.res
     zero = torch.zeros_like(res["n_acc"])
 
@@ -94,24 +112,36 @@ def decode_cycle(bundle: SpecBundle, state: EngineState):
                           torch.zeros_like(path_tokens))
     out_tok = torch.where((d_idx == n_acc[:, None]) & active[:, None],
                           res["bonus"][:, None], out_tok)
-    return state2, {"tokens": out_tok, "n_out": n_commit}
+    out = {"tokens": out_tok, "n_out": n_commit, "n_acc": n_acc}
+    if collect_stats and draft.conf is not None:
+        out["conf"] = draft.conf
+        out["trunk_ok"] = res["ok"][:, 1:bundle.spec.gamma]
+    return state2, out
 
 
 # -------------------------------------------------------------- generate ---
-def generate(bundle: SpecBundle, prompts, max_new: int,
-             max_len: Optional[int] = None, cache_impl: str = "dense",
-             page_size: int = 64, device="cuda"):
+def generate(bundle: SpecBundle, prompts, max_new: int, seed: int = 0,
+             max_len: Optional[int] = None, collect_stats: bool = True,
+             cache_impl: str = "dense", page_size: int = 64,
+             device="cuda"):
     """Generate up to ``max_new`` tokens for prompts [B, P] (host loop over
     decode cycles). Returns dict(tokens [B, max_new] numpy, n_cycles,
-    alpha, prefill_s, decode_s). The two times are host clock readings;
-    each ends at a device-to-host copy, so they include the device work.
+    alpha, stats, prefill_s, decode_s). The two times are host clock
+    readings; each ends at a device-to-host copy, so they include the
+    device work.
 
+    seed: the generator of the run's random draws (sampled prefill,
+    drafts and verify at ``spec.temperature`` > 0; ``naive_k``'s
+    resamples at any temperature), in place of JAX's ``key``.
     Rows that reached ``max_new`` are masked inactive (they stop
     committing, as JAX ``generate(early_exit=True)``); alpha counts
-    committed tokens per active row-cycle.
+    committed tokens per active row-cycle. stats, as JAX's: per cycle
+    ``n_acc`` and ``n_out`` [B], and with ``collect_stats`` ``conf`` and
+    ``trunk_ok`` of the rows that were active (strategies with a trunk).
     cache_impl: "dense" | "paged" KV storage (identity page layout).
     """
     dev = resolve_device(device)
+    gen = pm.make_generator(seed, dev)
     prompts = torch.as_tensor(np.asarray(prompts), device=dev).long()
     b, p = prompts.shape
     g = bundle.spec.gamma
@@ -119,18 +149,21 @@ def generate(bundle: SpecBundle, prompts, max_new: int,
     t0 = time.perf_counter()
     state = engine_init(bundle, b, max_len, cache_impl=cache_impl,
                         page_size=page_size, device=dev)
-    state = prefill(bundle, state, prompts)
+    state = prefill(bundle, state, prompts, gen,
+                    temperature=bundle.spec.temperature)
 
     out_buf = np.zeros((b, max_new + g + 1), np.int64)
     out_buf[:, 0] = state.anchor.cpu().numpy()
     t1 = time.perf_counter()
     filled = np.ones((b,), np.int64)
     n_cycles = act_cycles = committed = 0
+    stats = {"n_acc": [], "n_out": [], "conf": [], "trunk_ok": []}
     while filled.min() < max_new:
         below = filled < max_new
         act_cycles += int(below.sum())
         state = state.replace(active=torch.as_tensor(below, device=dev))
-        state, out = decode_cycle(bundle, state)
+        state, out = decode_cycle(bundle, state, gen,
+                                  collect_stats=collect_stats)
         toks = out["tokens"].cpu().numpy()
         n_out = out["n_out"].cpu().numpy()
         for i in range(b):
@@ -140,11 +173,16 @@ def generate(bundle: SpecBundle, prompts, max_new: int,
         filled = np.minimum(filled + n_out, out_buf.shape[1])
         n_cycles += 1
         committed += int(n_out.sum())
+        stats["n_acc"].append(out["n_acc"].cpu().numpy())
+        stats["n_out"].append(n_out)
+        if "conf" in out:
+            stats["conf"].append(out["conf"].cpu().numpy()[below])
+            stats["trunk_ok"].append(out["trunk_ok"].cpu().numpy()[below])
         if n_cycles > max_new + 8:
             break
     return {"tokens": out_buf[:, :max_new], "n_cycles": n_cycles,
             "alpha": committed / act_cycles if act_cycles else 0.0,
-            "prefill_s": t1 - t0,
+            "stats": stats, "prefill_s": t1 - t0,
             "decode_s": time.perf_counter() - t1}
 
 
@@ -165,15 +203,18 @@ class OnDeviceLoop:
     target's and both feature caches' ``length``, ``anchor``, ``active``),
     the output buffer ``buf`` [B, max_new+gamma+1], ``filled`` [B] and
     ``counts`` (cycles with an active row, committed tokens, active
-    row-cycles). A row is active while ``filled < max_new``; a finished
-    row commits nothing, so a cycle after the last row finished changes
-    nothing.
+    row-cycles), and the generator ``gen`` of the cycle's random draws.
+    A row is active while ``filled < max_new``; a finished row commits
+    nothing, so a cycle after the last row finished changes nothing.
 
     :meth:`start` runs the first cycle; on a card it runs eagerly on a
     side stream (the warm-up ``torch.cuda.graphs`` asks for, which also
     builds the kernels) and then captures :meth:`step` into a CUDA graph,
-    which executes nothing. :meth:`advance` runs the next cycle: a replay
-    of that graph on a card, :meth:`step` on the CPU. :meth:`more` reads
+    which executes nothing. The graph registers ``gen``, so each replay
+    draws from where the generator stands, as an eager cycle would, and
+    not the capture's numbers again. :meth:`advance` runs the next
+    cycle: a replay of that graph on a card, :meth:`step` on the CPU.
+    :meth:`more` reads
     the loop's condition (one 4-byte copy to the host). A capture or a
     replay that fails raises; nothing falls back to eager execution.
     :meth:`close` releases the graph, whose private memory pool then
@@ -182,7 +223,8 @@ class OnDeviceLoop:
     of the capture, ``graph_pool_bytes`` the memory the capture reserved.
     """
 
-    def __init__(self, bundle: SpecBundle, state: EngineState, max_new: int):
+    def __init__(self, bundle: SpecBundle, state: EngineState, max_new: int,
+                 gen: torch.Generator):
         dev = state.anchor.device
         b = state.anchor.shape[0]
 
@@ -191,6 +233,7 @@ class OnDeviceLoop:
                 memory_format=torch.contiguous_format))
 
         self.bundle, self.max_new, self.device = bundle, max_new, dev
+        self.gen = gen
         self.cycle_cap = max_new + 9     # the host loop's bailout
         self.state = state.replace(
             target=own(state.target), d1_feat=own(state.d1_feat),
@@ -212,7 +255,8 @@ class OnDeviceLoop:
         st = self.state
         below = self.filled < self.max_new
         st.active.copy_(below)
-        new, out = decode_cycle(self.bundle, st)
+        new, out = decode_cycle(self.bundle, st, self.gen,
+                                collect_stats=False)
         for key in ("target", "d1_feat", "d2_feat"):
             getattr(st, key)["length"].copy_(getattr(new, key)["length"])
         st.anchor.copy_(new.anchor)
@@ -255,6 +299,7 @@ class OnDeviceLoop:
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved(dev)
             graph = torch.cuda.CUDAGraph()
+            graph.register_generator_state(self.gen)
             with torch.cuda.graph(graph):
                 self.step()
             self.capture_s = time.perf_counter() - t1
@@ -292,15 +337,15 @@ class OnDeviceLoop:
 
 
 def generate_ondevice(bundle: SpecBundle, prompts, max_new: int,
-                      max_len: Optional[int] = None,
+                      seed: int = 0, max_len: Optional[int] = None,
                       cache_impl: str = "dense", page_size: int = 64,
                       device="cuda"):
     """On-device generation (twin of JAX ``generate_ondevice``): prefill
     eagerly, then :class:`OnDeviceLoop`; on a card every cycle after the
     first is one CUDA graph replay, and the token buffer stays on the
-    device until the end. Token-identical to :func:`generate`, with the
-    same ``n_cycles`` (counted on the device) and ``alpha`` (committed
-    tokens per active row-cycle).
+    device until the end. Token-identical to :func:`generate` for the
+    same ``seed``, with the same ``n_cycles`` (counted on the device) and
+    ``alpha`` (committed tokens per active row-cycle).
 
     Returns dict(tokens [B, max_new] numpy, n_cycles, alpha, prefill_s,
     capture_s, decode_s, graph_pool_bytes). prefill_s and decode_s are
@@ -310,6 +355,7 @@ def generate_ondevice(bundle: SpecBundle, prompts, max_new: int,
     (both 0 on the CPU).
     """
     dev = resolve_device(device)
+    gen = pm.make_generator(seed, dev)
     prompts = torch.as_tensor(np.asarray(prompts), device=dev).long()
     b, p = prompts.shape
     max_len = max_len or (p + max_new + 2 * bundle.spec.gamma + 8)
@@ -317,11 +363,11 @@ def generate_ondevice(bundle: SpecBundle, prompts, max_new: int,
     state = prefill(bundle, engine_init(bundle, b, max_len,
                                         cache_impl=cache_impl,
                                         page_size=page_size, device=dev),
-                    prompts)
+                    prompts, gen, temperature=bundle.spec.temperature)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t1 = time.perf_counter()
-    loop = OnDeviceLoop(bundle, state, max_new).run()
+    loop = OnDeviceLoop(bundle, state, max_new, gen).run()
     tokens = loop.buf[:, :max_new].cpu().numpy()
     n_cycles, total, act = loop.counts.tolist()
     return {"tokens": tokens, "n_cycles": n_cycles,

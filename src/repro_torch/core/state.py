@@ -20,6 +20,7 @@ from repro_torch import resolve_device
 from repro_torch.core import drafter as dr
 from repro_torch.models import kvcache as kvc
 from repro_torch.models import lm
+from repro_torch.models import param as pm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,6 +30,10 @@ class EngineState:
     d2_feat: Dict[str, Any]
     anchor: torch.Tensor          # [B] long
     active: torch.Tensor          # [B] bool
+
+    @property
+    def batch(self) -> int:
+        return self.anchor.shape[0]
 
     @property
     def length(self) -> torch.Tensor:
@@ -69,9 +74,11 @@ def engine_init(bundle, batch: int, max_len: int, cache_impl: str = "dense",
     )
 
 
-def prefill(bundle, state: EngineState, prompts) -> EngineState:
-    """Process prompts [B, P] from an empty cache; anchor = the greedy
-    first generated token."""
+def prefill(bundle, state: EngineState, prompts, gen=None,
+            temperature: float = 0.0) -> EngineState:
+    """Process prompts [B, P] from an empty cache; anchor = the first
+    generated token: the argmax, or at ``temperature`` > 0 a draw from
+    ``gen`` (a generator on the prompts' device)."""
     b, p = prompts.shape
     dev = prompts.device
     out = lm.forward(bundle.target_params, prompts, bundle.target_cfg,
@@ -86,6 +93,10 @@ def prefill(bundle, state: EngineState, prompts) -> EngineState:
     d2_feat = dr.extend_feat_cache(bundle.d2_params, bundle.d2_cfg,
                                    state.d2_feat, out["features"], positions,
                                    counts)
-    anchor = torch.argmax(out["logits"][:, -1].float(), dim=-1)
+    last = out["logits"][:, -1].float()
+    if temperature > 0:
+        anchor = pm.categorical(gen, last / temperature)
+    else:
+        anchor = torch.argmax(last, dim=-1)
     return state.replace(target=out["states"], d1_feat=d1_feat,
                          d2_feat=d2_feat, anchor=anchor)

@@ -11,6 +11,8 @@ import dataclasses
 
 import torch
 
+from repro_torch.models.kvcache import drop_put_
+
 
 @dataclasses.dataclass(frozen=True)
 class Tree:
@@ -77,8 +79,45 @@ def comb_tree(anchor, trunk_tokens, branch_tokens, fork_idx, gamma: int):
                 max_depth=g - 1)
 
 
+def extend_third_level(tree: Tree, branch_tokens3, fork_idx, fork3_idx,
+                       gamma: int):
+    """Table 7: one more VP level, one branch per second-level branch,
+    forked at that branch's own boundary.
+
+    branch_tokens3: [B, K, gamma-1] third-draft tokens for slots
+    1..gamma-1; fork_idx: [B, K] second-level forks i_b; fork3_idx: [B, K]
+    third-level fork slots s_b >= i_b. The third branch of b hangs off
+    branch b's node at slot s_b (off trunk node i_b when s_b == i_b) and
+    re-drafts slots s_b+1..gamma-1: node n0 + b*(gamma-1) + j at slot
+    s_b+1+j, valid iff slot <= gamma-1.
+    """
+    b, k = fork_idx.shape
+    g = gamma
+    n0 = tree.n
+    dev = fork_idx.device
+    fork_idx, fork3_idx = fork_idx.long(), fork3_idx.long()
+    node = torch.arange(k * (g - 1), device=dev)
+    bidx = torch.div(node, g - 1, rounding_mode="floor")
+    j = node - bidx * (g - 1)
+    s = fork3_idx[:, bidx]                                  # [B, n3]
+    slot = s + 1 + j[None]
+    valid = slot <= g - 1
+    ib = fork_idx[:, bidx]
+    head = torch.where(s > ib, g + bidx[None] * (g - 1) + (s - ib - 1), ib)
+    parent = torch.where((j == 0)[None], head, n0 + node[None] - 1)
+    slot_c = (slot - 1).clamp(0, g - 2)
+    toks = _gather(branch_tokens3.long().reshape(b, -1),
+                   bidx[None] * (g - 1) + slot_c)
+    toks = torch.where(valid, toks, torch.zeros_like(toks))
+    return Tree(tokens=torch.cat([tree.tokens, toks], 1),
+                parent=torch.cat([tree.parent, parent], 1),
+                depth=torch.cat([tree.depth, slot], 1),
+                valid=torch.cat([tree.valid, valid], 1),
+                max_depth=tree.max_depth)
+
+
 def chain_tree(anchor, tokens):
-    """Single chain (DFlash baseline): tokens [B,G]."""
+    """Single chain (DFlash / EAGLE baseline): tokens [B,G]."""
     b, g = tokens.shape
     n = g + 1
     node = torch.arange(n, device=anchor.device)
@@ -115,6 +154,30 @@ def attention_mask(tree: Tree):
 def positions(tree: Tree, base):
     """Absolute positions for RoPE: base + depth. base: [B] -> [B, N]."""
     return (base.long()[:, None] + tree.depth).to(torch.int32)
+
+
+def children_table(tree: Tree, max_children: int):
+    """[B, N, C] children per node (-1 padded), siblings in node order
+    (the trunk child first in a comb tree). A child past the C-th of its
+    parent is dropped, as JAX's ``mode="drop"`` scatter drops it; the
+    write is fixed-shape (``kvcache.drop_put_``)."""
+    b, n = tree.parent.shape
+    dev = tree.parent.device
+    parent = torch.where(tree.valid, tree.parent,
+                         torch.full_like(tree.parent, -2))
+    order = torch.arange(n, device=dev)
+    same = (parent[:, None, :] == parent[:, :, None]) & (
+        order[None, None, :] < order[None, :, None])
+    rank = same.sum(2)                                      # [B, N]
+    ok = (parent >= 0) & (rank < max_children)
+    flat = (torch.arange(b, device=dev)[:, None] * n
+            + parent.clamp(0, n - 1)) * max_children + rank.clamp(
+                max=max_children - 1)
+    tbl = torch.full((b * n * max_children,), -1, dtype=torch.long,
+                     device=dev)
+    drop_put_(tbl, 0, flat.reshape(-1), order.expand(b, n).reshape(-1),
+              ok.reshape(-1))
+    return tbl.view(b, n, max_children)
 
 
 def best_path(tree: Tree, accepted):

@@ -41,6 +41,26 @@ def make_generator(seed: int, device: torch.device) -> torch.Generator:
     return gen
 
 
+# ------------------------------------------------------------ sampling ----
+# The decode engine's random draws. Each is one fixed-shape ``torch.rand``
+# on ``gen``: no host read and no data-dependent size, so a CUDA graph can
+# capture it. A graph must register ``gen``
+# (``CUDAGraph.register_generator_state``) for each replay to draw fresh
+# numbers.
+def gumbel(gen: torch.Generator, shape) -> torch.Tensor:
+    """Standard Gumbel noise, float32: -log(-log(u)) with u uniform in
+    [tiny, 1), as ``jax.random.gumbel`` draws it."""
+    u = torch.rand(shape, generator=gen, device=gen.device)
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+
+
+def categorical(gen: torch.Generator, logits) -> torch.Tensor:
+    """One draw from softmax(logits) over the last axis for every leading
+    index (Gumbel-max, as ``jax.random.categorical``). ``logits`` may be a
+    broadcast view: each of its rows gets noise of its own."""
+    return torch.argmax(logits.float() + gumbel(gen, logits.shape), dim=-1)
+
+
 # ------------------------------------------------------------ trees -------
 # Param trees are nested dicts (and the ``layers`` list) of tensors. These
 # helpers walk them in a fixed order: dict keys sorted, as jax.tree does,

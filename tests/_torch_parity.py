@@ -16,6 +16,11 @@ from repro_torch.core import drafter as tdr
 
 ATOL = 1e-5
 
+# The port's CPU tests move tiny tensors, so torch runs them on one
+# thread: pytest's workers, one a core, would otherwise each start a
+# thread a core, and those threads spin against each other.
+torch.set_num_threads(1)
+
 # The JAX functions compiled once per config: the same values as the
 # eager calls, in a fraction of the CPU time.
 jax_lm_init = jax.jit(jlm.lm_init, static_argnums=1)

@@ -27,10 +27,16 @@ dims 64 and 96 (the latter zero-filled to 128).
 
 The on-device decode loop (``generate_ondevice``, one CUDA graph replay a
 cycle) is held to the eager host loop at tiny size in fp32, token for
-token, on both caches; a step that syncs with the host cannot be
-captured, and the loop raises.
+token, on both caches, for every draft mode, greedy and sampled (the
+generator registered with the graph draws fresh numbers each replay, the
+numbers the host loop draws); a step that syncs with the host cannot be
+captured, and the loop raises. Sampling through the kernels is lossless
+(``chip_smoke.py::first_token_tv``).
 """
 import dataclasses
+import functools
+import importlib.util
+import pathlib
 
 import numpy as np
 import pytest
@@ -429,9 +435,9 @@ def test_graph_loop_raises_when_capture_fails(dev):
 
     @st.register_strategy("host_sync")
     class HostSync(st.D2SDStrategy):
-        def draft(self, bundle, state):
+        def draft(self, bundle, state, gen):
             int(state.length.max())
-            return super().draft(bundle, state)
+            return super().draft(bundle, state, gen)
 
     bundle = _tiny_bundle(dev, mode="host_sync")
     prompts = np.random.default_rng(0).integers(0, 512, (2, 16))
@@ -440,3 +446,85 @@ def test_graph_loop_raises_when_capture_fails(dev):
     bundle = dataclasses.replace(bundle, spec=dataclasses.replace(
         bundle.spec, mode="d2sd"))
     assert pl.generate_ondevice(bundle, prompts, 8, device=dev)["n_cycles"]
+
+
+# name -> (chip_smoke.mode_bundle's mode name, temperature)
+LOOP_CONFIGS = {"naive_k": ("naive_k", 0.0), "eagle": ("eagle", 0.0),
+                "dflash_second": ("dflash_second", 0.0),
+                "third_level": ("third_level", 0.0),
+                "d2sd_t1": ("d2sd", 1.0),
+                "third_level_t1": ("third_level", 1.0),
+                "naive_k_t0.5": ("naive_k", 0.5), "eagle_t1": ("eagle", 1.0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache_impl", ["dense", "paged"])
+@pytest.mark.parametrize("name", sorted(LOOP_CONFIGS))
+def test_graph_loop_matches_eager_loop_by_mode(dev, name, cache_impl):
+    """Every draft mode, greedy and sampled: the graph loop equals the
+    host loop for one seed (tokens, cycles, alpha)."""
+    from repro_torch.core import pipeline as pl
+    mode, temp = LOOP_CONFIGS[name]
+    bundle = _chip_smoke().mode_bundle(_tiny_bundle(dev), mode, temp)
+    prompts = np.random.default_rng(0).integers(0, 512, (3, 24))
+    kw = dict(cache_impl=cache_impl, page_size=16, device=dev, seed=3)
+    host = pl.generate(bundle, prompts, 12, **kw)
+    graph = pl.generate_ondevice(bundle, prompts, 12, **kw)
+    np.testing.assert_array_equal(graph["tokens"], host["tokens"])
+    assert (graph["n_cycles"], graph["alpha"]) == (host["n_cycles"],
+                                                   host["alpha"])
+
+
+@functools.lru_cache(maxsize=None)
+def _chip_smoke():
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+def test_graph_generator_draws_fresh_each_replay(dev):
+    """The sampled graph loop's acceptance uniforms, logged on the device
+    each cycle: the eager first cycle and every replay draw numbers of
+    their own, and the same numbers the host loop draws for the seed."""
+    from repro_torch.core import pipeline as pl
+    bundle = _chip_smoke().mode_bundle(_tiny_bundle(dev), "d2sd", 1.0)
+    prompts = np.random.default_rng(1).integers(0, 512, (3, 24))
+    log = _chip_smoke().DrawLog(32, (3 * 3, 3))
+    draws = {}
+    try:
+        for loop in (pl.generate, pl.generate_ondevice):
+            log.n.zero_()
+            out = loop(bundle, prompts, 12, seed=4, device=dev)
+            draws[loop.__name__] = (log.read(), out["n_cycles"])
+    finally:
+        log.close()
+    (host, n_host), (graph, n_graph) = draws["generate"], draws[
+        "generate_ondevice"]
+    assert n_graph == n_host == graph.shape[0] >= 3
+    assert torch.equal(graph, host)
+    flat = graph.reshape(n_graph, -1)
+    assert int((flat[:, None] == flat[None]).all(-1).sum()) == n_graph
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["d2sd", "third_level", "naive_k_t0.5",
+                                  "eagle"])
+def test_sampling_is_lossless_through_the_kernels(dev, name):
+    """``chip_smoke.py``'s batched check at tiny size, head_dim 64, on a
+    paged cache: every cascade read through the fp32 kernel."""
+    from repro_torch.kernels import cascade_attention as casc
+    mode, third, temp = {"d2sd": ("d2sd", False, 1.0),
+                         "third_level": ("d2sd", True, 1.0),
+                         "naive_k_t0.5": ("naive_k", False, 0.5),
+                         "eagle": ("eagle", False, 1.0)}[name]
+    smoke = _chip_smoke()
+    before = casc.cascade_phase1_paged.launches
+    tv, bound = smoke.first_token_tv(
+        smoke.lossless_bundle(mode, third, temp, impl="kernel", device=dev,
+                              d_model=128, d_drafter=128),
+        device=dev, cache_impl="paged")
+    assert casc.cascade_phase1_paged.launches > before
+    assert tv < bound, (tv, bound)

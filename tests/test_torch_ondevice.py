@@ -49,6 +49,7 @@ from repro_torch.core.state import engine_init, prefill
 from repro_torch.models import blocks as tblocks
 from repro_torch.models import kvcache as tkv
 from repro_torch.models import lm as tlm
+from test_torch_modes import bundle_for
 from test_torch_pipeline import (GAMMA, K, MAX_NEW, _chip_smoke,
                                  _greedy_tokens, _jax_tokens, _models,
                                  _prompts)
@@ -56,10 +57,11 @@ from test_torch_pipeline import (GAMMA, K, MAX_NEW, _chip_smoke,
 SENT = tkv.PAGE_SENTINEL
 
 
-def _bundle(mode, impl):
+def _bundle(mode, impl, third_level=False):
     _, (tt, td, tp, d1, d2) = _models()
     return tpl.with_attn_impl(tpl.SpecBundle(tt, td, td, SpecConfig(
-        gamma=GAMMA, top_k_branches=K, mode=mode), tp, d1, d2), impl)
+        gamma=GAMMA, top_k_branches=K, mode=mode, third_level=third_level),
+        tp, d1, d2), impl)
 
 
 @functools.lru_cache(maxsize=None)
@@ -112,30 +114,35 @@ def test_generate_ondevice_one_token_runs_no_cycle():
 @pytest.mark.parametrize("impl", ["gather", "kernel"])
 @pytest.mark.parametrize("cache_impl", ["dense", "paged"])
 def test_ondevice_oracle_accepts_into_branches(cache_impl, impl):
-    """The oracle's drafts through the on-device loop: tokens equal pure
-    greedy and the host loop's, alpha is the oracle's own count (kept on
-    the device, as the graph needs) and the caches the loop commits equal
-    a plain prefill of the same tokens."""
+    """The oracle's drafts through the on-device loop, without and with
+    the third level: tokens equal pure greedy and the host loop's, alpha
+    is the oracle's own count (kept on the device, as the graph needs),
+    some paths end in a branch (with the third level, some in a
+    third-level branch) and the caches the loop commits equal a plain
+    prefill of the same tokens."""
     ref = _greedy_tokens(MAX_NEW + GAMMA)
     seq = t(np.concatenate([_prompts(), ref], 1)).long()
     smoke = _chip_smoke()
     oracle = smoke.register_oracle(seq)
-    bundle = _bundle("oracle", impl)
     kw = dict(cache_impl=cache_impl, page_size=8, device="cpu")
-    out = tpl.generate_ondevice(bundle, _prompts(), MAX_NEW, **kw)
-    count = oracle.read()
-    np.testing.assert_array_equal(out["tokens"], ref[:, :MAX_NEW])
-    assert out["alpha"] == count["committed"] / count["row_cycles"]
-    assert out["alpha"] > 2 and count["branch_paths"] > 0
-    oracle.reset()
-    host = tpl.generate(bundle, _prompts(), MAX_NEW, **kw)
-    assert (host["n_cycles"], host["alpha"]) == (out["n_cycles"],
-                                                 out["alpha"])
-    assert oracle.read() == count
-    err = smoke.committed_cache_error(bundle, t(_prompts()).long(), seq,
-                                      cache_impl, max_new=MAX_NEW,
-                                      page_size=8, ondevice=True)
-    assert err < 1e-5
+    for third in (False, True):
+        oracle.reset()
+        bundle = _bundle("oracle", impl, third_level=third)
+        out = tpl.generate_ondevice(bundle, _prompts(), MAX_NEW, **kw)
+        count = oracle.read()
+        np.testing.assert_array_equal(out["tokens"], ref[:, :MAX_NEW])
+        assert out["alpha"] == count["committed"] / count["row_cycles"]
+        assert out["alpha"] > 2 and count["branch_paths"] > 0
+        assert (count["third_paths"] > 0) == third
+        oracle.reset()
+        host = tpl.generate(bundle, _prompts(), MAX_NEW, **kw)
+        assert (host["n_cycles"], host["alpha"]) == (out["n_cycles"],
+                                                     out["alpha"])
+        assert oracle.read() == count
+        err = smoke.committed_cache_error(bundle, t(_prompts()).long(), seq,
+                                          cache_impl, max_new=MAX_NEW,
+                                          page_size=8, ondevice=True)
+        assert err < 1e-5
 
 
 class _NoHostSync(TorchDispatchMode):
@@ -163,28 +170,47 @@ class _NoHostSync(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
+# the step's configurations beyond d2sd and the oracle: name -> (a mode
+# of test_torch_modes.MODES or a registered mode, temperature)
+STEP_CONFIGS = {"naive_k": ("naive_k", 0.0), "eagle": ("eagle", 0.0),
+                "dflash_second": ("dflash_second", 0.0),
+                "third_level": ("third_level", 0.0),
+                "d2sd_t1": ("d2sd", 1.0), "dflash_t1": ("dflash", 1.0),
+                "third_level_t1": ("third_level", 1.0),
+                "naive_k_t0.5": ("naive_k", 0.5), "eagle_t1": ("eagle", 1.0)}
+
+
 @pytest.mark.parametrize("impl", ["gather", "kernel"])
 @pytest.mark.parametrize("cache_impl", ["dense", "paged"])
-@pytest.mark.parametrize("mode", ["d2sd", "oracle"])
+@pytest.mark.parametrize("mode", ["d2sd", "oracle", *STEP_CONFIGS])
 def test_ondevice_step_makes_no_host_sync(mode, cache_impl, impl):
     """One step of the loop (a full cycle: drafts, tree, verify, the
     commit, the feature caches and the token buffer) under a dispatch
-    mode that refuses what a CUDA graph cannot capture."""
+    mode that refuses what a CUDA graph cannot capture: every draft
+    mode, greedy and sampled (the draws and the sampling verify)."""
     if mode == "oracle":
         ref = _greedy_tokens(MAX_NEW + GAMMA)
         _chip_smoke().register_oracle(
             t(np.concatenate([_prompts(), ref], 1)).long())
-    bundle = _bundle(mode, impl)
+    if mode in STEP_CONFIGS:
+        name, temp = STEP_CONFIGS[mode]
+        bundle = bundle_for(name, impl, temperature=temp)
+    else:
+        bundle = _bundle(mode, impl)
     prompts = t(_prompts()).long()
+    gen = torch.Generator()
     state = prefill(bundle, engine_init(bundle, 3, 40, cache_impl=cache_impl,
-                                        page_size=8, device="cpu"), prompts)
-    loop = tpl.OnDeviceLoop(bundle, state, MAX_NEW)
+                                        page_size=8, device="cpu"), prompts,
+                    gen, temperature=bundle.spec.temperature)
+    loop = tpl.OnDeviceLoop(bundle, state, MAX_NEW, gen)
     loop.step()                          # the eager first cycle
     before = loop.state.length.clone()
     with _NoHostSync() as mode_:
         loop.step()
     assert (loop.state.length > before).all()
     assert torch.ops.aten.index_copy_ in mode_.ops     # the masked writes
+    if bundle.spec.temperature > 0 or bundle.spec.mode == "naive_k":
+        assert torch.ops.aten.rand in mode_.ops         # the draws
 
 
 # ----------------------------------------------------- the masked writes --

@@ -112,27 +112,31 @@ def test_generate_matches_jax_and_pure_greedy(mode, cache_impl, impl):
 def test_oracle_drafts_accept_into_branches(cache_impl, impl):
     """With the oracle's drafts (the greedy reference, spoiled from a depth
     that varies by row and cycle) cycles commit several tokens, some
-    along a path that runs into a branch: tokens still equal pure greedy,
-    alpha is exactly what the drafts must give, and the committed target
-    and feature caches equal a plain prefill of the same tokens."""
+    along a path that runs into a branch, and with ``third_level`` some
+    on into a third-level branch: tokens still equal pure greedy, alpha
+    is exactly what the drafts must give, and the committed target and
+    feature caches equal a plain prefill of the same tokens."""
     ref = _greedy_tokens(MAX_NEW + GAMMA)
     seq = t(np.concatenate([_prompts(), ref], 1)).long()
     oracle = _chip_smoke().register_oracle(seq)
     _, (tt, td, tp, d1, d2) = _models()
-    bundle = tpl.SpecBundle(tt, td, td, SpecConfig(
-        gamma=GAMMA, top_k_branches=K, mode="oracle"), tp, d1, d2)
-    out = tpl.generate(tpl.with_attn_impl(bundle, impl), _prompts(),
-                       MAX_NEW, cache_impl=cache_impl, page_size=8,
-                       device="cpu")
-    np.testing.assert_array_equal(out["tokens"], ref[:, :MAX_NEW])
-    count = oracle.read()
-    assert out["alpha"] == count["committed"] / count["row_cycles"]
-    assert out["alpha"] > 2 and count["branch_paths"] > 0
-    # the caches the cycles committed equal a prefill of the same tokens
-    err = _chip_smoke().committed_cache_error(
-        tpl.with_attn_impl(bundle, impl), t(_prompts()).long(), seq,
-        cache_impl, max_new=MAX_NEW, page_size=8)
-    assert err < 1e-5
+    for third in (False, True):
+        oracle.reset()
+        bundle = tpl.with_attn_impl(tpl.SpecBundle(tt, td, td, SpecConfig(
+            gamma=GAMMA, top_k_branches=K, mode="oracle",
+            third_level=third), tp, d1, d2), impl)
+        out = tpl.generate(bundle, _prompts(), MAX_NEW,
+                           cache_impl=cache_impl, page_size=8, device="cpu")
+        np.testing.assert_array_equal(out["tokens"], ref[:, :MAX_NEW])
+        count = oracle.read()
+        assert out["alpha"] == count["committed"] / count["row_cycles"]
+        assert out["alpha"] > 2 and count["branch_paths"] > 0
+        assert (count["third_paths"] > 0) == third
+        # the caches the cycles committed equal a prefill of the tokens
+        err = _chip_smoke().committed_cache_error(
+            bundle, t(_prompts()).long(), seq, cache_impl, max_new=MAX_NEW,
+            page_size=8)
+        assert err < 1e-5
 
 
 @pytest.mark.parametrize("impl", ["gather", "kernel"])
