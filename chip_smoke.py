@@ -19,7 +19,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
            pre-filled with NaN (splits with no key must write acc = l = 0,
            m = -1e30); then timed at the decode verify shape beside its
            bound, its plain version and one scaled_dot_product_attention
-           call (the yardstick, never used by the port)
+           call (the yardstick, never used by the port); and both fp32
+           kernels at a 32k-token cache (the longest paper-target
+           allows) with 8 splits and with 1, against the plain version
+           in float64 (``cascade_cases.LONG_CASES``)
   flash    each flash kernel (forward, dq, dk/dv) against its plain torch
            version: the training shape (B 2, Hq 32, Hkv 8, D 128, T 4096,
            causal, the model's [B,T,H,D] layout), ragged cases (T 1000,
@@ -73,6 +76,19 @@ Phases, each printing one JSON line (any failure exits non-zero):
            profiled; then the lossless check at tiny size through the
            kernels (one cycle over 2000 copies of a prompt: TV of the
            first token against the target's softmax, every mode)
+  serving  fp32 ``ServingEngine`` (batch 4, pages of 64, a pool of 160) at
+           the main path's model, gamma 16, K 4: 10 requests behind a
+           320-token system prompt (two sharing 352 tokens, one a second
+           turn over an earlier answer; ``max_new`` 8-48; the first
+           request served before the other nine) through legacy waves,
+           dense refill, the paged engine pool, and the pool with the
+           prefix cache through the kernels and through the gather path:
+           per-request tokens equal across the runs and to plain greedy,
+           prefix hits >= 8, COW copies >= 1, legacy row-cycles above
+           refill's, the pool's books balanced after each run with every
+           page in use the radix tree's, launches through #1 (dense) and
+           #2 (paged) from the wrappers, and #2 held to its plain version
+           on a live page table with shared pages and sentinel tails
   bf16     the same runs in bfloat16 (the config's dtype), paged and dense:
            tokens/s, agreement with the gather path (where a row first
            leaves it, the top-2 gap of a plain bf16 forward over the shared
@@ -92,6 +108,15 @@ Phases, each printing one JSON line (any failure exits non-zero):
   modes_bf16  each mode of the modes phase and d2sd sampled in bf16,
            paged, graph loop: ms a replay, decode tokens/s, launches
            through the sm90 kernels, profile
+  serving_bf16  the serving requests in bfloat16 as a Poisson trace at
+           1 request/s through the overlapped front end and the
+           synchronous baseline (paged, prefix cache, kernel path, the
+           card's own clock): ms a cycle, engine cycles, tokens over the
+           replay's wall time (set by the arrivals), TTFT and TPOT p50
+           and max; each request's tokens held to a gather run's by the
+           bf16 near-tie rule. A smoke reading of the path, not a serving
+           metric: ten requests have no tail, and the slots are not kept
+           full
   train_fp32   paper_target.full() cut to 8 layers (the only cut; 2.79e9
            params, AdamW as optimizer_for picks), remat on, batch 2 x 4096
            tokens of the mixture stream: three steps through the fp32 flash
@@ -117,6 +142,7 @@ prints no result. It takes no arguments.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -325,9 +351,24 @@ def check_kernels(timer):
                               err.get("ref_abs", 0.0))
             if not _within_tol(dtype, err):
                 fail(f"{name} disagrees with its plain version: {rec}")
+    long_splits = []
+    for case_name, case in cascade_cases.LONG_CASES.items():
+        # the fp32 accumulator over long splits, against float64
+        err = cascade_cases.long_split_errors(gen, rng, case)
+        name = ("cascade_phase1_paged" if case["kind"] == "paged"
+                else "cascade_phase1")
+        rec = {"kernel": name, "dtype": "float32", "case": case_name, **err}
+        long_splits.append(rec)
+        worst[name] = max(worst[name], err["out_abs"])
+        if err["out_abs"] > cascade_cases.TOL_OUT \
+                or err["partials"] > cascade_cases.TOL_PART:
+            fail(f"{name} over a long split is off its float64 reference: "
+                 f"{rec}")
+        torch.cuda.empty_cache()
     torch.cuda.synchronize()
     timing = time_kernels(timer, gen, rng)
     emit({"phase": "kernels", "ok": True, "n_cases": len(cases),
+          "long_splits": long_splits,
           "tol": {"float32": {"out_abs": cascade_cases.TOL_OUT,
                               "partials": cascade_cases.TOL_PART},
                   "bfloat16": {"out_rel": cascade_cases.TOL_FLASH[
@@ -1873,6 +1914,362 @@ def profile_train_step(run, ms_per_step):
                   for k, ms, c in rows[:16]]})
 
 
+# --------------------------------------------------------------- serving --
+SERVE_BATCH, SERVE_PAGE, SERVE_POOL = 4, 64, 160
+SERVE_PREFIX = 5              # pages of the shared system prompt (320)
+SERVE_SFX = (1, 2, 3, 14, 5, 7, 9, 2, 11)  # suffixes, in half pages (32)
+SERVE_NEW = (24, 8, 40, 16, 48, 12, 32, 20, 36, 28)
+SERVE_RATE = 1.0              # requests/s of the bf16 phase's Poisson trace
+
+
+def serving_traffic(bundle):
+    """The serving phases' 10 requests, behind a chat endpoint: each
+    prompt is the 320-token system prompt and a suffix of its own of
+    32-448 tokens; requests 1 and 7 share 352 tokens (a match that ends
+    inside a page: a COW copy); request 9 is request 0's prompt, its
+    plain greedy answer (``greedy_reference``) and 40 new tokens (a
+    second turn, hitting generated tokens); ``max_new`` 8-48. Request 0
+    is served first on its own (the earlier turn), the other nine after
+    it, FIFO. Returns [(prompt, max_new)]."""
+    rng = np.random.default_rng(21)
+    vocab = bundle.target_cfg.vocab_size
+    half = SERVE_PAGE // 2
+    n_sys = SERVE_PREFIX * SERVE_PAGE
+    sysp = rng.integers(0, vocab, n_sys)
+    prompts = [np.concatenate([sysp, rng.integers(0, vocab, n * half)])
+               for n in SERVE_SFX]
+    prompts[7] = np.concatenate([prompts[1][:n_sys + half],
+                                 rng.integers(0, vocab, 3 * half)])
+    answer, _ = greedy_reference(bundle.target_params, bundle.target_cfg,
+                                 torch.as_tensor(prompts[0][None],
+                                                 device=DEVICE), SERVE_NEW[0])
+    prompts.append(np.concatenate([prompts[0], answer[0],
+                                   rng.integers(0, vocab, 40)]))
+    return [(p.astype(np.int32), n) for p, n in zip(prompts, SERVE_NEW)]
+
+
+def greedy_gaps(bundle, reqs, toks):
+    """Plain fp32 greedy, teacher-forced: one plain forward (no cache, no
+    kernel) over each request's prompt and served tokens. Returns, per
+    request, the argmax before each served token and the top-2 gap
+    there: the served tokens are plain greedy's exactly when they equal
+    those argmaxes (``greedy_reference`` decodes the same argmaxes one
+    token at a time)."""
+    from repro_torch.models import lm
+    out = []
+    for (p, n), t in zip(reqs, toks):
+        seq = torch.as_tensor(np.concatenate([p, t[:-1]]), device=DEVICE)
+        with torch.no_grad():
+            logits = lm.forward(bundle.target_params, seq[None].long(),
+                                bundle.target_cfg)["logits"][0, len(p) - 1:]
+        top = torch.topk(logits.float(), 2, dim=-1)
+        out.append((top.indices[:, 0].cpu().numpy()[None],
+                    (top.values[:, 0] - top.values[:, 1]).cpu().numpy()[None]))
+    return out
+
+
+def _pool_owned_by_tree(eng, where):
+    """After a run: the pool's books balance, and every page in use is
+    the radix tree's (refcount 1, no row holds it)."""
+    if eng.pool is None:
+        return
+    eng.pool.sanity_check()
+    tree = {p for node in eng.cache._nodes() for _, p in node.pages} \
+        if eng.cache is not None else set()
+    rc = eng.pool.refcounts()
+    if eng.pool.pages_in_use != len(tree) or any(rc[p] != 1 for p in tree):
+        fail(f"{where}: {eng.pool.pages_in_use} pages in use, the radix "
+             f"tree owns {len(tree)}")
+
+
+def serve_run(bundle, reqs, name, snoop=None, **kw):
+    """Request 0, then the other nine, through one ``ServingEngine``
+    (batch 4, pages of 64): per-request tokens and a record of the run.
+    ``snoop(eng, state)``, when given, sees the state before each cycle."""
+    from repro_torch.serving.engine import ServingEngine
+    eng = ServingEngine(bundle, batch_size=SERVE_BATCH, device=DEVICE, **kw)
+    n_cycles = [0]
+    cycle = eng._cycle
+
+    def counted(state, gen):
+        n_cycles[0] += 1
+        if snoop is not None:
+            snoop(eng, state)
+        return cycle(state, gen)
+
+    eng._cycle = counted
+    cycle_s = _time_cycles(eng)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for part in (reqs[:1], reqs[1:]):
+        for p, n in part:
+            eng.submit(p, n)
+        stats = eng.run()
+        _pool_owned_by_tree(eng, name)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    toks = {r.uid: r.out for r in eng.done}
+    vocab = bundle.target_cfg.vocab_size
+    for uid, (p, n) in enumerate(reqs):
+        t = toks.get(uid)
+        if t is None or t.shape != (n,) or t.min() < 0 or t.max() >= vocab:
+            fail(f"serving {name}: request {uid} gave {t}")
+    keep = ("cycles", "tokens", "alpha", "wasted_row_cycles", "refills",
+            "installs", "install_calls", "install_traces", "pool_pages",
+            "pool_peak_pages", "pool_utilization", "prefix_hits",
+            "prefix_misses", "prefix_hit_tokens", "prefill_tokens_saved",
+            "cow_copies", "prefix_evictions", "refill_copy_bytes", "waves")
+    info = {"run": name, **{k: stats[k] for k in keep},
+            "decode_cycles": n_cycles[0], "wall_s": wall,
+            "ms_per_cycle": 1e3 * float(np.median(cycle_s)),
+            "wall_ms_per_cycle": 1e3 * wall / max(n_cycles[0], 1),
+            "tokens_per_s": stats["tokens"] / wall}
+    return eng, toks, info
+
+
+class SharedTableSnoop:
+    """Keeps, at the first cycle whose page table holds a page in two rows
+    (a prefix hit) beside sentinel tails, layer 0's pools, the table and
+    the lengths, to hold kernel #2 to its plain version there."""
+
+    def __init__(self):
+        self.snap = None
+
+    def __call__(self, eng, state):
+        if self.snap is not None:
+            return
+        from repro_torch.models import kvcache as kvc
+        pt = state.d1_feat["pt"]
+        rows = [set(r) - {kvc.PAGE_SENTINEL} for r in pt.tolist()]
+        shared = set.intersection(*rows) if len(rows) > 1 else set()
+        dup = {p for i, a in enumerate(rows) for b in rows[i + 1:]
+               for p in a & b}
+        if not dup or not (pt == kvc.PAGE_SENTINEL).any():
+            return
+        layer = state.target["layers"][0]
+        self.snap = {"k": layer["k"].clone(), "v": layer["v"].clone(),
+                     "pt": pt.clone(), "len": state.length.clone(),
+                     "shared_pages": len(dup), "in_every_row": len(shared),
+                     "sentinels": int((pt == kvc.PAGE_SENTINEL).sum())}
+
+    def check(self, bundle):
+        """#2 and its plain version on the kept table: random fp32 queries
+        at the verify shape (Tq 76), through the wave's real pools."""
+        from repro_torch.kernels import cascade_attention as casc
+        from repro_torch.kernels import cascade_cases
+        if self.snap is None:
+            fail("serving: no cycle ran with a shared page beside a "
+                 "sentinel tail")
+        s = self.snap
+        cfg = bundle.target_cfg
+        b, tq = s["pt"].shape[0], 76
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(3)
+        q = torch.randn((b, tq, cfg.num_heads, cfg.head_dim), generator=gen,
+                        device=DEVICE).transpose(1, 2)
+        qa = s["len"][:, None].long() + torch.arange(tq, device=DEVICE)
+        args = (q, s["k"].transpose(1, 2), s["v"].transpose(1, 2), s["pt"])
+        kw = dict(cache_len=s["len"], q_abs=qa, scale=cfg.head_dim ** -0.5)
+        kern = casc.cascade_phase1_paged(*args, **kw)
+        plain = casc.cascade_phase1_paged_plain(*args, **kw)
+        live = plain[1] > -1e29
+        err = {"acc_m_l": max(((a - p).abs() / (1 + p.abs())).reshape(
+            *live.shape, -1).amax(-1)[live].max().item()
+            for a, p in zip(kern, plain)),
+            "live_splits": int(live.sum())}
+        if err["acc_m_l"] > cascade_cases.TOL_PART:
+            fail(f"serving: #2 on the live shared table is off its plain "
+                 f"version: {err}")
+        return {**{k: v for k, v in s.items() if isinstance(v, int)}, **err}
+
+
+def _serve_agreement(name, bundle, reqs, toks):
+    """Each request held to plain greedy (``greedy_gaps``): a served token
+    that is not the argmax before it passes only on a near tie."""
+    ties = {}
+    for uid, (ref, gaps) in enumerate(greedy_gaps(
+            bundle, reqs, [toks[u] for u in range(len(reqs))])):
+        diff = np.nonzero(toks[uid] != ref[0])[0]
+        t = [{"pos": int(j), "ref_top2_gap": float(gaps[0, j])}
+             for j in diff]
+        if any(x["ref_top2_gap"] >= NEAR_TIE for x in t):
+            fail(f"{name}: request {uid} is not plain greedy: {t}")
+        if t:
+            ties[uid] = t
+    return ties
+
+
+def serving_path(bundle):
+    """fp32, the identity gates of serving (module docstring)."""
+    from repro_torch.core import pipeline as pl
+    t0 = time.perf_counter()
+    reqs = serving_traffic(bundle)
+    kern = pl.with_attn_impl(bundle, "kernel")
+    paged = dict(cache_impl="paged", page_size=SERVE_PAGE,
+                 pool_pages=SERVE_POOL)
+    runs, toks, launches, ties = [], {}, {}, {}
+    snoop = SharedTableSnoop()
+    plan = [("legacy", kern, dict(early_exit=False, refill=False), None),
+            ("dense_refill", kern, {}, None),
+            ("paged", kern, paged, None),
+            ("prefix_kernel", kern, dict(paged, prefix_cache=True), snoop),
+            ("prefix_gather", pl.with_attn_impl(bundle, "gather"),
+             dict(paged, prefix_cache=True), None)]
+    for name, b, kw, sn in plan:
+        _zero_launches()
+        eng, toks[name], info = serve_run(b, reqs, name, snoop=sn, **kw)
+        counts = _launches()
+        info["launches"] = counts
+        info["launches_per_cycle"] = {k: v / info["decode_cycles"]
+                                      for k, v in counts.items() if v}
+        runs.append(info)
+        launches[name] = counts
+        if name == "legacy" or any(
+                not np.array_equal(toks[name][u], toks["legacy"][u])
+                for u in toks[name]):
+            ties[f"{name} vs greedy"] = _serve_agreement(
+                name, bundle, reqs, toks[name])
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    by = {r["run"]: r for r in runs}
+    for name, entry in (("legacy", "cascade_phase1"),
+                        ("dense_refill", "cascade_phase1"),
+                        ("paged", "cascade_phase1_paged"),
+                        ("prefix_kernel", "cascade_phase1_paged")):
+        if launches[name][entry] <= 0 or launches[name][f"{entry}_sm90"]:
+            fail(f"serving {name}: cascade launches {launches[name]}: "
+                 f"expected the fp32 {entry} kernel")
+    if any(launches["prefix_gather"].values()):
+        fail(f"serving prefix_gather launched {launches['prefix_gather']}")
+    pk = by["prefix_kernel"]
+    if pk["prefix_hits"] < 8 or pk["cow_copies"] < 1 \
+            or pk["prefill_tokens_saved"] <= 0:
+        fail(f"serving: prefix cache barely used: {pk}")
+    if by["legacy"]["tokens"] != by["dense_refill"]["tokens"] or \
+            by["legacy"]["cycles"] <= by["dense_refill"]["cycles"]:
+        fail(f"serving: legacy {by['legacy']['cycles']} cycles, refill "
+             f"{by['dense_refill']['cycles']}, tokens "
+             f"{by['legacy']['tokens']} / {by['dense_refill']['tokens']}")
+    live_table = snoop.check(bundle)
+    emit({"phase": "serving", "ok": True, "dtype": "float32",
+          "batch": SERVE_BATCH, "page": SERVE_PAGE, "pool_pages": SERVE_POOL,
+          "prompt_lens": [len(p) for p, _ in reqs],
+          "max_new": list(SERVE_NEW), "runs": runs,
+          "tokens_equal_across_runs": all(
+              np.array_equal(toks[n][u], toks["legacy"][u])
+              for n in toks for u in toks[n]),
+          "near_ties": {k: v for k, v in ties.items() if v},
+          "live_table_check": live_table,
+          "seconds": time.perf_counter() - t0})
+    return reqs, {n: toks[n] for n in ("prefix_gather",)}, by
+
+
+def serving_bf16(bundle, reqs):
+    """bf16, paged engine pool with the prefix cache, kernel path: the
+    requests as a Poisson trace at SERVE_RATE through the overlapped
+    front-end and through the synchronous baseline, on the card's own
+    clock; then a drain run through the gather path, which the kernel
+    runs' tokens are held to (``bf16_divergences``' near-tie rule)."""
+    from repro_torch.core import pipeline as pl
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.frontend import ReplayDriver
+    from repro_torch.serving.metrics import MetricsRecorder, MonotonicClock
+    from repro_torch.serving.traffic import Arrival
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(5)
+    times = np.cumsum(rng.exponential(1.0 / SERVE_RATE, len(reqs)))
+    trace = [Arrival(t=float(t), prompt=p, max_new=n)
+             for t, (p, n) in zip(times, reqs)]
+    kern = pl.with_attn_impl(bundle, "kernel")
+    kw = dict(batch_size=SERVE_BATCH, cache_impl="paged",
+              page_size=SERVE_PAGE, pool_pages=SERVE_POOL, prefix_cache=True,
+              device=DEVICE)
+    runs, toks = {}, {}
+    for name, overlap in (("overlapped", True), ("sync", False)):
+        _zero_launches()
+        clock = MonotonicClock()
+        eng = ServingEngine(kern, clock=clock,
+                            recorder=MetricsRecorder(clock), **kw)
+        cycle_s = _time_cycles(eng)
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        st = ReplayDriver(eng, trace, overlap=overlap).run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+        _pool_owned_by_tree(eng, f"serving_bf16 {name}")
+        counts = _launches()
+        if counts["cascade_phase1_paged_sm90"] <= 0 or \
+                counts["cascade_phase1_paged"]:
+            fail(f"serving_bf16 {name}: cascade launches {counts}")
+        toks[name] = {r.uid: r.out for r in eng.done}
+        sla = st["sla"]
+        runs[name] = {
+            "engine_cycles": st["engine_cycles"], "tokens": st["tokens"],
+            "alpha": st["alpha"], "wall_s": wall,
+            # generated tokens over a wall time that waits for arrivals
+            "tokens_per_replay_s": st["tokens"] / wall,
+            "ms_per_cycle": 1e3 * float(np.median(cycle_s)),
+            "ms_per_cycle_mean": 1e3 * float(np.mean(cycle_s)),
+            "cycles_share_of_wall": float(np.sum(cycle_s)) / wall,
+            "prefix_hits": st["prefix_hits"], "cow_copies": st["cow_copies"],
+            "launches_per_cycle": counts["cascade_phase1_paged_sm90"]
+            / st["engine_cycles"],
+            # over ten requests a nearest-rank p99 is the max
+            "ttft_s": {k: sla["ttft"][k] for k in ("p50", "max")},
+            "tpot_s": {k: sla["tpot"][k] for k in ("p50", "max")},
+            "e2e_s": {k: sla["e2e"][k] for k in ("p50", "max")},
+            "queue_max": sla["queue_depth"]["max"]}
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    _, gather, ginfo = serve_run(pl.with_attn_impl(bundle, "gather"), reqs,
+                                 "bf16_gather", cache_impl="paged",
+                                 page_size=SERVE_PAGE, pool_pages=SERVE_POOL,
+                                 prefix_cache=True)
+    first, seen = {}, {}
+    for name in toks:
+        for uid, (p, _) in enumerate(reqs):
+            key = (uid, toks[name][uid].tobytes())
+            if key not in seen:      # the other run gave the same tokens
+                seen[key] = bf16_divergences(
+                    bundle, [p], toks[name][uid][None], gather[uid][None],
+                    "paged")[0]
+            if seen[key] is not None:
+                first[f"{name}/{uid}"] = seen[key]
+    emit({"phase": "serving_bf16", "ok": True, "dtype": "bfloat16",
+          "rate": SERVE_RATE, "arrivals_s": times.tolist(), "runs": runs,
+          "gather_run": ginfo, "first_divergence": first,
+          "agree_with_gather": {n: float(np.mean([
+              np.array_equal(toks[n][u], gather[u]) for u in gather]))
+              for n in toks},
+          "seconds": time.perf_counter() - t0})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
+def _time_cycles(eng):
+    """The host time of each engine cycle, from the start of its dispatch
+    to the end of its complete (the admission work between them, which
+    the overlapped front end does, included): a list the engine fills."""
+    durs, t = [], [0.0]
+    dispatch, complete = eng.dispatch_cycle, eng.complete_cycle
+
+    def timed_dispatch():
+        t[0] = time.perf_counter()
+        return dispatch()
+
+    def timed_complete(handle):
+        out = complete(handle)
+        if handle is not None:
+            durs.append(time.perf_counter() - t[0])
+        return out
+
+    eng.dispatch_cycle, eng.complete_cycle = timed_dispatch, timed_complete
+    return durs
+
+
 # ------------------------------------------------------------------ main --
 def _timing_keys(t):
     return {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -1914,13 +2311,16 @@ def main():
     graph_prof_fp32 = profile_graph(bundle, prompts)
     modes_path(bundle, prompts, *fp32_runs[1:])
     sampled_path(bundle, prompts)
+    serve_reqs, _, serve_fp32 = serving_path(bundle)
     bundle, ms_cycle, bf16_casc, bf16_per_cycle, eager = bf16_path(
         bundle, prompts)
     profile_cycles(bundle, prompts, ms_cycle)
     graph_bf16(bundle, prompts, eager)
     graph_prof = profile_graph(bundle, prompts)
     modes_bf16(bundle, prompts)
+    serve_bf16 = serving_bf16(bundle, serve_reqs)
     del bundle, eager
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -1946,6 +2346,17 @@ def main():
                   "launches_per_cycle": bf16_per_cycle[name],
                   "graph_launches_per_cycle": graph_prof[cache][
                       "phase1_launches_per_cycle"]})
+        # decode cycles of the serving phases: fp32 dense refill (#1) and
+        # prefix-cache (#2) runs, bf16 overlapped front-end (#2)
+        if dtype == torch.float32:
+            run = serve_fp32["dense_refill" if cache == "dense"
+                             else "prefix_kernel"]
+            extra["serving_launches_per_cycle"] = run[
+                "launches_per_cycle"].get(name)
+        else:
+            extra["serving_launches_per_cycle"] = (
+                serve_bf16["overlapped"]["launches_per_cycle"]
+                if cache == "paged" else None)
         rows.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/csrc/{src}",
                      "replaces": f"src/repro/kernels/cascade_attention.py:"

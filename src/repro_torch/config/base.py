@@ -188,8 +188,8 @@ class ModelConfig:
         return int(total)
 
 
-# Built-in draft strategies. The port registers "d2sd" and "dflash"
-# (core/strategies.py); the others name ROADMAP items.
+# Built-in draft strategies, all five registered by the port
+# (core/strategies.py).
 KNOWN_STRATEGIES: Tuple[str, ...] = (
     "d2sd", "dflash", "naive_k", "dflash_second", "eagle")
 

@@ -24,8 +24,8 @@ def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
         return paper_target.smoke() if smoke else paper_target.full()
     if arch_id in _NOT_PORTED:
         raise NotImplementedError(
-            f"arch {arch_id!r} is not ported: ROADMAP.md queue 1, slice 3 "
-            "item 13 (the configs/* configs and their blocks)")
+            f"arch {arch_id!r} is not ported: ROADMAP.md queue 1, slice C "
+            "(the configs/* configs and their blocks)")
     raise KeyError(f"unknown arch {arch_id!r}; known: {all_archs()}")
 
 

@@ -85,19 +85,25 @@ def drafter_init(dcfg: DrafterConfig, seed: int = 0, device="cuda"):
 # ----------------------------------------------------------- feature cache --
 def init_feat_cache(dcfg: DrafterConfig, batch: int, max_len: int, dtype,
                     device, cache_impl: str = "dense", page_size: int = 64,
-                    pool_pages=None, page_table=None):
+                    pool_pages=None, page_table=None, ext_pool=None):
     """Dense: k/v [L, B, S_max, Hkv, Dh]. Paged: stacked page pools
     [L, P, page, Hkv, Dh] plus the page table ``pt`` [B, max_pages] (the
-    same page-id space as the target's pools)."""
+    same page-id space as the target's pools). ``ext_pool``: ``(k, v)``
+    pools retained from an earlier wave, adopted as they are."""
     l, hkv, dh = dcfg.num_layers, dcfg.num_kv_heads, dcfg.head_dim
     length = torch.zeros((batch,), dtype=torch.int32, device=device)
     if cache_impl == "paged":
         pool_pages, page_table = kvc.default_page_layout(
             batch, max_len, page_size, pool_pages, page_table, device)
-        return {"k": kvc.init_pool(pool_pages, page_size, hkv, dh, dtype,
-                                   device, lead=(l,)),
-                "v": kvc.init_pool(pool_pages, page_size, hkv, dh, dtype,
-                                   device, lead=(l,)),
+        if ext_pool is not None:
+            k, v = ext_pool
+            assert k.shape == (l, pool_pages, page_size, hkv, dh) \
+                and k.dtype == dtype, ("retained pool geometry mismatch",
+                                       tuple(k.shape))
+        else:
+            k, v = (kvc.init_pool(pool_pages, page_size, hkv, dh, dtype,
+                                  device, lead=(l,)) for _ in range(2))
+        return {"k": k, "v": v,
                 "pt": torch.as_tensor(page_table, dtype=torch.int32,
                                       device=device),
                 "length": length}

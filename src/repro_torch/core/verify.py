@@ -156,7 +156,7 @@ def uses_tree_attention(cfg) -> bool:
 def select_backend(cfg) -> VerifierBackend:
     if not uses_tree_attention(cfg):
         raise NotImplementedError(
-            "StateReplayVerifier is not ported: ROADMAP.md queue 1, slice 3")
+            "StateReplayVerifier is not ported: ROADMAP.md queue 1, slice C")
     return TreeAttentionVerifier()
 
 

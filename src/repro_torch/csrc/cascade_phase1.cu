@@ -55,7 +55,10 @@
 //     The split costs three integer and float operations and no cvt
 //     (which compiles to four with an infinity test); the two correction
 //     products of S go to an accumulator of their own, so the dependent
-//     mma chains are half as long;
+//     mma chains are half as long. The mma units add with truncation, so
+//     each tile's P V products go to a fresh accumulator that is added
+//     to O in fp32: one accumulator over a 32k-token split biased O by
+//     up to 4e-3 of the partials;
 //   * fragment orders that need no shuffle and no bank conflict: in
 //     Q K^T, k-step pairs read float4s of Q and K (d = 16 kk + 4 tig +
 //     {0,1} for the first k-step, {2,3} for the second), rows 144 floats
@@ -367,21 +370,25 @@ phase1_tf32x3_kernel(const Params p) {
 
     // ---- O += P V: P's k-step n is S's n-block (key 2 tig at k tig, key
     // 2 tig + 1 at k tig + 4); n-block j of column group c holds the
-    // columns 32 c + 4 n + j ----
+    // columns 32 c + 4 n + j. The mma units add with truncation, which
+    // over a long split's tiles biased o toward zero (4.9e-4 of the
+    // partials at 128 tiles a split): each tile's products go to a fresh
+    // accumulator t, added to o in fp32 (round to nearest), as
+    // flash_attention.cu's mma_pb does ----
 #pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-      uint32_t pb[4], ps[4];
-      split_tf32(s[n][0], pb[0], ps[0]);
-      split_tf32(s[n][2], pb[1], ps[1]);
-      split_tf32(s[n][1], pb[2], ps[2]);
-      split_tf32(s[n][3], pb[3], ps[3]);
-      const float* v0 = vt + (8 * n + 2 * tig) * V_LD + 4 * gid;
+    for (int c = 0; c < DMAX / 32; ++c) {
+      if (32 * c >= p.D) break;
+      float t[4][4] = {};
 #pragma unroll
-      for (int c = 0; c < DMAX / 32; ++c) {
-        if (32 * c >= p.D) break;
-        const float4 y0 = *reinterpret_cast<const float4*>(v0 + 32 * c);
-        const float4 y1 =
-            *reinterpret_cast<const float4*>(v0 + V_LD + 32 * c);
+      for (int n = 0; n < BK / 8; ++n) {
+        uint32_t pb[4], ps[4];
+        split_tf32(s[n][0], pb[0], ps[0]);
+        split_tf32(s[n][2], pb[1], ps[1]);
+        split_tf32(s[n][1], pb[2], ps[2]);
+        split_tf32(s[n][3], pb[3], ps[3]);
+        const float* v0 = vt + (8 * n + 2 * tig) * V_LD + 4 * gid + 32 * c;
+        const float4 y0 = *reinterpret_cast<const float4*>(v0);
+        const float4 y1 = *reinterpret_cast<const float4*>(v0 + V_LD);
         const float e0[4] = {y0.x, y0.y, y0.z, y0.w};
         const float e1[4] = {y1.x, y1.y, y1.z, y1.w};
 #pragma unroll
@@ -389,11 +396,15 @@ phase1_tf32x3_kernel(const Params p) {
           uint32_t bb[2], bs[2];
           split_tf32(e0[j], bb[0], bs[0]);
           split_tf32(e1[j], bb[1], bs[1]);
-          mma_tf32(o[c][j], ps, bb);
-          mma_tf32(o[c][j], pb, bs);
-          mma_tf32(o[c][j], pb, bb);
+          mma_tf32(t[j], ps, bb);
+          mma_tf32(t[j], pb, bs);
+          mma_tf32(t[j], pb, bb);
         }
       }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[c][j][e] += t[j][e];
     }
   }
 

@@ -14,6 +14,8 @@ a view of the model's [B,T,Hq,D] queries.
 """
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -71,6 +73,58 @@ CASES = {
     "paged_nan": dict(kind="paged", nan=True),
     "dense_nan": dict(kind="dense", nan=True),
 }
+
+
+# The fp32 kernels' accumulator over long splits: both cascade kernels at
+# the longest cache paper-target allows (max_seq_len 32768), B 2, Tq 76,
+# with 8 splits (4096 keys, 128 of the fp32 kernel's 32-key tiles a
+# split) and with 1 (1024 tiles), held to a float64 run of the plain
+# version under TOL_OUT / TOL_PART (``long_split_errors``)
+LONG_S = 32768
+LONG_CASES = {f"{kind}_32k_splits{ns}": dict(kind=kind, lens=(32692, 30001),
+                                              s=LONG_S, n_splits=ns)
+              for kind in ("dense", "paged") for ns in (8, 1)}
+
+
+@contextlib.contextmanager
+def float_as_double():
+    """Inside, ``Tensor.float`` is ``Tensor.double``: the plain versions
+    (which compute through ``.float()``) then run in float64."""
+    real = torch.Tensor.float
+    torch.Tensor.float = torch.Tensor.double
+    try:
+        yield
+    finally:
+        torch.Tensor.float = real
+
+
+def long_split_errors(gen, rng, case):
+    """The fp32 kernel of ``case`` (a ``LONG_CASES`` entry) against the
+    plain version run in float64: max |merged output - reference| (the
+    merge in fp32 as on the decode path) and the worst live partial
+    (acc, m, l) relative to 1 + |reference|."""
+    from repro_torch.kernels import cascade_attention as casc
+    kern, plain, args, kw = case_inputs(gen, rng, torch.float32, **case)
+    q, ck = args[0], args[1]
+    b, hkv, tq, d = q.shape[0], ck.shape[1], q.shape[2], q.shape[3]
+    blk = [torch.randn((b, hkv, tq, d), generator=gen, device=q.device)
+           for _ in range(2)]
+    tm = torch.ones((tq, tq), dtype=torch.bool, device=q.device).tril()
+    merge = dict(tree_mask=tm, attn_softcap=kw["attn_softcap"],
+                 scale=kw["scale"])
+    parts = kern(*args, **kw)
+    out = casc.merge_with_tree_block(q, *blk, *parts, **merge)
+    with float_as_double():
+        ref_parts = plain(*(x.double() if x.is_floating_point() else x
+                            for x in args), **kw)
+        ref_out = casc.merge_with_tree_block(
+            q.double(), *(x.double() for x in blk), *ref_parts, **merge)
+    live = ref_parts[1] > -1e29
+    part = max(((x.double() - r).abs() / (1 + r.abs())).reshape(
+        *live.shape, -1).amax(-1)[live].max().item()
+        for x, r in zip(parts, ref_parts))
+    return {"out_abs": (out.double() - ref_out).abs().max().item(),
+            "partials": part, "n_splits": parts[0].shape[2]}
 
 
 def shuffled_table(rng, b, mp, lens, n_phys, span, device):

@@ -2,7 +2,7 @@
 ``repro/models/api.py``) for decoder-only configs.
 
 Encoder-decoder (whisper) and VLM configs raise: their blocks are not
-ported (ROADMAP.md queue 1, slice 3 item 13).
+ported (ROADMAP.md queue 1, slice C).
 """
 from __future__ import annotations
 
@@ -15,13 +15,13 @@ from repro_torch.config.base import ModelConfig
 from repro_torch.models import lm
 from repro_torch.models import param as pm
 
-_SLICE3 = ("encoder-decoder and VLM models are not ported: ROADMAP.md "
-           "queue 1, slice 3 item 13")
+_SLICE_C = ("encoder-decoder and VLM models are not ported: ROADMAP.md "
+            "queue 1, slice C")
 
 
 def _decoder_only(cfg: ModelConfig):
     if cfg.is_encoder_decoder or cfg.cross_attn_every:
-        raise NotImplementedError(_SLICE3)
+        raise NotImplementedError(_SLICE_C)
 
 
 def init_model(cfg: ModelConfig, seed: int = 0, device="cuda"):

@@ -33,10 +33,10 @@ from repro_torch.models.layers import rmsnorm
 from repro_torch.models.mlp import mlp, mlp_init
 
 _NOT_PORTED = {
-    "recurrent": "ROADMAP.md queue 1, slice 3 item 12 (models/rglru.py)",
-    "rwkv": "ROADMAP.md queue 1, slice 3 item 12 (models/rwkv.py)",
-    "moe": "ROADMAP.md queue 1, slice 3 item 13 (models/moe.py)",
-    "cross": "ROADMAP.md queue 1, slice 3 item 13 (cross-attention blocks)",
+    "recurrent": "ROADMAP.md queue 1, slice C (models/rglru.py)",
+    "rwkv": "ROADMAP.md queue 1, slice C (models/rwkv.py)",
+    "moe": "ROADMAP.md queue 1, slice C (models/moe.py)",
+    "cross": "ROADMAP.md queue 1, slice C (cross-attention blocks)",
 }
 
 
@@ -81,12 +81,22 @@ def block_init(gen, cfg: ModelConfig, kind: str):
 def block_state_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      dtype, device, cache_impl: str = "dense",
                      page_size: int = 64, pool_pages: int = 0,
-                     page_table=None):
+                     page_table=None, ext_pool=None):
     """Per-layer decode state: a page pool + table for global layers under
     ``cache_impl="paged"``, else a dense [B, cap, Hkv, Dh] buffer (local
-    layers keep a window-capped rolling buffer in both modes)."""
+    layers keep a window-capped rolling buffer in both modes).
+
+    ext_pool: optional ``(k, v)`` pool buffers retained from an earlier
+    wave (``core.state.capture_pools``), taken as they are in place of
+    fresh zeroed pools."""
     hkv, dh = cfg.num_kv_heads, cfg.head_dim
     if kind == "global" and cache_impl == "paged":
+        if ext_pool is not None:
+            k, v = ext_pool
+            assert k.shape == (pool_pages, page_size, hkv, dh) \
+                and k.dtype == dtype, ("retained pool geometry mismatch",
+                                       tuple(k.shape))
+            return {"k": k, "v": v, "pt": page_table}
         return {"k": kvc.init_pool(pool_pages, page_size, hkv, dh, dtype,
                                    device),
                 "v": kvc.init_pool(pool_pages, page_size, hkv, dh, dtype,
@@ -113,10 +123,13 @@ def default_block_mask(tb: int, window, device):
 def block_apply(p, x, cfg: ModelConfig, kind: str, *, state=None,
                 cache_len=None, positions=None, write_kv: bool = False,
                 extra_mask=None, attn_impl: str = "auto",
-                kv_chunk: int = 1024, attend_cache_on_write: bool = False):
+                kv_chunk: int = 1024, attend_cache_on_write: bool = False,
+                snap_at=None):
     """Apply one block. Returns (y, kv_out); cache writes are in place.
 
     kv_out: (k, v) of this pass in decode/verify mode, for the commit.
+    snap_at: optional [B]: only the first ``snap_at`` tokens of each row
+    are real (a prompt padded to a bucket); KV writes past it are dropped.
     """
     kv_out = None
     window = cfg.sliding_window if kind == "local" else None
@@ -163,10 +176,15 @@ def block_apply(p, x, cfg: ModelConfig, kind: str, *, state=None,
                     b, t = new.shape[:2]
                     clen = torch.as_tensor(cache_len, device=x.device)
                     clen = clen.reshape(-1).expand(b)
-                    pos = clen[:, None] + torch.arange(t, device=x.device)
-                    kvc.pool_scatter_(state[name], state["pt"], new, pos)
+                    ar = torch.arange(t, device=x.device)
+                    pos = clen[:, None] + ar
+                    valid = (ar[None, :] < snap_at[:, None]
+                             if snap_at is not None else None)
+                    kvc.pool_scatter_(state[name], state["pt"], new, pos,
+                                      valid)
                 else:
-                    _scatter_kv_(state[name], new, cache_len, rolling)
+                    _scatter_kv_(state[name], new, cache_len, rolling,
+                                 write_len=snap_at)
         elif cfg.attn_impl == "kernel":
             # the CUDA cascade kernels read the cache buffers in place
             from repro_torch.kernels import ops as kops
@@ -209,23 +227,33 @@ def block_apply(p, x, cfg: ModelConfig, kind: str, *, state=None,
     return x + y, kv_out
 
 
-def _scatter_kv_(buf, new, start, rolling: bool):
+def _scatter_kv_(buf, new, start, rolling: bool, write_len=None):
     """Write [B,T,H,D] into [B,cap,H,D] at ``start`` (scalar or [B]; mod
     cap when rolling), in place. Out-of-range writes are dropped
-    (``kvcache.drop_put_``)."""
+    (``kvcache.drop_put_``); so are entries at or past ``write_len`` [B]
+    (a padded prompt's tail)."""
     b, cap = buf.shape[:2]
     t = new.shape[1]
     dev = buf.device
     start = torch.as_tensor(start, device=dev).long().reshape(-1).expand(b)
-    if rolling and t >= cap:
+    if rolling and t >= cap and write_len is None:
         # only the last ``cap`` tokens survive a full wrap
         new = new[:, -cap:]
         start = start + (t - cap)
         t = cap
-    idx = start[:, None] + torch.arange(t, device=dev)[None, :]
+    ar = torch.arange(t, device=dev)[None, :]
+    idx = start[:, None] + ar
     if rolling:
         idx = torch.remainder(idx, cap)
-    ok = ((idx >= 0) & (idx < cap)).reshape(-1)
+    ok = (idx >= 0) & (idx < cap)
+    if write_len is not None:
+        keep = ar < write_len[:, None]
+        if rolling:
+            # only the last ``cap`` real tokens survive a wrap; dropping
+            # the earlier ones keeps the write free of duplicate indices
+            keep = keep & (ar >= write_len[:, None] - cap)
+        ok = ok & keep
+    ok = ok.reshape(-1)
     flat = (torch.arange(b, device=dev)[:, None] * cap + idx).reshape(-1)
     kvc.drop_put_(buf.view(b * cap, *buf.shape[2:]), 0, flat,
                   new.reshape(b * t, *new.shape[2:]), ok)

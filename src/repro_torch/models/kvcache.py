@@ -16,10 +16,15 @@ are mutable; a functional update would copy a pool per layer per cycle).
 The in-place writes are fixed-shape (:func:`drop_put_`): they drop the
 masked entries as JAX's ``.at[...].set(..., mode="drop")`` does, with no
 data-dependent shape and no device-to-host sync, so a CUDA graph can
-capture them. The host-side ``PagePool`` allocator belongs to the
-serving slice and is not ported yet (ROADMAP.md).
+capture them.
+
+:class:`PagePool` is the host-side refcounted allocator the serving
+engine hands pages out from; :func:`copy_page_` is the copy-on-write
+step of a prefix-cache hit that ends inside a page.
 """
 from __future__ import annotations
+
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -157,3 +162,107 @@ def drop_put_(buf, dim, idx, src, ok):
     shape[dim] = -1
     return buf.index_copy_(dim, torch.where(ok, idx, at),
                            torch.where(ok.view(shape), src, fill))
+
+
+def copy_page_(pool, src: int, dst: int):
+    """Copy physical page ``src`` to ``dst`` in place (the COW step).
+
+    pool: [..., P, page, H, D] (any stacked leading axes, as the drafter
+    layers'). Used when a prefix-cache hit ends inside a page: the shared
+    partial tail page is duplicated into a freshly allocated page before
+    the new row's first write, so a page with refcount > 1 is never
+    written. Returns ``pool``."""
+    ax = pool.ndim - 4
+    pool.select(ax, int(dst)).copy_(pool.select(ax, int(src)))
+    return pool
+
+
+class PagePool:
+    """Host-side refcounted free-list allocator over a page space (its own
+    copy of ``repro.models.kvcache.PagePool``).
+
+    One pool backs a single wave (``pool_scope="wave"``) or the whole
+    serving engine's lifetime (``pool_scope="engine"``): waves borrow the
+    pool, so pages the radix prefix cache owns, and their device contents
+    (``core.state.capture_pools``), survive wave turnover.
+
+    ``alloc`` hands pages out at refcount 1, :meth:`incref` adds a reader
+    (a prefix-cache hit splicing the page into another row's table) and
+    :meth:`free` is a decref: a page returns to the free list when its
+    last owner lets go. A page with refcount > 1 is shared and is never
+    written; refcount underflow and double frees assert.
+    """
+
+    def __init__(self, n_pages: int, page_size: int):
+        self.n_pages = int(n_pages)
+        self.page_size = int(page_size)
+        self._free: List[int] = list(range(self.n_pages - 1, -1, -1))
+        self._free_set = set(self._free)     # O(1) double-free detection
+        self._ref: List[int] = [0] * self.n_pages
+        self.peak_in_use = 0
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def pages_in_use(self) -> int:
+        return self.n_pages - len(self._free)
+
+    def refcount(self, page: int) -> int:
+        assert 0 <= page < self.n_pages, f"foreign page {page}"
+        return self._ref[page]
+
+    @property
+    def free_page_ids(self):
+        """Frozen snapshot of the free page ids."""
+        return frozenset(self._free_set)
+
+    def refcounts(self) -> List[int]:
+        """Snapshot of every page's refcount."""
+        return list(self._ref)
+
+    def alloc(self, n: int) -> Optional[List[int]]:
+        """Pop ``n`` free page ids at refcount 1; None (no partial grant)
+        if short."""
+        if n > len(self._free):
+            return None
+        pages = [self._free.pop() for _ in range(n)]
+        self._free_set.difference_update(pages)
+        for p in pages:
+            self._ref[p] = 1
+        self.peak_in_use = max(self.peak_in_use, self.pages_in_use)
+        return pages
+
+    def incref(self, pages: Sequence[int]) -> None:
+        """Add a reader to allocated pages; increffing a free page asserts."""
+        for p in pages:
+            assert 0 <= p < self.n_pages and self._ref[p] > 0, \
+                f"incref of free / foreign page {p}"
+        for p in pages:
+            self._ref[p] += 1
+
+    def free(self, pages: Sequence[int]) -> None:
+        """Drop one reference per page; a page returns to the free list at
+        refcount 0. Freeing an already-free page asserts."""
+        for p in pages:
+            assert 0 <= p < self.n_pages and p not in self._free_set \
+                and self._ref[p] > 0, f"double free / foreign page {p}"
+            self._ref[p] -= 1
+            if self._ref[p] == 0:
+                self._free.append(p)
+                self._free_set.add(p)
+
+    def sanity_check(self) -> None:
+        """Free-list / refcount consistency."""
+        assert len(self._free) == len(self._free_set)
+        for p in range(self.n_pages):
+            assert (self._ref[p] == 0) == (p in self._free_set), p
+
+    def row_table(self, pages: Sequence[int], max_pages: int):
+        """[max_pages] int32 row table: allocated pages first, then
+        :data:`PAGE_SENTINEL` for the unallocated slots (reads clamp and
+        mask, writes drop)."""
+        t = np.full((max_pages,), PAGE_SENTINEL, np.int32)
+        t[: len(pages)] = pages
+        return t

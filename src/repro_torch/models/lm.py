@@ -52,12 +52,17 @@ def lm_init(cfg: ModelConfig, seed: int = 0, device="cuda"):
 def init_states(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                 cache_impl: str = "dense", page_size: int = 64,
                 pool_pages: Optional[int] = None, page_table=None,
-                device="cuda"):
+                device="cuda", ext_pools=None):
     """Allocate per-layer decode states.
 
     cache_impl="paged": global-attention KV lives in page pools shared
     across the batch; ``page_table`` [B, max_pages] (default: the identity
-    layout) is one tensor shared by every paged layer.
+    layout) is one tensor shared by every paged layer, so patching one of
+    its rows in place reaches every layer.
+
+    ext_pools: optional ``{layer index: (k, v)}`` pool buffers retained
+    from an earlier wave (``core.state.capture_pools``), adopted in place
+    of fresh zeroed pools.
     """
     check_supported(cfg)
     dev = resolve_device(device)
@@ -69,11 +74,15 @@ def init_states(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                                      device=dev)
     elif cache_impl != "dense":
         raise ValueError(f"cache_impl={cache_impl!r}")
+    ext_pools = ext_pools or {}
+    assert not ext_pools or cache_impl == "paged", \
+        "retained pool buffers require cache_impl='paged'"
     layers = [block_state_init(cfg, kind, batch, max_len, dtype, dev,
                                cache_impl=cache_impl, page_size=page_size,
                                pool_pages=pool_pages or 0,
-                               page_table=page_table)
-              for kind in cfg.pattern_for_depth()]
+                               page_table=page_table,
+                               ext_pool=ext_pools.get(i))
+              for i, kind in enumerate(cfg.pattern_for_depth())]
     return {"layers": layers,
             "length": torch.zeros((batch,), dtype=torch.int32, device=dev)}
 
@@ -83,12 +92,14 @@ def forward(params, tokens, cfg: ModelConfig, *, states=None, cache_len=None,
             positions=None, write_kv: bool = False, extra_mask=None,
             attn_impl: str = "auto", kv_chunk: int = 1024,
             want_features: bool = False, want_logits: bool = True,
-            attend_cache_on_write: bool = False):
+            attend_cache_on_write: bool = False, snap_at=None):
     """tokens: [B,T] integer.
 
     Returns dict(logits, states, features, kv_outs, hidden). With
     ``write_kv`` the block K/V are written into ``states``' buffers in
     place and the returned states carry the advanced ``length``.
+    snap_at: optional [B]: each row advances by exactly ``snap_at`` tokens
+    and its KV writes past them are dropped (a prompt padded to a bucket).
 
     Under ``cfg.remat`` each layer runs under ``torch.utils.checkpoint``
     (non-reentrant), so its activations are recomputed in the backward,
@@ -123,7 +134,7 @@ def forward(params, tokens, cfg: ModelConfig, *, states=None, cache_len=None,
                 params["layers"][i], x, cfg, kind, state=st,
                 cache_len=cache_len, positions=positions, write_kv=write_kv,
                 extra_mask=extra_mask, attn_impl=attn_impl, kv_chunk=kv_chunk,
-                attend_cache_on_write=attend_cache_on_write)
+                attend_cache_on_write=attend_cache_on_write, snap_at=snap_at)
 
         if remat:
             x, kv = checkpoint(layer, x, use_reentrant=False)
@@ -148,9 +159,11 @@ def forward(params, tokens, cfg: ModelConfig, *, states=None, cache_len=None,
     if states is not None:
         out_states = dict(states)
         if write_kv:
-            new_len = cache_len + t
+            new_len = cache_len + (t if snap_at is None else snap_at)
+            # a tensor of its own (not a broadcast view), so that a row
+            # of it can be written in place
             out_states["length"] = new_len.expand(
-                states["length"].shape).to(torch.int32)
+                states["length"].shape).to(torch.int32).contiguous()
     return {"logits": logits, "states": out_states, "features": features,
             "kv_outs": kv_outs, "hidden": x}
 

@@ -74,3 +74,110 @@ def close(got, want, atol=ATOL, rtol=0.0):
     np.testing.assert_allclose(np.asarray(got, np.float32),
                                np.asarray(want, np.float32), atol=atol,
                                rtol=rtol)
+
+
+def port_bundle(jbundle):
+    """The port's SpecBundle holding the JAX bundle's configs and weights
+    (the read path ``gather``; ``pipeline.with_attn_impl`` switches it)."""
+    import dataclasses as dc
+
+    from repro_torch.config.base import SpecConfig
+    from repro_torch.core import pipeline as tpl
+    tt = port_model_cfg(jbundle.target_cfg)
+    t1 = port_drafter_cfg(jbundle.d1_cfg)
+    t2 = port_drafter_cfg(jbundle.d2_cfg)
+    spec = SpecConfig(**{f.name: getattr(jbundle.spec, f.name)
+                         for f in dc.fields(jbundle.spec)})
+    return tpl.SpecBundle(tt, t1, t2, spec, port_lm(jbundle.target_params, tt),
+                          port_drafter(jbundle.d1_params),
+                          port_drafter(jbundle.d2_params))
+
+
+def port_greedy(bundle, prompt, n):
+    """Plain greedy decoding of one prompt [P] through the port's target,
+    one token at a time over a dense cache (the port's twin of
+    ``conftest.pure_greedy``): [n] numpy tokens."""
+    from repro_torch.models import lm as tlm
+    cfg, params = bundle.target_cfg, bundle.target_params
+    toks = torch.as_tensor(np.array(prompt)).long()[None]
+    states = tlm.init_states(cfg, 1, toks.shape[1] + n + 4, device="cpu")
+    out = tlm.forward(params, toks, cfg, states=states, write_kv=True)
+    res = []
+    for _ in range(n):
+        tok = torch.argmax(out["logits"][:, -1].float(), -1)
+        res.append(int(tok[0]))
+        if len(res) == n:
+            break
+        out = tlm.forward(params, tok[:, None], cfg, states=out["states"],
+                          write_kv=True, attend_cache_on_write=True)
+    return np.asarray(res, np.int64)
+
+
+def clone_state(state):
+    """A copy of every tensor of a port ``EngineState``, tensors shared
+    between leaves (the page table) staying shared."""
+    memo = {}
+
+    def cp(x):
+        if isinstance(x, dict):
+            return {k: cp(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [cp(v) for v in x]
+        if id(x) not in memo:
+            memo[id(x)] = x.clone()
+        return memo[id(x)]
+
+    return dataclasses.replace(state, target=cp(state.target),
+                               d1_feat=cp(state.d1_feat),
+                               d2_feat=cp(state.d2_feat),
+                               anchor=cp(state.anchor),
+                               active=cp(state.active))
+
+
+def jax_state_layers(jtarget, cfg):
+    """The JAX target state's per-layer cache dicts (numpy), in depth
+    order: the scanned periods' stacked leaves split into layers, then
+    the tail layers; the port's ``target["layers"]`` layout."""
+    plen = len(cfg.layer_pattern)
+    n_per = cfg.num_layers // plen
+    out = [None] * cfg.num_layers
+    for j in range(plen if n_per else 0):
+        for per in range(n_per):
+            out[per * plen + j] = {k: np.asarray(v)[per]
+                                   for k, v in jtarget[f"p{j}"].items()}
+    for i in range(cfg.num_layers - n_per * plen):
+        out[n_per * plen + i] = {k: np.asarray(v)
+                                 for k, v in jtarget[f"tail{i}"].items()}
+    return out
+
+
+def assert_state_matches(tstate, jstate, cfg, tol=1e-6):
+    """Every leaf of the port's EngineState against the JAX one: page
+    tables, lengths and anchors exactly, caches (raw pools when paged)
+    within ``tol`` of the leaf's largest magnitude (XLA and torch sum the
+    matmuls in different orders)."""
+    def leaf(got, want, name):
+        got = got.detach().cpu().numpy()
+        want = np.asarray(want)
+        assert got.shape == want.shape, (name, got.shape, want.shape)
+        if np.issubdtype(want.dtype, np.floating):
+            scale = max(float(np.abs(want).max(initial=0.0)), 1.0)
+            np.testing.assert_allclose(got, want, atol=tol * scale, rtol=0,
+                                       err_msg=name)
+        else:
+            np.testing.assert_array_equal(got, want.astype(got.dtype),
+                                          err_msg=name)
+
+    for i, (tl, jl) in enumerate(zip(tstate.target["layers"],
+                                     jax_state_layers(jstate.target, cfg))):
+        assert set(tl) == set(jl), (i, set(tl), set(jl))
+        for name in tl:
+            leaf(tl[name], jl[name], f"layer {i} {name}")
+    leaf(tstate.target["length"], jstate.target["length"], "length")
+    for feat in ("d1_feat", "d2_feat"):
+        td, jd = getattr(tstate, feat), getattr(jstate, feat)
+        assert set(td) == set(jd), (feat, set(td), set(jd))
+        for name in td:
+            leaf(td[name], jd[name], f"{feat} {name}")
+    leaf(tstate.anchor, jstate.anchor, "anchor")
+    leaf(tstate.active, jstate.active, "active")

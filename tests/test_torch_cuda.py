@@ -528,3 +528,60 @@ def test_sampling_is_lossless_through_the_kernels(dev, name):
         device=dev, cache_impl="paged")
     assert casc.cascade_phase1_paged.launches > before
     assert tv < bound, (tv, bound)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(cascade_cases.LONG_CASES))
+def test_fp32_cascade_accumulator_over_long_splits(dev, name):
+    """Both fp32 cascade kernels at a 32k-token cache (the longest
+    paper-target allows), with 8 splits (128 of the kernel's 32-key tiles
+    a split) and with 1 (1024 tiles), against the plain version run in
+    float64, under the fp32 gates TOL_OUT and TOL_PART."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    case = cascade_cases.LONG_CASES[name]
+    err = cascade_cases.long_split_errors(gen, np.random.default_rng(0),
+                                          case)
+    assert err["n_splits"] == case["n_splits"]
+    assert err["out_abs"] <= cascade_cases.TOL_OUT, err
+    assert err["partials"] <= cascade_cases.TOL_PART, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["dense", "paged", "prefix"])
+def test_serving_engine_on_card(dev, name):
+    """The port's ServingEngine on the card, fp32 kernel path, at the
+    study's small size: requests behind a shared system prompt with mixed
+    budgets give each prompt's plain greedy tokens on the card, the pool's
+    books balance after the run, and the decode cycles went through the
+    cascade kernel of the cache (#1 dense, #2 paged)."""
+    from repro_torch.kernels import cascade_attention as casc
+    from repro_torch.serving.engine import ServingEngine
+    bundle = _tiny_bundle(dev)
+    rng = np.random.default_rng(2)
+    sysp = rng.integers(0, 512, 40)
+    reqs = [(np.concatenate([sysp, rng.integers(0, 512, 6 + 5 * i)]), n)
+            for i, n in enumerate((9, 4, 12, 6, 8, 5))]
+    kw = {} if name == "dense" else dict(cache_impl="paged", page_size=16)
+    eng = ServingEngine(bundle, batch_size=3, prefix_cache=name == "prefix",
+                        device=dev, **kw)
+    fn = casc.cascade_phase1 if name == "dense" else casc.cascade_phase1_paged
+    before = fn.launches
+    for p, n in reqs:
+        eng.submit(p, n)
+    stats = eng.run()
+    assert fn.launches > before
+    smoke = _chip_smoke()
+    for r in eng.done:
+        p, n = reqs[r.uid]
+        ref, gaps = smoke.greedy_reference(
+            bundle.target_params, bundle.target_cfg,
+            torch.as_tensor(p[None], device=dev), n)
+        diff = np.nonzero(r.out != ref[0])[0]
+        assert diff.size == 0 or gaps[0, diff[0]] < smoke.NEAR_TIE, r.uid
+    if name != "dense":
+        eng.pool.sanity_check()
+        tree = eng.cache.cached_pages if eng.cache is not None else 0
+        assert eng.pool.pages_in_use == tree
+    if name == "prefix":
+        assert stats["prefix_hits"] >= 3 and stats["prefill_tokens_saved"] > 0

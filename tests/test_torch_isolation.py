@@ -64,9 +64,11 @@ def _entry_points():
     from repro_torch.config.base import SpecConfig
     from repro_torch.configs import paper_target
     from repro_torch.core import drafter, pipeline, state
+    from repro_torch.launch import serve as launch_serve
     from repro_torch.launch import steps
     from repro_torch.launch import train as launch_train
     from repro_torch.models import api, lm
+    from repro_torch.serving.engine import ServingEngine
     tcfg = paper_target.smoke()
     dcfg = paper_target.drafter_small(gamma=4)
     bundle = pipeline.SpecBundle(tcfg, dcfg, dcfg,
@@ -85,6 +87,8 @@ def _entry_points():
         "init_model": lambda: api.init_model(tcfg),
         "make_train_step": lambda: steps.make_train_step(tcfg),
         "launch_train": lambda: launch_train.main(["--steps", "1"]),
+        "serving_engine": lambda: ServingEngine(bundle),
+        "launch_serve": lambda: launch_serve.main(["--requests", "1"]),
     }
 
 
@@ -92,7 +96,8 @@ def _entry_points():
                                   "engine_init", "generate",
                                   "generate_ondevice", "convert_lm",
                                   "convert_drafter", "init_model",
-                                  "make_train_step", "launch_train"])
+                                  "make_train_step", "launch_train",
+                                  "serving_engine", "launch_serve"])
 def test_entry_point_without_device_raises_here(name):
     """Without ``device=`` an entry point asks for the card; on a machine
     without one it raises instead of running on the CPU."""
