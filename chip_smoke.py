@@ -17,9 +17,13 @@ Phases, each printing one JSON line (any failure exits non-zero):
            keys), the pos_stride/pos_offset shard contract, pages of 8 and
            16, Tq 1 and 136, GQA groups 1 and 8, D 64 and 96, and outputs
            pre-filled with NaN (splits with no key must write acc = l = 0,
-           m = -1e30); then timed at the decode verify shape beside its
-           bound, its plain version and one scaled_dot_product_attention
-           call (the yardstick, never used by the port); and both fp32
+           m = -1e30), and head_dim 256 with 10 query heads over one
+           (the hybrid's read pass: 20 rows, Tq 16, a rolling buffer of
+           2048 wrapped; a capacity that wraps mid-split; Tq 1; softcap
+           with window 256; paged); then timed at the decode verify
+           shape and at the D 256 read-pass shape beside its bound, its
+           plain version and one scaled_dot_product_attention call (the
+           yardstick, never used by the port); and both fp32
            kernels at a 32k-token cache (the longest paper-target
            allows) with 8 splits and with 1, against the plain version
            in float64 (``cascade_cases.LONG_CASES``)
@@ -77,7 +81,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
            kernels (one cycle over 2000 copies of a prompt: TV of the
            first token against the target's softmax, every mode)
   serving  fp32 ``ServingEngine`` (batch 4, pages of 64, a pool of 160) at
-           the main path's model, gamma 16, K 4: 10 requests behind a
+           the main path's model cut to 18 of its 36 layers (the run's
+           time limit), gamma 16, K 4: 10 requests behind a
            320-token system prompt (two sharing 352 tokens, one a second
            turn over an earlier answer; ``max_new`` 8-48; the first
            request served before the other nine) through legacy waves,
@@ -108,8 +113,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
   modes_bf16  each mode of the modes phase and d2sd sampled in bf16,
            paged, graph loop: ms a replay, decode tokens/s, launches
            through the sm90 kernels, profile
-  serving_bf16  the serving requests in bfloat16 as a Poisson trace at
-           1 request/s through the overlapped front end and the
+  serving_bf16  the serving requests in bfloat16 (18 layers, as
+           serving) as a Poisson trace at 1 request/s through the overlapped front end and the
            synchronous baseline (paged, prefix cache, kernel path, the
            card's own clock): ms a cycle, engine cycles, tokens over the
            replay's wall time (set by the arrivals), TTFT and TPOT p50
@@ -117,6 +122,30 @@ Phases, each printing one JSON line (any failure exits non-zero):
            bf16 near-tie rule. A smoke reading of the path, not a serving
            metric: ten requests have no tail, and the slots are not kept
            full
+  hybrid   recurrentgemma-2b at full width and depth (26 layers: RG-LRU
+           blocks and MQA sliding-window layers of head_dim 256, vocab
+           256000), random seeded weights, two drafters sized by JAX's
+           production_drafter rule, gamma 16, K 4, 64 new tokens for 4
+           prompts of 2000-2040 tokens (ragged: every row's rolling local
+           buffers wrap): fp32 through the state-replay verifier, the
+           kernel path through the host loop (paged) and the graph loop
+           (both caches), the gather path through the graph loop (both
+           caches); tokens held to plain greedy and to the gather path
+           (near ties only), the graph loop's to the host loop's, cascade
+           launches a cycle exact (#1 one a local layer: 8; #2 one a
+           drafter layer and pass on a paged cache: 4; a graph run counts
+           its eager first cycle and its capture); then bf16: six graph
+           replays a cache profiled (wall and device ms a replay, idle
+           share), the launches of the loop's first cycle and capture
+           through the sm90 kernels held exact
+  ssm      the same for rwkv6-1.6b (24 RWKV-6 layers, attention-free, d
+           2048, vocab 65536) with 4 prompts of 512 and 32 new tokens:
+           #1 0, #2 4 a paged cycle
+  serving_recurrent  fp32 ``ServingEngine`` over the hybrid target,
+           kernel path: the serving phase's 10 requests through dense
+           refill and the paged engine pool (paged drafter feature
+           caches; the prefix cache needs an all-global target):
+           per-request tokens equal across both runs and to plain greedy
   train_fp32   paper_target.full() cut to 8 layers (the only cut; 2.79e9
            params, AdamW as optimizer_for picks), remat on, batch 2 x 4096
            tokens of the mixture stream: three steps through the fp32 flash
@@ -456,6 +485,97 @@ def time_kernels(timer, gen, rng):
                 "bound_by": by, "shape": {"B": b, "Hq": hq, "Hkv": hkv,
                                           "Tq": tq, "D": d, "lens": lens,
                                           "S": s, "page": page}}
+        for name, rec in time_kernels_d256(timer, gen, rng, dtype).items():
+            out[name][dn + "_d256"] = rec
+    return out
+
+
+def device_ms(fn, n=10):
+    """Device time of one call of ``fn`` (torch.profiler, the mean of
+    ``n`` calls after one untraced one), None if the trace holds none."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(r[1] for r in _device_rows(prof))
+    return busy / n or None
+
+
+def time_kernels_d256(timer, gen, rng, dtype):
+    """Both cascade kernels at head_dim 256, the shape of the hybrid
+    target's state-replay read pass (recurrentgemma-2b: B*R = 20 folded
+    rows, Tq 16, Hq 10 over Hkv 1; #1 over rolling buffers of 2048 at
+    lengths 2049-2153, window 2048; #2 over a pool of 64-key pages at the
+    same lengths): ms and device ms a call beside the bound, the plain
+    version and one scaled_dot_product_attention call over the gathered
+    keys."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import cascade_attention as casc
+    from repro_torch.kernels import cascade_cases
+    from repro_torch.kernels import ref
+    hq, hkv, d, tq, cap, page = 10, 1, 256, 16, 2048, 64
+    lens = list(cascade_cases.HYBRID_LENS)
+    b = len(lens)
+    mp = -(-max(lens) // page)
+    scale = d ** -0.5
+    q = _rand(gen, (b, tq, hq, d), dtype).transpose(1, 2)
+    bk, bv = (_rand(gen, (b, hkv, tq, d), dtype) for _ in range(2))
+    cl = torch.tensor(lens, device=DEVICE)
+    qa = cl[:, None] + torch.arange(tq, device=DEVICE)
+    tm = torch.ones((tq, tq), dtype=torch.bool, device=DEVICE).tril()
+    ck, cv = (_rand(gen, (b, cap, hkv, d), dtype).transpose(1, 2)
+              for _ in range(2))
+    pk, pv = (_rand(gen, (b * mp, page, hkv, d), dtype).transpose(1, 2)
+              for _ in range(2))
+    pt = cascade_cases.shuffled_table(rng, b, mp, lens, b * mp, page, DEVICE)
+    dense_kw = dict(cache_len=cl, q_abs=qa, scale=scale, window=cap,
+                    rolling=True)
+    paged_kw = dict(cache_len=cl, q_abs=qa, scale=scale)
+
+    def sdpa(kc, vc, kpos, window):
+        ok = (kpos[:, None] >= 0) & (kpos[:, None] < cl[:, None, None]) & (
+            kpos[:, None] <= qa[:, :, None])
+        if window:
+            ok &= kpos[:, None] > qa[:, :, None] - window
+        kk = torch.cat([kc, bk], 2).repeat_interleave(hq // hkv, 1)
+        vv = torch.cat([vc, bv], 2).repeat_interleave(hq // hkv, 1)
+        mask = torch.cat([ok, tm[None].expand(b, tq, tq)], -1)[:, None]
+        return lambda: F.scaled_dot_product_attention(
+            q, kk, vv, attn_mask=mask, scale=scale)
+
+    slot = torch.arange(cap, device=DEVICE)[None]
+    last = cl[:, None] - 1
+    roll_pos = last - torch.fmod(last - slot, cap)
+    gathered = ref.gather_pages(pk, pt), ref.gather_pages(pv, pt)
+    page_pos = torch.arange(gathered[0].shape[2], device=DEVICE)[None]
+    entries = {
+        "cascade_phase1": (
+            lambda: casc.cascade_phase1(q, ck, cv, **dense_kw),
+            lambda: casc.cascade_phase1_plain(q, ck, cv, **dense_kw),
+            sdpa(ck, cv, roll_pos, cap),
+            casc._split_geometry(cap, 8, 512)[1],
+            sum(min(n, cap) for n in lens)),
+        "cascade_phase1_paged": (
+            lambda: casc.cascade_phase1_paged(q, pk, pv, pt, **paged_kw),
+            lambda: casc.cascade_phase1_paged_plain(q, pk, pv, pt,
+                                                    **paged_kw),
+            sdpa(*gathered, page_pos.expand(b, -1), None),
+            casc._paged_geometry(mp, 8)[0], sum(lens)),
+    }
+    out = {}
+    for name, (kern, plain, lib, ns, live) in entries.items():
+        bound, by = _bound(dtype, live, b, hq, hkv, tq, d, ns)
+        out[name] = {
+            "ms": timer.ms(kern), "device_ms": device_ms(kern),
+            "plain_ms": timer.ms(plain), "library_ms": timer.ms(lib),
+            "bound_ms": bound, "bound_by": by,
+            "shape": {"B": b, "Hq": hq, "Hkv": hkv, "Tq": tq, "D": d,
+                      "lens": [min(lens), max(lens)], "live_keys": live,
+                      "S": cap if name == "cascade_phase1" else None,
+                      "page": page if name != "cascade_phase1" else None}}
     return out
 
 
@@ -708,15 +828,23 @@ def time_flash(timer, gen):
 
 
 # ------------------------------------------------------------- main path --
-def greedy_reference(params, cfg, prompts, n):
+def greedy_reference(params, cfg, prompts, n, true_len=None):
     """Plain greedy decoding, one token at a time over a dense cache.
-    Returns (tokens [B, n], top-2 logit gap at each step [B, n])."""
+    ``true_len`` [B]: ragged prompts, padded in ``prompts``. Returns
+    (tokens [B, n], top-2 logit gap at each step [B, n])."""
     from repro_torch.models import lm
     b, p = prompts.shape
     states = lm.init_states(cfg, b, p + n + 4, device=prompts.device)
-    out = lm.forward(params, prompts, cfg, states=states, write_kv=True)
+    snap = (None if true_len is None else
+            torch.as_tensor(true_len, device=prompts.device).int())
+    out = lm.forward(params, prompts, cfg, states=states, write_kv=True,
+                     snap_at=snap)
     toks, gaps = [], []
-    logits = out["logits"][:, -1].float()
+    last = (torch.full((b,), p - 1, device=prompts.device) if snap is None
+            else snap.long() - 1)
+    logits = out["logits"][torch.arange(b, device=prompts.device),
+                           last].float()
+    del out["logits"]
     for step in range(n):
         top = torch.topk(logits, 2, dim=-1).values
         gaps.append((top[:, 0] - top[:, 1]).cpu())
@@ -839,9 +967,10 @@ def committed_cache_error(bundle, prompts, seq, cache_impl,
     ``OnDeviceLoop`` of ``generate_ondevice``, a CUDA graph on a card) on
     ``prompts`` [B, P], then hold what the cycles committed to what a
     plain prefill of the same tokens ``seq`` writes: the target's K/V in
-    every global layer and both drafters' feature caches, each row up to
-    its committed length. Returns the largest difference relative to the
-    largest value of the prefill's tensor."""
+    every global layer, every recurrent state leaf (the prefill snaps each
+    row at its committed length) and both drafters' feature caches, each
+    row up to its committed length. Returns the largest difference
+    relative to the largest value of the prefill's tensor."""
     from repro_torch.core import pipeline as pl
     from repro_torch.core.state import engine_init, prefill
     b, p = prompts.shape
@@ -866,13 +995,21 @@ def committed_cache_error(bundle, prompts, seq, cache_impl,
                  f"the target's {lens}")
     n = max(lens)
     plain = pl.with_attn_impl(bundle, "gather")
-    ref = prefill(plain, engine_init(plain, b, n, device=dev), seq[:, :n])
+    ref = prefill(plain, engine_init(plain, b, n, device=dev), seq[:, :n],
+                  true_len=torch.tensor(lens, device=dev))
+    kinds = bundle.target_cfg.pattern_for_depth()
     pairs = [(_kv_views(a), _kv_views(r)) for kind, a, r in zip(
-        bundle.target_cfg.pattern_for_depth(), state.target["layers"],
-        ref.target["layers"]) if kind == "global"]
+        kinds, state.target["layers"], ref.target["layers"])
+        if kind == "global"]
+    worst = 0.0
+    for kind, a, r in zip(kinds, state.target["layers"], ref.target["layers"]):
+        if kind in ("recurrent", "rwkv"):
+            for name, w in r.items():
+                err = (a[name].float() - w.float()).abs().max()
+                worst = max(worst, (err / w.float().abs().max().clamp_min(
+                    1e-30)).item())
     pairs += [(_kv_views(state.d1_feat), _kv_views(ref.d1_feat)),
               (_kv_views(state.d2_feat), _kv_views(ref.d2_feat))]
-    worst = 0.0
     for got2, want2 in pairs:
         for got, want in zip(got2, want2):
             got = got if got.ndim == 5 else got[None]
@@ -906,16 +1043,17 @@ def build_bundle(dtype):
 
 
 def run_generate(bundle, prompts, impl, cache_impl, ondevice=False,
-                 max_new=MAX_NEW, seed=0):
+                 max_new=MAX_NEW, seed=0, true_len=None):
     """One ``generate`` call (the host loop) or, with ``ondevice``, one
     ``generate_ondevice`` call (the CUDA graph loop): its tokens and a
-    record of its times."""
+    record of its times. ``true_len``: ragged prompts, padded."""
     from repro_torch.core import pipeline as pl
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn = pl.generate_ondevice if ondevice else pl.generate
     res = fn(pl.with_attn_impl(bundle, impl), prompts, max_new, seed=seed,
-             cache_impl=cache_impl, page_size=64, device=DEVICE)
+             cache_impl=cache_impl, page_size=64, device=DEVICE,
+             true_len=true_len)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     toks = res["tokens"]
@@ -1411,8 +1549,8 @@ def oracle_path(bundle, prompts, ref_toks, gaps):
           "runs": runs, "launches": launches, "near_ties": ties})
 
 
-def bf16_path(bundle, prompts):
-    """The same run in bfloat16: each weight is replaced by its bf16 copy
+def to_bf16(bundle):
+    """``bundle`` in bfloat16: each weight is replaced by its bf16 copy
     inside the param dicts, so the fp32 copy is freed as it goes."""
     def cast_(tree):
         items = tree.items() if isinstance(tree, dict) else enumerate(tree)
@@ -1425,11 +1563,16 @@ def bf16_path(bundle, prompts):
     for params in (bundle.target_params, bundle.d1_params, bundle.d2_params):
         cast_(params)
     torch.cuda.empty_cache()
-    b16 = dataclasses.replace(
+    return dataclasses.replace(
         bundle, target_cfg=dataclasses.replace(bundle.target_cfg,
                                                dtype="bfloat16"),
         d1_cfg=dataclasses.replace(bundle.d1_cfg, dtype="bfloat16"),
         d2_cfg=dataclasses.replace(bundle.d2_cfg, dtype="bfloat16"))
+
+
+def bf16_path(bundle, prompts):
+    """The same run in bfloat16 (:func:`to_bf16`)."""
+    b16 = to_bf16(bundle)
     runs, agree, first, launches, per_cycle, eager = [], {}, {}, {}, {}, {}
     n_target = b16.target_cfg.num_layers
     n_drafter = b16.d1_cfg.num_layers + b16.d2_cfg.num_layers
@@ -1571,7 +1714,8 @@ PHASE1_KERNEL = {"float32": "phase1_tf32x3_kernel",
                  "bfloat16": "phase1_sm90_kernel"}
 
 
-def profile_loop(bundle, prompts, cache, want, n_cycles=6, seed=0):
+def profile_loop(bundle, prompts, cache, want, n_cycles=6, seed=0,
+                 true_len=None):
     """``n_cycles`` replays of the graph loop of ``bundle`` (its read path)
     on ``cache``, each followed by the loop's condition read as
     ``generate_ondevice`` reads it: first unprofiled (host clock, the
@@ -1583,7 +1727,8 @@ def profile_loop(bundle, prompts, cache, want, n_cycles=6, seed=0):
     trace (a bf16 paged trace once counted 236 of six replays' 240
     phase-1 launches). Fails if the trace holds more than ``want``
     phase-1 launches a replay; fewer is a trace that lost events, which
-    the caller judges."""
+    the caller judges. ``true_len``: ragged prompts, padded in
+    ``prompts``."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from repro_torch.core import pipeline as pl
@@ -1597,7 +1742,9 @@ def profile_loop(bundle, prompts, cache, want, n_cycles=6, seed=0):
     state = prefill(bundle, engine_init(
         bundle, b, p + MAX_NEW + 2 * bundle.spec.gamma + 8,
         cache_impl=cache, page_size=64, device=DEVICE), prompts_t, gen,
-        temperature=bundle.spec.temperature)
+        temperature=bundle.spec.temperature,
+        true_len=None if true_len is None else torch.as_tensor(
+            true_len, device=DEVICE).int())
     loop = pl.OnDeviceLoop(bundle, state, MAX_NEW, gen)
     try:
         loop.start()
@@ -1664,12 +1811,13 @@ def profile_graph(bundle, prompts, n_cycles=6):
 
 
 def replay_launches(bundle, cache):
-    """Phase-1 cascade launches a cycle: one a target layer (all global),
-    and on a paged cache one more a drafter layer and drafter pass (the
-    draft strategy's ``n_draft_passes``; a dense feature cache
-    gathers)."""
+    """Phase-1 cascade launches a cycle: one a target attention layer
+    (global or local), and on a paged cache one more a drafter layer and
+    drafter pass (the draft strategy's ``n_draft_passes``; a dense
+    feature cache gathers)."""
     from repro_torch.core import strategies as st
-    n = bundle.target_cfg.num_layers
+    n = sum(k in ("global", "local")
+            for k in bundle.target_cfg.pattern_for_depth())
     if cache == "paged":
         n += bundle.d1_cfg.num_layers * st.get_strategy(
             bundle.spec.mode).n_draft_passes(bundle.spec)
@@ -1920,6 +2068,9 @@ SERVE_PREFIX = 5              # pages of the shared system prompt (320)
 SERVE_SFX = (1, 2, 3, 14, 5, 7, 9, 2, 11)  # suffixes, in half pages (32)
 SERVE_NEW = (24, 8, 40, 16, 48, 12, 32, 20, 36, 28)
 SERVE_RATE = 1.0              # requests/s of the bf16 phase's Poisson trace
+SERVE_LAYERS = 18             # paper-target cut in depth for the serving
+                              # phases (half of 36: their eager cycles are
+                              # host-bound and the run's time limit binds)
 
 
 def serving_traffic(bundle):
@@ -2099,6 +2250,17 @@ def _serve_agreement(name, bundle, reqs, toks):
     return ties
 
 
+def cut_depth(bundle, n_layers):
+    """``bundle`` with its target cut to its first ``n_layers`` layers (the
+    weights shared, not copied)."""
+    params = dict(bundle.target_params,
+                  layers=bundle.target_params["layers"][:n_layers])
+    return dataclasses.replace(
+        bundle, target_params=params,
+        target_cfg=dataclasses.replace(bundle.target_cfg,
+                                       num_layers=n_layers))
+
+
 def serving_path(bundle):
     """fp32, the identity gates of serving (module docstring)."""
     from repro_torch.core import pipeline as pl
@@ -2276,6 +2438,211 @@ def _timing_keys(t):
                               "library_ms")}
 
 
+# ------------------------------------------------------ recurrent targets --
+# phase -> (arch, prompt length of each row, new tokens a row): the
+# hybrid's prompts are ragged and long enough that every row's rolling
+# local buffers (window 2048) wrap during its 64 new tokens; the ssm
+# phase is cut to 32 (its eager fp32 cycle is host-bound, about 230 ms)
+RECURRENT = {"hybrid": ("recurrentgemma-2b", (2000, 2013, 2027, 2040), 64),
+             "ssm": ("rwkv6-1.6b", (512, 512, 512, 512), 32)}
+
+
+def production_drafter(tcfg, dtype, gamma=GAMMA):
+    """The drafter JAX's ``launch/steps.py::production_drafter`` sizes for
+    a target, copied: d = max(512, d_model / 4 rounded down to 128),
+    heads of 128, 2 KV heads when the heads are even (else 1), ff 3d, two
+    layers."""
+    from repro_torch.core.drafter import DrafterConfig
+    from repro_torch.models import lm
+    d = max(512, (tcfg.d_model // 4) // 128 * 128)
+    heads = max(4, d // 128)
+    return DrafterConfig(
+        d_model=d, num_layers=2, num_heads=heads,
+        num_kv_heads=2 if heads % 2 == 0 else 1, d_ff=3 * d,
+        vocab_size=tcfg.vocab_size, target_feature_dim=lm.feature_dim(tcfg),
+        gamma=gamma, dtype=dtype)
+
+
+def recurrent_bundle(arch):
+    """fp32 full-width, full-depth ``arch`` with random seeded weights and
+    two production drafters, d2sd at gamma 16, K 4."""
+    from repro_torch.config.base import SpecConfig
+    from repro_torch.config.registry import get_config
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core.drafter import drafter_init
+    from repro_torch.models import lm
+    tcfg = dataclasses.replace(get_config(arch), dtype="float32")
+    dcfg = production_drafter(tcfg, "float32")
+    spec = SpecConfig(gamma=GAMMA, top_k_branches=K_BRANCHES, mode="d2sd")
+    return pl.SpecBundle(tcfg, dcfg, dcfg, spec,
+                         lm.lm_init(tcfg, seed=0, device=DEVICE),
+                         drafter_init(dcfg, seed=1, device=DEVICE),
+                         drafter_init(dcfg, seed=2, device=DEVICE))
+
+
+def _recurrent_runs(bundle, prompts, lens, max_new, where,
+                    check_launches):
+    """The kernel path through the host loop on the paged cache, and the
+    kernel and gather paths through the graph loop on both caches:
+    tokens and records by (impl, cache, loop). Each kernel run's cascade
+    counts are zeroed just before it and read just after:
+    ``check_launches(counts, cache, cycles)`` judges a host run's over
+    its cycles and a graph run's over two (a replay runs no wrapper: the
+    eager first cycle and the capture count)."""
+    toks, runs, per_cycle = {}, [], {}
+    plan = [("kernel", "paged", False), ("kernel", "paged", True),
+            ("gather", "paged", True), ("kernel", "dense", True),
+            ("gather", "dense", True)]
+    for impl, cache, ondevice in plan:
+        _zero_launches()
+        t, info = run_generate(bundle, prompts, impl, cache,
+                               ondevice=ondevice, max_new=max_new,
+                               true_len=lens)
+        counts = _launches()
+        if impl == "kernel":
+            cycles = 2 if ondevice else info["cycles"]
+            info["launches"] = counts
+            check_launches(counts, cache, cycles)
+            per_cycle.setdefault(cache, {k: v / cycles for k, v in
+                                         counts.items()})
+        elif any(counts.values()):
+            fail(f"{where} gather/{cache}: cascade launches {counts}")
+        toks[(impl, cache, "graph" if ondevice else "host")] = t
+        runs.append(info)
+    if not np.array_equal(toks[("kernel", "paged", "graph")],
+                          toks[("kernel", "paged", "host")]):
+        fail(f"{where}: the graph loop's tokens are not the host loop's")
+    return toks, runs, per_cycle
+
+
+def recurrent_path(phase):
+    """fp32 identity and bf16 speed of a recurrent target (module
+    docstring: ``hybrid``, ``ssm``). Frees its models before it returns
+    the cascade launches a cycle, by dtype, cache and kernel."""
+    from repro_torch.core import pipeline as pl
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    arch, lens, max_new = RECURRENT[phase]
+    bundle = recurrent_bundle(arch)
+    cfg = bundle.target_cfg
+    kinds = cfg.pattern_for_depth()
+    n_local = sum(k in ("global", "local") for k in kinds)
+    n_draft = replay_launches(bundle, "paged") - n_local
+    rng = np.random.default_rng(5)
+    prompts = rng.integers(0, cfg.vocab_size, (len(lens), max(lens)))
+    lens = np.asarray(lens)
+    ref_toks, gaps = greedy_reference(
+        bundle.target_params, cfg, torch.as_tensor(prompts, device=DEVICE),
+        max_new, true_len=lens)
+
+    def check(counts, cache, cycles, sm90=""):
+        want = {f"cascade_phase1{sm90}": n_local * cycles,
+                f"cascade_phase1_paged{sm90}":
+                    n_draft * cycles if cache == "paged" else 0}
+        other = {k: v for k, v in counts.items() if k not in want and v}
+        if any(counts[k] != v for k, v in want.items()) or other:
+            fail(f"{phase} {cache}: cascade launches {counts} over {cycles} "
+                 f"cycles: expected {n_local} #1 and {want} in all")
+
+    toks, runs, per_cycle = _recurrent_runs(bundle, prompts, lens, max_new,
+                                            phase, check)
+    ties = {}
+    for (impl, cache, loop), t in toks.items():
+        ties[f"{impl}/{cache}/{loop} vs greedy"] = agreement(
+            f"{phase} {impl}/{cache}/{loop}", t, ref_toks, gaps)
+        if impl == "kernel":
+            ties[f"kernel/{cache}/{loop} vs gather"] = agreement(
+                f"{phase} kernel/{cache}/{loop}", t,
+                toks[("gather", cache, "graph")], gaps)
+    fp32 = {"runs": runs, "launches_per_cycle": per_cycle,
+            "near_ties": {k: v for k, v in ties.items() if v},
+            "min_ref_top2_gap": float(gaps.min())}
+    del toks
+    # bf16: six graph replays a cache under the profiler. The gate is the
+    # wrappers' exact counts of the loop's eager first cycle and capture;
+    # the trace's count by name is reported beside them (a trace can lose
+    # events: ROADMAP.md queue 3)
+    b16 = pl.with_attn_impl(to_bf16(bundle), "kernel")
+    del bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    profiles, bf16_per_cycle = {}, {}
+    for cache in ("paged", "dense"):
+        _zero_launches()
+        profiles[cache] = profile_loop(b16, prompts, cache,
+                                       replay_launches(b16, cache),
+                                       true_len=lens)
+        counts = _launches()
+        check(counts, cache, 2, sm90="_sm90")
+        bf16_per_cycle[cache] = {k: v / 2 for k, v in counts.items()}
+    emit({"phase": phase, "ok": True, "arch": arch,
+          "layers": cfg.num_layers, "pattern": list(cfg.layer_pattern),
+          "params": cfg.param_count(), "drafter": {
+              k: getattr(b16.d1_cfg, k) for k in (
+                  "d_model", "num_heads", "num_kv_heads", "d_ff",
+                  "num_layers")},
+          "batch": len(lens), "prompt_lens": lens.tolist(),
+          "max_new": max_new, "gamma": GAMMA, "k": K_BRANCHES,
+          "launches_per_cycle_want": {"cascade_phase1": n_local,
+                                      "cascade_phase1_paged": n_draft},
+          "float32": fp32, "bfloat16": {"graph_profile": profiles},
+          "seconds": time.perf_counter() - t0})
+    del b16
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"float32": per_cycle, "bfloat16": bf16_per_cycle}
+
+
+def serving_recurrent():
+    """fp32 ``ServingEngine`` over the hybrid target (kernel path): the
+    serving phase's 10 requests through dense refill and the paged engine
+    pool (the drafters' feature caches paged; the prefix cache is refused
+    for a target that is not all-global). Per-request tokens equal across
+    both runs and plain greedy (near ties reported)."""
+    from repro_torch.core import pipeline as pl
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bundle = recurrent_bundle(RECURRENT["hybrid"][0])
+    reqs = serving_traffic(bundle)
+    kern = pl.with_attn_impl(bundle, "kernel")
+    runs, toks, ties = [], {}, {}
+    for name, kw in (("dense_refill", {}),
+                     ("paged", dict(cache_impl="paged", page_size=SERVE_PAGE,
+                                    pool_pages=SERVE_POOL))):
+        _zero_launches()
+        eng, toks[name], info = serve_run(kern, reqs, name, **kw)
+        counts = _launches()
+        info["launches"] = counts
+        info["launches_per_cycle"] = {k: v / info["decode_cycles"]
+                                      for k, v in counts.items() if v}
+        if not counts["cascade_phase1"] or counts["cascade_phase1_sm90"] \
+                or counts["cascade_phase1_paged_sm90"] or (
+                    name == "paged") != bool(counts["cascade_phase1_paged"]):
+            fail(f"serving_recurrent {name}: cascade launches {counts}")
+        runs.append(info)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    ties["dense_refill vs greedy"] = _serve_agreement(
+        "serving_recurrent", bundle, reqs, toks["dense_refill"])
+    if any(not np.array_equal(toks["paged"][u], toks["dense_refill"][u])
+           for u in toks["paged"]):
+        ties["paged vs greedy"] = _serve_agreement(
+            "serving_recurrent paged", bundle, reqs, toks["paged"])
+    emit({"phase": "serving_recurrent", "ok": True, "dtype": "float32",
+          "arch": bundle.target_cfg.name, "batch": SERVE_BATCH,
+          "prompt_lens": [len(p) for p, _ in reqs],
+          "max_new": list(SERVE_NEW), "runs": runs,
+          "tokens_equal_across_runs": all(
+              np.array_equal(toks["paged"][u], toks["dense_refill"][u])
+              for u in toks["paged"]),
+          "near_ties": {k: v for k, v in ties.items() if v},
+          "seconds": time.perf_counter() - t0})
+    del bundle, kern
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main():
     if len(sys.argv) > 1:
         fail(f"chip_smoke.py takes no arguments: {sys.argv[1:]}")
@@ -2311,18 +2678,20 @@ def main():
     graph_prof_fp32 = profile_graph(bundle, prompts)
     modes_path(bundle, prompts, *fp32_runs[1:])
     sampled_path(bundle, prompts)
-    serve_reqs, _, serve_fp32 = serving_path(bundle)
+    serve_reqs, _, serve_fp32 = serving_path(cut_depth(bundle, SERVE_LAYERS))
     bundle, ms_cycle, bf16_casc, bf16_per_cycle, eager = bf16_path(
         bundle, prompts)
     profile_cycles(bundle, prompts, ms_cycle)
     graph_bf16(bundle, prompts, eager)
     graph_prof = profile_graph(bundle, prompts)
     modes_bf16(bundle, prompts)
-    serve_bf16 = serving_bf16(bundle, serve_reqs)
+    serve_bf16 = serving_bf16(cut_depth(bundle, SERVE_LAYERS), serve_reqs)
     del bundle, eager
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    recurrent = {phase: recurrent_path(phase) for phase in RECURRENT}
+    serving_recurrent()
 
     fp32_launches = train_identity()
     run, bf16_launches, ms_step = train_bf16()
@@ -2357,12 +2726,16 @@ def main():
             extra["serving_launches_per_cycle"] = (
                 serve_bf16["overlapped"]["launches_per_cycle"]
                 if cache == "paged" else None)
+        # the recurrent targets' kernel runs (host loop) in this dtype
+        for phase, rec in recurrent.items():
+            extra[f"{phase}_launches_per_cycle"] = rec[dn][cache][name]
         rows.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/csrc/{src}",
                      "replaces": f"src/repro/kernels/cascade_attention.py:"
                                  f"{line}",
                      **extra, "max_abs_err": worst[name], "dtype": dn,
-                     **_timing_keys(timing[wrapper][dn])})
+                     **_timing_keys(timing[wrapper][dn]),
+                     "d256": timing[wrapper][dn + "_d256"]})
     for name, (wrapper, dtype, src, line) in FLASH_KERNELS.items():
         dn = str(dtype).replace("torch.", "")
         counts = bf16_launches if dtype == torch.bfloat16 else fp32_launches

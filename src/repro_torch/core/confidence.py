@@ -34,3 +34,11 @@ def topk_prefixes(r, k: int):
     """
     vals, idx = torch.sort(r, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
+
+
+def select_branches(draft_logits, k: int, draft_tokens=None):
+    """Full §3.1-3.2: logits -> (conf, r, fork_idx [..., K])."""
+    conf = confidences(draft_logits, draft_tokens)
+    r = boundary_posterior(conf)
+    _, idx = topk_prefixes(r, k)
+    return conf, r, idx

@@ -3,10 +3,12 @@ on-device loop (twin of ``repro/core/pipeline.py``).
 
 A cycle runs the draft strategy of ``SpecConfig.mode`` (for ``d2sd``:
 DFlash trunk, boundary posterior, top-K forks, batched VP second draft,
-comb tree, and with ``third_level`` one more VP level), the
-tree-attention verify over the target (the cascade read path; greedy at
-temperature 0, rejection sampling above), the KV commit of the accepted
-path and the feature-cache extension of both drafters.
+comb tree, and with ``third_level`` one more VP level), the verify over
+the target (pure-attention targets: tree attention through the cascade
+read path, greedy at temperature 0, rejection sampling above, then the KV
+commit of the accepted path; recurrent and hybrid targets: the
+state-replay verifier, greedy at every temperature) and the feature-cache
+extension of both drafters.
 
 Random numbers come from one ``torch.Generator`` per call, made from
 ``seed`` on the run's device and consumed in a fixed order: the prefill's
@@ -114,8 +116,10 @@ def decode_cycle(bundle: SpecBundle, state: EngineState, gen,
                           res["bonus"][:, None], out_tok)
     out = {"tokens": out_tok, "n_out": n_commit, "n_acc": n_acc}
     if collect_stats and draft.conf is not None:
+        # the state-replay verifier reports no per-node acceptance
         out["conf"] = draft.conf
-        out["trunk_ok"] = res["ok"][:, 1:bundle.spec.gamma]
+        out["trunk_ok"] = (res["ok"][:, 1:bundle.spec.gamma]
+                           if res["ok"] is not None else None)
     return state2, out
 
 
@@ -123,7 +127,7 @@ def decode_cycle(bundle: SpecBundle, state: EngineState, gen,
 def generate(bundle: SpecBundle, prompts, max_new: int, seed: int = 0,
              max_len: Optional[int] = None, collect_stats: bool = True,
              cache_impl: str = "dense", page_size: int = 64,
-             device="cuda"):
+             device="cuda", true_len=None):
     """Generate up to ``max_new`` tokens for prompts [B, P] (host loop over
     decode cycles). Returns dict(tokens [B, max_new] numpy, n_cycles,
     alpha, stats, prefill_s, decode_s). The two times are host clock
@@ -139,6 +143,10 @@ def generate(bundle: SpecBundle, prompts, max_new: int, seed: int = 0,
     ``n_acc`` and ``n_out`` [B], and with ``collect_stats`` ``conf`` and
     ``trunk_ok`` of the rows that were active (strategies with a trunk).
     cache_impl: "dense" | "paged" KV storage (identity page layout).
+    true_len: optional [B] real prompt lengths: ``prompts`` is padded and
+    row b starts decoding after its first ``true_len[b]`` tokens (ragged
+    prompts; ``prefill(true_len=)``). JAX's ``generate`` has no such
+    argument; without it the two are the same.
     """
     dev = resolve_device(device)
     gen = pm.make_generator(seed, dev)
@@ -150,7 +158,8 @@ def generate(bundle: SpecBundle, prompts, max_new: int, seed: int = 0,
     state = engine_init(bundle, b, max_len, cache_impl=cache_impl,
                         page_size=page_size, device=dev)
     state = prefill(bundle, state, prompts, gen,
-                    temperature=bundle.spec.temperature)
+                    temperature=bundle.spec.temperature,
+                    true_len=_lengths(true_len, dev))
 
     out_buf = np.zeros((b, max_new + g + 1), np.int64)
     out_buf[:, 0] = state.anchor.cpu().numpy()
@@ -177,7 +186,9 @@ def generate(bundle: SpecBundle, prompts, max_new: int, seed: int = 0,
         stats["n_out"].append(n_out)
         if "conf" in out:
             stats["conf"].append(out["conf"].cpu().numpy()[below])
-            stats["trunk_ok"].append(out["trunk_ok"].cpu().numpy()[below])
+            if out["trunk_ok"] is not None:
+                stats["trunk_ok"].append(
+                    out["trunk_ok"].cpu().numpy()[below])
         if n_cycles > max_new + 8:
             break
     return {"tokens": out_buf[:, :max_new], "n_cycles": n_cycles,
@@ -336,10 +347,16 @@ class OnDeviceLoop:
             self.graph = None
 
 
+def _lengths(true_len, dev):
+    if true_len is None:
+        return None
+    return torch.as_tensor(np.asarray(true_len), device=dev).to(torch.int32)
+
+
 def generate_ondevice(bundle: SpecBundle, prompts, max_new: int,
                       seed: int = 0, max_len: Optional[int] = None,
                       cache_impl: str = "dense", page_size: int = 64,
-                      device="cuda"):
+                      device="cuda", true_len=None):
     """On-device generation (twin of JAX ``generate_ondevice``): prefill
     eagerly, then :class:`OnDeviceLoop`; on a card every cycle after the
     first is one CUDA graph replay, and the token buffer stays on the
@@ -352,7 +369,8 @@ def generate_ondevice(bundle: SpecBundle, prompts, max_new: int,
     host clock readings that end at a synchronize (decode_s: the cycles,
     the eager first one included, not the capture); capture_s is the
     capture alone and graph_pool_bytes the memory its private pool took
-    (both 0 on the CPU).
+    (both 0 on the CPU). ``true_len``: ragged prompts, as in
+    :func:`generate`.
     """
     dev = resolve_device(device)
     gen = pm.make_generator(seed, dev)
@@ -363,7 +381,8 @@ def generate_ondevice(bundle: SpecBundle, prompts, max_new: int,
     state = prefill(bundle, engine_init(bundle, b, max_len,
                                         cache_impl=cache_impl,
                                         page_size=page_size, device=dev),
-                    prompts, gen, temperature=bundle.spec.temperature)
+                    prompts, gen, temperature=bundle.spec.temperature,
+                    true_len=_lengths(true_len, dev))
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t1 = time.perf_counter()

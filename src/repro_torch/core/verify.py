@@ -16,7 +16,12 @@ Every random number of a verify is drawn up front in fixed-shape calls on
 the cycle's generator (:func:`sampling_verify`); the rule itself
 (:func:`sampling_verify_core`) takes them as inputs.
 
-The state-replay backend (recurrent targets) is a ROADMAP item.
+Backends: :class:`TreeAttentionVerifier` (one forward over the whole tree
+with an ancestor mask, then a KV gather-commit; pure-attention targets)
+and :class:`StateReplayVerifier` (recurrent and hybrid targets: the tree's
+root-to-leaf rows folded into the batch for one read-only forward, then a
+replay of the accepted path that advances every state by exactly the
+committed tokens). :func:`select_backend` picks by the target's blocks.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ import torch
 from repro_torch.core import tree as tree_lib
 from repro_torch.core.tree import (Tree, best_path, children_table,
                                    propagate_acceptance)
+from repro_torch.models import kvcache as kvc
 from repro_torch.models import lm
 from repro_torch.models import param as pm
 
@@ -154,10 +160,9 @@ def uses_tree_attention(cfg) -> bool:
 
 
 def select_backend(cfg) -> VerifierBackend:
-    if not uses_tree_attention(cfg):
-        raise NotImplementedError(
-            "StateReplayVerifier is not ported: ROADMAP.md queue 1, slice C")
-    return TreeAttentionVerifier()
+    """Pick the verify backend from the target's blocks."""
+    return (TreeAttentionVerifier() if uses_tree_attention(cfg)
+            else StateReplayVerifier())
 
 
 class TreeAttentionVerifier(VerifierBackend):
@@ -193,3 +198,132 @@ class TreeAttentionVerifier(VerifierBackend):
             feats, 1, res["path"][..., None].expand(-1, -1, feats.shape[-1]))
         return VerifyOutcome(res=res, target=new_target,
                              path_feats=path_feats)
+
+
+class StateReplayVerifier(VerifierBackend):
+    """Verification for recurrent (SSM / hybrid) targets (JAX DESIGN §5.1).
+
+    Enumerate the root-to-leaf token row of every branch (R rows of
+    ``max_depth + 1`` tokens), run the target once with the rows folded
+    into the batch (read-only: no cache or state is written; the
+    attention layers read their caches through the cascade kernels under
+    ``attn_impl="kernel"``), accept each row's longest greedy prefix and
+    take the best row per example, then REPLAY the accepted path with
+    ``write_kv`` and ``snap_at`` so every cache and recurrent state
+    advances by exactly ``n_acc + 1`` tokens, in place.
+
+    As in JAX, acceptance is greedy at every temperature: ``dprobs`` and
+    the generator are not used, so a recurrent target's sampled output is
+    its greedy output (not a lossless sample of the target).
+    """
+
+    name = "state_replay"
+
+    def verify(self, bundle, state, tree, dprobs, max_children, gen):
+        del dprobs, max_children, gen
+        tcfg = bundle.target_cfg
+        g = tree.max_depth + 1
+        b = tree.tokens.shape[0]
+        rows = _paths_to_leaves(tree)                          # [B, R, g]
+        r = rows.shape[1]
+        flat_rows = rows.reshape(b * r, g)
+        row_tokens = torch.gather(
+            tree.tokens.repeat_interleave(r, dim=0), 1, flat_rows)
+
+        vout = lm.forward(bundle.target_params, row_tokens, tcfg,
+                          states=_repeat_rows(state.target, r),
+                          write_kv=False)
+        pred_full = torch.argmax(vout["logits"].float(), dim=-1)  # [B*R, g]
+        ok = pred_full[:, :-1] == row_tokens[:, 1:]
+        # padded path entries repeat the leaf node: nothing past its depth
+        depth_leaf = torch.gather(tree.depth, 1, rows[:, :, -1])   # [B, R]
+        ok = ok & (torch.arange(g - 1, device=ok.device)[None, :]
+                   < depth_leaf.reshape(b * r)[:, None])
+        n_acc_r = torch.cumprod(ok.long(), dim=1).sum(1).reshape(b, r)
+        best_row = torch.argmax(n_acc_r, dim=1)                # first max
+        n_acc = torch.gather(n_acc_r, 1, best_row[:, None])[:, 0]
+        pick = best_row[:, None, None].expand(b, 1, g)
+        path = torch.gather(rows, 1, pick)[:, 0]               # [B, g]
+        pred_best = torch.gather(pred_full.reshape(b, r, g), 1, pick)[:, 0]
+        bonus = torch.gather(pred_best, 1, n_acc[:, None])[:, 0]
+
+        # replay the accepted path; inactive rows snap at 0: no cache
+        # write and no length change (JAX's clip still moves their rg_h
+        # and x_prev leaves by the path's first token: ROADMAP queue 3)
+        n_commit = torch.where(state.active, n_acc + 1,
+                               torch.zeros_like(n_acc))
+        path_tokens = torch.gather(tree.tokens, 1, path)
+        rout = lm.forward(bundle.target_params, path_tokens, tcfg,
+                          states=state.target, write_kv=True,
+                          snap_at=n_commit, attend_cache_on_write=True,
+                          want_features=True, want_logits=False)
+        res = {"best": torch.gather(path, 1, n_acc[:, None])[:, 0],
+               "n_acc": n_acc, "path": path, "bonus": bonus,
+               "accepted": None, "ok": None}
+        return VerifyOutcome(res=res, target=rout["states"],
+                             path_feats=rout["features"])
+
+
+def _repeat_rows(target, r):
+    """The target states with every batch row repeated ``r`` times, for
+    the read-only pass (new tensors: the pass writes nothing, and the
+    caller's states stay as they are). Every leaf of the port's layout is
+    batch-leading; a paged cache's pools have no batch axis and are
+    shared, only its page-table rows repeat (JAX ``rep_block``)."""
+    def blk(d):
+        paged = kvc.is_paged(d)
+        return {name: (v if paged and name in ("k", "v")
+                       else v.repeat_interleave(r, dim=0))
+                for name, v in d.items()}
+
+    return {"layers": [blk(d) for d in target["layers"]],
+            "length": target["length"].repeat_interleave(r, dim=0)}
+
+
+def _paths_to_leaves(tree: Tree):
+    """[B, R, g] node-index rows, one per leaf (the trunk, then each
+    branch), root first.
+
+    Each row is a parent walk from the last valid node of a branch
+    segment: the layout the comb and chain trees of the built-in
+    strategies have (trunk nodes 0..g-1, then K segments of g-1 nodes).
+    Entries past a leaf's depth repeat the leaf.
+    """
+    b, n = tree.tokens.shape
+    g = tree.max_depth + 1
+    dev = tree.tokens.device
+    if n == g:                                     # chain
+        leaves = torch.full((b, 1), n - 1, dtype=torch.long, device=dev)
+    else:
+        k = (n - g) // (g - 1)
+        cols = [torch.full((b,), g - 1, dtype=torch.long, device=dev)]
+        for s in range(k):
+            start = g + s * (g - 1)
+            n_valid = tree.valid[:, start:start + g - 1].long().sum(1)
+            cols.append(start + (n_valid - 1).clamp(min=0))
+        leaves = torch.stack(cols, dim=1)
+    parent = tree.parent.long()
+    ups = [leaves]
+    cur = leaves
+    for _ in range(g - 1):
+        cur = torch.gather(parent, 1, cur).clamp(min=0)
+        ups.append(cur)
+    up = torch.stack(ups, dim=2)                   # [B, R, g] leaf -> root
+    depth_leaf = torch.gather(tree.depth.long(), 1, leaves)        # [B, R]
+    d_idx = torch.arange(g, device=dev)[None, None, :]
+    take = (depth_leaf[:, :, None] - d_idx).clamp(0, g - 1)
+    path = torch.gather(up, 2, take)
+    return torch.where(d_idx <= depth_leaf[:, :, None], path,
+                       leaves[:, :, None])
+
+
+def chain_prefix_accept_greedy(tokens, target_logits):
+    """Sequential prefix acceptance for branch-batched (SSM) verification.
+
+    tokens: [B, T] candidate tokens whose parents are the previous
+    positions (logits[:, i] predicts tokens[:, i]); target_logits:
+    [B, T, V]. Returns (n_acc [B], pred [B, T]).
+    """
+    pred = torch.argmax(target_logits, dim=-1)
+    ok = pred == tokens
+    return torch.cumprod(ok.long(), dim=1).sum(1), pred

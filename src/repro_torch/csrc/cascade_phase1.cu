@@ -70,7 +70,10 @@
 //   * the online softmax stays in the registers of the warp that owns the
 //     rows: fp32, natural units (expf, as the plain version), row max and
 //     sum over a quad of lanes;
-//   * a row that sees every key of a tile skips the mask.
+//   * a row that sees every key of a tile skips the mask;
+//   * head dims up to 256 (recurrentgemma-2b's local layers) run the same
+//     body with twice the tile width (phase1_tf32x3_kernel_d256): 201 KB
+//     of shared memory, one block an SM, and 128 O accumulators a thread.
 // On an H100 the kernel is bound by latency, not by bytes or the mma
 // units: two warps an SM sub-partition fill neither their issue slots
 // nor the mma pipe, and each warp waits on its chain of loads, splits,
@@ -96,14 +99,19 @@ namespace {
 
 constexpr int BM = 64;               // stacked query rows per block
 constexpr int BK = 32;               // keys per tile
-constexpr int DMAX = 128;            // largest head dim
 constexpr int NTHREADS = 128;        // four warps of 16 rows
-constexpr int QK_LD = DMAX + 16;     // row stride (floats) of Q and K tiles
-constexpr int V_LD = DMAX + 4;       // of V tiles
-constexpr int Q_FLOATS = BM * QK_LD;
-constexpr int K_FLOATS = BK * QK_LD;
-constexpr int V_FLOATS = BK * V_LD;
-constexpr int SMEM_BYTES = 4 * (Q_FLOATS + 2 * (K_FLOATS + V_FLOATS));
+
+// The tile geometry of a kernel for head dims up to DMAX (128, or 256
+// for recurrentgemma-2b's local layers).
+template <int DMAX>
+struct Geom {
+  static constexpr int QK_LD = DMAX + 16;   // row stride (floats) of Q, K
+  static constexpr int V_LD = DMAX + 4;     // of V tiles
+  static constexpr int Q_FLOATS = BM * QK_LD;
+  static constexpr int K_FLOATS = BK * QK_LD;
+  static constexpr int V_FLOATS = BK * V_LD;
+  static constexpr int SMEM_BYTES = 4 * (Q_FLOATS + 2 * (K_FLOATS + V_FLOATS));
+};
 
 struct Params {
   const float* q;            // [B,Hq,Tq,D] contiguous, fp32, pre-scaled
@@ -128,9 +136,10 @@ struct Params {
 
 // The slab's Q rows [r0, r0 + BM), VEC floats a copy. A KV head's stacked
 // rows are contiguous in q: row r of head hk is q row (b*Hq + hk*g)*Tq + r.
-template <int VEC>
+template <int DMAX, int VEC>
 __device__ __forceinline__ void stage_q(const Params& p, float* qs, int b,
                                         int hk, int g, int r0, int R) {
+  constexpr int QK_LD = Geom<DMAX>::QK_LD;
   constexpr int CPR = DMAX / VEC;
   const float* q0 =
       p.q + (static_cast<long long>(b * p.Hq + hk * g) * p.Tq + r0) * p.D;
@@ -145,10 +154,11 @@ __device__ __forceinline__ void stage_q(const Params& p, float* qs, int b,
 
 // The K/V tile of keys [t0, t0 + BK), VEC floats a copy: warp w copies
 // the rows of keys w + 4 s, whose addresses lane s resolved.
-template <bool PAGED, int VEC>
+template <int DMAX, bool PAGED, int VEC>
 __device__ __forceinline__ void stage_kv(const Params& p, float* ks,
                                          float* vs, int b, int hk, int t0,
                                          int k_end) {
+  constexpr int QK_LD = Geom<DMAX>::QK_LD, V_LD = Geom<DMAX>::V_LD;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   long long kl = 0, vl = 0;
   const int tl = t0 + warp + 4 * (lane % 8);
@@ -168,9 +178,12 @@ __device__ __forceinline__ void stage_kv(const Params& p, float* ks,
   }
 }
 
-template <bool PAGED>
-__global__ void __launch_bounds__(NTHREADS, 2)
-phase1_tf32x3_kernel(const Params p) {
+template <int DMAX, bool PAGED>
+__device__ __forceinline__ void phase1_tf32x3_body(const Params& p) {
+  constexpr int QK_LD = Geom<DMAX>::QK_LD, V_LD = Geom<DMAX>::V_LD;
+  constexpr int Q_FLOATS = Geom<DMAX>::Q_FLOATS;
+  constexpr int K_FLOATS = Geom<DMAX>::K_FLOATS;
+  constexpr int V_FLOATS = Geom<DMAX>::V_FLOATS;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
   float* Ks = Qs + Q_FLOATS;                  // two stages each
@@ -217,13 +230,14 @@ phase1_tf32x3_kernel(const Params p) {
     float* kd = Ks + (it & 1) * K_FLOATS;
     float* vd = Vs + (it & 1) * V_FLOATS;
     const int t0 = k_begin + it * BK;
-    if (p.vec == 4) stage_kv<PAGED, 4>(p, kd, vd, b, hk, t0, k_end);
-    else if (p.vec == 2) stage_kv<PAGED, 2>(p, kd, vd, b, hk, t0, k_end);
-    else stage_kv<PAGED, 1>(p, kd, vd, b, hk, t0, k_end);
+    if (p.vec == 4) stage_kv<DMAX, PAGED, 4>(p, kd, vd, b, hk, t0, k_end);
+    else if (p.vec == 2)
+      stage_kv<DMAX, PAGED, 2>(p, kd, vd, b, hk, t0, k_end);
+    else stage_kv<DMAX, PAGED, 1>(p, kd, vd, b, hk, t0, k_end);
   };
-  if (p.vec == 4) stage_q<4>(p, Qs, b, hk, g, r0, R);
-  else if (p.vec == 2) stage_q<2>(p, Qs, b, hk, g, r0, R);
-  else stage_q<1>(p, Qs, b, hk, g, r0, R);
+  if (p.vec == 4) stage_q<DMAX, 4>(p, Qs, b, hk, g, r0, R);
+  else if (p.vec == 2) stage_q<DMAX, 2>(p, Qs, b, hk, g, r0, R);
+  else stage_q<DMAX, 1>(p, Qs, b, hk, g, r0, R);
   load_tile(0);
   cp_async_commit();                         // group 0: Q and tile 0
 
@@ -444,6 +458,22 @@ phase1_tf32x3_kernel(const Params p) {
   }
 }
 
+// Head dims up to 128: two blocks an SM (107.5 KB of shared memory, at
+// most 255 / 2 registers a thread each).
+template <bool PAGED>
+__global__ void __launch_bounds__(NTHREADS, 2)
+phase1_tf32x3_kernel(const Params p) {
+  phase1_tf32x3_body<128, PAGED>(p);
+}
+
+// Head dims 129 to 256: the same tiles at twice the width, one block an
+// SM (201 KB of shared memory; a thread holds 128 O accumulators).
+template <bool PAGED>
+__global__ void __launch_bounds__(NTHREADS, 1)
+phase1_tf32x3_kernel_d256(const Params p) {
+  phase1_tf32x3_body<256, PAGED>(p);
+}
+
 // The widest copy (in floats) that every row start allows: the bases 4 *
 // vec-byte aligned, and D and every stride of an axis longer than one a
 // multiple of vec (q is contiguous, its rows D apart).
@@ -464,7 +494,7 @@ int copy_width(const Params& p, int n0, int n2) {
 
 template <bool PAGED>
 int launch(Params& p, int n0, int n2, cudaStream_t st) {
-  if (p.D > DMAX || p.D < 1 || p.Hkv < 1 || p.Hq % p.Hkv != 0 || p.B < 1 ||
+  if (p.D > 256 || p.D < 1 || p.Hkv < 1 || p.Hq % p.Hkv != 0 || p.B < 1 ||
       p.Tq < 1 || p.ns < 1 || p.nk_inner < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   p.vec = copy_width(p, n0, n2);
@@ -472,17 +502,19 @@ int launch(Params& p, int n0, int n2, cudaStream_t st) {
   const long long nblocks = static_cast<long long>((g * p.Tq + BM - 1) / BM) *
                             p.B * p.Hkv * p.ns;
   if (nblocks > 0x7fffffffll) return static_cast<int>(cudaErrorInvalidValue);
-  // two blocks an SM: the largest shared-memory carveout
+  const bool wide = p.D > 128;
+  auto kern = wide ? phase1_tf32x3_kernel_d256<PAGED>
+                   : phase1_tf32x3_kernel<PAGED>;
+  const int smem = wide ? Geom<256>::SMEM_BYTES : Geom<128>::SMEM_BYTES;
+  // the largest shared-memory carveout (two blocks an SM at D <= 128)
   cudaError_t e = cudaFuncSetAttribute(
-      phase1_tf32x3_kernel<PAGED>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(phase1_tf32x3_kernel<PAGED>,
+    e = cudaFuncSetAttribute(kern,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return static_cast<int>(e);
-  phase1_tf32x3_kernel<PAGED>
-      <<<static_cast<unsigned>(nblocks), NTHREADS, SMEM_BYTES, st>>>(p);
+  kern<<<static_cast<unsigned>(nblocks), NTHREADS, smem, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -56,6 +56,12 @@
 //     tiles) and their first loads, not their products, take the time.
 //     On an H100 this ran the paged cache faster than one block an SM with
 //     three stages, and the dense one about as fast;
+//   * head dims up to 256 (recurrentgemma-2b's local layers): the D 256
+//     instantiation keeps the same tiles, so a block holds a 64 KB Q slab
+//     and a two-stage ring of 32 KB K and V tiles (193 KB: one block an
+//     SM, up to 255 registers a thread), and a thread's 128 fp32 O
+//     accumulators are formed as two m64n128k16 halves, one per pair of V
+//     panels;
 //   * a row that sees every key of a tile skips the mask: its scores are
 //     only scaled;
 //   * each block owns its output rows (no atomics, deterministic); a split
@@ -120,7 +126,7 @@ __device__ __forceinline__ uint32_t sw_offset(int rows, int row, int cc) {
 }
 
 template <int DP, bool PAGED>
-__global__ void __launch_bounds__(NTHREADS, 2)
+__global__ void __launch_bounds__(NTHREADS, DP > 128 ? 1 : 2)
 phase1_sm90_kernel(const Params p) {
   using L = Smem<DP>;
   constexpr int CPR = DP / 8;                 // 16-byte chunks per row
@@ -320,10 +326,25 @@ phase1_sm90_kernel(const Params p) {
 
     reg_fence(o);
     wg_fence();
+    if constexpr (DP <= 128) {
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_rs<DP>(o, &pa[4 * kk],
-                   sw128_desc(vt + kk * 16 * 128, BK * 128, 1024));
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs<DP>(o, &pa[4 * kk],
+                     sw128_desc(vt + kk * 16 * 128, BK * 128, 1024));
+    } else {
+      // D 256: O as two 128-column halves, each an m64n128k16 over its
+      // two V panels
+      float(&o_lo)[64] = *reinterpret_cast<float(*)[64]>(o);
+      float(&o_hi)[64] = *reinterpret_cast<float(*)[64]>(o + 64);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        wgmma_rs<128>(o_lo, &pa[4 * kk],
+                      sw128_desc(vt + kk * 16 * 128, BK * 128, 1024));
+        wgmma_rs<128>(o_hi, &pa[4 * kk],
+                      sw128_desc(vt + 2 * BK * 128 + kk * 16 * 128,
+                                 BK * 128, 1024));
+      }
+    }
     wg_commit();
     wg_wait_all();
     reg_fence(o);
@@ -353,7 +374,7 @@ phase1_sm90_kernel(const Params p) {
 }
 
 int check(const Params& p) {
-  if (p.D < 8 || p.D > 128 || p.D % 8 != 0 || p.Hkv < 1 ||
+  if (p.D < 8 || p.D > 256 || p.D % 8 != 0 || p.Hkv < 1 ||
       p.Hq % p.Hkv != 0 || p.B < 1 || p.Tq < 1 || p.ns < 1 ||
       p.nk_inner < 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -371,9 +392,12 @@ int launch(const Params& p, cudaStream_t st) {
   const long long nblocks = static_cast<long long>((g * p.Tq + BQ - 1) / BQ) *
                             p.B * p.Hkv * p.ns;
   if (nblocks > 0x7fffffffll) return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = p.D <= 64 ? phase1_sm90_kernel<64, PAGED>
-                        : phase1_sm90_kernel<128, PAGED>;
-  const size_t smem = p.D <= 64 ? Smem<64>::BYTES : Smem<128>::BYTES;
+  auto kern = p.D <= 64    ? phase1_sm90_kernel<64, PAGED>
+              : p.D <= 128 ? phase1_sm90_kernel<128, PAGED>
+                           : phase1_sm90_kernel<256, PAGED>;
+  const size_t smem = p.D <= 64    ? Smem<64>::BYTES
+                      : p.D <= 128 ? Smem<128>::BYTES
+                                   : Smem<256>::BYTES;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

@@ -328,8 +328,8 @@ def _entry(name, q, k, v):
                         f"{v.dtype}")
     if k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("the cache's head-dim axis must be contiguous")
-    if q.shape[-1] > 128:
-        raise ValueError(f"head_dim {q.shape[-1]} > 128 is not supported")
+    if q.shape[-1] > 256:
+        raise ValueError(f"head_dim {q.shape[-1]} > 256 is not supported")
     if q.shape[1] % k.shape[1] != 0:
         raise ValueError("query heads must be a multiple of KV heads")
     from repro_torch.kernels import build

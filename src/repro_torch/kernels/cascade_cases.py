@@ -40,6 +40,10 @@ TOL_FLASH = {
                              # bf16 ulp (2^-8 of the value) either way
 TOL_LSE = 1e-4      # flash lse (fp32 both sides), absolute
 
+# recurrentgemma-2b's local attention at the state-replay read pass
+D256 = dict(d=256, hq=10, hkv=1, tq=16)
+HYBRID_LENS = tuple(2049 + (37 * i) % 105 for i in range(20))
+
 # name -> options of ``case_inputs`` (``nan``: the caller pre-fills the
 # outputs with NaN, so a split with no key must write finite zeros)
 CASES = {
@@ -72,6 +76,22 @@ CASES = {
     "d96": dict(kind="dense", d=96),
     "paged_nan": dict(kind="paged", nan=True),
     "dense_nan": dict(kind="dense", nan=True),
+    # head_dim 256, MQA 10 over 1 (recurrentgemma-2b's local layers): the
+    # state-replay read pass (B*R = 20 folded rows, Tq 16, a rolling
+    # buffer of 2048 wrapped at every length), a capacity that wraps
+    # mid-split, Tq 1, softcap with window 256, and the paged kernel
+    **{name: dict(D256, **opts) for name, opts in {
+        "d256_hybrid": dict(kind="dense", s=2048, window=2048, rolling=True,
+                            lens=HYBRID_LENS, nan=True),
+        "d256_rolling_wrap": dict(kind="dense", s=1000, window=1000,
+                                  rolling=True, lens=(1300, 2555),
+                                  n_splits=4, bk=256),
+        "d256_tq1": dict(kind="dense", tq=1),
+        "d256_softcap_window": dict(kind="dense", softcap=50.0, window=256),
+        "d256_paged": dict(kind="paged", nan=True),
+        "d256_paged_softcap_window": dict(kind="paged", softcap=50.0,
+                                          window=256, tq=1),
+    }.items()},
 }
 
 

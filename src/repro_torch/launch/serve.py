@@ -32,9 +32,9 @@ MODES = ("d2sd", "dflash", "naive_k", "eagle", "dflash_second")
 
 
 def build_bundle(args, device):
-    """Random seeded target and drafters for ``args``: the smoke target
-    with its study drafter, or with ``--full`` the full target with two
-    2-layer drafters at the target's widths."""
+    """Random seeded target and drafters for ``args``: the arch's smoke
+    target with the study's drafter, or with ``--full`` the full target
+    with two 2-layer drafters at the target's widths."""
     tcfg = get_config(args.arch, smoke=not args.full)
     gamma = args.gamma or (16 if args.full else 8)
     if args.full:
@@ -45,7 +45,10 @@ def build_bundle(args, device):
                              target_feature_dim=lm.feature_dim(tcfg),
                              gamma=gamma)
     else:
-        dcfg = drafter_small(gamma=gamma)
+        # the study's drafter, reading this target's features and vocab
+        dcfg = dataclasses.replace(drafter_small(gamma=gamma),
+                                   vocab_size=tcfg.vocab_size,
+                                   target_feature_dim=lm.feature_dim(tcfg))
     dtype = args.dtype or tcfg.dtype
     tcfg = dataclasses.replace(tcfg, dtype=dtype, attn_impl=args.attn_impl)
     d1cfg = dataclasses.replace(dcfg, dtype=dtype, attn_impl=args.attn_impl,

@@ -80,8 +80,13 @@ def make_attention_mask(tq: int, tkv: int, *, causal: bool, q_offset,
 
 
 # ------------------------------------------------------------ dense impl --
-def attend_dense(q, k, v, mask=None, *, scale=None, attn_softcap=None):
-    """q:[B,Tq,Hq,Dh] k,v:[B,Tkv,Hkv,Dh] mask:[B?,Tq,Tkv]."""
+def attend_dense(q, k, v, mask=None, *, scale=None, attn_softcap=None,
+                 sinks=None):
+    """q:[B,Tq,Hq,Dh] k,v:[B,Tkv,Hkv,Dh] mask:[B?,Tq,Tkv].
+
+    ``sinks`` is taken and not used, as in the JAX twin, whose signature
+    has it and whose body never reads it (ROADMAP.md queue 3)."""
+    del sinks
     b, tq, hq, dh = q.shape
     hkv = k.shape[2]
     g = hq // hkv

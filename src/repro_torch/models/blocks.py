@@ -16,8 +16,15 @@ Modes (driven by arguments, not flags):
                    with an optional ``extra_mask`` (tree mask); the block's
                    K/V are returned for the commit after acceptance.
 
-Only the ``global`` and ``local`` attention kinds are ported; recurrent,
-RWKV, MoE and cross-attention blocks raise ``NotImplementedError``.
+Block kinds: ``global`` / ``local`` attention, ``recurrent`` (RG-LRU,
+``models/rglru.py``) and ``rwkv`` (RWKV-6 time-mix, whose channel-mix
+takes the MLP's place, ``models/rwkv.py``). MoE and cross-attention
+blocks raise ``NotImplementedError``.
+
+Recurrent state leaves (fp32, batch-leading) are written in place by a
+pass with ``write_kv`` (prefill, replay), like the KV caches; with
+``snap_at`` they hold the state after exactly ``snap_at`` tokens. A pass
+without ``write_kv`` (the read-only verify pass) leaves them as they are.
 """
 from __future__ import annotations
 
@@ -29,12 +36,13 @@ from repro_torch.config.base import ModelConfig
 from repro_torch.models import kvcache as kvc
 from repro_torch.models.attention import (attend, attend_cache_plus_block,
                                           attn_init, out_proj, project_qkv)
+from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.mlp import mlp, mlp_init
 
+KINDS = ("global", "local", "recurrent", "rwkv")
 _NOT_PORTED = {
-    "recurrent": "ROADMAP.md queue 1, slice C (models/rglru.py)",
-    "rwkv": "ROADMAP.md queue 1, slice C (models/rwkv.py)",
     "moe": "ROADMAP.md queue 1, slice C (models/moe.py)",
     "cross": "ROADMAP.md queue 1, slice C (cross-attention blocks)",
 }
@@ -43,9 +51,8 @@ _NOT_PORTED = {
 def check_supported(cfg: ModelConfig):
     """Raise for configs whose blocks the port does not have yet."""
     for kind in set(cfg.pattern_for_depth()):
-        if kind not in ("global", "local"):
-            raise NotImplementedError(
-                f"block kind {kind!r} is not ported: {_NOT_PORTED.get(kind)}")
+        if kind not in KINDS:
+            raise NotImplementedError(f"block kind {kind!r} is not ported")
     if cfg.moe is not None:
         raise NotImplementedError(f"MoE FFN is not ported: {_NOT_PORTED['moe']}")
     if cfg.cross_attn_every or cfg.is_encoder_decoder:
@@ -63,15 +70,22 @@ def period_spec(cfg: ModelConfig) -> Tuple[int, int]:
 
 # ----------------------------------------------------------------- block ---
 def block_init(gen, cfg: ModelConfig, kind: str):
-    if kind not in ("global", "local"):
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported: {_NOT_PORTED.get(kind)}")
+    if kind not in KINDS:
+        raise NotImplementedError(f"block kind {kind!r} is not ported")
     dev = gen.device
     ones = lambda: {"scale": torch.ones((cfg.d_model,), device=dev)}  # noqa: E731
-    p: Dict[str, Any] = {"ln1": ones(), "attn": attn_init(gen, cfg),
-                         "ln2": ones(),
-                         "ffn": mlp_init(gen, cfg.d_model, cfg.d_ff,
-                                         cfg.mlp_gated)}
+    p: Dict[str, Any] = {"ln1": ones()}
+    if kind == "recurrent":
+        p["rec"] = rglru_lib.rglru_block_init(gen, cfg)
+    elif kind == "rwkv":
+        p["rwkv_tm"] = rwkv_lib.time_mix_init(gen, cfg)
+    else:
+        p["attn"] = attn_init(gen, cfg)
+    p["ln2"] = ones()
+    if kind == "rwkv":
+        p["rwkv_cm"] = rwkv_lib.channel_mix_init(gen, cfg)
+    else:
+        p["ffn"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_gated)
     if cfg.use_post_norm:
         p["ln1_post"] = ones()
         p["ln2_post"] = ones()
@@ -84,11 +98,16 @@ def block_state_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      page_table=None, ext_pool=None):
     """Per-layer decode state: a page pool + table for global layers under
     ``cache_impl="paged"``, else a dense [B, cap, Hkv, Dh] buffer (local
-    layers keep a window-capped rolling buffer in both modes).
+    layers keep a window-capped rolling buffer in both modes); recurrent
+    and rwkv layers hold their fp32 recurrent states in both modes.
 
     ext_pool: optional ``(k, v)`` pool buffers retained from an earlier
     wave (``core.state.capture_pools``), taken as they are in place of
     fresh zeroed pools."""
+    if kind == "recurrent":
+        return rglru_lib.rglru_state_init(cfg, batch, device)
+    if kind == "rwkv":
+        return rwkv_lib.rwkv_state_init(cfg, batch, device)
     hkv, dh = cfg.num_kv_heads, cfg.head_dim
     if kind == "global" and cache_impl == "paged":
         if ext_pool is not None:
@@ -127,13 +146,58 @@ def block_apply(p, x, cfg: ModelConfig, kind: str, *, state=None,
                 snap_at=None):
     """Apply one block. Returns (y, kv_out); cache writes are in place.
 
-    kv_out: (k, v) of this pass in decode/verify mode, for the commit.
-    snap_at: optional [B]: only the first ``snap_at`` tokens of each row
-    are real (a prompt padded to a bucket); KV writes past it are dropped.
+    kv_out: (k, v) of this pass in decode/verify mode, for the commit
+    (None for recurrent and rwkv blocks).
+    snap_at: optional [B]: each row consumes exactly ``snap_at`` tokens (a
+    prompt padded to a bucket, or a replay of the accepted path): KV
+    writes past it are dropped and recurrent states snap there.
     """
     kv_out = None
-    window = cfg.sliding_window if kind == "local" else None
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    if kind == "recurrent":
+        y, new = rglru_lib.rglru_block(p["rec"], h, cfg, state=state,
+                                       snap_at=snap_at)
+        _write_states_(state, new, write_kv)
+    elif kind == "rwkv":
+        y, new = rwkv_lib.time_mix(p["rwkv_tm"], h, cfg, state=state,
+                                   snap_at=snap_at)
+        _write_states_(state, new, write_kv)
+    else:
+        y, kv_out = _attention(
+            p, h, cfg, kind, state=state, cache_len=cache_len,
+            positions=positions, write_kv=write_kv, extra_mask=extra_mask,
+            attn_impl=attn_impl, kv_chunk=kv_chunk,
+            attend_cache_on_write=attend_cache_on_write, snap_at=snap_at)
+    if cfg.use_post_norm:
+        y = rmsnorm(p["ln1_post"], y, cfg.norm_eps)
+    x = x + y
+    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    if kind == "rwkv":
+        y, new = rwkv_lib.channel_mix(p["rwkv_cm"], h, cfg, state=state,
+                                      snap_at=snap_at)
+        _write_states_(state, new, write_kv)
+    else:
+        y = mlp(p["ffn"], h, cfg.mlp_act, cfg.mlp_gated)
+    if cfg.use_post_norm:
+        y = rmsnorm(p["ln2_post"], y, cfg.norm_eps)
+    return x + y, kv_out
+
+
+def _write_states_(state, new, write_kv):
+    """Copy a recurrent block's new states into ``state``'s tensors, in
+    place (so a captured CUDA graph reads and writes fixed storage);
+    nothing without ``write_kv`` or without a state."""
+    if state is not None and write_kv:
+        for name, val in new.items():
+            state[name].copy_(val)
+
+
+def _attention(p, h, cfg, kind, *, state, cache_len, positions, write_kv,
+               extra_mask, attn_impl, kv_chunk, attend_cache_on_write,
+               snap_at):
+    """The attention mixer of a global or local block: (y, kv_out)."""
+    kv_out = None
+    window = cfg.sliding_window if kind == "local" else None
     q, k, v = project_qkv(p["attn"], h, cfg, positions=positions)
     if state is None:
         y = attend(q, k, v, causal=True, q_offset=0, window=window,
@@ -155,8 +219,8 @@ def block_apply(p, x, cfg: ModelConfig, kind: str, *, state=None,
         def q_abs():
             if positions is not None:
                 return positions
-            return (torch.as_tensor(cache_len, device=x.device)[..., None]
-                    + torch.arange(q.shape[1], device=x.device))
+            return (torch.as_tensor(cache_len, device=h.device)[..., None]
+                    + torch.arange(q.shape[1], device=h.device))
 
         if write_kv:
             if attend_cache_on_write:
@@ -174,9 +238,9 @@ def block_apply(p, x, cfg: ModelConfig, kind: str, *, state=None,
             for name, new in (("k", k), ("v", v)):
                 if paged:
                     b, t = new.shape[:2]
-                    clen = torch.as_tensor(cache_len, device=x.device)
+                    clen = torch.as_tensor(cache_len, device=h.device)
                     clen = clen.reshape(-1).expand(b)
-                    ar = torch.arange(t, device=x.device)
+                    ar = torch.arange(t, device=h.device)
                     pos = clen[:, None] + ar
                     valid = (ar[None, :] < snap_at[:, None]
                              if snap_at is not None else None)
@@ -190,9 +254,9 @@ def block_apply(p, x, cfg: ModelConfig, kind: str, *, state=None,
             from repro_torch.kernels import ops as kops
             blk_mask = extra_mask
             if blk_mask is None:
-                blk_mask = default_block_mask(k.shape[1], window, x.device)
+                blk_mask = default_block_mask(k.shape[1], window, h.device)
             b, tq = q.shape[:2]
-            qa = torch.as_tensor(q_abs(), device=x.device).to(torch.int32)
+            qa = torch.as_tensor(q_abs(), device=h.device).to(torch.int32)
             qa = qa.reshape(-1, tq).expand(b, tq)
             if paged:
                 y = kops.cascade_attention_paged(
@@ -216,15 +280,7 @@ def block_apply(p, x, cfg: ModelConfig, kind: str, *, state=None,
                 attn_softcap=cfg.attn_softcap, impl=attn_impl,
                 kv_chunk=kv_chunk, rolling=rolling)
             kv_out = (k, v)
-    y = out_proj(p["attn"], y)
-    if cfg.use_post_norm:
-        y = rmsnorm(p["ln1_post"], y, cfg.norm_eps)
-    x = x + y
-    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    y = mlp(p["ffn"], h, cfg.mlp_act, cfg.mlp_gated)
-    if cfg.use_post_norm:
-        y = rmsnorm(p["ln2_post"], y, cfg.norm_eps)
-    return x + y, kv_out
+    return out_proj(p["attn"], y), kv_out
 
 
 def _scatter_kv_(buf, new, start, rolling: bool, write_len=None):

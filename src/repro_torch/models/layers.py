@@ -15,6 +15,17 @@ def rmsnorm(p, x, eps=1e-6):
     return (xf * p["scale"].float()).to(dt)
 
 
+def layernorm(p, x, eps=1e-5):
+    """LayerNorm over the last axis in fp32, with ``p`` = {"scale",
+    "bias"}."""
+    dt = x.dtype
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = torch.square(xf - mu).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"] + p["bias"]).to(dt)
+
+
 # ---------------------------------------------------------------- dense ----
 def dense(w, x, bias=None):
     """``x @ w`` with ``w`` shaped [d_in, d_out], computed in x's dtype."""

@@ -131,11 +131,6 @@ class ServingEngine:
         assert cache_impl in ("dense", "paged"), cache_impl
         assert pool_scope in ("engine", "wave"), pool_scope
         kinds = set(bundle.target_cfg.pattern_for_depth())
-        if not kinds <= {"global", "local"}:
-            raise NotImplementedError(
-                f"target block kinds {sorted(kinds)}: the state-replay "
-                "verifier of recurrent targets is not ported (ROADMAP.md "
-                "queue 1, slice C)")
         if pool_pages is not None and not (cache_impl == "paged"
                                            and pool_scope == "engine"):
             raise ValueError(

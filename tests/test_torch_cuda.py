@@ -62,7 +62,10 @@ CARD_CASES = {"dense": "dense_tq76", "paged": "paged_tq76",
               "dense_window": "dense_window", "pos_stride": "pos_stride",
               "page8": "page8", "rolling": "rolling97_w50", "tq1": "tq1",
               "tq136": "tq136", "group1": "group1", "group8": "group8",
-              "d64": "d64", "d96": "d96"}
+              "d64": "d64", "d96": "d96",
+              # head_dim 256, MQA 10 over 1: the hybrid's read pass
+              "d256_hybrid": "d256_hybrid", "d256_paged": "d256_paged",
+              "d256_wrap": "d256_rolling_wrap"}
 
 
 def _inputs(dev, dtype, kind, **opts):
@@ -101,6 +104,20 @@ def test_cuda_kernel_matches_plain(dev, case, dtype):
     else:
         acc = ((kern[0] - plain[0]).abs() / (1 + plain[0].abs())).amax(-1)
         assert acc[live].max().item() < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["d256_hybrid", "d256_paged"])
+def test_fp32_cascade_d256_is_deterministic(dev, case):
+    """The fp32 D 256 kernel called twice on the same inputs writes the
+    same bits (each block owns its output rows: no atomics)."""
+    kern_fn, _, args, kw = _inputs(dev, torch.float32,
+                                   **cascade_cases.CASES[case])
+    first = [x.clone() for x in kern_fn(*args, **kw)]
+    second = kern_fn(*args, **kw)
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
 
 
 @pytest.mark.cuda
@@ -423,6 +440,44 @@ def test_graph_loop_matches_eager_loop(dev, cache_impl):
     assert (graph["n_cycles"], graph["alpha"]) == (host["n_cycles"],
                                                    host["alpha"])
     assert graph["capture_s"] > 0 and graph["graph_pool_bytes"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache_impl", ["dense", "paged"])
+def test_graph_loop_matches_eager_loop_hybrid(dev, cache_impl):
+    """A small recurrent + local hybrid (recurrentgemma-2b's smoke config
+    in fp32, head_dim 256 so that the local layers' read pass runs the
+    D 256 cascade kernel): the graph loop replays the eager cycles, token
+    for token, with the same cycles and alpha, and the replay's recurrent
+    state writes land in the loop's own tensors."""
+    from repro_torch.config.base import SpecConfig
+    from repro_torch.config.registry import get_config
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core.drafter import DrafterConfig, drafter_init
+    from repro_torch.kernels import cascade_attention as casc
+    from repro_torch.models import lm
+    tcfg = dataclasses.replace(get_config("recurrentgemma-2b", smoke=True),
+                               dtype="float32", head_dim=256)
+    dcfg = DrafterConfig(d_model=128, num_layers=2, num_heads=2,
+                         num_kv_heads=1, d_ff=256,
+                         vocab_size=tcfg.vocab_size,
+                         target_feature_dim=lm.feature_dim(tcfg), gamma=4,
+                         dtype="float32")
+    bundle = pl.with_attn_impl(pl.SpecBundle(
+        tcfg, dcfg, dcfg, SpecConfig(gamma=4, top_k_branches=2),
+        lm.lm_init(tcfg, seed=0, device=dev),
+        drafter_init(dcfg, seed=1, device=dev),
+        drafter_init(dcfg, seed=2, device=dev)), "kernel")
+    prompts = np.random.default_rng(0).integers(0, 512, (3, 24))
+    kw = dict(cache_impl=cache_impl, page_size=16, device=dev)
+    before = casc.cascade_phase1.launches
+    host = pl.generate(bundle, prompts, 40, **kw)
+    assert casc.cascade_phase1.launches > before     # the local layer
+    graph = pl.generate_ondevice(bundle, prompts, 40, **kw)
+    np.testing.assert_array_equal(graph["tokens"], host["tokens"])
+    assert (graph["n_cycles"], graph["alpha"]) == (host["n_cycles"],
+                                                   host["alpha"])
+    assert graph["n_cycles"] > 2 and graph["capture_s"] > 0
 
 
 @pytest.mark.cuda

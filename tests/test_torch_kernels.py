@@ -130,6 +130,14 @@ def test_cascade_phase1_matches_jax_kernel(i):
                 n_splits=4, bk=256)
 
 
+@pytest.mark.parametrize("window,cap", [(512, None), (256, 50.0)])
+def test_cascade_phase1_d256_mqa_rolling_matches_jax_kernel(window, cap):
+    """recurrentgemma-2b's local layers: head_dim 256, 10 query heads over
+    one KV head, Tq 16, a rolling buffer wrapped at both lengths."""
+    _dense_case(90 + window, 2, 10, 1, 16, 512, 256, (700, 1000), window,
+                cap, True, n_splits=4, bk=256)
+
+
 @pytest.mark.parametrize("i", range(len(RAGGED_CASES)))
 def test_cascade_phase1_ragged_window_matches_jax_kernel(i):
     lens, window, rolling = RAGGED_CASES[i]
@@ -327,7 +335,9 @@ def _budget_errors(parts, out, ref_parts, ref_out):
 
 
 @pytest.mark.parametrize("name", ["dense_tq76", "paged_tq76",
-                                  "dense_softcap", "rolling97_w50"])
+                                  "dense_softcap", "rolling97_w50",
+                                  "d256_rolling_wrap",
+                                  "d256_softcap_window"])
 def test_tf32x3_error_budget(name, monkeypatch):
     """The fp32 kernel (``csrc/cascade_phase1.cu``) forms Q K^T and P V in
     3xTF32 on the tensor cores. The plain version with every product made

@@ -9,8 +9,8 @@ prefix cache on multi-turn prompts that hit generated tokens; paged with
 a local/global hybrid target) gives per-request tokens and the whole
 stats dict equal to the JAX engine's: integers exactly, floats to 1e-9
 relative, timing keys left out. Each JAX run is made once per module.
-The state-replay cases of the JAX suites (recurrent targets) belong to a
-later slice. float32, tiny shapes, prompts from a numpy seed.
+The state-replay cases of the JAX suites (recurrent targets) are in
+``tests/test_torch_state_replay.py``. float32, tiny shapes, prompts from a numpy seed.
 """
 import dataclasses
 import functools
@@ -155,16 +155,24 @@ def test_engine_matches_jax_engine(name):
 
 
 def test_engine_refuses_recurrent_targets():
-    """A target with recurrent blocks needs the state-replay verifier,
-    which is not ported: building an engine on it raises, naming the
-    slice."""
+    """A target with recurrent blocks is served (through the state-replay
+    verifier, ``tests/test_torch_state_replay.py``) but not with the
+    prefix cache: recurrent states cannot be rebuilt from shared pages,
+    and the engine refuses the combination as JAX's does."""
     _, tb = _bundles()
     cfg = dataclasses.replace(tb.target_cfg,
                               layer_pattern=("recurrent", "global"))
     bad = tpl.SpecBundle(cfg, tb.d1_cfg, tb.d2_cfg, tb.spec, None, None,
                          None)
-    with pytest.raises(NotImplementedError, match="slice C"):
-        ServingEngine(bad, device="cpu")
+    with pytest.raises(ValueError, match="all-global"):
+        ServingEngine(bad, cache_impl="paged", prefix_cache=True,
+                      device="cpu")
+    with pytest.raises(ValueError, match="all-global"):
+        JEngine(dataclasses.replace(_bundles()[0], target_cfg=dataclasses.
+                                    replace(_bundles()[0].target_cfg,
+                                            layer_pattern=("recurrent",
+                                                           "global"))),
+                cache_impl="paged", prefix_cache=True)
 
 
 # ------------------------------------------ test_serving.py, mirrored -------
