@@ -62,18 +62,21 @@ Phases, each printing one JSON line (any failure exits non-zero):
   graph_profile_fp32  six fp32 graph replays a cache (kernel path), timed
            unprofiled and then under torch.profiler: device ms per cycle,
            idle share, top kernels, and the fp32 phase-1 kernel
-           (phase1_tf32x3_kernel) by name: at least 40 (paged) or 36
-           (dense) launches a replay and its device ms a replay
+           (phase1_tf32x3_kernel) by name: its launches and device ms a
+           replay; the launches of the loop's first cycle and capture
+           held exact (40 paged, 36 dense)
   modes    fp32 greedy through ``generate_ondevice`` (kernel path, 32
-           new tokens) in the modes beside d2sd: naive_k, eagle (drafter
-           1 causal), dflash_second (drafter 1 as drafter 2) and d2sd
-           with the third level, paged and dense: tokens held to plain
-           greedy, cascade launches a cycle held to the mode's count
-           (36 dense; paged 38, 66, 40, 42: 36 target layers and 2 a
+           new tokens, the main path's model cut to 18 of its 36 layers:
+           the run's time limit) in the modes beside d2sd: naive_k, eagle
+           (drafter 1 causal), dflash_second (drafter 1 as drafter 2) and
+           d2sd with the third level, paged and dense: tokens held to
+           plain greedy, cascade launches a cycle held to the mode's count
+           (18 dense; paged 20, 48, 22, 24: 18 target layers and 2 a
            drafter pass), the third level's host loop held to its graph
            loop; each mode's paged loop profiled (ms and device ms a
            replay, graph pool bytes, phase-1 launches by name)
-  sampled  fp32 d2sd at temperature 1, paged, kernel path, one seed: the
+  sampled  fp32 d2sd at temperature 1, paged, kernel path, one seed (18
+           layers, as modes): the
            graph loop's tokens and every cycle's acceptance uniforms
            held to the host loop's (and no two cycles' uniforms equal),
            the gather path's agreement reported, the graph loop
@@ -109,9 +112,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
            cycle, decode tokens/s, capture time, graph pool bytes, token
            agreement with the eager run
   graph_profile  the same for six bf16 graph replays a cache, the
-           phase-1 kernel being phase1_sm90_kernel
-  modes_bf16  each mode of the modes phase and d2sd sampled in bf16,
-           paged, graph loop: ms a replay, decode tokens/s, launches
+           phase-1 kernel being phase1_sm90_kernel (launches held exact
+           through the sm90 kernels)
+  modes_bf16  each mode of the modes phase and d2sd sampled in bf16
+           (18 layers, as modes), paged, graph loop: ms a replay, decode tokens/s, launches
            through the sm90 kernels, profile
   serving_bf16  the serving requests in bfloat16 (18 layers, as
            serving) as a Poisson trace at 1 request/s through the overlapped front end and the
@@ -146,6 +150,33 @@ Phases, each printing one JSON line (any failure exits non-zero):
            refill and the paged engine pool (paged drafter feature
            caches; the prefix cache needs an all-global target):
            per-request tokens equal across both runs and to plain greedy
+  moe      grok-1-314b (8 experts, top 2) at full width in fp32, cut to
+           2 of 64 layers (45.8 GB), capacity factor 1.25: the kernel
+           path on paged and dense caches through the host loop and the
+           graph loop, the gather path on both: the graph loop's tokens
+           held to the host loop's, the kernel path's to the gather
+           path's (a first divergence passes only on a near tie of the
+           logits);
+           agreement with plain greedy and the (token, expert) pairs the
+           verify passes dropped, worked out from the routing, reported;
+           the same model at capacity factor E/k (nothing can drop) held
+           to plain greedy; grok-1 in bf16 at 4 layers, six graph
+           replays profiled (paged); kimi-k2-1t-a32b (384 experts, top 8,
+           a shared expert) in bf16 at 1 of 61 layers, kernel against
+           gather by the bf16 near-tie rule
+  ctx      llama-3.2-vision-11b (8 cross layers over 1601 random vision
+           tokens) and whisper-medium (24 encoder layers over 1500 random
+           frames, then the decoder over the encoder's output) at full
+           size in fp32 through ``generate(ctx=)``: the kernel path on
+           paged and dense caches and the gather path, tokens held to
+           each other and to plain greedy (a prefill with the context,
+           then one-token steps that read the cross caches)
+  archs    qwen2.5-3b, gemma2-2b and stablelm-3b at full size and
+           internlm2-20b at full width cut to 16 of 48 layers, fp32,
+           paged: the kernel path held to the gather path and plain
+           greedy. Each of these three phases: 4 prompts of 512, 32 new
+           tokens, random seeded weights, drafters by JAX's
+           production_drafter rule, exact cascade launches a host cycle
   train_fp32   paper_target.full() cut to 8 layers (the only cut; 2.79e9
            params, AdamW as optimizer_for picks), remat on, batch 2 x 4096
            tokens of the mixture stream: three steps through the fp32 flash
@@ -170,6 +201,7 @@ prints no result. It takes no arguments.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -182,6 +214,7 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 DEVICE = "cuda"
 MAX_NEW = 64                                # tokens generated per row
 GAMMA, K_BRANCHES = 16, 4                   # 76 tree nodes per row
@@ -216,6 +249,10 @@ TOL_TRAIN_BF16_LOSS = 2e-2  # bf16 step loss, kernel vs plain path, first
 
 
 def emit(obj):
+    """One phase's JSON line, stamped with the seconds since the script
+    started (``at_s``)."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -828,17 +865,20 @@ def time_flash(timer, gen):
 
 
 # ------------------------------------------------------------- main path --
-def greedy_reference(params, cfg, prompts, n, true_len=None):
+def greedy_reference(params, cfg, prompts, n, true_len=None, ctx=None):
     """Plain greedy decoding, one token at a time over a dense cache.
-    ``true_len`` [B]: ragged prompts, padded in ``prompts``. Returns
-    (tokens [B, n], top-2 logit gap at each step [B, n])."""
+    ``true_len`` [B]: ragged prompts, padded in ``prompts``. ``ctx``: a
+    cross-attention target's context, which the prefill writes into the
+    cross caches and every step reads. Returns (tokens [B, n], top-2
+    logit gap at each step [B, n])."""
     from repro_torch.models import lm
     b, p = prompts.shape
-    states = lm.init_states(cfg, b, p + n + 4, device=prompts.device)
+    states = lm.init_states(cfg, b, p + n + 4, device=prompts.device,
+                            ctx_len=0 if ctx is None else ctx.shape[1])
     snap = (None if true_len is None else
             torch.as_tensor(true_len, device=prompts.device).int())
     out = lm.forward(params, prompts, cfg, states=states, write_kv=True,
-                     snap_at=snap)
+                     snap_at=snap, ctx=ctx)
     toks, gaps = [], []
     last = (torch.full((b,), p - 1, device=prompts.device) if snap is None
             else snap.long() - 1)
@@ -860,7 +900,7 @@ def greedy_reference(params, cfg, prompts, n, true_len=None):
 
 def agreement(name, toks, ref_toks, gaps):
     """Rows must match the reference; a first divergence passes only on a
-    near tie (reference top-2 gap < NEAR_TIE), which is reported."""
+    near tie (reference top-2 gap < NEAR_TIE), and is reported."""
     ties = []
     for r in range(toks.shape[0]):
         diff = np.nonzero(toks[r] != ref_toks[r])[0]
@@ -868,7 +908,8 @@ def agreement(name, toks, ref_toks, gaps):
             continue
         j = int(diff[0])
         gap = float(gaps[r, j])
-        ties.append({"row": r, "pos": j, "ref_top2_gap": gap})
+        rec = {"row": r, "pos": j, "ref_top2_gap": gap}
+        ties.append(rec)
         if gap >= NEAR_TIE:
             fail(f"{name}: row {r} diverges at {j} with top-2 gap {gap}")
     return ties
@@ -1043,17 +1084,19 @@ def build_bundle(dtype):
 
 
 def run_generate(bundle, prompts, impl, cache_impl, ondevice=False,
-                 max_new=MAX_NEW, seed=0, true_len=None):
+                 max_new=MAX_NEW, seed=0, true_len=None, ctx=None):
     """One ``generate`` call (the host loop) or, with ``ondevice``, one
     ``generate_ondevice`` call (the CUDA graph loop): its tokens and a
-    record of its times. ``true_len``: ragged prompts, padded."""
+    record of its times. ``true_len``: ragged prompts, padded. ``ctx``:
+    a cross-attention target's context (the host loop only, as JAX)."""
     from repro_torch.core import pipeline as pl
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn = pl.generate_ondevice if ondevice else pl.generate
+    kw = {} if ctx is None else {"ctx": ctx}
     res = fn(pl.with_attn_impl(bundle, impl), prompts, max_new, seed=seed,
              cache_impl=cache_impl, page_size=64, device=DEVICE,
-             true_len=true_len)
+             true_len=true_len, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     toks = res["tokens"]
@@ -1227,6 +1270,7 @@ MODES = {"naive_k": ("naive_k", False), "eagle": ("eagle", False),
          "dflash_second": ("dflash_second", False),
          "third_level": ("d2sd", True)}
 MODE_NEW = 32           # tokens a row in the modes and sampled phases
+MODE_LAYERS = 18        # paper-target cut in depth for them (time limit)
 SAMPLE_T, SAMPLE_SEED = 1.0, 5
 
 
@@ -1269,16 +1313,20 @@ def _mode_run(bundle, prompts, cache, sm90=False, **kw):
     return toks, info
 
 
-def modes_path(bundle, prompts, ref_toks, gaps):
-    """fp32 greedy, full width and depth, through ``generate_ondevice``
-    (kernel path): each mode of ``MODES`` on the paged and dense caches,
-    tokens held to plain greedy (near ties excepted), the cascade
-    launches of a cycle held to ``replay_launches`` (36 dense; paged 38
-    naive_k, 40 dflash_second, 42 third_level, 66 eagle), the third
-    level's host loop (``generate``) held to its graph run; then each
-    mode's paged loop profiled (``profile_loop``: wall and device ms a
-    replay, the phase-1 kernel's launches by name)."""
+def modes_path(bundle, prompts):
+    """fp32 greedy, full width, through ``generate_ondevice`` (kernel
+    path): each mode of ``MODES`` on the paged and dense caches, tokens
+    held to plain greedy of ``bundle``'s target (near ties excepted), the
+    cascade launches of a cycle held to ``replay_launches`` (at 18
+    layers: 18 dense; paged 20 naive_k, 22 dflash_second, 24
+    third_level, 48 eagle), the third level's host loop (``generate``)
+    held to its graph run; then each mode's paged loop profiled
+    (``profile_loop``: wall and device ms a replay, the phase-1 kernel's
+    launches by name)."""
     from repro_torch.core import pipeline as pl
+    ref_toks, gaps = greedy_reference(
+        bundle.target_params, bundle.target_cfg,
+        torch.as_tensor(prompts, device=DEVICE), MODE_NEW)
     runs, ties, profiles = [], {}, {}
     for name in MODES:
         mb = pl.with_attn_impl(mode_bundle(bundle, name), "kernel")
@@ -1301,7 +1349,8 @@ def modes_path(bundle, prompts, ref_toks, gaps):
         profiles[name] = profile_loop(mb, prompts, "paged",
                                       replay_launches(mb, "paged"))
     emit({"phase": "modes", "ok": True, "dtype": "float32",
-          "max_new": MODE_NEW, "runs": runs,
+          "layers": bundle.target_cfg.num_layers, "max_new": MODE_NEW,
+          "runs": runs, "min_ref_top2_gap": float(gaps.min()),
           "near_ties": {k: v for k, v in ties.items() if v},
           "profile_paged": profiles})
     return profiles
@@ -1494,7 +1543,8 @@ def modes_bf16(bundle, prompts):
                                             replay_launches(sb, "paged"),
                                             seed=SAMPLE_SEED)
     emit({"phase": "modes_bf16", "ok": True, "dtype": "bfloat16",
-          "max_new": MODE_NEW, "runs": runs, "profile_paged": profiles})
+          "layers": bundle.target_cfg.num_layers, "max_new": MODE_NEW,
+          "runs": runs, "profile_paged": profiles})
 
 
 def oracle_path(bundle, prompts, ref_toks, gaps):
@@ -1638,8 +1688,8 @@ def bf16_divergences(bundle, prompts, kt, gt, cache):
                                                   ids) / ulp}
         out.append(rec)
         if rec["ulps"] >= NEAR_TIE_BF16_ULPS:
-            fail(f"bf16 {cache}: row {r}: the kernel run leaves the gather "
-                 f"run on a wide gap: {rec}")
+            fail(f"bf16 {cache}: row {r}: the kernel run leaves the "
+                 f"gather run on a wide gap: {rec}")
     return out
 
 
@@ -1790,20 +1840,25 @@ def profile_loop(bundle, prompts, cache, want, n_cycles=6, seed=0,
 
 
 def profile_graph(bundle, prompts, n_cycles=6):
-    """:func:`profile_loop` of the kernel path on both caches: at least
-    40 (paged: 36 target layers, 2 x 2 drafter layers) and 36 (dense)
-    phase-1 launches a replay in the trace."""
+    """:func:`profile_loop` of the kernel path on both caches. The gate is
+    the wrappers' exact counts of the loop's eager first cycle and its
+    capture (40 a cycle paged: 36 target layers, 2 x 2 drafter layers;
+    36 dense): a replay launches what the capture recorded. The trace's
+    count by name is reported beside them, and may fall short (a trace
+    can lose events: ROADMAP.md queue 3), never over."""
     from repro_torch.core import pipeline as pl
     bundle = pl.with_attn_impl(bundle, "kernel")
     dn = bundle.target_cfg.dtype
     out = {}
     for cache in ("paged", "dense"):
-        want = replay_launches(bundle, cache)
-        out[cache] = profile_loop(bundle, prompts, cache, want, n_cycles)
-        if out[cache]["phase1_launches_per_cycle"] < want:
-            fail(f"graph profile {dn} {cache}: "
-                 f"{out[cache]['phase1_launches_per_cycle']} "
-                 f"{PHASE1_KERNEL[dn]} launches a replay, expected {want}")
+        _zero_launches()
+        out[cache] = profile_loop(bundle, prompts, cache,
+                                  replay_launches(bundle, cache), n_cycles)
+        counts = _launches()
+        _launch_check(f"graph profile {dn} {cache}", counts,
+                      _want_launches(bundle, cache, dn == "bfloat16"), 2)
+        out[cache]["replay_launches_per_cycle"] = {
+            k: v / 2 for k, v in counts.items() if v}
     emit({"phase": "graph_profile" + ("_fp32" if dn == "float32" else ""),
           "ok": True, "dtype": dn, "impl": "kernel",
           "kernel": PHASE1_KERNEL[dn], **out})
@@ -2643,6 +2698,379 @@ def serving_recurrent():
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------- MoE, cross, other archs --
+ARCH_PROMPT, ARCH_NEW = 512, 32   # 4 prompts a phase, tokens a row
+# full width; depth cut only where one card cannot hold the model:
+# grok-1-314b 4.92e9 parameters a layer and 1.61e9 in the embedding and
+# head (fp32 2 layers: 45.8 GB; bf16 4 layers: 42.6 GB); kimi-k2's 384
+# experts 16.9e9 a layer (bf16 1 layer: about 39 GB); internlm2-20b
+# 79 GB in fp32 at its 48 layers (16: about 30 GB)
+GROK_LAYERS, GROK_BF16_LAYERS, KIMI_LAYERS = 2, 4, 1
+CTX_ARCHS = ("llama-3.2-vision-11b", "whisper-medium")
+DENSE_ARCHS = (("qwen2.5-3b", None), ("gemma2-2b", None),
+               ("stablelm-3b", None), ("internlm2-20b", 16))
+
+
+def arch_bundle(arch, dtype, layers=None):
+    """``arch`` at full width (cut to ``layers`` when given) in ``dtype``
+    with random seeded weights and two drafters by JAX's
+    ``production_drafter`` rule, d2sd at gamma 16, K 4. A MoE's expert
+    stacks are drawn straight into ``dtype`` (``param_dtype``); the other
+    weights are drawn in fp32 and, for bf16, cast in place. Returns
+    (bundle, the encoder's params or None)."""
+    from repro_torch.config.base import SpecConfig
+    from repro_torch.config.registry import get_config
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core.drafter import drafter_init
+    from repro_torch.models import encdec, lm
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, dtype=dtype, param_dtype=dtype,
+                              num_layers=layers or cfg.num_layers)
+    dcfg = production_drafter(cfg, dtype)
+    enc = None
+    if cfg.is_encoder_decoder:
+        both = encdec.encdec_init(cfg, seed=0, device=DEVICE)
+        enc, tp = both["encoder"], both["decoder"]
+    else:
+        tp = lm.lm_init(cfg, seed=0, device=DEVICE)
+    spec = SpecConfig(gamma=GAMMA, top_k_branches=K_BRANCHES, mode="d2sd")
+    bundle = pl.SpecBundle(cfg, dcfg, dcfg, spec, tp,
+                           drafter_init(dcfg, seed=1, device=DEVICE),
+                           drafter_init(dcfg, seed=2, device=DEVICE))
+    if dtype == "bfloat16":
+        bundle = to_bf16(bundle)
+    return bundle, enc
+
+
+def _arch_prompts(cfg, seed):
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (4, ARCH_PROMPT))
+
+
+def _free():
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _launch_check(where, counts, want, cycles):
+    """fp32 runs: exact launches of the fp32 cascade kernels over
+    ``cycles`` (``want``: kernel -> launches a cycle), none of the bf16
+    ones; bf16 the same through the sm90 kernels."""
+    expect = {k: v * cycles for k, v in want.items()}
+    other = {k: v for k, v in counts.items() if k not in want and v}
+    if any(counts[k] != v for k, v in expect.items()) or other:
+        fail(f"{where}: cascade launches {counts} over {cycles} cycles, "
+             f"expected {want} a cycle")
+
+
+def _want_launches(bundle, cache, sm90=False):
+    """Launches a decode cycle: #1 one a local layer (and every attention
+    layer on a dense cache), #2 one a global layer on a paged cache and
+    one a drafter layer and pass."""
+    kinds = bundle.target_cfg.pattern_for_depth()
+    n_local = sum(k == "local" for k in kinds)
+    n_paged = replay_launches(bundle, cache) - n_local
+    sfx = "_sm90" if sm90 else ""
+    if cache == "dense":
+        return {f"cascade_phase1{sfx}": n_local + n_paged,
+                f"cascade_phase1_paged{sfx}": 0}
+    return {f"cascade_phase1{sfx}": n_local,
+            f"cascade_phase1_paged{sfx}": n_paged}
+
+
+def _arch_runs(where, bundle, prompts, plan, ctx=None, probes=None):
+    """Each (impl, cache, graph loop?) of ``plan``, counts zeroed just
+    before a run and read just after: tokens by (impl, cache, loop), the
+    runs' records, launches a cycle of each kernel run (a host run over
+    its cycles, exact; a graph run over its eager first cycle and its
+    capture). ``probes`` (a dict): each host run of a MoE target under a
+    :class:`MoeProbe` of its own, kept by (impl, cache)."""
+    toks, runs, per_cycle = {}, [], {}
+    for impl, cache, graph in plan:
+        _zero_launches()
+        probe = MoeProbe() if probes is not None and not graph else None
+        with probe or contextlib.nullcontext():
+            t, info = run_generate(bundle, prompts, impl, cache,
+                                   ondevice=graph, max_new=ARCH_NEW, ctx=ctx)
+        if probe is not None:
+            probes[(impl, cache)] = probe
+        counts = _launches()
+        sm90 = bundle.target_cfg.dtype == "bfloat16"
+        if impl == "kernel":
+            cycles = 2 if graph else info["cycles"]
+            _launch_check(f"{where} {cache}", counts,
+                          _want_launches(bundle, cache, sm90), cycles)
+            info["launches"] = counts
+            if not graph:
+                per_cycle[cache] = {k: v / cycles for k, v in counts.items()
+                                    if v}
+        elif any(counts.values()):
+            fail(f"{where} gather/{cache}: cascade launches {counts}")
+        toks[(impl, cache, "graph" if graph else "host")] = t
+        runs.append(info)
+    return toks, runs, per_cycle
+
+
+def _hold(where, toks, ref, gaps, greedy=True):
+    """Every run held to plain greedy (``greedy``) and every kernel run to
+    the gather run of its cache (or of the paged one), if there is one; a
+    first divergence passes only on a near tie of the reference. Returns
+    the near ties that passed."""
+    ties = {}
+    for (impl, cache, loop), t in toks.items():
+        if greedy:
+            ties[f"{impl}/{cache}/{loop} vs greedy"] = agreement(
+                f"{where} {impl}/{cache}/{loop}", t, ref, gaps)
+        g = toks.get(("gather", cache, "host"),
+                     toks.get(("gather", "paged", "host")))
+        if impl == "kernel" and g is not None:
+            ties[f"kernel/{cache}/{loop} vs gather"] = agreement(
+                f"{where} kernel/{cache}/{loop}", t, g, gaps)
+    return {k: v for k, v in ties.items() if v}
+
+
+class MoeProbe:
+    """While installed, works out from the routing itself
+    (``moe._capacity``, ``_positions``) what each MoE pass did, kept on
+    the card: by the pass's token count (the prefill's B x P, a verify
+    pass's B x n_tree) the passes, (token, expert) pairs and dropped
+    pairs. The program keeps no such record."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.real = moe, moe.moe_apply
+        self.counts = {}
+
+        def probed(p, x, cfg, dispatch=None):
+            m = cfg.moe
+            x2 = x.reshape(-1, x.shape[-1])
+            probs = torch.softmax(x2.float() @ p["router"].float(), -1)
+            idx = torch.topk(probs, m.top_k, dim=-1).indices
+            keep = (moe._positions(idx, m.num_experts)
+                    < moe._capacity(x2.shape[0], cfg))
+            rec = self.counts.setdefault(x2.shape[0], torch.zeros(
+                3, dtype=torch.long, device=x.device))
+            rec += torch.stack([torch.ones_like(rec[0]),
+                                torch.full_like(rec[0], idx.numel()),
+                                (~keep).sum()])
+            return self.real(p, x, cfg, dispatch)
+
+        moe.moe_apply = probed
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.moe_apply = self.real
+
+    def drops(self):
+        return {str(n): dict(zip(("passes", "pairs", "dropped"),
+                                 v.tolist()))
+                for n, v in sorted(self.counts.items())}
+
+
+def moe_path():
+    """grok-1-314b in fp32 (2 of 64 layers, capacity factor 1.25): the
+    kernel path on the paged and dense caches through both loops, the
+    gather path on both caches (host loop); the graph loop's tokens held
+    to the host loop's, the kernel path's to the gather path's (a
+    divergence passes only on a near tie of the logits);
+    agreement with plain greedy and the dropped (token, expert) pairs
+    reported. Then the same model with the capacity factor at E/k
+    (nothing can drop): tokens held to plain greedy. Then grok-1 in bf16
+    at 4 layers, six profiled graph replays (paged), and kimi-k2-1t-a32b
+    in bf16 at 1 of 61 layers (384 experts, top 8, a shared expert):
+    kernel against gather by the bf16 near-tie rule. Returns launches a
+    cycle by model, dtype and cache."""
+    from repro_torch.core import pipeline as pl
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out, launches = {}, {}
+    bundle, _ = arch_bundle("grok-1-314b", "float32", GROK_LAYERS)
+    cfg = bundle.target_cfg
+    prompts = _arch_prompts(cfg, 21)
+    ref, gaps = greedy_reference(bundle.target_params, cfg,
+                                 torch.as_tensor(prompts, device=DEVICE),
+                                 ARCH_NEW)
+    probes = {}
+    toks, runs, per_cycle = _arch_runs(
+        "moe grok-1", bundle, prompts,
+        [("kernel", "paged", False), ("kernel", "dense", False),
+         ("gather", "paged", False), ("gather", "dense", False),
+         ("kernel", "paged", True), ("kernel", "dense", True)],
+        probes=probes)
+    for cache in ("paged", "dense"):
+        if not np.array_equal(toks[("kernel", cache, "graph")],
+                              toks[("kernel", cache, "host")]):
+            fail(f"moe grok-1 {cache}: the graph loop's tokens are not the "
+                 "host loop's")
+    ties = _hold("moe grok-1", {k: v for k, v in toks.items()
+                                if k[2] == "host"}, ref, gaps, greedy=False)
+    launches["grok-1-314b"] = {"float32": per_cycle}
+    out["grok_fp32"] = {
+        "layers": cfg.num_layers, "capacity_factor": cfg.moe.capacity_factor,
+        "runs": runs, "near_ties": ties,
+        "drops_kernel_paged_host": probes[("kernel", "paged")].drops(),
+        "agree_with_greedy": {f"{i}/{c}/{lp}": float((t == ref).mean())
+                              for (i, c, lp), t in toks.items()},
+        "min_ref_top2_gap": float(gaps.min())}
+    # nothing can drop: capacity C = T (a token's k experts are
+    # distinct), in the prefill too, so plain greedy is taken anew
+    nodrop = dataclasses.replace(bundle, target_cfg=dataclasses.replace(
+        cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k)))
+    ref, gaps = greedy_reference(nodrop.target_params, nodrop.target_cfg,
+                                 torch.as_tensor(prompts, device=DEVICE),
+                                 ARCH_NEW)
+    probes = {}
+    toks, runs, _ = _arch_runs("moe grok-1 no-drop", nodrop, prompts,
+                               [("kernel", "paged", False)], probes=probes)
+    drops = probes[("kernel", "paged")].drops()
+    if any(v["dropped"] for v in drops.values()):
+        fail(f"moe grok-1 at capacity E/k dropped pairs: {drops}")
+    out["grok_fp32_no_drop"] = {
+        "capacity_factor": nodrop.target_cfg.moe.capacity_factor,
+        "runs": runs, "drops": drops,
+        "near_ties": _hold("moe grok-1 no-drop", toks, ref, gaps),
+        "min_ref_top2_gap": float(gaps.min())}
+    del bundle, nodrop, probes
+    _free()
+    # bf16, 4 layers: six graph replays profiled (paged)
+    b16, _ = arch_bundle("grok-1-314b", "bfloat16", GROK_BF16_LAYERS)
+    b16 = pl.with_attn_impl(b16, "kernel")
+    _zero_launches()
+    prof = profile_loop(b16, prompts, "paged", replay_launches(b16, "paged"))
+    counts = _launches()
+    _launch_check("moe grok-1 bf16 graph", counts,
+                  _want_launches(b16, "paged", sm90=True), 2)
+    out["grok_bf16_graph_profile"] = dict(prof, layers=GROK_BF16_LAYERS)
+    launches["grok-1-314b"]["bfloat16"] = {"paged": {
+        k: v / 2 for k, v in counts.items() if v}}
+    del b16
+    _free()
+    # kimi-k2 in bf16, 1 layer: kernel against gather (paged)
+    kimi, _ = arch_bundle("kimi-k2-1t-a32b", "bfloat16", KIMI_LAYERS)
+    kp = _arch_prompts(kimi.target_cfg, 22)
+    probes = {}
+    toks, runs, per_cycle = _arch_runs(
+        "moe kimi-k2", kimi, kp, [("kernel", "paged", False),
+                                  ("gather", "paged", False)],
+        probes=probes)
+    kt, gt = toks[("kernel", "paged", "host")], toks[("gather", "paged",
+                                                      "host")]
+    out["kimi_bf16"] = {
+        "layers": KIMI_LAYERS, "runs": runs,
+        "agree_with_gather": float((kt == gt).mean()),
+        "first_divergence_per_row": bf16_divergences(kimi, kp, kt, gt,
+                                                     "paged"),
+        "near_tie_ulps": NEAR_TIE_BF16_ULPS,
+        "drops": {k[0]: v.drops() for k, v in probes.items()}}
+    launches["kimi-k2-1t-a32b"] = {"bfloat16": per_cycle}
+    del kimi, probes
+    _free()
+    emit({"phase": "moe", "ok": True, "gamma": GAMMA, "k": K_BRANCHES,
+          "batch": 4, "prompt": ARCH_PROMPT, "max_new": ARCH_NEW,
+          "cuts": {"grok-1-314b": f"fp32 {GROK_LAYERS} of 64 layers, bf16 "
+                                  f"{GROK_BF16_LAYERS} of 64",
+                   "kimi-k2-1t-a32b": f"bf16 {KIMI_LAYERS} of 61 layers"},
+          **out, "launches_per_cycle": launches,
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
+def ctx_path():
+    """llama-3.2-vision-11b (8 cross layers over 1601 random vision
+    tokens) and whisper-medium (24 encoder layers over 1500 random
+    frames, then the decoder reading the encoder's output), full size,
+    fp32: ``generate(ctx=)`` through the kernel path on paged and dense
+    caches and the gather path (paged), held to each other and to plain
+    greedy (a prefill with ``ctx``, then one-token steps that read the
+    cross caches). Returns launches a cycle by model."""
+    from repro_torch.launch.steps import ctx_len_for
+    from repro_torch.models import encdec
+    from repro_torch.models.blocks import layer_specs
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    recs, launches = {}, {}
+    for seed, arch in enumerate(CTX_ARCHS):
+        bundle, enc = arch_bundle(arch, "float32")
+        cfg = bundle.target_cfg
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(31 + seed)
+        feats = torch.randn((4, ctx_len_for(cfg), cfg.d_model),
+                            generator=gen, device=DEVICE)
+        rec = {"params": cfg.param_count(), "ctx_len": feats.shape[1]}
+        if enc is not None:
+            torch.cuda.synchronize()
+            te = time.perf_counter()
+            with torch.no_grad():
+                ctx = encdec.encode(enc, feats, cfg)
+            torch.cuda.synchronize()
+            rec["encode_s"] = time.perf_counter() - te
+            if ctx.shape != feats.shape or not torch.isfinite(ctx).all():
+                fail(f"ctx {arch}: encoder output {tuple(ctx.shape)}")
+        else:
+            ctx = feats                       # the image embeddings
+        prompts = _arch_prompts(cfg, 40 + seed)
+        ref, gaps = greedy_reference(
+            bundle.target_params, cfg, torch.as_tensor(prompts,
+                                                       device=DEVICE),
+            ARCH_NEW, ctx=ctx)
+        toks, runs, per_cycle = _arch_runs(
+            f"ctx {arch}", bundle, prompts,
+            [("kernel", "paged", False), ("kernel", "dense", False),
+             ("gather", "paged", False)], ctx=ctx)
+        rec.update(runs=runs, near_ties=_hold(f"ctx {arch}", toks, ref,
+                                              gaps),
+                   min_ref_top2_gap=float(gaps.min()),
+                   cross_layers=sum(s.cross for s in layer_specs(cfg)))
+        recs[arch] = rec
+        launches[arch] = {"float32": per_cycle}
+        del bundle, enc, ctx, feats
+        _free()
+    emit({"phase": "ctx", "ok": True, "dtype": "float32", "batch": 4,
+          "prompt": ARCH_PROMPT, "max_new": ARCH_NEW, "models": recs,
+          "launches_per_cycle": launches,
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
+def archs_path():
+    """qwen2.5-3b, gemma2-2b and stablelm-3b at full size and
+    internlm2-20b at full width cut to 16 of 48 layers, fp32, paged: the
+    kernel path held to the gather path and plain greedy, launches a
+    cycle exact (gemma2-2b: #1 on its 13 local layers' rolling buffers,
+    #2 at head_dim 256 on its 13 global layers). Returns launches a
+    cycle by model."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    recs, launches = {}, {}
+    for seed, (arch, layers) in enumerate(DENSE_ARCHS):
+        bundle, _ = arch_bundle(arch, "float32", layers)
+        cfg = bundle.target_cfg
+        prompts = _arch_prompts(cfg, 50 + seed)
+        ref, gaps = greedy_reference(
+            bundle.target_params, cfg, torch.as_tensor(prompts,
+                                                       device=DEVICE),
+            ARCH_NEW)
+        toks, runs, per_cycle = _arch_runs(
+            f"archs {arch}", bundle, prompts,
+            [("kernel", "paged", False), ("gather", "paged", False)])
+        recs[arch] = {"layers": cfg.num_layers, "params": cfg.param_count(),
+                      "head_dim": cfg.head_dim, "heads": [
+                          cfg.num_heads, cfg.num_kv_heads], "runs": runs,
+                      "near_ties": _hold(f"archs {arch}", toks, ref, gaps),
+                      "min_ref_top2_gap": float(gaps.min())}
+        launches[arch] = {"float32": per_cycle}
+        del bundle
+        _free()
+    emit({"phase": "archs", "ok": True, "dtype": "float32", "cache": "paged",
+          "batch": 4, "prompt": ARCH_PROMPT, "max_new": ARCH_NEW,
+          "cuts": {"internlm2-20b": "16 of 48 layers"}, "models": recs,
+          "launches_per_cycle": launches,
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def main():
     if len(sys.argv) > 1:
         fail(f"chip_smoke.py takes no arguments: {sys.argv[1:]}")
@@ -2676,15 +3104,15 @@ def main():
     bundle, prompts, launches, fp32_runs = main_path()
     graph_fp32(bundle, prompts, *fp32_runs)
     graph_prof_fp32 = profile_graph(bundle, prompts)
-    modes_path(bundle, prompts, *fp32_runs[1:])
-    sampled_path(bundle, prompts)
+    modes_path(cut_depth(bundle, MODE_LAYERS), prompts)
+    sampled_path(cut_depth(bundle, MODE_LAYERS), prompts)
     serve_reqs, _, serve_fp32 = serving_path(cut_depth(bundle, SERVE_LAYERS))
     bundle, ms_cycle, bf16_casc, bf16_per_cycle, eager = bf16_path(
         bundle, prompts)
     profile_cycles(bundle, prompts, ms_cycle)
     graph_bf16(bundle, prompts, eager)
     graph_prof = profile_graph(bundle, prompts)
-    modes_bf16(bundle, prompts)
+    modes_bf16(cut_depth(bundle, MODE_LAYERS), prompts)
     serve_bf16 = serving_bf16(cut_depth(bundle, SERVE_LAYERS), serve_reqs)
     del bundle, eager
     gc.collect()
@@ -2692,6 +3120,7 @@ def main():
     torch.cuda.empty_cache()
     recurrent = {phase: recurrent_path(phase) for phase in RECURRENT}
     serving_recurrent()
+    more_archs = {**moe_path(), **ctx_path(), **archs_path()}
 
     fp32_launches = train_identity()
     run, bf16_launches, ms_step = train_bf16()
@@ -2708,13 +3137,12 @@ def main():
     for name, (wrapper, dtype, src, line) in CASCADE_KERNELS.items():
         dn = str(dtype).replace("torch.", "")
         cache = "paged" if "paged" in name else "dense"
-        extra = ({"launches": launches[name], "graph_launches_per_cycle":
-                  graph_prof_fp32[cache]["phase1_launches_per_cycle"]}
-                 if dtype == torch.float32 else
-                 {"launches": bf16_casc[name],
-                  "launches_per_cycle": bf16_per_cycle[name],
-                  "graph_launches_per_cycle": graph_prof[cache][
-                      "phase1_launches_per_cycle"]})
+        graph = graph_prof_fp32 if dtype == torch.float32 else graph_prof
+        extra = ({"launches": launches[name]} if dtype == torch.float32
+                 else {"launches": bf16_casc[name],
+                       "launches_per_cycle": bf16_per_cycle[name]})
+        extra["graph_launches_per_cycle"] = graph[cache][
+            "replay_launches_per_cycle"][name]
         # decode cycles of the serving phases: fp32 dense refill (#1) and
         # prefix-cache (#2) runs, bf16 overlapped front-end (#2)
         if dtype == torch.float32:
@@ -2729,6 +3157,11 @@ def main():
         # the recurrent targets' kernel runs (host loop) in this dtype
         for phase, rec in recurrent.items():
             extra[f"{phase}_launches_per_cycle"] = rec[dn][cache][name]
+        # the moe, ctx and archs phases' kernel runs, by model and cache
+        extra["archs_launches_per_cycle"] = {
+            arch: {c: n[name] for c, n in rec[dn].items() if n.get(name)}
+            for arch, rec in more_archs.items()
+            if any(n.get(name) for n in rec.get(dn, {}).values())}
         rows.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/csrc/{src}",
                      "replaces": f"src/repro/kernels/cascade_attention.py:"

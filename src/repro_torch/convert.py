@@ -5,8 +5,11 @@ example ``jax.tree.map(np.asarray, params)`` on the caller's side); this
 module takes numpy only and never imports JAX. The target's scanned
 period axis (``params["period"]["p{j}"]``, stacked over periods, plus the
 unrolled ``tail{i}`` layers) is unstacked here into the port's per-layer
-list in depth order. Weight orientation is unchanged: both packages
-compute ``dense(w, x) = x @ w`` with ``w`` shaped [d_in, d_out].
+list in depth order; MoE expert stacks and cross-attention sub-layers
+carry across as they are. An encoder-decoder's encoder (its scanned
+``layers``) is unstacked the same way by :func:`convert_encdec`. Weight
+orientation is unchanged: both packages compute ``dense(w, x) = x @ w``
+with ``w`` shaped [d_in, d_out].
 """
 from __future__ import annotations
 
@@ -43,7 +46,8 @@ def convert_tree(np_params, cfg: ModelConfig, device="cuda"):
     ``m``/``v``; numpy leaves) -> the port's layout, the period axis
     unstacked into ``layers``."""
     dev = resolve_device(device)
-    plen, n_periods = period_spec(cfg)
+    spec, n_periods, tail = period_spec(cfg)
+    plen = len(spec)
     out = {k: _tree(v, lambda a: to_tensor(a, dev))
            for k, v in np_params.items()
            if k != "period" and not k.startswith("tail")}
@@ -53,11 +57,27 @@ def convert_tree(np_params, cfg: ModelConfig, device="cuda"):
             layers.append(_tree(np_params["period"][f"p{j}"],
                                 lambda a, i=i: to_tensor(np.asarray(a)[i],
                                                          dev)))
-    for i in range(cfg.num_layers - n_periods * plen):
+    for i in range(len(tail)):
         layers.append(_tree(np_params[f"tail{i}"],
                             lambda a: to_tensor(a, dev)))
     out["layers"] = layers
     return out
+
+
+def convert_encdec(np_params, cfg: ModelConfig, device="cuda"):
+    """JAX ``encdec.encdec_init`` params (numpy leaves) -> port params:
+    the encoder's scanned ``layers`` (stacked over
+    ``cfg.enc_num_layers``) unstacked into a list, the decoder through
+    :func:`convert_lm`."""
+    dev = resolve_device(device)
+    enc = np_params["encoder"]
+    encoder = {k: _tree(v, lambda a: to_tensor(a, dev))
+               for k, v in enc.items() if k != "layers"}
+    encoder["layers"] = [
+        _tree(enc["layers"], lambda a, i=i: to_tensor(np.asarray(a)[i], dev))
+        for i in range(cfg.enc_num_layers)]
+    return {"encoder": encoder,
+            "decoder": convert_lm(np_params["decoder"], cfg, device=dev)}
 
 
 def convert_drafter(np_params, device="cuda"):

@@ -125,9 +125,9 @@ def decode_cycle(bundle: SpecBundle, state: EngineState, gen,
 
 # -------------------------------------------------------------- generate ---
 def generate(bundle: SpecBundle, prompts, max_new: int, seed: int = 0,
-             max_len: Optional[int] = None, collect_stats: bool = True,
-             cache_impl: str = "dense", page_size: int = 64,
-             device="cuda", true_len=None):
+             ctx=None, max_len: Optional[int] = None,
+             collect_stats: bool = True, cache_impl: str = "dense",
+             page_size: int = 64, device="cuda", true_len=None):
     """Generate up to ``max_new`` tokens for prompts [B, P] (host loop over
     decode cycles). Returns dict(tokens [B, max_new] numpy, n_cycles,
     alpha, stats, prefill_s, decode_s). The two times are host clock
@@ -147,6 +147,11 @@ def generate(bundle: SpecBundle, prompts, max_new: int, seed: int = 0,
     row b starts decoding after its first ``true_len[b]`` tokens (ragged
     prompts; ``prefill(true_len=)``). JAX's ``generate`` has no such
     argument; without it the two are the same.
+    ctx: optional [B, T_ctx, d] context of a cross-attention target (image
+    embeddings, or an encoder's output): the prefill writes it into the
+    cross caches, sized here to ``T_ctx`` (JAX's state grows them at the
+    prefill; the port's is fixed storage), and every cycle reads them.
+    The graph loop takes no ``ctx``, as JAX's ``generate_ondevice``.
     """
     dev = resolve_device(device)
     gen = pm.make_generator(seed, dev)
@@ -155,9 +160,13 @@ def generate(bundle: SpecBundle, prompts, max_new: int, seed: int = 0,
     g = bundle.spec.gamma
     max_len = max_len or (p + max_new + 2 * g + 8)
     t0 = time.perf_counter()
-    state = engine_init(bundle, b, max_len, cache_impl=cache_impl,
-                        page_size=page_size, device=dev)
-    state = prefill(bundle, state, prompts, gen,
+    if ctx is not None:
+        ctx = torch.as_tensor(ctx, device=dev)
+    state = engine_init(bundle, b, max_len,
+                        ctx_len=0 if ctx is None else ctx.shape[1],
+                        cache_impl=cache_impl, page_size=page_size,
+                        device=dev)
+    state = prefill(bundle, state, prompts, gen, ctx=ctx,
                     temperature=bundle.spec.temperature,
                     true_len=_lengths(true_len, dev))
 

@@ -133,14 +133,15 @@ def _adopt_block_(dst, src, row, src_row, axis, seen):
                      0 if name == "length" else axis)
 
 
-def engine_init(bundle, batch: int, max_len: int, cache_impl: str = "dense",
-                page_size: int = 64, pool_pages=None, page_table=None,
-                device="cuda",
+def engine_init(bundle, batch: int, max_len: int, ctx_len: int = 0,
+                cache_impl: str = "dense", page_size: int = 64,
+                pool_pages=None, page_table=None, device="cuda",
                 pools: Optional[Dict[str, Any]] = None) -> EngineState:
     """Allocate the caches of a request wave. Under ``cache_impl="paged"``
     every paged cache (target global KV and both feature caches) shares
     one page-id space and one page-table tensor (default: the identity
-    layout).
+    layout). ``ctx_len``: the length of the cross blocks' context caches
+    (``lm.init_states``), which :func:`prefill` with ``ctx`` fills.
 
     pools: pool tensors retained from the previous wave
     (:func:`capture_pools`), adopted as they are instead of allocating
@@ -159,7 +160,7 @@ def engine_init(bundle, batch: int, max_len: int, cache_impl: str = "dense",
     tgt_pools = {int(name[len("target/"):]): kv
                  for name, kv in pools.items() if name.startswith("target/")}
     return EngineState(
-        target=lm.init_states(tcfg, batch, max_len,
+        target=lm.init_states(tcfg, batch, max_len, ctx_len=ctx_len,
                               dtype=getattr(torch, tcfg.dtype), device=dev,
                               ext_pools=tgt_pools, **kw),
         d1_feat=dr.init_feat_cache(bundle.d1_cfg, batch, max_len,
@@ -173,12 +174,17 @@ def engine_init(bundle, batch: int, max_len: int, cache_impl: str = "dense",
     )
 
 
-def prefill(bundle, state: EngineState, prompts, gen=None,
+def prefill(bundle, state: EngineState, prompts, gen=None, ctx=None,
             temperature: float = 0.0, true_len=None,
             start=None) -> EngineState:
     """Process prompts [B, P]; anchor = the first generated token: the
     argmax, or at ``temperature`` > 0 a draw from ``gen`` (a generator on
     the prompts' device).
+
+    ctx ([B, T_ctx, d]): the cross blocks' context (image embeddings, or
+    the encoder's output); the pass writes it into the cross caches,
+    which the state must size to ``T_ctx`` (``engine_init(ctx_len=)``),
+    and every later cycle reads them.
 
     true_len ([B] or scalar): ``prompts`` is padded to a bucket and only
     the first ``true_len`` tokens of each row are real: KV and feature
@@ -205,7 +211,7 @@ def prefill(bundle, state: EngineState, prompts, gen=None,
             -1).expand(b)
     out = lm.forward(bundle.target_params, prompts, bundle.target_cfg,
                      states=state.target, cache_len=cl, write_kv=True,
-                     snap_at=snap, attend_cache_on_write=warm,
+                     snap_at=snap, attend_cache_on_write=warm, ctx=ctx,
                      want_features=True)
     base = cl[:, None] if warm else torch.zeros((b, 1), dtype=torch.int32,
                                                 device=dev)

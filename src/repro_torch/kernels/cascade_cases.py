@@ -43,6 +43,10 @@ TOL_LSE = 1e-4      # flash lse (fp32 both sides), absolute
 # recurrentgemma-2b's local attention at the state-replay read pass
 D256 = dict(d=256, hq=10, hkv=1, tq=16)
 HYBRID_LENS = tuple(2049 + (37 * i) % 105 for i in range(20))
+# gemma2-2b's decoder verify: D 256, 8 query heads over 4, softcap 50;
+# its local layers roll over a window of 4096 (the rows past it wrap),
+# its global ones are paged
+GEMMA2 = dict(d=256, hq=8, hkv=4, softcap=50.0, lens=(3990, 4100, 4507, 5003))
 
 # name -> options of ``case_inputs`` (``nan``: the caller pre-fills the
 # outputs with NaN, so a split with no key must write finite zeros)
@@ -92,6 +96,18 @@ CASES = {
         "d256_paged_softcap_window": dict(kind="paged", softcap=50.0,
                                           window=256, tq=1),
     }.items()},
+    # the decoder verify of the other archs: stablelm-3b (D 80, MHA 32
+    # over 32; bf16 pads D to its 128-wide template), grok-1-314b (GQA
+    # group 6: 48 over 8), whisper-medium (D 64, MHA 16 over 16) and
+    # gemma2-2b (GEMMA2)
+    "d80_group1": dict(kind="dense", d=80, hq=32, hkv=32),
+    "d80_group1_paged": dict(kind="paged", d=80, hq=32, hkv=32),
+    "group6": dict(kind="dense", hq=48, hkv=8),
+    "group6_paged": dict(kind="paged", hq=48, hkv=8),
+    "d64_group1_paged": dict(kind="paged", d=64, hq=16, hkv=16),
+    "d256_gemma2_rolling": dict(GEMMA2, kind="dense", s=4096, window=4096,
+                                rolling=True),
+    "d256_gemma2_paged": dict(GEMMA2, kind="paged", s=5120),
 }
 
 

@@ -65,7 +65,8 @@ def build_bundle(args, device):
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="paper-target", choices=all_archs())
+    ap.add_argument("--arch", default="paper-target",
+                    choices=("paper-target",) + all_archs())
     ap.add_argument("--full", action="store_true",
                     help="the full-width, full-depth target (default: the "
                          "smoke target of the empirical study)")

@@ -1,10 +1,15 @@
-"""Training step and optimizer choice (twin of the training half of
-``repro/launch/steps.py``).
+"""Training step, optimizer choice and the prefill step (twin of the
+training and prefill parts of ``repro/launch/steps.py``).
 
 The step is ``loss.backward()`` on ``models.api.train_loss`` with
 ``attn_impl="kernel"``: on the card every attention layer runs the CUDA
 flash forward kernel (again under remat) and both flash backward
 kernels. Then the optimizer updates params and moments in place.
+
+The prefill step of a cross-attention target takes its context: an
+encoder-decoder encodes the audio frames and prefills with the encoder's
+output, a VLM prefills with the image embeddings (``ctx_len_for`` sizes
+the engine's cross caches for them).
 """
 from __future__ import annotations
 
@@ -14,7 +19,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.config.base import ModelConfig, OptimizerConfig
-from repro_torch.models import api
+from repro_torch.core import state as state_lib
+from repro_torch.models import api, encdec
 from repro_torch.models import param as pm
 from repro_torch.optim import optimizers as opt_lib
 
@@ -56,3 +62,32 @@ def make_train_step(cfg: ModelConfig, hp: Optional[OptimizerConfig] = None,
         return new_p, new_o, {"loss": loss.detach(), **metrics}
 
     return train_step, opt_init
+
+
+def ctx_len_for(cfg: ModelConfig) -> int:
+    """Length of the context a target's cross caches hold (0: none)."""
+    if cfg.is_encoder_decoder:
+        return cfg.enc_max_len
+    if cfg.cross_attn_every:
+        return max(cfg.num_vision_tokens, 1)
+    return 0
+
+
+def make_prefill_step(cfg: ModelConfig):
+    """The prefill of ``cfg``'s family: ``step(enc_params, bundle, state,
+    prompts, audio_feats)`` for an encoder-decoder, ``step(bundle, state,
+    prompts, image_embeds)`` for a VLM, else ``step(bundle, state,
+    prompts)``; each returns the prefilled ``EngineState``."""
+    if cfg.is_encoder_decoder:
+        def step(enc_params, bundle, est, prompts, audio_feats):
+            ctx = encdec.encode(enc_params, audio_feats, cfg)
+            return state_lib.prefill(bundle, est, prompts, ctx=ctx)
+        return step
+    if cfg.cross_attn_every:
+        def step(bundle, est, prompts, image_embeds):
+            return state_lib.prefill(bundle, est, prompts, ctx=image_embeds)
+        return step
+
+    def step(bundle, est, prompts):
+        return state_lib.prefill(bundle, est, prompts)
+    return step

@@ -23,7 +23,8 @@ from repro_torch.training.trainer import train
 
 def main(argv=None, device="cuda"):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="paper-target", choices=all_archs())
+    ap.add_argument("--arch", default="paper-target",
+                    choices=("paper-target",) + all_archs())
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)

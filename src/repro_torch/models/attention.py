@@ -265,8 +265,11 @@ def attend(q, k, v, *, causal=True, q_offset=0, window=None, kv_len=None,
 
 
 # ------------------------------------------------------------- module -----
-def attn_init(gen, cfg):
-    """QKV/O projections. Fused layouts: wq [d, Hq*Dh], wk/wv [d, Hkv*Dh]."""
+def attn_init(gen, cfg, cross: bool = False):
+    """QKV/O projections. Fused layouts: wq [d, Hq*Dh], wk/wv [d, Hkv*Dh].
+    A cross-attention sub-layer (``cross``) has no QKV bias; with
+    ``qk_norm`` it gets ``q_norm``/``k_norm``, which it never reads (as in
+    JAX, so that the trees match)."""
     d, hq, hkv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dev = gen.device
     p = {
@@ -275,7 +278,7 @@ def attn_init(gen, cfg):
         "wv": pm.dense_init(gen, d, hkv * dh),
         "wo": pm.dense_init(gen, hq * dh, d, scale=(hq * dh) ** -0.5),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         p["bq"] = pm.zeros((hq * dh,), dev)
         p["bk"] = pm.zeros((hkv * dh,), dev)
         p["bv"] = pm.zeros((hkv * dh,), dev)

@@ -18,8 +18,12 @@ Modes (driven by arguments, not flags):
 
 Block kinds: ``global`` / ``local`` attention, ``recurrent`` (RG-LRU,
 ``models/rglru.py``) and ``rwkv`` (RWKV-6 time-mix, whose channel-mix
-takes the MLP's place, ``models/rwkv.py``). MoE and cross-attention
-blocks raise ``NotImplementedError``.
+takes the MLP's place, ``models/rwkv.py``). The FFN is the MLP, or with
+``cfg.moe`` the mixture of experts of ``models/moe.py``. A block may
+carry a cross-attention sub-layer before its mixer (VLM, encoder-decoder
+decoder; :func:`period_spec` says which): a pass with ``ctx`` projects the
+context's K/V (and writes them into the block's ``ck``/``cv`` cache, in
+place, when it has a state); a pass without it reads that cache.
 
 Recurrent state leaves (fp32, batch-leading) are written in place by a
 pass with ``write_kv`` (prefill, replay), like the KV caches; with
@@ -28,6 +32,8 @@ without ``write_kv`` (the read-only verify pass) leaves them as they are.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 from typing import Any, Dict, Tuple
 
 import torch
@@ -36,40 +42,60 @@ from repro_torch.config.base import ModelConfig
 from repro_torch.models import kvcache as kvc
 from repro_torch.models.attention import (attend, attend_cache_plus_block,
                                           attn_init, out_proj, project_qkv)
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import rwkv as rwkv_lib
-from repro_torch.models.layers import rmsnorm
+from repro_torch.models.layers import dense, rmsnorm
 from repro_torch.models.mlp import mlp, mlp_init
 
 KINDS = ("global", "local", "recurrent", "rwkv")
-_NOT_PORTED = {
-    "moe": "ROADMAP.md queue 1, slice C (models/moe.py)",
-    "cross": "ROADMAP.md queue 1, slice C (cross-attention blocks)",
-}
 
 
 def check_supported(cfg: ModelConfig):
-    """Raise for configs whose blocks the port does not have yet."""
+    """Raise for a layer kind the port has no block for."""
     for kind in set(cfg.pattern_for_depth()):
         if kind not in KINDS:
             raise NotImplementedError(f"block kind {kind!r} is not ported")
-    if cfg.moe is not None:
-        raise NotImplementedError(f"MoE FFN is not ported: {_NOT_PORTED['moe']}")
-    if cfg.cross_attn_every or cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"cross-attention is not ported: {_NOT_PORTED['cross']}")
 
 
-def period_spec(cfg: ModelConfig) -> Tuple[int, int]:
-    """(period length, n_periods) of the JAX scanned stack; layers past
-    ``n_periods * period`` form the unrolled tail. Features for the
+# ------------------------------------------------------------ period spec --
+@dataclasses.dataclass(frozen=True)
+class BlockSpec2:
+    kind: str            # global | local | recurrent | rwkv
+    cross: bool = False  # a cross-attention sub-layer before the mixer
+
+
+def period_spec(cfg: ModelConfig) -> Tuple[Tuple[BlockSpec2, ...], int,
+                                           Tuple[BlockSpec2, ...]]:
+    """(period, n_periods, tail) of the JAX scanned stack, covering
+    ``cfg.num_layers`` layers: with ``cross_attn_every`` the pattern is
+    expanded to ``lcm(len(pattern), cross_attn_every)`` layers and every
+    ``cross_attn_every``-th one carries cross-attention. Features for the
     drafter are the hiddens at period ends and after each tail layer."""
-    plen = len(cfg.layer_pattern)
-    return plen, cfg.num_layers // plen
+    pat = list(cfg.layer_pattern)
+    ce = cfg.cross_attn_every
+    if ce:
+        pat = pat * (math.lcm(len(pat), ce) // len(pat))
+        spec = tuple(BlockSpec2(k, cross=(i + 1) % ce == 0)
+                     for i, k in enumerate(pat))
+    else:
+        spec = tuple(BlockSpec2(k) for k in pat)
+    plen = len(spec)
+    n_periods = cfg.num_layers // plen
+    tail = tuple(spec[i % plen] for i in range(cfg.num_layers
+                                               - n_periods * plen))
+    return spec, n_periods, tail
+
+
+def layer_specs(cfg: ModelConfig) -> Tuple[BlockSpec2, ...]:
+    """Each layer's spec, in depth order (the periods, then the tail)."""
+    spec, n_periods, tail = period_spec(cfg)
+    return spec * n_periods + tail
 
 
 # ----------------------------------------------------------------- block ---
-def block_init(gen, cfg: ModelConfig, kind: str):
+def block_init(gen, cfg: ModelConfig, spec: BlockSpec2):
+    kind = spec.kind
     if kind not in KINDS:
         raise NotImplementedError(f"block kind {kind!r} is not ported")
     dev = gen.device
@@ -84,26 +110,44 @@ def block_init(gen, cfg: ModelConfig, kind: str):
     p["ln2"] = ones()
     if kind == "rwkv":
         p["rwkv_cm"] = rwkv_lib.channel_mix_init(gen, cfg)
+    elif cfg.moe is not None:
+        p["ffn"] = moe_lib.moe_init(gen, cfg)
     else:
         p["ffn"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_gated)
+    if spec.cross:
+        p["ln_x"] = ones()
+        p["xattn"] = attn_init(gen, cfg, cross=True)
     if cfg.use_post_norm:
         p["ln1_post"] = ones()
         p["ln2_post"] = ones()
     return p
 
 
-def block_state_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
-                     dtype, device, cache_impl: str = "dense",
-                     page_size: int = 64, pool_pages: int = 0,
-                     page_table=None, ext_pool=None):
+def block_state_init(cfg: ModelConfig, spec: BlockSpec2, batch: int,
+                     max_len: int, dtype, device, ctx_len: int = 0,
+                     cache_impl: str = "dense", page_size: int = 64,
+                     pool_pages: int = 0, page_table=None, ext_pool=None):
     """Per-layer decode state: a page pool + table for global layers under
     ``cache_impl="paged"``, else a dense [B, cap, Hkv, Dh] buffer (local
     layers keep a window-capped rolling buffer in both modes); recurrent
-    and rwkv layers hold their fp32 recurrent states in both modes.
+    and rwkv layers hold their fp32 recurrent states in both modes. A
+    cross block also holds its context's K/V, ``ck``/``cv`` [B,
+    max(ctx_len, 1), Hkv, Dh], which a pass with ``ctx`` writes in place.
 
     ext_pool: optional ``(k, v)`` pool buffers retained from an earlier
     wave (``core.state.capture_pools``), taken as they are in place of
     fresh zeroed pools."""
+    st = _self_state(cfg, spec.kind, batch, max_len, dtype, device,
+                     cache_impl, page_size, pool_pages, page_table, ext_pool)
+    if spec.cross:
+        shape = (batch, max(ctx_len, 1), cfg.num_kv_heads, cfg.head_dim)
+        st["ck"] = torch.zeros(shape, dtype=dtype, device=device)
+        st["cv"] = torch.zeros(shape, dtype=dtype, device=device)
+    return st
+
+
+def _self_state(cfg, kind, batch, max_len, dtype, device, cache_impl,
+                page_size, pool_pages, page_table, ext_pool):
     if kind == "recurrent":
         return rglru_lib.rglru_state_init(cfg, batch, device)
     if kind == "rwkv":
@@ -139,9 +183,9 @@ def default_block_mask(tb: int, window, device):
     return blk
 
 
-def block_apply(p, x, cfg: ModelConfig, kind: str, *, state=None,
+def block_apply(p, x, cfg: ModelConfig, spec: BlockSpec2, *, state=None,
                 cache_len=None, positions=None, write_kv: bool = False,
-                extra_mask=None, attn_impl: str = "auto",
+                extra_mask=None, ctx=None, attn_impl: str = "auto",
                 kv_chunk: int = 1024, attend_cache_on_write: bool = False,
                 snap_at=None):
     """Apply one block. Returns (y, kv_out); cache writes are in place.
@@ -151,8 +195,15 @@ def block_apply(p, x, cfg: ModelConfig, kind: str, *, state=None,
     snap_at: optional [B]: each row consumes exactly ``snap_at`` tokens (a
     prompt padded to a bucket, or a replay of the accepted path): KV
     writes past it are dropped and recurrent states snap there.
+    ctx: optional [B, T_ctx, d] context of a cross block (image
+    embeddings, the encoder's output); without it a cross block reads its
+    state's ``ck``/``cv``.
     """
+    kind = spec.kind
     kv_out = None
+    if spec.cross:
+        x = x + _cross_attention(p, x, cfg, state=state, ctx=ctx,
+                                 attn_impl=attn_impl, kv_chunk=kv_chunk)
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if kind == "recurrent":
         y, new = rglru_lib.rglru_block(p["rec"], h, cfg, state=state,
@@ -176,11 +227,48 @@ def block_apply(p, x, cfg: ModelConfig, kind: str, *, state=None,
         y, new = rwkv_lib.channel_mix(p["rwkv_cm"], h, cfg, state=state,
                                       snap_at=snap_at)
         _write_states_(state, new, write_kv)
+    elif cfg.moe is not None:
+        y = moe_lib.moe_apply(p["ffn"], h, cfg)
     else:
         y = mlp(p["ffn"], h, cfg.mlp_act, cfg.mlp_gated)
     if cfg.use_post_norm:
         y = rmsnorm(p["ln2_post"], y, cfg.norm_eps)
     return x + y, kv_out
+
+
+def _cross_attention(p, x, cfg, *, state, ctx, attn_impl, kv_chunk):
+    """The cross sub-layer's residual branch (before the mixer, as in
+    Flamingo and Llama 3.2 Vision): queries from the stream, keys and
+    values from ``ctx`` (written into ``state``'s ``ck``/``cv`` in place,
+    which must be as long as ``ctx``) or, without ``ctx``, from that
+    cache. No RoPE, no QKV bias, no qk-norm."""
+    h = rmsnorm(p["ln_x"], x, cfg.norm_eps)
+    hkv, dh = cfg.num_kv_heads, cfg.head_dim
+    if ctx is not None:
+        b, tc = ctx.shape[:2]
+        ck = dense(p["xattn"]["wk"], ctx).reshape(b, tc, hkv, dh)
+        cv = dense(p["xattn"]["wv"], ctx).reshape(b, tc, hkv, dh)
+        if state is not None:
+            if state["ck"].shape != ck.shape:
+                raise ValueError(
+                    f"cross cache {tuple(state['ck'].shape)} does not fit a "
+                    f"context of {tuple(ctx.shape)}: size the states with "
+                    f"ctx_len={tc}")
+            state["ck"].copy_(ck)
+            state["cv"].copy_(cv)
+    elif state is not None:
+        ck, cv = state["ck"], state["cv"]
+    else:
+        raise ValueError("a cross block needs ctx or a state with its "
+                         "cross cache")
+    b, t = h.shape[:2]
+    q = dense(p["xattn"]["wq"], h).reshape(b, t, cfg.num_heads, dh)
+    if attn_impl == "kernel":       # the flash kernels take one dtype
+        ck, cv = ck.to(q.dtype), cv.to(q.dtype)
+    xo = attend(q, ck, cv, causal=False, q_offset=0,
+                attn_softcap=cfg.attn_softcap, impl=attn_impl,
+                kv_chunk=kv_chunk)
+    return out_proj(p["xattn"], xo)
 
 
 def _write_states_(state, new, write_kv):

@@ -24,7 +24,7 @@ from repro_torch.models import kvcache
 from repro_torch.models import param as pm
 from repro_torch.models.blocks import (block_apply, block_init,
                                        block_state_init, check_supported,
-                                       period_spec)
+                                       layer_specs, period_spec)
 from repro_torch.models.layers import embed, rmsnorm, softcap, unembed
 
 FEATURE_LAYERS = 3
@@ -44,16 +44,19 @@ def lm_init(cfg: ModelConfig, seed: int = 0, device="cuda"):
     if not cfg.tie_embeddings:
         p["lm_head"] = pm.dense_init(gen, cfg.d_model, cfg.vocab_size,
                                      scale=0.02)
-    p["layers"] = [block_init(gen, cfg, kind)
-                   for kind in cfg.pattern_for_depth()]
+    p["layers"] = [block_init(gen, cfg, spec) for spec in layer_specs(cfg)]
     return p
 
 
-def init_states(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
-                cache_impl: str = "dense", page_size: int = 64,
+def init_states(cfg: ModelConfig, batch: int, max_len: int, ctx_len: int = 0,
+                dtype=None, cache_impl: str = "dense", page_size: int = 64,
                 pool_pages: Optional[int] = None, page_table=None,
                 device="cuda", ext_pools=None):
     """Allocate per-layer decode states.
+
+    ctx_len: the context length the cross blocks' ``ck``/``cv`` caches
+    hold (at least 1, as in JAX): a pass with ``ctx`` of that length
+    writes them, every later pass reads them.
 
     cache_impl="paged": global-attention KV lives in page pools shared
     across the batch; ``page_table`` [B, max_pages] (default: the identity
@@ -77,12 +80,13 @@ def init_states(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     ext_pools = ext_pools or {}
     assert not ext_pools or cache_impl == "paged", \
         "retained pool buffers require cache_impl='paged'"
-    layers = [block_state_init(cfg, kind, batch, max_len, dtype, dev,
-                               cache_impl=cache_impl, page_size=page_size,
+    layers = [block_state_init(cfg, spec, batch, max_len, dtype, dev,
+                               ctx_len=ctx_len, cache_impl=cache_impl,
+                               page_size=page_size,
                                pool_pages=pool_pages or 0,
                                page_table=page_table,
                                ext_pool=ext_pools.get(i))
-              for i, kind in enumerate(cfg.pattern_for_depth())]
+              for i, spec in enumerate(layer_specs(cfg))]
     return {"layers": layers,
             "length": torch.zeros((batch,), dtype=torch.int32, device=dev)}
 
@@ -90,10 +94,14 @@ def init_states(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
 # --------------------------------------------------------------- forward ---
 def forward(params, tokens, cfg: ModelConfig, *, states=None, cache_len=None,
             positions=None, write_kv: bool = False, extra_mask=None,
-            attn_impl: str = "auto", kv_chunk: int = 1024,
+            ctx=None, attn_impl: str = "auto", kv_chunk: int = 1024,
             want_features: bool = False, want_logits: bool = True,
             attend_cache_on_write: bool = False, snap_at=None):
     """tokens: [B,T] integer.
+
+    ctx: optional [B, T_ctx, d] context of the cross blocks (image
+    embeddings, the encoder's output); with states, the pass writes the
+    cross caches, and a pass without ``ctx`` reads them.
 
     Returns dict(logits, states, features, kv_outs, hidden). With
     ``write_kv`` the block K/V are written into ``states``' buffers in
@@ -121,19 +129,20 @@ def forward(params, tokens, cfg: ModelConfig, *, states=None, cache_len=None,
         ar = torch.arange(t, dtype=torch.int32, device=dev)
         positions = (cache_len[:, None] + ar[None, :] if cache_len.ndim
                      else cache_len + ar)
-    plen, n_periods = period_spec(cfg)
-    kinds = cfg.pattern_for_depth()
+    spec, n_periods, _ = period_spec(cfg)
+    plen = len(spec)
     remat = cfg.remat and states is None and torch.is_grad_enabled()
     hiddens = []
     kv_outs = []
-    for i, kind in enumerate(kinds):
+    for i, bs in enumerate(layer_specs(cfg)):
         st = states["layers"][i] if states is not None else None
 
-        def layer(x, i=i, kind=kind, st=st):
+        def layer(x, i=i, bs=bs, st=st):
             return block_apply(
-                params["layers"][i], x, cfg, kind, state=st,
+                params["layers"][i], x, cfg, bs, state=st,
                 cache_len=cache_len, positions=positions, write_kv=write_kv,
-                extra_mask=extra_mask, attn_impl=attn_impl, kv_chunk=kv_chunk,
+                extra_mask=extra_mask, ctx=ctx, attn_impl=attn_impl,
+                kv_chunk=kv_chunk,
                 attend_cache_on_write=attend_cache_on_write, snap_at=snap_at)
 
         if remat:
@@ -199,14 +208,16 @@ def _chunk_nll(head, hj, lj, mj, logit_softcap):
 
 
 def loss_fn(params, batch, cfg: ModelConfig, *, attn_impl="auto",
-            kv_chunk=1024, loss_seq_chunk: Optional[int] = None):
-    """batch: dict(tokens [B,S], labels [B,S], mask [B,S]) of tensors.
+            kv_chunk=1024, loss_seq_chunk: Optional[int] = None, ctx=None):
+    """batch: dict(tokens [B,S], labels [B,S], mask [B,S]) of tensors;
+    ``ctx``: the cross blocks' context (:func:`forward`).
 
     ``loss_seq_chunk``: the cross entropy over sequence chunks of that
     length, each rematerialized, so [B,S,V] logits never exist at once.
     """
     out = forward(params, batch["tokens"], cfg, attn_impl=attn_impl,
-                  kv_chunk=kv_chunk, want_logits=loss_seq_chunk is None)
+                  kv_chunk=kv_chunk, ctx=ctx,
+                  want_logits=loss_seq_chunk is None)
     if loss_seq_chunk is None:
         return cross_entropy(out["logits"], batch["labels"],
                              batch.get("mask"))
@@ -235,8 +246,8 @@ def loss_fn(params, batch, cfg: ModelConfig, *, attn_impl="auto",
 def feature_dim(cfg: ModelConfig) -> int:
     """Width of the drafter-conditioning features ``forward`` emits:
     min(3, period-end + tail hiddens) * d_model."""
-    plen, n_periods = period_spec(cfg)
-    avail = n_periods + (cfg.num_layers - n_periods * plen)
+    _, n_periods, tail = period_spec(cfg)
+    avail = n_periods + len(tail)
     return min(FEATURE_LAYERS, max(avail, 1)) * cfg.d_model
 
 

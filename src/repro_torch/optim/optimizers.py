@@ -61,7 +61,8 @@ def _groups(tree, cfg: ModelConfig):
     """{JAX path: (port leaves, stacked)}: the leaves of a port param tree
     regrouped as the JAX package holds them. A ``period/p{j}`` group lists
     its layers in period order and is ``stacked``; the others hold one."""
-    plen, n_periods = period_spec(cfg)
+    spec, n_periods, _ = period_spec(cfg)
+    plen = len(spec)
     groups = {}
     for path, t in pm.flatten(tree).items():
         parts = path.split("/")

@@ -51,8 +51,10 @@ Random numbers: one ``torch.Generator`` per engine (``seed``), which
 every install and cycle draws from in order, in place of JAX's key
 splits. Not ported here: mesh residency (ROADMAP.md queue 1, slice E;
 the stats keep its keys for one device: ``kv_shards`` 1,
-``pool_shard_slots`` the pool's slots, ``decode_collective_bytes`` 0)
-and the state-replay verifier of recurrent targets (slice C).
+``pool_shard_slots`` the pool's slots, ``decode_collective_bytes`` 0).
+Cross-attention targets (VLM, encoder-decoder) are refused: a request
+carries no context, and JAX's engine serves them against a zero cross
+cache.
 """
 from __future__ import annotations
 
@@ -131,6 +133,14 @@ class ServingEngine:
         assert cache_impl in ("dense", "paged"), cache_impl
         assert pool_scope in ("engine", "wave"), pool_scope
         kinds = set(bundle.target_cfg.pattern_for_depth())
+        if bundle.target_cfg.cross_attn_every:
+            # JAX's engine allocates the cross caches without ctx_len and
+            # prefills without ctx, so it serves such a target against a
+            # zero cross cache: with no context at all (ROADMAP.md queue 3)
+            raise ValueError(
+                "ServingEngine serves no cross-attention target (VLM, "
+                "encoder-decoder): requests carry no context; decode it "
+                "with pipeline.generate(ctx=)")
         if pool_pages is not None and not (cache_impl == "paged"
                                            and pool_scope == "engine"):
             raise ValueError(

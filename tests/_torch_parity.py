@@ -5,6 +5,7 @@ numpy. Not a test module (no ``test_`` prefix)."""
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -31,6 +32,29 @@ jax_extend_feat_cache = jax.jit(jdr.extend_feat_cache, static_argnums=1)
 jax_drafter_forward = jax.jit(jdr.drafter_forward, static_argnums=1)
 
 
+def jax_greedy(jparams, jcfg, prompts, n, ctx=None):
+    """JAX plain greedy, one token at a time over a dense cache, as
+    ``conftest.pure_greedy`` decodes, through ``jax_lm_forward`` (two
+    compiles a config instead of one of ``n`` unrolled steps); with
+    ``ctx`` the prefill writes the cross caches and the steps read them.
+    [B, n] numpy tokens."""
+    b, p = prompts.shape
+    states = jlm.init_states(jcfg, b, p + n + 4,
+                             ctx_len=0 if ctx is None else ctx.shape[1],
+                             dtype=jnp.dtype(jcfg.dtype))
+    out = jax_lm_forward(jparams, prompts, jcfg, states=states,
+                         write_kv=True, remat=False, ctx=ctx)
+    tok = jnp.argmax(out["logits"][:, -1], -1).astype(jnp.int32)
+    res = [tok]
+    for _ in range(n - 1):
+        out = jax_lm_forward(jparams, tok[:, None], jcfg,
+                             states=out["states"], write_kv=True,
+                             attend_cache_on_write=True, remat=False)
+        tok = jnp.argmax(out["logits"][:, -1], -1).astype(jnp.int32)
+        res.append(tok)
+    return np.asarray(jnp.stack(res, 1))
+
+
 def t(x):
     """numpy/JAX array -> CPU torch tensor (a copy)."""
     return torch.from_numpy(np.array(x))
@@ -53,7 +77,8 @@ def port_model_cfg(jcfg, **over):
     ``pallas`` maps to ``kernel``."""
     kw = _fields(jcfg, **over)
     kw["family"] = tbase.Family(jcfg.family.value)
-    assert jcfg.moe is None
+    if jcfg.moe is not None:
+        kw["moe"] = tbase.MoEConfig(**dataclasses.asdict(jcfg.moe))
     return tbase.ModelConfig(**kw)
 
 
@@ -138,8 +163,9 @@ def jax_state_layers(jtarget, cfg):
     """The JAX target state's per-layer cache dicts (numpy), in depth
     order: the scanned periods' stacked leaves split into layers, then
     the tail layers; the port's ``target["layers"]`` layout."""
-    plen = len(cfg.layer_pattern)
-    n_per = cfg.num_layers // plen
+    from repro.models.blocks import period_spec
+    spec, n_per, _ = period_spec(cfg)
+    plen = len(spec)
     out = [None] * cfg.num_layers
     for j in range(plen if n_per else 0):
         for per in range(n_per):

@@ -65,7 +65,13 @@ CARD_CASES = {"dense": "dense_tq76", "paged": "paged_tq76",
               "d64": "d64", "d96": "d96",
               # head_dim 256, MQA 10 over 1: the hybrid's read pass
               "d256_hybrid": "d256_hybrid", "d256_paged": "d256_paged",
-              "d256_wrap": "d256_rolling_wrap"}
+              "d256_wrap": "d256_rolling_wrap",
+              # the other archs' decoder verify: stablelm-3b, grok-1,
+              # whisper-medium, gemma2-2b
+              "d80": "d80_group1_paged", "group6": "group6",
+              "d64_group1": "d64_group1_paged",
+              "d256_gemma2_rolling": "d256_gemma2_rolling",
+              "d256_gemma2_paged": "d256_gemma2_paged"}
 
 
 def _inputs(dev, dtype, kind, **opts):
@@ -478,6 +484,54 @@ def test_graph_loop_matches_eager_loop_hybrid(dev, cache_impl):
     assert (graph["n_cycles"], graph["alpha"]) == (host["n_cycles"],
                                                    host["alpha"])
     assert graph["n_cycles"] > 2 and graph["capture_s"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache_impl", ["dense", "paged"])
+def test_graph_loop_matches_eager_loop_moe(dev, cache_impl):
+    """grok-1's smoke config in fp32 (4 experts, top 2, capacity factor
+    1.25, so verify passes drop pairs): the graph loop replays the eager
+    cycles token for token, and two graph loops over the same prefill
+    commit bitwise equal caches (the expert outputs are combined in a
+    fixed order, never with atomics)."""
+    from repro_torch.config.base import SpecConfig
+    from repro_torch.config.registry import get_config
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core.drafter import DrafterConfig, drafter_init
+    from repro_torch.core.state import engine_init, prefill
+    from repro_torch.models import lm
+    tcfg = dataclasses.replace(get_config("grok-1-314b", smoke=True),
+                               dtype="float32")
+    tcfg = dataclasses.replace(tcfg, moe=dataclasses.replace(
+        tcfg.moe, capacity_factor=1.25))
+    dcfg = DrafterConfig(d_model=128, num_layers=2, num_heads=2,
+                         num_kv_heads=1, d_ff=256,
+                         vocab_size=tcfg.vocab_size,
+                         target_feature_dim=lm.feature_dim(tcfg), gamma=4,
+                         dtype="float32")
+    bundle = pl.with_attn_impl(pl.SpecBundle(
+        tcfg, dcfg, dcfg, SpecConfig(gamma=4, top_k_branches=2),
+        lm.lm_init(tcfg, seed=0, device=dev),
+        drafter_init(dcfg, seed=1, device=dev),
+        drafter_init(dcfg, seed=2, device=dev)), "kernel")
+    prompts = np.random.default_rng(0).integers(0, 512, (3, 24))
+    kw = dict(cache_impl=cache_impl, page_size=16, device=dev)
+    host = pl.generate(bundle, prompts, 20, **kw)
+    graph = pl.generate_ondevice(bundle, prompts, 20, **kw)
+    np.testing.assert_array_equal(graph["tokens"], host["tokens"])
+    assert (graph["n_cycles"], graph["alpha"]) == (host["n_cycles"],
+                                                   host["alpha"])
+    pt = torch.as_tensor(prompts, device=dev)
+    runs = []
+    for _ in range(2):
+        gen = torch.Generator(device=dev)
+        state = prefill(bundle, engine_init(bundle, 3, 64, **kw), pt, gen)
+        loop = pl.OnDeviceLoop(bundle, state, 20, gen).run()
+        runs.append((loop.buf.clone(), [
+            t.clone() for lay in loop.state.target["layers"]
+            for t in (lay["k"], lay["v"])]))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
 
 
 @pytest.mark.cuda

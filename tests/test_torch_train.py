@@ -323,9 +323,39 @@ def test_launcher_trains_the_smoke_config(tmp_path):
 
 
 def test_api_rejects_encoder_decoder():
+    """The serving entry point refuses an encoder-decoder target:
+    ``launch/serve.py --arch whisper-medium`` builds whisper's decoder,
+    whose cross layers would read no context (a request carries none),
+    and ``ServingEngine`` raises (ROADMAP.md queue 3). Training takes it
+    (the test below), and so does ``pipeline.generate(ctx=)``
+    (``tests/test_torch_cross.py``)."""
+    from repro_torch.launch import serve
+    with pytest.raises(ValueError, match="cross-attention"):
+        serve.main(["--arch", "whisper-medium", "--requests", "1",
+                    "--max-new", "2", "--device", "cpu"])
+
+
+def test_api_builds_and_trains_encoder_decoder():
+    """``api.init_model`` and ``train_loss`` build and run whisper's smoke
+    config (the encoder over the batch's audio frames, then the decoder
+    cross-attending to it), and ``batch_specs`` gives ``make_batch``'s
+    shapes and dtypes as meta tensors, for it and a decoder-only model."""
+    from repro_torch.config.registry import get_config
     from repro_torch.models import api
-    cfg = dataclasses.replace(_tiny_port()[0], is_encoder_decoder=True)
-    with pytest.raises(NotImplementedError, match="slice C"):
-        api.init_model(cfg, device="cpu")
-    specs = api.batch_specs(_tiny_port()[0], 2, 8)
-    assert specs["tokens"].shape == (2, 8) and specs["mask"].is_meta
+    cfg = dataclasses.replace(get_config("whisper-medium", smoke=True),
+                              dtype="float32")
+    params = api.init_model(cfg, device="cpu")
+    assert set(params) == {"encoder", "decoder"}
+    assert len(params["encoder"]["layers"]) == cfg.enc_num_layers
+    assert api.decoder_params(params, cfg) is params["decoder"]
+    batch = api.make_batch(0, cfg, 2, 8, device="cpu")
+    loss = api.train_loss(params, batch, cfg)
+    assert loss.ndim == 0 and torch.isfinite(loss)
+    for c in (cfg, _tiny_port()[0]):
+        specs = api.batch_specs(c, 2, 8)
+        real = api.make_batch(0, c, 2, 8, device="cpu")
+        assert specs["tokens"].shape == (2, 8) and specs["mask"].is_meta
+        assert {k: (v.shape, v.dtype) for k, v in specs.items()} == \
+            {k: (v.shape, v.dtype) for k, v in real.items()}
+    assert api.batch_specs(cfg, 2, 8)["audio_feats"].shape == (
+        2, cfg.enc_max_len, cfg.d_model)
