@@ -33,13 +33,18 @@ Phases, each printing one JSON line (any failure exits non-zero):
            q_offset 24, kv_len (1000, 931), window 512, softcap 50; GQA
            groups 4 and 1) and tile edges (T 129, a single query row, Tkv
            300 with kv_len ending mid-tile, Tq 128 over Tkv 384 so that
-           two key tiles see no query, D 64 and 96), fp32 (the kernels of
+           two key tiles see no query, D 64 and 96), and at head_dim 256
+           (the D 256 instantiations) gemma2-2b's training shape (B 2, Hq
+           8, Hkv 4, T 4096, softcap 50, window 4096), recurrentgemma-2b's
+           (Hq 10, Hkv 1, window 2048), the ragged case and D 192
+           (zero-filled to 256); fp32 (the kernels of
            flash_attention.cu: the forward, dq and dk/dv in 3xTF32 on the
            tensor cores, each also called twice at the training shape and
-           held bitwise equal) and bf16 (the wgmma kernels of
-           flash_attention_sm90.cu); then timed at the
-           training shape beside its bound, its plain version and
-           scaled_dot_product_attention (forward; its autograd backward)
+           at gemma2-2b's and held bitwise equal) and bf16 (the wgmma
+           kernels of flash_attention_sm90.cu); then timed at the
+           training shape and at gemma2-2b's beside its bound, its plain
+           version and scaled_dot_product_attention (forward; its
+           autograd backward; at D 256 the backend's kernel named)
   main     greedy D^2SD ``generate`` in fp32 at the full width and depth of
            paper_target.full() with random seeded weights: 4 prompts of 512
            tokens, 64 new tokens, paged (page 64) and dense caches through
@@ -66,16 +71,16 @@ Phases, each printing one JSON line (any failure exits non-zero):
            replay; the launches of the loop's first cycle and capture
            held exact (40 paged, 36 dense)
   modes    fp32 greedy through ``generate_ondevice`` (kernel path, 32
-           new tokens, the main path's model cut to 18 of its 36 layers:
+           new tokens, the main path's model cut to 12 of its 36 layers:
            the run's time limit) in the modes beside d2sd: naive_k, eagle
            (drafter 1 causal), dflash_second (drafter 1 as drafter 2) and
            d2sd with the third level, paged and dense: tokens held to
            plain greedy, cascade launches a cycle held to the mode's count
-           (18 dense; paged 20, 48, 22, 24: 18 target layers and 2 a
+           (12 dense; paged 14, 42, 16, 18: 12 target layers and 2 a
            drafter pass), the third level's host loop held to its graph
            loop; each mode's paged loop profiled (ms and device ms a
            replay, graph pool bytes, phase-1 launches by name)
-  sampled  fp32 d2sd at temperature 1, paged, kernel path, one seed (18
+  sampled  fp32 d2sd at temperature 1, paged, kernel path, one seed (12
            layers, as modes): the
            graph loop's tokens and every cycle's acceptance uniforms
            held to the host loop's (and no two cycles' uniforms equal),
@@ -84,7 +89,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
            kernels (one cycle over 2000 copies of a prompt: TV of the
            first token against the target's softmax, every mode)
   serving  fp32 ``ServingEngine`` (batch 4, pages of 64, a pool of 160) at
-           the main path's model cut to 18 of its 36 layers (the run's
+           the main path's model cut to 12 of its 36 layers (the run's
            time limit), gamma 16, K 4: 10 requests behind a
            320-token system prompt (two sharing 352 tokens, one a second
            turn over an earlier answer; ``max_new`` 8-48; the first
@@ -115,20 +120,21 @@ Phases, each printing one JSON line (any failure exits non-zero):
            phase-1 kernel being phase1_sm90_kernel (launches held exact
            through the sm90 kernels)
   modes_bf16  each mode of the modes phase and d2sd sampled in bf16
-           (18 layers, as modes), paged, graph loop: ms a replay, decode tokens/s, launches
-           through the sm90 kernels, profile
-  serving_bf16  the serving requests in bfloat16 (18 layers, as
-           serving) as a Poisson trace at 1 request/s through the overlapped front end and the
-           synchronous baseline (paged, prefix cache, kernel path, the
+           (12 layers, as modes), paged, graph loop: ms a replay, decode
+           tokens/s, launches through the sm90 kernels, profile
+  serving_bf16  the serving requests in bfloat16 (12 layers, as
+           serving) as a Poisson trace at 1 request/s through the
+           overlapped front end and the synchronous baseline (paged, prefix cache, kernel path, the
            card's own clock): ms a cycle, engine cycles, tokens over the
            replay's wall time (set by the arrivals), TTFT and TPOT p50
            and max; each request's tokens held to a gather run's by the
            bf16 near-tie rule. A smoke reading of the path, not a serving
            metric: ten requests have no tail, and the slots are not kept
            full
-  hybrid   recurrentgemma-2b at full width and depth (26 layers: RG-LRU
-           blocks and MQA sliding-window layers of head_dim 256, vocab
-           256000), random seeded weights, two drafters sized by JAX's
+  hybrid   recurrentgemma-2b at full width cut to 8 of its 26 layers
+           (RG-LRU blocks and 2 MQA sliding-window layers of head_dim
+           256, vocab 256000; the cut pays for train_archs), random
+           seeded weights, two drafters sized by JAX's
            production_drafter rule, gamma 16, K 4, 64 new tokens for 4
            prompts of 2000-2040 tokens (ragged: every row's rolling local
            buffers wrap): fp32 through the state-replay verifier, the
@@ -136,18 +142,18 @@ Phases, each printing one JSON line (any failure exits non-zero):
            (both caches), the gather path through the graph loop (both
            caches); tokens held to plain greedy and to the gather path
            (near ties only), the graph loop's to the host loop's, cascade
-           launches a cycle exact (#1 one a local layer: 8; #2 one a
+           launches a cycle exact (#1 one a local layer: 2; #2 one a
            drafter layer and pass on a paged cache: 4; a graph run counts
            its eager first cycle and its capture); then bf16: six graph
            replays a cache profiled (wall and device ms a replay, idle
            share), the launches of the loop's first cycle and capture
            through the sm90 kernels held exact
-  ssm      the same for rwkv6-1.6b (24 RWKV-6 layers, attention-free, d
-           2048, vocab 65536) with 4 prompts of 512 and 32 new tokens:
-           #1 0, #2 4 a paged cycle
-  serving_recurrent  fp32 ``ServingEngine`` over the hybrid target,
-           kernel path: the serving phase's 10 requests through dense
-           refill and the paged engine pool (paged drafter feature
+  ssm      the same for rwkv6-1.6b (6 of its 24 RWKV-6 layers,
+           attention-free, d 2048, vocab 65536) with 4 prompts of 512 and
+           32 new tokens: #1 0, #2 4 a paged cycle
+  serving_recurrent  fp32 ``ServingEngine`` over the hybrid target (8
+           layers, as the hybrid phase), kernel path: the serving phase's
+           10 requests through dense refill and the paged engine pool (paged drafter feature
            caches; the prefix cache needs an all-global target):
            per-request tokens equal across both runs and to plain greedy
   moe      grok-1-314b (8 experts, top 2) at full width in fp32, cut to
@@ -171,13 +177,13 @@ Phases, each printing one JSON line (any failure exits non-zero):
            paged and dense caches and the gather path, tokens held to
            each other and to plain greedy (a prefill with the context,
            then one-token steps that read the cross caches)
-  archs    qwen2.5-3b, gemma2-2b and stablelm-3b at full size and
-           internlm2-20b at full width cut to 16 of 48 layers, fp32,
-           paged: the kernel path held to the gather path and plain
+  archs    qwen2.5-3b, gemma2-2b, stablelm-3b and internlm2-20b at
+           full width cut to 18 of 36, 13 of 26, 16 of 32 and 8 of 48
+           layers (the run's time limit), fp32, paged: the kernel path held to the gather path and plain
            greedy. Each of these three phases: 4 prompts of 512, 32 new
            tokens, random seeded weights, drafters by JAX's
            production_drafter rule, exact cascade launches a host cycle
-  train_fp32   paper_target.full() cut to 8 layers (the only cut; 2.79e9
+  train_fp32   paper_target.full() cut to 4 layers (the only cut; 2.02e9
            params, AdamW as optimizer_for picks), remat on, batch 2 x 4096
            tokens of the mixture stream: three steps through the fp32 flash
            kernels and three through the plain chunked attention, from the
@@ -186,14 +192,30 @@ Phases, each printing one JSON line (any failure exits non-zero):
   train_bf16   the same model in bf16: three steps through the plain
            chunked attention, then through the kernels one warm-up and
            five timed steps; the first three losses held to the plain
-           path's, ms/step, tokens/s, peak memory, and 16 / 8 / 8 launches
+           path's, ms/step, tokens/s, peak memory, and 8 / 4 / 4 launches
            per step of the tensor-core forward / dq / dk-dv kernels
            (flash_fwd_sm90, flash_bwd_dq_sm90, flash_bwd_dkv_sm90) and
            none of the fp32 ones
   train_profile  one bf16 step under torch.profiler: device time, idle
            share, top kernels
+  train_archs  training at head_dim 256 and through the recurrent
+           layers, full width, batch 2 x 4096, the cross entropy in
+           chunks of 512 (``make_train_step(loss_seq_chunk=)``):
+           gemma2-2b cut to 4 of 26 layers and recurrentgemma-2b to 6
+           (its RG-LRU layers through the associative scan) in fp32, three
+           kernel steps against three plain ones, held as train_fp32
+           holds them; both at full depth in bf16, three plain steps then
+           a warm-up and three timed kernel steps, the first three losses
+           held to the plain path's, ms a step, tokens/s, peak memory and
+           one step profiled; flash launches a step exact (remat: 2 / 1 /
+           1 an attention layer, so 52 / 26 / 26 for gemma2-2b and 16 / 8
+           / 8 for recurrentgemma-2b in bf16); rwkv6-1.6b cut to 4 of 24
+           layers in bf16 at batch 2 x 1024: finite losses that fall over
+           four steps, ms a step, no flash launch
 
-Then a ``{"kernels": [...]}`` line, the card's name and power limit as
+Then a ``{"kernels": [...]}`` line (each flash row with a ``d256`` entry:
+gemma2-2b's shape, the launches a step of train_archs), the card's name
+and power limit as
 nvidia-smi prints them, and the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 repository's ``src/repro_torch`` next to this file, it exits non-zero and
@@ -236,7 +258,8 @@ NEAR_TIE_BF16_ULPS = 4      # bf16: the same rule, the gap counted in bf16
 # (flash): kernels/cascade_cases.py
 TOL_CACHE = 1e-3    # committed fp32 caches vs a prefill of the same tokens,
                     # relative to the largest value: sum order only
-TRAIN_LAYERS = 8    # paper-target cut in depth only: 2.79e9 params
+TRAIN_LAYERS = 4    # paper-target cut in depth only (the run's time
+                    # limit): 2.02e9 params
 TOL_TRAIN_LOSS = 1e-5   # fp32 step loss, kernel vs plain path, relative
 TOL_TRAIN_GNORM = 1e-4  # fp32 global grad norm, relative
 TOL_TRAIN_PARAM = 1e-3  # fp32 params after step 3: mean |kernel - plain|
@@ -649,6 +672,9 @@ FLASH_KERNELS = {
     "flash_bwd_dkv": ("flash_attention_bwd_dkv", torch.float32,
                       "flash_attention.cu", 189)}
 TRAIN_B, TRAIN_T = 2, 4096                  # batch and sequence of a step
+# gemma2-2b's attention options (its local layers; at T 4096 the window of
+# 4096 masks nothing the causal mask keeps, as on its global layers)
+GEMMA_FLASH_KW = dict(causal=True, attn_softcap=50.0, window=4096)
 
 
 def live_pairs(tq, tkv, q_offset, window, kv_len, causal=True):
@@ -701,12 +727,15 @@ def check_flash(timer):
     over 300 keys; Tq 200 over Tkv 300 with kv_len 237 ending inside a
     key tile; Tq 128 over Tkv 384, whose last two key tiles no query
     sees, so dk/dv must be zero there; D 64 and D 96, the last
-    zero-filled to 128, in the [B,T,H,D] layout), fp32 and bf16. Each
+    zero-filled to 128, in the [B,T,H,D] layout), and at head_dim 256
+    gemma2-2b's and recurrentgemma-2b's training shapes (B 2, T 4096;
+    GQA 8/4 with softcap 50 and window 4096; MQA 10/1 with window 2048),
+    the ragged case and D 192 (zero-filled to 256), fp32 and bf16. Each
     backward kernel takes the plain forward's (o, lse), so each kernel is
     held alone. o, lse and dq are compared over rows with a live key.
     The fp32 kernels are also called a second time at the training shape
-    and must give bitwise the same o, lse, dq, dk and dv (no atomics: the
-    fp32 training step is deterministic)."""
+    and at gemma2-2b's, and must give bitwise the same o, lse, dq, dk and
+    dv (no atomics: the fp32 training step is deterministic)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.cascade_cases import TOL_FLASH, TOL_LSE
     gen = torch.Generator(device=DEVICE)
@@ -733,7 +762,22 @@ def check_flash(timer):
               dict(b=2, hq=8, hkv=2, tq=129, tkv=129, d=64, bthd=True,
                    kw=dict(causal=True)),
               dict(b=2, hq=8, hkv=2, tq=129, tkv=129, d=96, bthd=True,
-                   kw=dict(causal=False, kv_len=[129, 70]))]
+                   kw=dict(causal=False, kv_len=[129, 70])),
+              # head_dim 256, the D 256 instantiations: gemma2-2b's
+              # training shape (GQA 8/4, softcap 50, window 4096, the
+              # fp32 kernels called twice as at D 128), recurrentgemma-
+              # 2b's (MQA 10/1, window 2048), the ragged case, and D 192
+              # zero-filled to 256
+              dict(b=TRAIN_B, hq=8, hkv=4, tq=TRAIN_T, tkv=TRAIN_T, d=256,
+                   bthd=True, kw=GEMMA_FLASH_KW),
+              dict(b=TRAIN_B, hq=10, hkv=1, tq=TRAIN_T, tkv=TRAIN_T, d=256,
+                   bthd=True, kw=dict(causal=True, window=2048)),
+              dict(b=2, hq=8, hkv=4, tq=1000, tkv=1000, d=256, bthd=True,
+                   kw=ragged),
+              dict(b=2, hq=8, hkv=2, tq=129, tkv=129, d=192, bthd=True,
+                   kw=dict(causal=True))]
+    repeat = {0: "d128", 9: "d256"}       # fp32 cases called twice
+    same = {}
     for dtype in (torch.float32, torch.bfloat16):
         tol = TOL_FLASH[dtype]
         dn = str(dtype).replace("torch.", "")
@@ -752,16 +796,17 @@ def check_flash(timer):
             dq_p = fa.flash_attention_bwd_dq_plain(*args, **kw)
             dk_k, dv_k = fa.flash_attention_bwd_dkv(*args, **kw)
             dk_p, dv_p = fa.flash_attention_bwd_dkv_plain(*args, **kw)
-            if dtype == torch.float32 and sh is shapes[0]:
-                same = {"o_lse": all(map(torch.equal, (o_k, lse_k),
-                                         fa.flash_attention_fwd(q, k, v,
-                                                                **kw))),
-                        "dq": torch.equal(
-                            dq_k, fa.flash_attention_bwd_dq(*args, **kw)),
-                        "dk_dv": all(map(torch.equal, (dk_k, dv_k),
-                                         fa.flash_attention_bwd_dkv(
-                                             *args, **kw)))}
-                if not all(same.values()):
+            tag = repeat.get(shapes.index(sh))
+            if dtype == torch.float32 and tag:
+                same[tag] = {
+                    "o_lse": all(map(torch.equal, (o_k, lse_k),
+                                     fa.flash_attention_fwd(q, k, v, **kw))),
+                    "dq": torch.equal(
+                        dq_k, fa.flash_attention_bwd_dq(*args, **kw)),
+                    "dk_dv": all(map(torch.equal, (dk_k, dv_k),
+                                     fa.flash_attention_bwd_dkv(
+                                         *args, **kw)))}
+                if not all(same[tag].values()):
                     fail(f"the fp32 flash kernels are not deterministic: "
                          f"{same}")
             torch.cuda.synchronize()
@@ -813,54 +858,81 @@ def check_flash(timer):
     return worst_abs, timing
 
 
+def library_kernel(fn):
+    """The name of the kernel that takes the most device time in one call
+    of ``fn`` (torch.profiler), or None if the trace holds none: which
+    backend scaled_dot_product_attention picked."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = _device_rows(prof)
+    return rows[0][0][:120] if rows else None
+
+
 def time_flash(timer, gen):
-    """Each flash kernel at the training shape, causal, in the model's
-    layout: its time, its plain version's, one
+    """Each flash kernel at the training shapes in the model's layout:
+    paper-target's (B 2, Hq 32, Hkv 8, T 4096, D 128, causal) and, as
+    ``<dtype>_d256``, gemma2-2b's (Hq 8, Hkv 4, D 256, softcap 50, window
+    4096, with device ms): its time, its plain version's, one
     scaled_dot_product_attention call (forward for #3; its autograd
-    backward for #4 and #5 together) and the bound."""
+    backward for #4 and #5 together; causal with no softcap, which it
+    lacks; at D 256 the backend it picked, by kernel name) and the bound."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    b, hq, hkv, t, d = TRAIN_B, 32, 8, TRAIN_T, 128
-    pairs = live_pairs(t, t, 0, None, [t] * b)
     out = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        dn = str(dtype).replace("torch.", "")
-        q, k, v, do = _flash_inputs(gen, b, hq, hkv, t, t, d, dtype, True)
-        o, lse = fa.flash_attention_fwd(q, k, v)
-        delta = (do.float() * o.float()).sum(-1)
-        bw = (q, k, v, do, lse, delta)
-        ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
-        lib_o = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
-                                               enable_gqa=True)
-        entries = {
-            "flash_attention_fwd": (
-                lambda: fa.flash_attention_fwd(q, k, v),
-                lambda: fa.flash_attention_fwd_plain(q, k, v),
-                lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, enable_gqa=True)),
-            "flash_attention_bwd_dq": (
-                lambda: fa.flash_attention_bwd_dq(*bw),
-                lambda: fa.flash_attention_bwd_dq_plain(*bw),
-                lambda: torch.autograd.grad(lib_o, (ql, kl, vl), do,
-                                            retain_graph=True)),
-            "flash_attention_bwd_dkv": (
-                lambda: fa.flash_attention_bwd_dkv(*bw),
-                lambda: fa.flash_attention_bwd_dkv_plain(*bw), None)}
-        lib_bwd = None
-        for name, (kern, plain, lib) in entries.items():
-            bound, by = _flash_bound(name, dtype, b, hq, hkv, t, t, d, pairs)
-            if lib is not None:
-                lib_ms = timer.ms(lib, warmup=2)
-                lib_bwd = lib_ms
-            else:
-                lib_ms = lib_bwd       # one backward call gives dq, dk, dv
-            out.setdefault(name, {})[dn] = {
-                "ms": timer.ms(kern, warmup=2),
-                "plain_ms": timer.ms(plain, warmup=2),
-                "library_ms": lib_ms, "bound_ms": bound, "bound_by": by,
-                "shape": {"B": b, "Hq": hq, "Hkv": hkv, "T": t, "D": d,
-                          "causal": True, "live_pairs_per_q_head": pairs}}
-        del lib_o, ql, kl, vl
+    for tag, hq, hkv, d, kw in (("", 32, 8, 128, {}),
+                                ("_d256", 8, 4, 256, GEMMA_FLASH_KW)):
+        b, t = TRAIN_B, TRAIN_T
+        pairs = live_pairs(t, t, 0, kw.get("window"), [t] * b)
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).replace("torch.", "")
+            q, k, v, do = _flash_inputs(gen, b, hq, hkv, t, t, d, dtype,
+                                        True)
+            o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+            delta = (do.float() * o.float()).sum(-1)
+            bw = (q, k, v, do, lse, delta)
+            ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
+            lib_o = F.scaled_dot_product_attention(ql, kl, vl,
+                                                   is_causal=True,
+                                                   enable_gqa=True)
+            entries = {
+                "flash_attention_fwd": (
+                    lambda: fa.flash_attention_fwd(q, k, v, **kw),
+                    lambda: fa.flash_attention_fwd_plain(q, k, v, **kw),
+                    lambda: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True, enable_gqa=True)),
+                "flash_attention_bwd_dq": (
+                    lambda: fa.flash_attention_bwd_dq(*bw, **kw),
+                    lambda: fa.flash_attention_bwd_dq_plain(*bw, **kw),
+                    lambda: torch.autograd.grad(lib_o, (ql, kl, vl), do,
+                                                retain_graph=True)),
+                "flash_attention_bwd_dkv": (
+                    lambda: fa.flash_attention_bwd_dkv(*bw, **kw),
+                    lambda: fa.flash_attention_bwd_dkv_plain(*bw, **kw),
+                    None)}
+            lib_bwd = None
+            for name, (kern, plain, lib) in entries.items():
+                bound, by = _flash_bound(name, dtype, b, hq, hkv, t, t, d,
+                                         pairs)
+                if lib is not None:
+                    lib_ms = lib_bwd = timer.ms(lib, warmup=2)
+                    lib_name = library_kernel(lib) if tag else None
+                else:
+                    lib_ms = lib_bwd   # one backward call gives dq, dk, dv
+                extra = ({"library_kernel": lib_name,
+                          "device_ms": device_ms(kern)} if tag else {})
+                out.setdefault(name, {})[dn + tag] = {
+                    "ms": timer.ms(kern, warmup=2), **extra,
+                    "plain_ms": timer.ms(plain, warmup=2),
+                    "library_ms": lib_ms, "bound_ms": bound,
+                    "bound_by": by,
+                    "shape": {"B": b, "Hq": hq, "Hkv": hkv, "T": t, "D": d,
+                              "causal": True, **kw,
+                              "live_pairs_per_q_head": pairs}}
+            del lib_o, ql, kl, vl, q, k, v, do, o, lse, delta, bw
     return out
 
 
@@ -1270,7 +1342,7 @@ MODES = {"naive_k": ("naive_k", False), "eagle": ("eagle", False),
          "dflash_second": ("dflash_second", False),
          "third_level": ("d2sd", True)}
 MODE_NEW = 32           # tokens a row in the modes and sampled phases
-MODE_LAYERS = 18        # paper-target cut in depth for them (time limit)
+MODE_LAYERS = 12        # paper-target cut in depth for them (time limit)
 SAMPLE_T, SAMPLE_SEED = 1.0, 5
 
 
@@ -1317,9 +1389,9 @@ def modes_path(bundle, prompts):
     """fp32 greedy, full width, through ``generate_ondevice`` (kernel
     path): each mode of ``MODES`` on the paged and dense caches, tokens
     held to plain greedy of ``bundle``'s target (near ties excepted), the
-    cascade launches of a cycle held to ``replay_launches`` (at 18
-    layers: 18 dense; paged 20 naive_k, 22 dflash_second, 24
-    third_level, 48 eagle), the third level's host loop (``generate``)
+    cascade launches of a cycle held to ``replay_launches`` (at 12
+    layers: 12 dense; paged 14 naive_k, 16 dflash_second, 18
+    third_level, 42 eagle), the third level's host loop (``generate``)
     held to its graph run; then each mode's paged loop profiled
     (``profile_loop``: wall and device ms a replay, the phase-1 kernel's
     launches by name)."""
@@ -1939,17 +2011,18 @@ def _zero_flash_launches():
         getattr(fa, n).sm90_launches = 0
 
 
-def _check_flash_launches(launches, n_steps, sm90):
-    """16 forward (remat runs it twice), 8 dq and 8 dk/dv launches per
-    step, each through the kernel of the step's dtype, and none through
-    the other dtype's."""
+def _check_flash_launches(launches, n_steps, sm90, n_attn=TRAIN_LAYERS,
+                          where="train"):
+    """Per step, two forward launches an attention layer (remat runs it
+    twice), one dq and one dk/dv, each through the kernel of the step's
+    dtype, and none through the other dtype's."""
     sfx = "_sm90" if sm90 else ""
-    want = {f"flash_fwd{sfx}": 2 * TRAIN_LAYERS,
-            f"flash_bwd_dq{sfx}": TRAIN_LAYERS,
-            f"flash_bwd_dkv{sfx}": TRAIN_LAYERS}
+    want = {f"flash_fwd{sfx}": 2 * n_attn,
+            f"flash_bwd_dq{sfx}": n_attn,
+            f"flash_bwd_dkv{sfx}": n_attn}
     per_step = {k: v / n_steps for k, v in launches.items() if v}
     if per_step != want:
-        fail(f"train: flash launches per step {per_step}, expected {want}")
+        fail(f"{where}: flash launches per step {per_step}, expected {want}")
     return per_step
 
 
@@ -1960,9 +2033,10 @@ def train_cfg(dtype):
                                remat=True, dtype=dtype)
 
 
-def _start_training(cfg, impl):
-    """Seeded weights, the step ``optimizer_for`` gives, its state and the
-    mixture data stream, all from seed 0."""
+def _start_training(cfg, impl, loss_seq_chunk=None, hp=None, seq=TRAIN_T):
+    """Seeded weights, the step (with the optimizer ``optimizer_for``
+    picks unless ``hp`` is given), its state and the mixture data stream,
+    all from seed 0."""
     from repro_torch.data.synthetic import SyntheticDataset
     from repro_torch.launch.steps import make_train_step, optimizer_for
     from repro_torch.models import api
@@ -1970,9 +2044,10 @@ def _start_training(cfg, impl):
         fail(f"optimizer_for picks {optimizer_for(cfg).name} at "
              f"{cfg.param_count():.3g} params, not adamw")
     params = api.init_model(cfg, seed=0, device=DEVICE)
-    step, opt_init = make_train_step(cfg, attn_impl=impl, device=DEVICE)
+    step, opt_init = make_train_step(cfg, loss_seq_chunk=loss_seq_chunk,
+                                     hp=hp, attn_impl=impl, device=DEVICE)
     return (params, opt_init(params), step,
-            SyntheticDataset("mixture", TRAIN_B, TRAIN_T, seed=0))
+            SyntheticDataset("mixture", TRAIN_B, seq, seed=0))
 
 
 def _run_steps(params, state, step, ds, n):
@@ -1989,17 +2064,17 @@ def _run_steps(params, state, step, ds, n):
     return params, state, losses, gnorms, time.perf_counter() - t0
 
 
-def train_identity():
+def _identity(cfg, n_attn, loss_seq_chunk=None, where="train_fp32"):
     """fp32: three steps through the flash kernels and three through the
     plain path (``attn_impl="auto"``: chunked attention), from the same
     seeded weights and batches; loss and grad norm per step and the
-    params after step 3 held to each other."""
+    params after step 3 held to each other. Returns the result and the
+    kernel run's flash launches (gated: ``n_attn`` attention layers)."""
     from repro_torch.models import param as pm
     from repro_torch.optim.optimizers import lr_schedule
-    cfg = train_cfg("float32")
     runs, host = {}, {}
     for impl in ("kernel", "auto"):
-        params, state, step, ds = _start_training(cfg, impl)
+        params, state, step, ds = _start_training(cfg, impl, loss_seq_chunk)
         if impl == "kernel":
             host["init"] = {k: v.to("cpu", copy=True)
                             for k, v in pm.flatten(params).items()}
@@ -2010,7 +2085,8 @@ def train_identity():
                       "s_per_step": secs / 3}
         if impl == "kernel":
             launches = _flash_launches()
-            per_step = _check_flash_launches(launches, 3, sm90=False)
+            per_step = _check_flash_launches(launches, 3, False, n_attn,
+                                             where)
             host["kernel"] = {k: v.to("cpu", copy=True)
                               for k, v in pm.flatten(params).items()}
         else:
@@ -2024,6 +2100,7 @@ def train_identity():
                 move_sum += mv.sum().item()
                 n += p.numel()
         del params, state, step
+        gc.collect()
         torch.cuda.empty_cache()
     del host
     k, a = runs["kernel"], runs["auto"]
@@ -2035,9 +2112,10 @@ def train_identity():
     hp = optimizer_for(cfg)
     sign_bound = 2 * sum(float(lr_schedule(hp, s)) for s in (1, 2, 3))
     param_rel = diff_sum / max(move_sum, 1e-30)
-    out = {"phase": "train_fp32", "layers": cfg.num_layers,
-           "params": cfg.param_count(), "batch": TRAIN_B, "seq": TRAIN_T,
-           "optimizer": hp.name, "runs": runs, "loss_rel_err": loss_rel,
+    out = {"layers": cfg.num_layers, "params": cfg.param_count(),
+           "batch": TRAIN_B, "seq": TRAIN_T,
+           "loss_seq_chunk": loss_seq_chunk, "optimizer": hp.name,
+           "runs": runs, "loss_rel_err": loss_rel,
            "grad_norm_rel_err": gn_rel, "param_max_abs_diff": diff_max,
            "param_mean_abs_diff": diff_sum / n,
            "param_mean_abs_move": move_sum / n,
@@ -2047,24 +2125,33 @@ def train_identity():
                    "param": TOL_TRAIN_PARAM}}
     if loss_rel > TOL_TRAIN_LOSS or gn_rel > TOL_TRAIN_GNORM or \
             param_rel > TOL_TRAIN_PARAM or diff_max > sign_bound:
-        fail(f"train: the kernel path disagrees with the plain path: {out}")
-    emit({**out, "ok": True})
+        fail(f"{where}: the kernel path disagrees with the plain path: "
+             f"{out}")
+    return out, launches
+
+
+def train_identity():
+    """fp32 identity of ``train_cfg``'s paper-target (:func:`_identity`)."""
+    cfg = train_cfg("float32")
+    out, launches = _identity(cfg, TRAIN_LAYERS)
+    emit({"phase": "train_fp32", **out, "ok": True})
     return launches
 
 
-def train_bf16(n_timed=5):
+def _bf16_run(cfg, n_attn, n_timed, loss_seq_chunk=None, where="train_bf16"):
     """bf16 (the config's dtype): three steps through the plain chunked
     attention, freed, then through the kernels one warm-up step and
     ``n_timed`` timed ones from the same seeded weights and batches; the
     kernel run's first three losses are held to the plain run's, and the
     flash launch counts are zeroed just before the kernel run and read
-    just after. Returns what the profile phase continues from."""
-    cfg = train_cfg("bfloat16")
-    params, state, step, ds = _start_training(cfg, "chunked")
+    just after (gated: ``n_attn`` attention layers). Returns the result,
+    what a profile continues from, the launches and ms a step."""
+    params, state, step, ds = _start_training(cfg, "chunked", loss_seq_chunk)
     _, _, plain_losses, _, plain_s = _run_steps(params, state, step, ds, 3)
     del params, state, step, ds
+    gc.collect()
     torch.cuda.empty_cache()
-    params, state, step, ds = _start_training(cfg, "kernel")
+    params, state, step, ds = _start_training(cfg, "kernel", loss_seq_chunk)
     torch.cuda.reset_peak_memory_stats()
     _zero_flash_launches()
     params, state, warm_losses, _, warm_s = _run_steps(params, state, step,
@@ -2072,14 +2159,16 @@ def train_bf16(n_timed=5):
     params, state, losses, gnorms, secs = _run_steps(params, state, step, ds,
                                                      n_timed)
     launches = _flash_launches()
-    per_step = _check_flash_launches(launches, 1 + n_timed, sm90=True)
+    per_step = _check_flash_launches(launches, 1 + n_timed, True, n_attn,
+                                     where)
     ms = 1e3 * secs / n_timed
     kernel_losses = warm_losses + losses
     loss_rel = max(abs(x - y) / abs(y)
                    for x, y in zip(kernel_losses[:3], plain_losses))
-    out = {"phase": "train_bf16", "layers": cfg.num_layers,
-           "params": cfg.param_count(), "batch": TRAIN_B, "seq": TRAIN_T,
-           "warmup_s": warm_s, "ms_per_step": ms,
+    out = {"layers": cfg.num_layers, "params": cfg.param_count(),
+           "batch": TRAIN_B, "seq": TRAIN_T,
+           "loss_seq_chunk": loss_seq_chunk, "warmup_s": warm_s,
+           "ms_per_step": ms,
            "tokens_per_s": TRAIN_B * TRAIN_T * n_timed / secs,
            "max_memory_allocated_gb":
                torch.cuda.max_memory_allocated() / 1e9,
@@ -2088,14 +2177,24 @@ def train_bf16(n_timed=5):
            "loss_rel_err": loss_rel, "tol_loss": TOL_TRAIN_BF16_LOSS,
            "launches": launches, "launches_per_step": per_step}
     if loss_rel > TOL_TRAIN_BF16_LOSS:
-        fail(f"train: bf16 kernel losses disagree with the plain path: {out}")
-    emit({**out, "ok": True})
-    return (params, state, step, ds), launches, ms
+        fail(f"{where}: bf16 kernel losses disagree with the plain path: "
+             f"{out}")
+    return out, (params, state, step, ds), launches, ms
 
 
-def profile_train_step(run, ms_per_step):
-    """One bf16 training step under torch.profiler: device time, the
-    idle share against the unprofiled step time, and the top kernels."""
+def train_bf16(n_timed=5):
+    """bf16 ``train_cfg`` paper-target (:func:`_bf16_run`). Returns what
+    the profile phase continues from."""
+    out, run, launches, ms = _bf16_run(train_cfg("bfloat16"), TRAIN_LAYERS,
+                                       n_timed)
+    emit({"phase": "train_bf16", **out, "ok": True})
+    return run, launches, ms
+
+
+def _profile_step(run, ms_per_step, n_top=16):
+    """One training step under torch.profiler: device time, the idle
+    share against the unprofiled step time, the flash kernels' device ms
+    and the top kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
     params, state, step, ds = run
     batch = ds.next_batch()
@@ -2108,13 +2207,102 @@ def profile_train_step(run, ms_per_step):
     rows = _device_rows(prof)
     busy = sum(r[1] for r in rows) or None
     flash = sum(ms for k, ms, _ in rows if "flash_" in k)
+    return {"steps": 1, "device_ms_per_step": busy,
+            "unprofiled_ms_per_step": ms_per_step,
+            "idle_share": busy and 1.0 - busy / ms_per_step,
+            "flash_kernels_ms": flash,
+            "top": [{"name": k[:90], "ms": ms, "calls": c}
+                    for k, ms, c in rows[:n_top]]}
+
+
+def profile_train_step(run, ms_per_step):
+    """One bf16 training step under torch.profiler (:func:`_profile_step`)."""
     emit({"phase": "train_profile", "ok": True, "dtype": "bfloat16",
-          "steps": 1, "device_ms_per_step": busy,
-          "unprofiled_ms_per_step": ms_per_step,
-          "idle_share": busy and 1.0 - busy / ms_per_step,
-          "flash_kernels_ms": flash,
-          "top": [{"name": k[:90], "ms": ms, "calls": c}
-                  for k, ms, c in rows[:16]]})
+          **_profile_step(run, ms_per_step)})
+
+
+# arch -> (layers of the fp32 identity run, of the bf16 run): full width;
+# the fp32 identity (three kernel and three plain steps, fp32 AdamW state)
+# at a depth that keeps both runs short, the bf16 run at full depth (about
+# 42 GB of fp32 params, grads and AdamW moments)
+TRAIN_ARCHS = {"gemma2-2b": (4, 26), "recurrentgemma-2b": (6, 26)}
+# arch, layers, sequence length: T 1024, since a four-layer step at T 4096
+# takes 18.2 s on an H100 (the time-mix scan is a host-bound loop of T
+# steps a layer)
+RWKV_TRAIN = ("rwkv6-1.6b", 4, 1024)
+LOSS_SEQ_CHUNK = 512                      # the cross entropy's chunks
+TRAIN_ARCH_TIMED = 3                      # bf16 steps timed after a warm-up
+
+
+def arch_train_cfg(arch, layers, dtype):
+    """``arch`` at full width, cut to ``layers`` layers, remat on."""
+    from repro_torch.config.registry import get_config
+    return dataclasses.replace(get_config(arch), num_layers=layers,
+                               remat=True, dtype=dtype)
+
+
+def _n_attn(cfg):
+    return sum(k in ("global", "local") for k in cfg.pattern_for_depth())
+
+
+def train_archs():
+    """Training at head_dim 256 and through the recurrent layers, all
+    with the cross entropy in ``LOSS_SEQ_CHUNK`` chunks: for gemma2-2b
+    and recurrentgemma-2b the fp32 identity (:func:`_identity`) at the
+    depth ``TRAIN_ARCHS`` gives, then the bf16 run (:func:`_bf16_run`) at
+    full depth with one step profiled; rwkv6-1.6b (no attention) in bf16
+    cut to ``RWKV_TRAIN``'s depth: finite losses that fall over a warm-up
+    and three timed steps (AdamW at lr 1e-3 after one warm-up step, as
+    the launcher schedules it). Flash launches gated exact in each run.
+    Returns the flash launches a step by arch and dtype."""
+    from repro_torch.config.base import OptimizerConfig
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out, per_step = {}, {}
+    for arch, (l32, l16) in TRAIN_ARCHS.items():
+        cfg = arch_train_cfg(arch, l32, "float32")
+        fp32, _ = _identity(cfg, _n_attn(cfg), LOSS_SEQ_CHUNK,
+                            f"train_archs {arch} fp32")
+        cfg = arch_train_cfg(arch, l16, "bfloat16")
+        bf16, run, _, ms = _bf16_run(cfg, _n_attn(cfg), TRAIN_ARCH_TIMED,
+                                     LOSS_SEQ_CHUNK,
+                                     f"train_archs {arch} bf16")
+        bf16["profile"] = _profile_step(run, ms, n_top=10)
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[arch] = {"float32": fp32, "bfloat16": bf16}
+        per_step[arch] = {"float32": fp32["launches_per_step"],
+                          "bfloat16": bf16["launches_per_step"]}
+    arch, layers, seq = RWKV_TRAIN
+    cfg = arch_train_cfg(arch, layers, "bfloat16")
+    hp = OptimizerConfig(name="adamw", lr=1e-3, warmup_steps=1,
+                         total_steps=100)
+    params, state, step, ds = _start_training(cfg, "kernel", LOSS_SEQ_CHUNK,
+                                              hp=hp, seq=seq)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_flash_launches()
+    params, state, warm, _, warm_s = _run_steps(params, state, step, ds, 1)
+    params, state, losses, gnorms, secs = _run_steps(params, state, step, ds,
+                                                     TRAIN_ARCH_TIMED)
+    if any(_flash_launches().values()):
+        fail(f"train_archs {arch}: flash launches {_flash_launches()}")
+    losses = warm + losses
+    if not losses[-1] < losses[0]:
+        fail(f"train_archs {arch}: losses do not fall: {losses}")
+    out[arch] = {"bfloat16": {
+        "layers": layers, "params": cfg.param_count(), "batch": TRAIN_B,
+        "seq": seq, "loss_seq_chunk": LOSS_SEQ_CHUNK, "lr": hp.lr,
+        "warmup_s": warm_s, "ms_per_step": 1e3 * secs / TRAIN_ARCH_TIMED,
+        "tokens_per_s": TRAIN_B * seq * TRAIN_ARCH_TIMED / secs,
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "losses": losses, "grad_norms": gnorms}}
+    del params, state, step, ds
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "train_archs", "ok": True, **out,
+          "seconds": time.perf_counter() - t0})
+    return per_step
 
 
 # --------------------------------------------------------------- serving --
@@ -2123,9 +2311,10 @@ SERVE_PREFIX = 5              # pages of the shared system prompt (320)
 SERVE_SFX = (1, 2, 3, 14, 5, 7, 9, 2, 11)  # suffixes, in half pages (32)
 SERVE_NEW = (24, 8, 40, 16, 48, 12, 32, 20, 36, 28)
 SERVE_RATE = 1.0              # requests/s of the bf16 phase's Poisson trace
-SERVE_LAYERS = 18             # paper-target cut in depth for the serving
-                              # phases (half of 36: their eager cycles are
-                              # host-bound and the run's time limit binds)
+SERVE_LAYERS = 12             # paper-target cut in depth for the serving
+                              # phases (a third of 36: their eager cycles
+                              # are host-bound and the run's time limit
+                              # binds)
 
 
 def serving_traffic(bundle):
@@ -2494,12 +2683,17 @@ def _timing_keys(t):
 
 
 # ------------------------------------------------------ recurrent targets --
-# phase -> (arch, prompt length of each row, new tokens a row): the
-# hybrid's prompts are ragged and long enough that every row's rolling
+# phase -> (arch, prompt length of each row, new tokens a row, layers):
+# the hybrid's prompts are ragged and long enough that every row's rolling
 # local buffers (window 2048) wrap during its 64 new tokens; the ssm
-# phase is cut to 32 (its eager fp32 cycle is host-bound, about 230 ms)
-RECURRENT = {"hybrid": ("recurrentgemma-2b", (2000, 2013, 2027, 2040), 64),
-             "ssm": ("rwkv6-1.6b", (512, 512, 512, 512), 32)}
+# phase is cut to 32 (its eager fp32 cycle is host-bound, about 230 ms).
+# Both run at full width cut in depth (recurrentgemma-2b 8 of 26 layers:
+# 2 of its 8 local layers; rwkv6-1.6b 6 of 24), which pays for the
+# train_archs phase within the run's time limit; serving_recurrent
+# serves the hybrid at the same depth
+RECURRENT = {"hybrid": ("recurrentgemma-2b", (2000, 2013, 2027, 2040), 64,
+                        8),
+             "ssm": ("rwkv6-1.6b", (512, 512, 512, 512), 32, 6)}
 
 
 def production_drafter(tcfg, dtype, gamma=GAMMA):
@@ -2518,15 +2712,18 @@ def production_drafter(tcfg, dtype, gamma=GAMMA):
         gamma=gamma, dtype=dtype)
 
 
-def recurrent_bundle(arch):
-    """fp32 full-width, full-depth ``arch`` with random seeded weights and
-    two production drafters, d2sd at gamma 16, K 4."""
+def recurrent_bundle(arch, layers=None):
+    """fp32 full-width ``arch`` (cut to ``layers`` layers when given) with
+    random seeded weights and two production drafters, d2sd at gamma 16,
+    K 4."""
     from repro_torch.config.base import SpecConfig
     from repro_torch.config.registry import get_config
     from repro_torch.core import pipeline as pl
     from repro_torch.core.drafter import drafter_init
     from repro_torch.models import lm
-    tcfg = dataclasses.replace(get_config(arch), dtype="float32")
+    tcfg = get_config(arch)
+    tcfg = dataclasses.replace(tcfg, dtype="float32",
+                               num_layers=layers or tcfg.num_layers)
     dcfg = production_drafter(tcfg, "float32")
     spec = SpecConfig(gamma=GAMMA, top_k_branches=K_BRANCHES, mode="d2sd")
     return pl.SpecBundle(tcfg, dcfg, dcfg, spec,
@@ -2577,8 +2774,8 @@ def recurrent_path(phase):
     from repro_torch.core import pipeline as pl
     t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
-    arch, lens, max_new = RECURRENT[phase]
-    bundle = recurrent_bundle(arch)
+    arch, lens, max_new, layers = RECURRENT[phase]
+    bundle = recurrent_bundle(arch, layers)
     cfg = bundle.target_cfg
     kinds = cfg.pattern_for_depth()
     n_local = sum(k in ("global", "local") for k in kinds)
@@ -2657,7 +2854,8 @@ def serving_recurrent():
     from repro_torch.core import pipeline as pl
     t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
-    bundle = recurrent_bundle(RECURRENT["hybrid"][0])
+    arch, _, _, layers = RECURRENT["hybrid"]
+    bundle = recurrent_bundle(arch, layers)
     reqs = serving_traffic(bundle)
     kern = pl.with_attn_impl(bundle, "kernel")
     runs, toks, ties = [], {}, {}
@@ -2700,15 +2898,17 @@ def serving_recurrent():
 
 # ---------------------------------------------- MoE, cross, other archs --
 ARCH_PROMPT, ARCH_NEW = 512, 32   # 4 prompts a phase, tokens a row
-# full width; depth cut only where one card cannot hold the model:
+# full width; depth cut where one card cannot hold the model:
 # grok-1-314b 4.92e9 parameters a layer and 1.61e9 in the embedding and
 # head (fp32 2 layers: 45.8 GB; bf16 4 layers: 42.6 GB); kimi-k2's 384
 # experts 16.9e9 a layer (bf16 1 layer: about 39 GB); internlm2-20b
-# 79 GB in fp32 at its 48 layers (16: about 30 GB)
+# 79 GB in fp32 at its 48 layers. The dense archs run at about half
+# their depth or less (internlm2-20b 8 of 48), which pays for the
+# train_archs phase within the run's time limit
 GROK_LAYERS, GROK_BF16_LAYERS, KIMI_LAYERS = 2, 4, 1
 CTX_ARCHS = ("llama-3.2-vision-11b", "whisper-medium")
-DENSE_ARCHS = (("qwen2.5-3b", None), ("gemma2-2b", None),
-               ("stablelm-3b", None), ("internlm2-20b", 16))
+DENSE_ARCHS = (("qwen2.5-3b", 18), ("gemma2-2b", 13),
+               ("stablelm-3b", 16), ("internlm2-20b", 8))
 
 
 def arch_bundle(arch, dtype, layers=None):
@@ -3035,12 +3235,11 @@ def ctx_path():
 
 
 def archs_path():
-    """qwen2.5-3b, gemma2-2b and stablelm-3b at full size and
-    internlm2-20b at full width cut to 16 of 48 layers, fp32, paged: the
-    kernel path held to the gather path and plain greedy, launches a
-    cycle exact (gemma2-2b: #1 on its 13 local layers' rolling buffers,
-    #2 at head_dim 256 on its 13 global layers). Returns launches a
-    cycle by model."""
+    """qwen2.5-3b, gemma2-2b, stablelm-3b and internlm2-20b at full width
+    cut in depth (``DENSE_ARCHS``), fp32, paged: the kernel path held to
+    the gather path and plain greedy, launches a cycle exact (gemma2-2b:
+    #1 on its 7 local layers' rolling buffers, #2 at head_dim 256 on its
+    6 global layers). Returns launches a cycle by model."""
     t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     recs, launches = {}, {}
@@ -3065,7 +3264,8 @@ def archs_path():
         _free()
     emit({"phase": "archs", "ok": True, "dtype": "float32", "cache": "paged",
           "batch": 4, "prompt": ARCH_PROMPT, "max_new": ARCH_NEW,
-          "cuts": {"internlm2-20b": "16 of 48 layers"}, "models": recs,
+          "cuts": {arch: layers for arch, layers in DENSE_ARCHS},
+          "models": recs,
           "launches_per_cycle": launches,
           "seconds": time.perf_counter() - t0})
     return launches
@@ -3126,13 +3326,17 @@ def main():
     run, bf16_launches, ms_step = train_bf16()
     profile_train_step(run, ms_step)
     del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    arch_steps = train_archs()
     torch.cuda.synchronize()
 
     # cascade rows: one per kernel at its dtype, the decode verify shape,
-    # launches of the decode runs in that dtype (the fp32 main path, or the
-    # bf16 kernel runs of both caches); flash rows: one per kernel at its dtype, the training shape, launches
-    # of the training path in that dtype (the bf16 step, or the kernel
-    # side of the fp32 identity run)
+    # launches of the decode runs in that dtype (the fp32 main path, or
+    # the bf16 kernel runs of both caches); flash rows: one per kernel at
+    # its dtype, the training shape, launches of the training path in that
+    # dtype (the bf16 step, or the kernel side of the fp32 identity run),
+    # and under "d256" the same at head_dim 256
     rows = []
     for name, (wrapper, dtype, src, line) in CASCADE_KERNELS.items():
         dn = str(dtype).replace("torch.", "")
@@ -3172,13 +3376,22 @@ def main():
     for name, (wrapper, dtype, src, line) in FLASH_KERNELS.items():
         dn = str(dtype).replace("torch.", "")
         counts = bf16_launches if dtype == torch.bfloat16 else fp32_launches
+        d256 = flash_timing[wrapper][dn + "_d256"]
         rows.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/csrc/{src}",
                      "replaces": f"src/repro/kernels/flash_attention.py:"
                                  f"{line}",
                      "launches": counts[name],
                      "max_abs_err": flash_worst[wrapper][dn], "dtype": dn,
-                     **_timing_keys(flash_timing[wrapper][dn])})
+                     **_timing_keys(flash_timing[wrapper][dn]),
+                     # gemma2-2b's shape; launches a step of train_archs
+                     # (fp32: the identity run's depth, bf16: full depth)
+                     "d256": {**_timing_keys(d256),
+                              "device_ms": d256["device_ms"],
+                              "library_kernel": d256["library_kernel"],
+                              "launches_per_step": {
+                                  arch: st[dn][name]
+                                  for arch, st in arch_steps.items()}}})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -67,10 +67,22 @@
 //     written once: no atomics (a training step is deterministic) and no
 //     per-q-head [B,Hq,Tkv,D] buffer; key tiles that no query sees are
 //     written as zeros.
+//   * head dims 129 to 256 (gemma2-2b, recurrentgemma-2b's local layers)
+//     run the same bodies at twice the width (DP 256) with twice the
+//     warps: a warp's 16 x 256 accumulator would be 128 registers a
+//     thread, and at one block an SM the four-warp kernels spilled, so
+//     warps w and w + 4 share the w-th 16 rows (forward, dq) or the same
+//     keys and role (dk/dv), both form the full-D scores (the same S and
+//     dP, one and a half times the forward's products and 5/3 of dq's
+//     and dk/dv's) and each accumulates one 128-column half of the
+//     output, as at D 128. Tiles stay as they are: the forward and dq
+//     take 195 KB of shared memory, dk/dv 138 KB, one block an SM of 256
+//     threads;
 //   * all three: rows lie DP + 4 floats apart (132 for D 128, 68 for
-//     D <= 64), so the float4 fragment reads of both product orders are
-//     free of bank conflicts: over D (rows gid, columns 32 kk + 8 tig +
-//     4 h) and over keys or queries (rows 2 tig, columns 32 c + 4 gid).
+//     D <= 64, 260 for D 256), so the float4 fragment reads of both
+//     product orders are free of bank conflicts: over D (rows gid,
+//     columns 32 kk + 8 tig + 4 h) and over keys or queries (rows 2 tig,
+//     columns 32 c + 4 gid).
 //     Copies are 16 bytes where the bases, D and every stepped stride
 //     allow, else 8 or 4; rows past T and columns past D arrive as zeros.
 //     A warp skips a tile in which none of its pairs is live, and the mask
@@ -137,7 +149,14 @@ __device__ __forceinline__ void key_range(const Params& p, int q0, int nq,
 }
 
 // ------------------------------------------------ 3xTF32 helpers ---
-constexpr int THREADS = 128;     // four warps
+constexpr int THREADS = 128;     // four warps (D <= 128)
+// Threads a block at head dim DP: at D 256 two warps share each 16 rows
+// (forward, dq) or each 16 keys and role (dk/dv) and split the head dim
+// of the output (SPLIT), so a warp's accumulator stays 16 x 128.
+template <int DP> constexpr bool SPLIT = DP > 128;
+template <int DP> constexpr int NTHR = SPLIT<DP> ? 2 * THREADS : THREADS;
+// output columns a warp accumulates
+template <int DP> constexpr int NCOL = SPLIT<DP> ? DP / 2 : DP;
 constexpr int Q_ROWS = 64;       // forward, dq: query rows a block, 16 a warp
 constexpr int FWD_KEYS = 32;     // forward: keys a tile
 constexpr int KV_ROWS = 32;      // dk/dv: keys a block, 16 a pair of warps
@@ -161,7 +180,7 @@ __device__ __forceinline__ void stage_async(float* dst, const float* src,
                                             int D) {
   constexpr int LD = DP + 4, CPR = DP / VEC;
 #pragma unroll 4
-  for (int i = tid_fresh(); i < R * CPR; i += THREADS) {
+  for (int i = tid_fresh(); i < R * CPR; i += NTHR<DP>) {
     const int r = i / CPR, c = i % CPR * VEC;
     const bool ok = row0 + r < T_ && c < D;
     cp_async<4 * VEC>(dst + r * LD + c, ok ? src + (row0 + r) * rs + c : src,
@@ -175,7 +194,7 @@ template <int R, int DP, int VEC>
 __device__ __forceinline__ void scale_own(float* dst, float mul) {
   constexpr int LD = DP + 4, CPR = DP / VEC;
 #pragma unroll 4
-  for (int i = tid_fresh(); i < R * CPR; i += THREADS) {
+  for (int i = tid_fresh(); i < R * CPR; i += NTHR<DP>) {
     const int r = i / CPR, c = i % CPR * VEC;
 #pragma unroll
     for (int u = 0; u < VEC; ++u) dst[r * LD + c + u] *= mul;
@@ -246,21 +265,23 @@ __device__ __forceinline__ void mma_abt(float (&c)[NB][4], float (&cc)[NB][4],
   }
 }
 
-// acc += P[16 x 8 NB] B[8 NB x DP] in 3xTF32, P in mma_abt's accumulator
-// layout: its k-step n is the 8-column block n, whose columns 2 tig and
-// 2 tig + 1 are the k indices tig and tig + 4, so B is read at those rows.
-// b points at B + 2 tig * LD + 4 gid. n-block j of the 32-column group c
+// acc += P[16 x 8 NB] B[8 NB x NC] in 3xTF32 (B's rows DP + 4 floats
+// apart; NC = DP, or 128 columns of a D 256 row), P in mma_abt's
+// accumulator layout: its k-step n is the 8-column block n, whose columns
+// 2 tig and 2 tig + 1 are the k indices tig and tig + 4, so B is read at
+// those rows. b points at B + 2 tig * LD + 4 gid. n-block j of the
+// 32-column group c
 // holds the columns 32 c + 4 gid + j, so a thread reads float4s of B and
 // holds the columns 32 c + 8 tig + [0, 8) of acc. The tile's products go
 // to a fresh accumulator, added to acc in fp32 (round to nearest): the
 // mma units add into their accumulator with truncation, a bias that
 // would grow with the thousands of tiles a long row or key sums.
-template <int DP, int NB>
-__device__ __forceinline__ void mma_pb(float (&acc)[DP / 32][4][4],
+template <int DP, int NB, int NC = DP>
+__device__ __forceinline__ void mma_pb(float (&acc)[NC / 32][4][4],
                                        float (&pm)[NB][4], const float* b) {
   constexpr int LD = DP + 4;
 #pragma unroll
-  for (int c = 0; c < DP / 32; ++c) {
+  for (int c = 0; c < NC / 32; ++c) {
     float t[4][4] = {};
 #pragma unroll
     for (int n = 0; n < NB; ++n) {
@@ -293,13 +314,13 @@ __device__ __forceinline__ void mma_pb(float (&acc)[DP / 32][4][4],
 
 // This thread's row gid (half 0) or gid + 8 (half 1) of an acc that mma_pb
 // filled: its columns 32 c + 8 tig + [0, 8) below D, times mul, to out.
-template <int DP>
+template <int NC>
 __device__ __forceinline__ void store_row(float* out,
-                                          float (&acc)[DP / 32][4][4],
+                                          float (&acc)[NC / 32][4][4],
                                           int half, int tig, int D,
                                           float mul) {
 #pragma unroll
-  for (int c = 0; c < DP / 32; ++c) {
+  for (int c = 0; c < NC / 32; ++c) {
     const int d0 = 32 * c + 8 * tig;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -321,9 +342,10 @@ __device__ __forceinline__ float capped(const Params& p, float x,
 
 // ------------------------------------------------------------- forward ---
 template <int DP>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(NTHR<DP>, SPLIT<DP> ? 1 : 2)
 flash_fwd_kernel(const Params p) {
   constexpr int LD = DP + 4, KV_TILE = FWD_KEYS * LD, NB = FWD_KEYS / 8;
+  constexpr int NC = NCOL<DP>;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);   // Q * scale [64][LD]
   float* Ks = Qs + Q_ROWS * LD;                  // two stages each
@@ -353,17 +375,20 @@ flash_fwd_kernel(const Params p) {
     cp_async_commit();                     // group 0: Q and tile 0
   }
 
-  // warp w owns rows 16 w + [0, 16) of the tile; this thread rows ra, rb
+  // warp w owns rows 16 rw + [0, 16) of the tile (rw = w % 4) and output
+  // columns c0 + [0, NC); this thread rows ra, rb
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gid = lane / 4, tig = lane % 4;
-  const int ra = 16 * warp + gid, rb = ra + 8;
+  const int rw = SPLIT<DP> ? warp % 4 : warp;
+  const int c0 = SPLIT<DP> ? NC * (warp / 4) : 0;
+  const int ra = 16 * rw + gid, rb = ra + 8;
   const int qa = q0 + ra + p.q_offset, qb = qa + 8;
-  const int wrows = min(16, nq - 16 * warp);   // the warp's rows, positions
-  const int qlo = q0 + 16 * warp + p.q_offset, qhi = qlo + wrows - 1;
+  const int wrows = min(16, nq - 16 * rw);     // the warp's rows, positions
+  const int qlo = q0 + 16 * rw + p.q_offset, qhi = qlo + wrows - 1;
 
-  float acc[DP / 32][4][4];
+  float acc[NC / 32][4][4];
 #pragma unroll
-  for (int c = 0; c < DP / 32; ++c)
+  for (int c = 0; c < NC / 32; ++c)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -432,7 +457,7 @@ flash_fwd_kernel(const Params p) {
     l_a = l_a * al_a + sum_a;
     l_b = l_b * al_b + sum_b;
 #pragma unroll
-    for (int c = 0; c < DP / 32; ++c)
+    for (int c = 0; c < NC / 32; ++c)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         acc[c][j][0] *= al_a;
@@ -440,7 +465,7 @@ flash_fwd_kernel(const Params p) {
         acc[c][j][2] *= al_b;
         acc[c][j][3] *= al_b;
       }
-    mma_pb<DP>(acc, s, vt + 2 * tig * LD + 4 * gid);     // O += P V
+    mma_pb<DP, NB, NC>(acc, s, vt + 2 * tig * LD + 4 * gid + c0);  // O+=PV
   }
 
   // o = acc / l (0 for a row with no live key) and lse = m + log l
@@ -449,20 +474,22 @@ flash_fwd_kernel(const Params p) {
   float* O = static_cast<float*>(p.o) + b * p.os0 + h * p.os1;
   float* lse = p.lse_out + ((int64_t)b * p.Hq + h) * p.Tq + q0;
   if (ra < nq) {
-    store_row<DP>(O + (q0 + ra) * p.os2, acc, 0, tig, p.D, 1.f / ls_a);
-    if (tig == 0) lse[ra] = m_a + logf(ls_a);
+    store_row<NC>(O + (q0 + ra) * p.os2 + c0, acc, 0, tig, p.D - c0,
+                  1.f / ls_a);
+    if (tig == 0 && c0 == 0) lse[ra] = m_a + logf(ls_a);
   }
   if (rb < nq) {
-    store_row<DP>(O + (q0 + rb) * p.os2, acc, 1, tig, p.D, 1.f / ls_b);
-    if (tig == 0) lse[rb] = m_b + logf(ls_b);
+    store_row<NC>(O + (q0 + rb) * p.os2 + c0, acc, 1, tig, p.D - c0,
+                  1.f / ls_b);
+    if (tig == 0 && c0 == 0) lse[rb] = m_b + logf(ls_b);
   }
 }
 
 // ---------------------------------------------------------- backward dq ---
 template <int DP>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(NTHR<DP>, SPLIT<DP> ? 1 : 2)
 flash_bwd_dq_kernel(const Params p) {
-  constexpr int LD = DP + 4, KV_TILE = BW_TILE * LD;
+  constexpr int LD = DP + 4, KV_TILE = BW_TILE * LD, NC = NCOL<DP>;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);   // Q * scale [64][LD]
   float* dOs = Qs + Q_ROWS * LD;
@@ -494,22 +521,25 @@ flash_bwd_dq_kernel(const Params p) {
     cp_async_commit();                     // group 0: Q, dO and tile 0
   }
 
-  // warp w owns rows 16 w + [0, 16) of the tile; this thread rows ra, rb
+  // warp w owns rows 16 rw + [0, 16) of the tile (rw = w % 4) and dq
+  // columns c0 + [0, NC); this thread rows ra, rb
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gid = lane / 4, tig = lane % 4;
-  const int ra = 16 * warp + gid, rb = ra + 8;
+  const int rw = SPLIT<DP> ? warp % 4 : warp;
+  const int c0 = SPLIT<DP> ? NC * (warp / 4) : 0;
+  const int ra = 16 * rw + gid, rb = ra + 8;
   const int64_t rbase = ((int64_t)b * p.Hq + h) * p.Tq + q0;
   const float lse_a = ra < nq ? p.lse_in[rbase + ra] : 0.f;
   const float lse_b = rb < nq ? p.lse_in[rbase + rb] : 0.f;
   const float dl_a = ra < nq ? p.delta[rbase + ra] : 0.f;
   const float dl_b = rb < nq ? p.delta[rbase + rb] : 0.f;
   const int qa = q0 + ra + p.q_offset, qb = qa + 8;
-  const int wrows = min(16, nq - 16 * warp);   // the warp's rows, positions
-  const int qlo = q0 + 16 * warp + p.q_offset, qhi = qlo + wrows - 1;
+  const int wrows = min(16, nq - 16 * rw);     // the warp's rows, positions
+  const int qlo = q0 + 16 * rw + p.q_offset, qhi = qlo + wrows - 1;
 
-  float dq[DP / 32][4][4];
+  float dq[NC / 32][4][4];
 #pragma unroll
-  for (int c = 0; c < DP / 32; ++c)
+  for (int c = 0; c < NC / 32; ++c)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -553,12 +583,14 @@ flash_bwd_dq_kernel(const Params p) {
         const float pr = ok ? expf(x - (lo ? lse_a : lse_b)) : 0.f;
         s[n][e] = pr * (dp[n][e] + dpc[n][e] - (lo ? dl_a : dl_b)) * dcap;
       }
-    mma_pb<DP>(dq, s, kt + 2 * tig * LD + 4 * gid);
+    mma_pb<DP, 2, NC>(dq, s, kt + 2 * tig * LD + 4 * gid + c0);
   }
 
-  float* dQ = static_cast<float*>(p.o) + b * p.os0 + h * p.os1;
-  if (ra < nq) store_row<DP>(dQ + (q0 + ra) * p.os2, dq, 0, tig, p.D, p.scale);
-  if (rb < nq) store_row<DP>(dQ + (q0 + rb) * p.os2, dq, 1, tig, p.D, p.scale);
+  float* dQ = static_cast<float*>(p.o) + b * p.os0 + h * p.os1 + c0;
+  if (ra < nq)
+    store_row<NC>(dQ + (q0 + ra) * p.os2, dq, 0, tig, p.D - c0, p.scale);
+  if (rb < nq)
+    store_row<NC>(dQ + (q0 + rb) * p.os2, dq, 1, tig, p.D - c0, p.scale);
 }
 
 // --------------------------------------------------------- backward dkv ---
@@ -571,16 +603,16 @@ __device__ __forceinline__ void bar_sync(int id, int n) {
 }
 
 template <int DP>
-__global__ void __launch_bounds__(THREADS, 3)
+__global__ void __launch_bounds__(NTHR<DP>, SPLIT<DP> ? 1 : 3)
 flash_bwd_dkv_kernel(const Params p) {
-  constexpr int LD = DP + 4, Q_TILE = BW_TILE * LD;
+  constexpr int LD = DP + 4, Q_TILE = BW_TILE * LD, NC = NCOL<DP>;
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);   // [32][LD]
   float* Vs = Ks + KV_ROWS * LD;
   float* Qs = Vs + KV_ROWS * LD;                 // Q * scale, two stages
   float* dOs = Qs + 2 * Q_TILE;                  // two stages
   float* rows_s = dOs + 2 * Q_TILE;              // lse, delta: two stages
-  // P and dcap from the dV warp of each pair to its dK warp: [2][4][32]
+  // P and dcap from the dV warp of each pair to its dK warp: [pairs][4][32]
   // float4s, lane-minor (conflict-free)
   float4* xbuf = reinterpret_cast<float4*>(rows_s + 4 * BW_TILE);
 
@@ -626,19 +658,23 @@ flash_bwd_dkv_kernel(const Params p) {
 
   // warps w and w + 2 (w = 0, 1) own keys 16 w + [0, 16) of the block:
   // warp w forms S^T, P and dV, warp w + 2 dP^T, dS and dK, each holding
-  // its 16 x 128 accumulator (64 registers); this thread keys ka, kb
+  // its 16 x 128 accumulator (64 registers); this thread keys ka, kb. At
+  // D 256 warps 4-7 do the same for the columns 128-255 of dV and dK
+  // (pair kg + 2 ch, ch = w / 4), forming the same S^T and dP^T.
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gid = lane / 4, tig = lane % 4;
   const int kg = warp % 2;
-  const bool dk_warp = warp >= 2;
+  const bool dk_warp = (SPLIT<DP> ? warp % 4 : warp) >= 2;
+  const int ch = SPLIT<DP> ? warp / 4 : 0, c0 = NC * ch;
+  const int pair = kg + 2 * ch;
   const int ka = 16 * kg + gid, kb = ka + 8;
   const int kw0 = k0 + 16 * kg;                  // the pair's keys
   const int kw1 = min(kw0 + 16, kvl) - 1;        // its last that can be live
-  float4* xw = xbuf + kg * 4 * 32 + lane;        // this lane's 4 float4s
+  float4* xw = xbuf + pair * 4 * 32 + lane;      // this lane's 4 float4s
 
-  float acc[DP / 32][4][4];                      // dV or dK
+  float acc[NC / 32][4][4];                      // dV or dK
 #pragma unroll
-  for (int c = 0; c < DP / 32; ++c)
+  for (int c = 0; c < NC / 32; ++c)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -687,14 +723,14 @@ flash_bwd_dkv_kernel(const Params p) {
         xw[32 * n] = make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
         xw[32 * (n + 2)] = make_float4(sc[n][0], sc[n][1], sc[n][2], sc[n][3]);
       }
-      bar_arrive(1 + kg, 64);
-      mma_pb<DP>(acc, s, ot + 2 * tig * LD + 4 * gid);     // dV += P^T dO
+      bar_arrive(1 + pair, 64);
+      mma_pb<DP, 2, NC>(acc, s, ot + 2 * tig * LD + 4 * gid + c0);  // dV
     } else {
       const float* dlt = rows_s + (it & 1) * 2 * BW_TILE + BW_TILE;
       // dP^T, then (once the partner's P and dcap are in) dS^T =
       // P (dP - delta) dcap in s
       mma_abt<DP>(s, sc, Vs + ka * LD + 8 * tig, ot + gid * LD + 8 * tig);
-      bar_sync(1 + kg, 64);
+      bar_sync(1 + pair, 64);
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
         const float4 pr = xw[32 * n], dc = xw[32 * (n + 2)];
@@ -706,17 +742,19 @@ flash_bwd_dkv_kernel(const Params p) {
           s[n][e] = prs[e] * (s[n][e] + sc[n][e] - dlt[i]) * dcs[e];
         }
       }
-      mma_pb<DP>(acc, s, qt + 2 * tig * LD + 4 * gid);     // dK += dS^T Q
+      mma_pb<DP, 2, NC>(acc, s, qt + 2 * tig * LD + 4 * gid + c0);  // dK
     }
   }
 
-  float* out = dk_warp ? static_cast<float*>(p.o) + b * p.os0 + hk * p.os1
-                       : static_cast<float*>(p.o2) + b * p.o2s0 + hk * p.o2s1;
+  float* out = (dk_warp ? static_cast<float*>(p.o) + b * p.os0 + hk * p.os1
+                        : static_cast<float*>(p.o2) + b * p.o2s0 +
+                              hk * p.o2s1) + c0;
   const int64_t rs = dk_warp ? p.os2 : p.o2s2;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int t = k0 + (half ? kb : ka);
-    if (t < p.Tkv) store_row<DP>(out + t * rs, acc, half, tig, p.D, 1.f);
+    if (t < p.Tkv)
+      store_row<NC>(out + t * rs, acc, half, tig, p.D - c0, 1.f);
   }
 }
 
@@ -733,7 +771,7 @@ template <int DP> constexpr size_t dq_smem() {
 }
 template <int DP> constexpr size_t dkv_smem() {
   return sizeof(float) * ((2 * KV_ROWS + 4 * BW_TILE) * (DP + 4) + 4 * BW_TILE +
-                          2 * 4 * 32 * 4);
+                          (SPLIT<DP> ? 4 : 2) * 4 * 32 * 4);
 }
 
 // The widest cp.async copy (in floats) that every staged row start allows:
@@ -758,9 +796,9 @@ int copy_width(const Params& p) {
 }
 
 // Each kernel also asks for the largest shared-memory carveout, so that
-// two (forward, dq) or three (dk/dv) blocks share an SM.
+// two (forward, dq) or three (dk/dv) blocks share an SM at D <= 128.
 template <typename Kern>
-int launch(Kern kern, dim3 grid, size_t smem, const Params& p,
+int launch(Kern kern, dim3 grid, int threads, size_t smem, const Params& p,
            cudaStream_t st) {
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -769,7 +807,7 @@ int launch(Kern kern, dim3 grid, size_t smem, const Params& p,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return static_cast<int>(e);
-  kern<<<grid, THREADS, smem, st>>>(p);
+  kern<<<grid, threads, smem, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -780,24 +818,28 @@ int dispatch(Which w, Params p, cudaStream_t st) {
   p.vec = copy_width(p);
   if (w == FWD) {
     const dim3 grid((p.Tq + Q_ROWS - 1) / Q_ROWS, p.Hq, p.B);
-    return launch(flash_fwd_kernel<DP>, grid, fwd_smem<DP>(), p, st);
+    return launch(flash_fwd_kernel<DP>, grid, NTHR<DP>, fwd_smem<DP>(), p,
+                  st);
   }
   if (w == DQ) {
     const dim3 grid((p.Tq + Q_ROWS - 1) / Q_ROWS, p.Hq, p.B);
-    return launch(flash_bwd_dq_kernel<DP>, grid, dq_smem<DP>(), p, st);
+    return launch(flash_bwd_dq_kernel<DP>, grid, NTHR<DP>, dq_smem<DP>(), p,
+                  st);
   }
   const dim3 grid((p.Tkv + KV_ROWS - 1) / KV_ROWS, p.Hkv, p.B);
-  return launch(flash_bwd_dkv_kernel<DP>, grid, dkv_smem<DP>(), p, st);
+  return launch(flash_bwd_dkv_kernel<DP>, grid, NTHR<DP>, dkv_smem<DP>(), p,
+                st);
 }
 
 int run(Which w, const Params& p, int bf16, void* stream) {
   // bf16 is flash_attention_sm90.cu's
-  if (p.D < 1 || p.D > 128 || p.Hkv < 1 || p.Hq % p.Hkv != 0 || p.B < 1 ||
+  if (p.D < 1 || p.D > 256 || p.Hkv < 1 || p.Hq % p.Hkv != 0 || p.B < 1 ||
       p.Tq < 1 || p.Tkv < 1 || bf16)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (p.D <= 64) return dispatch<64>(w, p, st);
-  return dispatch<128>(w, p, st);
+  if (p.D <= 128) return dispatch<128>(w, p, st);
+  return dispatch<256>(w, p, st);
 }
 
 Params make(const void* q, const void* k, const void* v, const void* dout,

@@ -65,6 +65,19 @@
 //     iteration once both warpgroups have released it, which keeps two
 //     tiles in flight and seldom waits. (setmaxnreg does not help here:
 //     ptxas still allocated the consumers within the 168 of the launch.)
+//   * head dims 129 to 256 (gemma2-2b, recurrentgemma-2b's local layers;
+//     a D under 256 is zero-filled to it by the TMA maps) keep these
+//     accumulators: the D 128 tiles at D 256 would need 128 O registers a
+//     thread in the forward and 256 for dK and dV, and up to 320 KB of
+//     shared memory. So the block is 64 rows (forward, dq) or 64 keys
+//     (dk/dv), both warpgroups work on all of them, and each owns one
+//     half of the head dim of the output: it forms the full-D scores
+//     (the two warpgroups form the same S and dP, an extra 50 % of the
+//     forward's products and 67 % of dq's and dk/dv's) and multiplies
+//     them into its 128 columns of V, K, dO or Q (the m64n128k16 of D
+//     128, on the tile's panels 2 wg and 2 wg + 1). Tiles of 64 keys
+//     (forward) and two dk/dv stages keep shared memory at 161, 193 and
+//     194 KB; registers are those of D 128;
 //   * each block owns its output rows: no atomics anywhere and the
 //     results are deterministic.
 // P and dS are rounded to bf16 for the second products (the plain version
@@ -83,17 +96,28 @@
 
 namespace {
 
-constexpr int BQ = 128;           // query rows per block
 constexpr int WG_ROWS = 64;       // rows per consumer warpgroup
-constexpr int FWD_BK = 128;       // keys per forward tile
 constexpr int DQ_BK = 64;         // keys per dq tile
-constexpr int NSTAGE = 2;         // ring depth
-constexpr int DKV_BK = 128;       // keys per dk/dv block
+constexpr int NSTAGE = 2;         // ring depth (forward, dq)
 constexpr int DKV_BQ = 64;        // query rows per dk/dv tile
-constexpr int DKV_NSTAGE = 3;     // dk/dv Q/dO ring depth
 constexpr int DKV_THREADS = 256;  // dk/dv: two warpgroups, no producer warp
 constexpr int NTHREADS = 288;     // two consumer warpgroups + a producer warp
 constexpr long long WATCHDOG_CYCLES = 1ll << 35;   // ~17 s: trap, not hang
+
+// The tiles of a head-dim instantiation. Up to D 128 each consumer
+// warpgroup owns 64 of the block's rows (forward, dq) or keys (dk/dv) and
+// every column of the output. At D 256 (SPLIT) the two warpgroups share
+// the block's 64 rows or keys and split the head dim: each forms the
+// scores over all 256 columns and owns 128 columns of the output, so its
+// accumulators are those of the D 128 layout and no register spills.
+template <int DP> struct Tiles {
+  static constexpr bool SPLIT = DP > 128;
+  static constexpr int BQ = SPLIT ? 64 : 128;           // forward, dq rows
+  static constexpr int FWD_BK = SPLIT ? 64 : 128;       // forward keys a tile
+  static constexpr int DKV_BK = SPLIT ? 64 : 128;       // dk/dv keys a block
+  static constexpr int DKV_NSTAGE = SPLIT ? 2 : 3;      // dk/dv ring depth
+  static constexpr int ON = SPLIT ? 128 : DP;           // output columns a WG
+};
 
 struct Params {
   const int* kv_len;       // [B]
@@ -190,26 +214,27 @@ __device__ __forceinline__ bool tile_all_live(const Params& p, int k0,
          (p.window <= 0 || k0 > qhi - p.window);
 }
 
-// The block's (query tile, q-head, row) from a 1-D grid whose first blocks
-// hold the last query tiles, the longest under a causal mask.
+// The block's (query tile of ROWS rows, q-head, row) from a 1-D grid whose
+// first blocks hold the last query tiles, the longest under a causal mask.
+template <int ROWS>
 __device__ __forceinline__ void block_coords(const Params& p, int& q0, int& h,
                                              int& b) {
-  const int nqb = (p.Tq + BQ - 1) / BQ;
+  const int nqb = (p.Tq + ROWS - 1) / ROWS;
   const int per = p.Hq * p.B;
   const int i = blockIdx.x;
-  q0 = (nqb - 1 - i / per) * BQ;
+  q0 = (nqb - 1 - i / per) * ROWS;
   h = (i % per) % p.Hq;
   b = (i % per) / p.Hq;
 }
 
 
 // ------------------------------------------------------------- forward ---
-// Shared memory: Q [DP/64 panels][128 rows][64], then per stage K and V
+// Shared memory: Q [DP/64 panels][BQ rows][64], then per stage K and V
 // [DP/64 panels][FWD_BK rows][64]; each panel row is 128 bytes, swizzled.
 template <int DP> struct FwdSmem {
   static constexpr int NP = DP / PANEL;
-  static constexpr uint32_t Q_BYTES = NP * BQ * 128;
-  static constexpr uint32_t KV_BYTES = NP * FWD_BK * 128;   // one K or V tile
+  static constexpr uint32_t Q_BYTES = NP * Tiles<DP>::BQ * 128;
+  static constexpr uint32_t KV_BYTES = NP * Tiles<DP>::FWD_BK * 128;  // K or V
   static constexpr uint32_t TILES = Q_BYTES + 2 * NSTAGE * KV_BYTES;
   static constexpr size_t BYTES = TILES + 8 * (1 + 3 * NSTAGE) + 1024;
 };
@@ -221,7 +246,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_v,
                       const Params p) {
   using L = FwdSmem<DP>;
-  constexpr int BK = FWD_BK, NP = L::NP;
+  using T = Tiles<DP>;
+  constexpr int BK = T::FWD_BK, NP = L::NP, ROWS = T::BQ;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = align1024(smem_raw);
   uint8_t* Qs = base;
@@ -234,9 +260,9 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   uint64_t* empty = v_full + NSTAGE;
 
   int q0, h, b;
-  block_coords(p, q0, h, b);
+  block_coords<ROWS>(p, q0, h, b);
   const int hk = h / (p.Hq / p.Hkv);
-  const int nq = min(BQ, p.Tq - q0);
+  const int nq = min(ROWS, p.Tq - q0);
   const int kvl = max(0, min(p.Tkv, p.kv_len[b]));
   int kbeg;
   const int ntiles = key_tiles<BK>(p, q0, nq, kvl, kbeg);
@@ -257,7 +283,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (lane == 0) {
       mbar_expect_tx(q_full, L::Q_BYTES);
       for (int c = 0; c < NP; ++c)
-        tma_load(Qs + c * BQ * 128, &tm_q, q_full, c * PANEL, q0, h, b);
+        tma_load(Qs + c * ROWS * 128, &tm_q, q_full, c * PANEL, q0, h, b);
       for (int it = 0; it < ntiles; ++it) {
         const int s = it % NSTAGE;
         if (it >= NSTAGE) mbar_wait(&empty[s], ((it / NSTAGE) & 1) ^ 1);
@@ -275,12 +301,14 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     return;
   }
 
-  // consumers: warpgroup wg owns rows [q0 + 64 wg, q0 + 64 wg + 64); this
-  // thread holds rows ra = 16 w + lane / 4 and ra + 8 of them, and of each
-  // 8-column block of an accumulator the columns 2 (lane % 4) + {0, 1}
+  // consumers: warpgroup wg owns rows [q0 + r0, q0 + r0 + 64) and output
+  // columns [c0, c0 + T::ON); this thread holds rows ra = 16 w + lane / 4
+  // and ra + 8 of them, and of each 8-column block of an accumulator the
+  // columns 2 (lane % 4) + {0, 1}
   const int wg = warp / 4, w = warp % 4;
+  const int r0 = T::SPLIT ? 0 : WG_ROWS * wg, c0 = T::SPLIT ? T::ON * wg : 0;
   const int ra = 16 * w + lane / 4;
-  const int qlo = q0 + WG_ROWS * wg + p.q_offset;   // position of WG row 0
+  const int qlo = q0 + r0 + p.q_offset;             // position of WG row 0
   const int qa = qlo + ra, qb = qa + 8;
   const int col = 2 * (lane % 4);
   const float sl = p.scale * LOG2E;                  // natural -> log2 units
@@ -288,14 +316,14 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const float cap_in = cap ? p.scale / p.softcap : 0.f;
   const float cap_out = p.softcap * LOG2E;
 
-  float o[DP / 2], s[BK / 2];
+  float o[T::ON / 2], s[BK / 2];
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < T::ON / 2; ++i) o[i] = 0.f;
   // running max (log2 units; a row with no live key keeps NEG_INF in
   // natural units) and this thread's part of the row sum
   float m_a = NEG_INF * LOG2E, m_b = NEG_INF * LOG2E, l_a = 0.f, l_b = 0.f;
 
-  const uint8_t* qw = Qs + WG_ROWS * wg * 128;
+  const uint8_t* qw = Qs + r0 * 128;
   mbar_wait(q_full, 0);
   for (int it = 0; it < ntiles; ++it) {
     const int st = it % NSTAGE;
@@ -311,7 +339,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk) {
       const int c = kk / 4, off = (kk % 4) * 32;
-      wgmma_ss<BK>(s, sw128_desc(qw + c * BQ * 128 + off, 16, 1024),
+      wgmma_ss<BK>(s, sw128_desc(qw + c * ROWS * 128 + off, 16, 1024),
                    sw128_desc(kt + c * BK * 128 + off, 16, 1024), kk > 0);
     }
     wg_commit();
@@ -365,7 +393,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     l_a = l_a * al_a + sum_a;
     l_b = l_b * al_b + sum_b;
 #pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
+    for (int n = 0; n < T::ON / 8; ++n) {
       o[4 * n] *= al_a;
       o[4 * n + 1] *= al_a;
       o[4 * n + 2] *= al_b;
@@ -378,8 +406,9 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_rs<DP>(o, &pa[4 * kk],
-                   sw128_desc(vt + kk * 16 * 128, BK * 128, 1024));
+      wgmma_rs<T::ON>(o, &pa[4 * kk],
+                      sw128_desc(vt + (c0 / PANEL) * BK * 128 + kk * 16 * 128,
+                                 BK * 128, 1024));
     wg_commit();
     wg_wait_all();
     reg_fence(o);
@@ -388,12 +417,12 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   l_a = fmaxf(quad_sum(l_a), 1e-30f);
   l_b = fmaxf(quad_sum(l_b), 1e-30f);
-  const int row_a = q0 + WG_ROWS * wg + ra, row_b = row_a + 8;
+  const int row_a = q0 + r0 + ra, row_b = row_a + 8;
   __nv_bfloat16* O = static_cast<__nv_bfloat16*>(p.out) + b * p.os0 + h * p.os1;
 #pragma unroll
-  for (int n = 0; n < DP / 8; ++n) {
-    const int d = 8 * n + col;
-    if (8 * n >= p.D) continue;
+  for (int n = 0; n < T::ON / 8; ++n) {
+    const int d = c0 + 8 * n + col;
+    if (c0 + 8 * n >= p.D) continue;
     if (row_a < p.Tq)
       *reinterpret_cast<uint32_t*>(O + row_a * p.os2 + d) =
           pack_bf16(o[4 * n] / l_a, o[4 * n + 1] / l_a);
@@ -401,7 +430,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       *reinterpret_cast<uint32_t*>(O + row_b * p.os2 + d) =
           pack_bf16(o[4 * n + 2] / l_b, o[4 * n + 3] / l_b);
   }
-  if (lane % 4 == 0) {
+  if (lane % 4 == 0 && (!T::SPLIT || wg == 0)) {
     const long long rb = (static_cast<long long>(b) * p.Hq + h) * p.Tq;
     // back to natural units: lse = m ln 2 + ln l
     if (row_a < p.Tq) p.lse_out[rb + row_a] = m_a / LOG2E + logf(l_a);
@@ -410,11 +439,11 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // ---------------------------------------------------------- backward dq ---
-// Shared memory: Q and dO [DP/64 panels][128 rows][64], then per stage K
+// Shared memory: Q and dO [DP/64 panels][BQ rows][64], then per stage K
 // and V [DP/64 panels][DQ_BK rows][64], swizzled as in the forward.
 template <int DP> struct DqSmem {
   static constexpr int NP = DP / PANEL;
-  static constexpr uint32_t Q_BYTES = NP * BQ * 128;
+  static constexpr uint32_t Q_BYTES = NP * Tiles<DP>::BQ * 128;
   static constexpr uint32_t KV_BYTES = NP * DQ_BK * 128;
   static constexpr uint32_t TILES = 2 * Q_BYTES + 2 * NSTAGE * KV_BYTES;
   static constexpr size_t BYTES = TILES + 8 * (1 + 2 * NSTAGE) + 1024;
@@ -428,7 +457,8 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const __grid_constant__ CUtensorMap tm_do,
                          const Params p) {
   using L = DqSmem<DP>;
-  constexpr int BK = DQ_BK, NP = L::NP;
+  using T = Tiles<DP>;
+  constexpr int BK = DQ_BK, NP = L::NP, ROWS = T::BQ;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = align1024(smem_raw);
   uint8_t* Qs = base;
@@ -441,9 +471,9 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   uint64_t* empty = full + NSTAGE;
 
   int q0, h, b;
-  block_coords(p, q0, h, b);
+  block_coords<ROWS>(p, q0, h, b);
   const int hk = h / (p.Hq / p.Hkv);
-  const int nq = min(BQ, p.Tq - q0);
+  const int nq = min(ROWS, p.Tq - q0);
   const int kvl = max(0, min(p.Tkv, p.kv_len[b]));
   int kbeg;
   const int ntiles = key_tiles<BK>(p, q0, nq, kvl, kbeg);
@@ -463,8 +493,8 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (lane == 0) {
       mbar_expect_tx(q_full, 2 * L::Q_BYTES);
       for (int c = 0; c < NP; ++c) {
-        tma_load(Qs + c * BQ * 128, &tm_q, q_full, c * PANEL, q0, h, b);
-        tma_load(dOs + c * BQ * 128, &tm_do, q_full, c * PANEL, q0, h, b);
+        tma_load(Qs + c * ROWS * 128, &tm_q, q_full, c * PANEL, q0, h, b);
+        tma_load(dOs + c * ROWS * 128, &tm_do, q_full, c * PANEL, q0, h, b);
       }
       for (int it = 0; it < ntiles; ++it) {
         const int s = it % NSTAGE;
@@ -484,10 +514,11 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   // consumers, laid out as in the forward
   const int wg = warp / 4, w = warp % 4;
+  const int r0 = T::SPLIT ? 0 : WG_ROWS * wg, c0 = T::SPLIT ? T::ON * wg : 0;
   const int ra = 16 * w + lane / 4;
-  const int qlo = q0 + WG_ROWS * wg + p.q_offset;
+  const int qlo = q0 + r0 + p.q_offset;
   const int qa = qlo + ra, qb = qa + 8;
-  const int row_a = q0 + WG_ROWS * wg + ra, row_b = row_a + 8;
+  const int row_a = q0 + r0 + ra, row_b = row_a + 8;
   const int col = 2 * (lane % 4);
   const float sl = p.scale * LOG2E;
   const bool cap = p.softcap > 0.f;
@@ -499,12 +530,12 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const float dl_a = row_a < p.Tq ? p.delta[rb + row_a] : 0.f;
   const float dl_b = row_b < p.Tq ? p.delta[rb + row_b] : 0.f;
 
-  float dq[DP / 2], s[BK / 2], dp[BK / 2];
+  float dq[T::ON / 2], s[BK / 2], dp[BK / 2];
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) dq[i] = 0.f;
+  for (int i = 0; i < T::ON / 2; ++i) dq[i] = 0.f;
 
-  const uint8_t* qw = Qs + WG_ROWS * wg * 128;
-  const uint8_t* dow = dOs + WG_ROWS * wg * 128;
+  const uint8_t* qw = Qs + r0 * 128;
+  const uint8_t* dow = dOs + r0 * 128;
   mbar_wait(q_full, 0);
   for (int it = 0; it < ntiles; ++it) {
     const int st = it % NSTAGE;
@@ -521,13 +552,13 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk) {
       const int c = kk / 4, off = (kk % 4) * 32;
-      wgmma_ss<BK>(s, sw128_desc(qw + c * BQ * 128 + off, 16, 1024),
+      wgmma_ss<BK>(s, sw128_desc(qw + c * ROWS * 128 + off, 16, 1024),
                    sw128_desc(kt + c * BK * 128 + off, 16, 1024), kk > 0);
     }
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk) {
       const int c = kk / 4, off = (kk % 4) * 32;
-      wgmma_ss<BK>(dp, sw128_desc(dow + c * BQ * 128 + off, 16, 1024),
+      wgmma_ss<BK>(dp, sw128_desc(dow + c * ROWS * 128 + off, 16, 1024),
                    sw128_desc(vt + c * BK * 128 + off, 16, 1024), kk > 0);
     }
     wg_commit();
@@ -565,8 +596,9 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_rs<DP>(dq, &da[4 * kk],
-                   sw128_desc(kt + kk * 16 * 128, BK * 128, 1024));
+      wgmma_rs<T::ON>(dq, &da[4 * kk],
+                      sw128_desc(kt + (c0 / PANEL) * BK * 128 + kk * 16 * 128,
+                                 BK * 128, 1024));
     wg_commit();
     wg_wait_all();
     reg_fence(dq);
@@ -575,9 +607,9 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   __nv_bfloat16* dQ = static_cast<__nv_bfloat16*>(p.out) + b * p.os0 + h * p.os1;
 #pragma unroll
-  for (int n = 0; n < DP / 8; ++n) {
-    const int d = 8 * n + col;
-    if (8 * n >= p.D) continue;
+  for (int n = 0; n < T::ON / 8; ++n) {
+    const int d = c0 + 8 * n + col;
+    if (c0 + 8 * n >= p.D) continue;
     if (row_a < p.Tq)
       *reinterpret_cast<uint32_t*>(dQ + row_a * p.os2 + d) =
           pack_bf16(dq[4 * n] * p.scale, dq[4 * n + 1] * p.scale);
@@ -592,12 +624,12 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 // per stage Q and dO [DP/64 panels][DKV_BQ rows][64], swizzled as in the
 // forward; then per stage the tile's lse (log2 units) and delta [DKV_BQ].
 template <int DP> struct DkvSmem {
-  static constexpr int NP = DP / PANEL;
-  static constexpr uint32_t KV_BYTES = NP * DKV_BK * 128;   // K or V
+  static constexpr int NP = DP / PANEL, NS = Tiles<DP>::DKV_NSTAGE;
+  static constexpr uint32_t KV_BYTES = NP * Tiles<DP>::DKV_BK * 128;  // K or V
   static constexpr uint32_t Q_BYTES = NP * DKV_BQ * 128;    // a Q or dO tile
-  static constexpr uint32_t TILES = 2 * KV_BYTES + 2 * DKV_NSTAGE * Q_BYTES;
-  static constexpr uint32_t ROWS = TILES + DKV_NSTAGE * 2 * DKV_BQ * 4;
-  static constexpr size_t BYTES = ROWS + 8 * (1 + 2 * DKV_NSTAGE) + 1024;
+  static constexpr uint32_t TILES = 2 * KV_BYTES + 2 * NS * Q_BYTES;
+  static constexpr uint32_t ROWS = TILES + NS * 2 * DKV_BQ * 4;
+  static constexpr size_t BYTES = ROWS + 8 * (1 + 2 * NS) + 1024;
 };
 
 template <int DP>
@@ -608,7 +640,10 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_do,
                           const Params p, const Out2 dvo) {
   using L = DkvSmem<DP>;
-  constexpr int BK = DKV_BK, BQT = DKV_BQ, NP = L::NP, NSTAGE = DKV_NSTAGE;
+  using T = Tiles<DP>;
+  constexpr int BK = T::DKV_BK, BQT = DKV_BQ, NP = L::NP, NSTAGE = L::NS;
+  // warp 0 refills a stage LAG iterations after the consumers used it
+  constexpr int LAG = NSTAGE > 2 ? 1 : 0;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = align1024(smem_raw);
   uint8_t* Ks = base;
@@ -696,11 +731,13 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int j = 0; j < min(NSTAGE, niter); ++j) load_tile(j);
   }
 
-  // consumers: warpgroup wg owns keys [kw0, kw0 + 64); this thread holds
-  // keys ka = kw0 + 16 w + lane / 4 and ka + 8, and of each 8-column
-  // block of S^T / dP^T the query columns 2 (lane % 4) + {0, 1}
+  // consumers: warpgroup wg owns keys [kw0, kw0 + 64) and the columns
+  // [c0, c0 + T::ON) of their dK and dV; this thread holds keys ka = kw0 +
+  // 16 w + lane / 4 and ka + 8, and of each 8-column block of S^T / dP^T
+  // the query columns 2 (lane % 4) + {0, 1}
   const int wg = warp / 4, w = warp % 4;
-  const int kw0 = k0 + WG_ROWS * wg;
+  const int r0 = T::SPLIT ? 0 : WG_ROWS * wg, c0 = T::SPLIT ? T::ON * wg : 0;
+  const int kw0 = k0 + r0;
   const int ka = kw0 + 16 * w + lane / 4, kb = ka + 8;
   const int kwmax = min(kw0 + WG_ROWS, kvl) - 1;     // last live key of the WG
   const int col = 2 * (lane % 4);
@@ -709,12 +746,12 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const float cap_in = cap ? p.scale / p.softcap : 0.f;
   const float cap_out = p.softcap * LOG2E;
 
-  float dk[DP / 2], dv[DP / 2], s[BQT / 2], dp[BQT / 2];
+  float dk[T::ON / 2], dv[T::ON / 2], s[BQT / 2], dp[BQT / 2];
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < T::ON / 2; ++i) dk[i] = dv[i] = 0.f;
 
-  const uint64_t k_desc = sw128_desc(Ks + WG_ROWS * wg * 128, 16, 1024);
-  const uint64_t v_desc = sw128_desc(Vs + WG_ROWS * wg * 128, 16, 1024);
+  const uint64_t k_desc = sw128_desc(Ks + r0 * 128, 16, 1024);
+  const uint64_t v_desc = sw128_desc(Vs + r0 * 128, 16, 1024);
   if (niter > 0) mbar_wait(kv_full, 0);
   for (int it = 0; it < niter; ++it) {
     const int st = it % NSTAGE;
@@ -799,29 +836,33 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         da[(n / 2) * 4 + (n % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
       }
 
-      const uint64_t dot_t = sw128_desc(dot, BQT * 128, 1024);
-      const uint64_t qt_t = sw128_desc(qt, BQT * 128, 1024);
+      const int cp = (c0 / PANEL) * BQT * 128;   // the WG's first panel
+      const uint64_t dot_t = sw128_desc(dot + cp, BQT * 128, 1024);
+      const uint64_t qt_t = sw128_desc(qt + cp, BQT * 128, 1024);
       reg_fence(dv);
       reg_fence(dk);
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < BQT / 16; ++kk)
-        wgmma_rs<DP>(dv, &pa[4 * kk], desc_add(dot_t, kk * 16 * 128));
+        wgmma_rs<T::ON>(dv, &pa[4 * kk], desc_add(dot_t, kk * 16 * 128));
 #pragma unroll
       for (int kk = 0; kk < BQT / 16; ++kk)
-        wgmma_rs<DP>(dk, &da[4 * kk], desc_add(qt_t, kk * 16 * 128));
+        wgmma_rs<T::ON>(dk, &da[4 * kk], desc_add(qt_t, kk * 16 * 128));
       wg_commit();
       wg_wait_all();
       reg_fence(dv);
       reg_fence(dk);
     }
     mbar_arrive(&empty[st]);
-    // Warp 0 refills the stage of iteration it - 1 once both warpgroups
-    // have released it: a stage late, so it seldom waits for the other
-    // warpgroup, and still NSTAGE - 1 tiles ahead of the consumers.
-    if (warp == 0 && it >= 1 && it - 1 + NSTAGE < niter) {
-      mbar_wait(&empty[(it - 1) % NSTAGE], ((it - 1) / NSTAGE) & 1);
-      load_tile(it - 1 + NSTAGE);
+    // Warp 0 refills the stage of iteration it - LAG once both
+    // warpgroups have released it. With three stages (D <= 128) that is a
+    // stage late, so it seldom waits for the other warpgroup, and still
+    // NSTAGE - 1 tiles ahead of the consumers; with two (D 256, where the
+    // warpgroups do the same work on the same tile) it is the stage just
+    // used, one tile ahead.
+    if (warp == 0 && it >= LAG && it - LAG + NSTAGE < niter) {
+      mbar_wait(&empty[(it - LAG) % NSTAGE], ((it - LAG) / NSTAGE) & 1);
+      load_tile(it - LAG + NSTAGE);
     }
   }
 
@@ -829,9 +870,9 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   __nv_bfloat16* dK = static_cast<__nv_bfloat16*>(p.out) + b * p.os0 + hk * p.os1;
   __nv_bfloat16* dV = static_cast<__nv_bfloat16*>(dvo.ptr) + b * dvo.s0 + hk * dvo.s1;
 #pragma unroll
-  for (int n = 0; n < DP / 8; ++n) {
-    const int d = 8 * n + col;
-    if (8 * n >= p.D) continue;
+  for (int n = 0; n < T::ON / 8; ++n) {
+    const int d = c0 + 8 * n + col;
+    if (c0 + 8 * n >= p.D) continue;
     if (ka < p.Tkv) {
       *reinterpret_cast<uint32_t*>(dK + ka * p.os2 + d) =
           pack_bf16(dk[4 * n] * p.scale, dk[4 * n + 1] * p.scale);
@@ -872,16 +913,24 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A bf16 [B, H, T, D] tensor with element strides (s0, s1, s2, 1) as a 4-D
-// map over (D, T, H, B) whose box is 64 head-dim columns x `rows` rows,
-// 128-byte swizzled, zero-filled out of bounds. TMA takes a 16-byte-aligned
-// base and strides that are multiples of 16 bytes; a dimension of size 1
-// has no stride to align, so it gets the largest of the others.
-int make_map(CUtensorMap* map, const void* ptr, int B, int H, int T, int D,
-             long long s0, long long s1, long long s2, int rows) {
+// An input of the kernels: a bf16 [B, H, T, D] tensor and its element
+// strides (s0, s1, s2, 1).
+struct In {
+  const void* ptr;
+  long long s0, s1, s2;
+};
+
+// An input as a 4-D TMA map over (D, T, H, B) whose box is 64 head-dim
+// columns x `rows` rows, 128-byte swizzled, zero-filled out of bounds. TMA
+// takes a 16-byte-aligned base and strides that are multiples of 16 bytes;
+// a dimension of size 1 has no stride to align, so it gets the largest of
+// the others.
+int make_map(CUtensorMap* map, const In& t, int B, int H, int T, int D,
+             int rows) {
   EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return static_cast<int>(cudaErrorInitializationError);
-  long long st[3] = {s2, s1, s0};                 // T, H, B
+  const void* ptr = t.ptr;
+  long long st[3] = {t.s2, t.s1, t.s0};           // T, H, B
   const int n[3] = {T, H, B};
   long long widest = 8;
   for (int i = 0; i < 3; ++i)
@@ -912,7 +961,7 @@ int make_map(CUtensorMap* map, const void* ptr, int B, int H, int T, int D,
 }
 
 int check_dims(int B, int Hq, int Hkv, int Tq, int Tkv, int D, int bf16) {
-  if (!bf16 || D < 8 || D > 128 || D % 8 != 0 || Hkv < 1 || Hq % Hkv != 0 ||
+  if (!bf16 || D < 8 || D > 256 || D % 8 != 0 || Hkv < 1 || Hq % Hkv != 0 ||
       B < 1 || Tq < 1 || Tkv < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   return 0;
@@ -930,9 +979,11 @@ Params make(const int* kv_len, void* out, long long os0, long long os1,
   return p;
 }
 
-// Blocks of the forward and dq: (128-row query tile, q-head, row).
+// Blocks of the forward and dq: (query tile, q-head, row).
+template <int DP>
 long long q_blocks(const Params& p) {
-  return static_cast<long long>((p.Tq + BQ - 1) / BQ) * p.Hq * p.B;
+  constexpr int R = Tiles<DP>::BQ;
+  return static_cast<long long>((p.Tq + R - 1) / R) * p.Hq * p.B;
 }
 
 template <typename Kern, typename... Args>
@@ -944,6 +995,53 @@ int launch(Kern kern, size_t smem, long long nblocks, int nthreads,
   if (nblocks > 0x7fffffffll) return static_cast<int>(cudaErrorInvalidValue);
   kern<<<static_cast<unsigned>(nblocks), nthreads, smem, st>>>(args...);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Each kernel at one head-dim instantiation: the TMA maps with that
+// instantiation's tile rows, then the launch.
+template <int DP>
+int run_fwd(const In& q, const In& k, const In& v, const Params& p,
+            cudaStream_t st) {
+  using T = Tiles<DP>;
+  CUtensorMap mq, mk, mv;
+  int rc = make_map(&mq, q, p.B, p.Hq, p.Tq, p.D, T::BQ);
+  if (!rc) rc = make_map(&mk, k, p.B, p.Hkv, p.Tkv, p.D, T::FWD_BK);
+  if (!rc) rc = make_map(&mv, v, p.B, p.Hkv, p.Tkv, p.D, T::FWD_BK);
+  if (rc) return rc;
+  return launch(flash_fwd_sm90_kernel<DP>, FwdSmem<DP>::BYTES,
+                q_blocks<DP>(p), NTHREADS, st, mq, mk, mv, p);
+}
+
+template <int DP>
+int run_dq(const In& q, const In& k, const In& v, const In& dout,
+           const Params& p, cudaStream_t st) {
+  using T = Tiles<DP>;
+  CUtensorMap mq, mk, mv, mdo;
+  int rc = make_map(&mq, q, p.B, p.Hq, p.Tq, p.D, T::BQ);
+  if (!rc) rc = make_map(&mk, k, p.B, p.Hkv, p.Tkv, p.D, DQ_BK);
+  if (!rc) rc = make_map(&mv, v, p.B, p.Hkv, p.Tkv, p.D, DQ_BK);
+  if (!rc) rc = make_map(&mdo, dout, p.B, p.Hq, p.Tq, p.D, T::BQ);
+  if (rc) return rc;
+  return launch(flash_bwd_dq_sm90_kernel<DP>, DqSmem<DP>::BYTES,
+                q_blocks<DP>(p), NTHREADS, st, mq, mk, mv, mdo, p);
+}
+
+template <int DP>
+int run_dkv(const In& q, const In& k, const In& v, const In& dout,
+            const Params& p, const Out2& dvo, cudaStream_t st) {
+  using T = Tiles<DP>;
+  CUtensorMap mq, mk, mv, mdo;
+  int rc = make_map(&mq, q, p.B, p.Hq, p.Tq, p.D, DKV_BQ);
+  if (!rc) rc = make_map(&mk, k, p.B, p.Hkv, p.Tkv, p.D, T::DKV_BK);
+  if (!rc) rc = make_map(&mv, v, p.B, p.Hkv, p.Tkv, p.D, T::DKV_BK);
+  if (!rc) rc = make_map(&mdo, dout, p.B, p.Hq, p.Tq, p.D, DKV_BQ);
+  if (rc) return rc;
+  // blocks: (key tile, kv-head, row)
+  const long long nblocks =
+      static_cast<long long>((p.Tkv + T::DKV_BK - 1) / T::DKV_BK) * p.Hkv *
+      p.B;
+  return launch(flash_bwd_dkv_sm90_kernel<DP>, DkvSmem<DP>::BYTES, nblocks,
+                DKV_THREADS, st, mq, mk, mv, mdo, p, dvo);
 }
 
 }  // namespace
@@ -959,21 +1057,16 @@ int flash_fwd_sm90(const void* q, const void* k, const void* v,
                    int B, int Hq, int Hkv, int Tq, int Tkv, int D,
                    int causal, int q_offset, int window, float softcap,
                    float scale, int bf16, void* stream) {
-  int rc = check_dims(B, Hq, Hkv, Tq, Tkv, D, bf16);
-  CUtensorMap mq, mk, mv;
-  if (!rc) rc = make_map(&mq, q, B, Hq, Tq, D, qs0, qs1, qs2, BQ);
-  if (!rc) rc = make_map(&mk, k, B, Hkv, Tkv, D, ks0, ks1, ks2, FWD_BK);
-  if (!rc) rc = make_map(&mv, v, B, Hkv, Tkv, D, vs0, vs1, vs2, FWD_BK);
+  const int rc = check_dims(B, Hq, Hkv, Tq, Tkv, D, bf16);
   if (rc) return rc;
   Params p = make(kv_len, o, os0, os1, os2, B, Hq, Hkv, Tq, Tkv, D, causal,
                   q_offset, window, softcap, scale);
   p.lse_out = lse;
+  const In qi{q, qs0, qs1, qs2}, ki{k, ks0, ks1, ks2}, vi{v, vs0, vs1, vs2};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D <= 64)
-    return launch(flash_fwd_sm90_kernel<64>, FwdSmem<64>::BYTES, q_blocks(p),
-                  NTHREADS, st, mq, mk, mv, p);
-  return launch(flash_fwd_sm90_kernel<128>, FwdSmem<128>::BYTES, q_blocks(p),
-                NTHREADS, st, mq, mk, mv, p);
+  if (D <= 64) return run_fwd<64>(qi, ki, vi, p, st);
+  if (D <= 128) return run_fwd<128>(qi, ki, vi, p, st);
+  return run_fwd<256>(qi, ki, vi, p, st);
 }
 
 int flash_bwd_dq_sm90(const void* q, const void* k, const void* v,
@@ -987,23 +1080,18 @@ int flash_bwd_dq_sm90(const void* q, const void* k, const void* v,
                       int B, int Hq, int Hkv, int Tq, int Tkv, int D,
                       int causal, int q_offset, int window, float softcap,
                       float scale, int bf16, void* stream) {
-  int rc = check_dims(B, Hq, Hkv, Tq, Tkv, D, bf16);
-  CUtensorMap mq, mk, mv, mdo;
-  if (!rc) rc = make_map(&mq, q, B, Hq, Tq, D, qs0, qs1, qs2, BQ);
-  if (!rc) rc = make_map(&mk, k, B, Hkv, Tkv, D, ks0, ks1, ks2, DQ_BK);
-  if (!rc) rc = make_map(&mv, v, B, Hkv, Tkv, D, vs0, vs1, vs2, DQ_BK);
-  if (!rc) rc = make_map(&mdo, dout, B, Hq, Tq, D, ds0, ds1, ds2, BQ);
+  const int rc = check_dims(B, Hq, Hkv, Tq, Tkv, D, bf16);
   if (rc) return rc;
   Params p = make(kv_len, dq, os0, os1, os2, B, Hq, Hkv, Tq, Tkv, D, causal,
                   q_offset, window, softcap, scale);
   p.lse_in = lse;
   p.delta = delta;
+  const In qi{q, qs0, qs1, qs2}, ki{k, ks0, ks1, ks2}, vi{v, vs0, vs1, vs2},
+      di{dout, ds0, ds1, ds2};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D <= 64)
-    return launch(flash_bwd_dq_sm90_kernel<64>, DqSmem<64>::BYTES, q_blocks(p),
-                  NTHREADS, st, mq, mk, mv, mdo, p);
-  return launch(flash_bwd_dq_sm90_kernel<128>, DqSmem<128>::BYTES, q_blocks(p),
-                NTHREADS, st, mq, mk, mv, mdo, p);
+  if (D <= 64) return run_dq<64>(qi, ki, vi, di, p, st);
+  if (D <= 128) return run_dq<128>(qi, ki, vi, di, p, st);
+  return run_dq<256>(qi, ki, vi, di, p, st);
 }
 
 int flash_bwd_dkv_sm90(const void* q, const void* k, const void* v,
@@ -1018,27 +1106,19 @@ int flash_bwd_dkv_sm90(const void* q, const void* k, const void* v,
                        int B, int Hq, int Hkv, int Tq, int Tkv, int D,
                        int causal, int q_offset, int window, float softcap,
                        float scale, int bf16, void* stream) {
-  int rc = check_dims(B, Hq, Hkv, Tq, Tkv, D, bf16);
-  CUtensorMap mq, mk, mv, mdo;
-  if (!rc) rc = make_map(&mq, q, B, Hq, Tq, D, qs0, qs1, qs2, DKV_BQ);
-  if (!rc) rc = make_map(&mk, k, B, Hkv, Tkv, D, ks0, ks1, ks2, DKV_BK);
-  if (!rc) rc = make_map(&mv, v, B, Hkv, Tkv, D, vs0, vs1, vs2, DKV_BK);
-  if (!rc) rc = make_map(&mdo, dout, B, Hq, Tq, D, ds0, ds1, ds2, DKV_BQ);
+  const int rc = check_dims(B, Hq, Hkv, Tq, Tkv, D, bf16);
   if (rc) return rc;
   Params p = make(kv_len, dk, dks0, dks1, dks2, B, Hq, Hkv, Tq, Tkv, D,
                   causal, q_offset, window, softcap, scale);
   const Out2 dvo{dv, dvs0, dvs1, dvs2};
   p.lse_in = lse;
   p.delta = delta;
+  const In qi{q, qs0, qs1, qs2}, ki{k, ks0, ks1, ks2}, vi{v, vs0, vs1, vs2},
+      di{dout, ds0, ds1, ds2};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // blocks: (128-key tile, kv-head, row)
-  const long long nblocks =
-      static_cast<long long>((Tkv + DKV_BK - 1) / DKV_BK) * Hkv * B;
-  if (D <= 64)
-    return launch(flash_bwd_dkv_sm90_kernel<64>, DkvSmem<64>::BYTES, nblocks,
-                  DKV_THREADS, st, mq, mk, mv, mdo, p, dvo);
-  return launch(flash_bwd_dkv_sm90_kernel<128>, DkvSmem<128>::BYTES, nblocks,
-                DKV_THREADS, st, mq, mk, mv, mdo, p, dvo);
+  if (D <= 64) return run_dkv<64>(qi, ki, vi, di, p, dvo, st);
+  if (D <= 128) return run_dkv<128>(qi, ki, vi, di, p, dvo, st);
+  return run_dkv<256>(qi, ki, vi, di, p, dvo, st);
 }
 
 }  // extern "C"

@@ -30,7 +30,9 @@ There is no fallback. Each wrapper counts its launches in
 ``<wrapper>.sm90_launches``. The tensor-core kernels read their
 inputs by TMA, which takes 16-byte-aligned bases, head dims that are a
 multiple of 8 and strides that are multiples of 8 elements; the wrappers
-raise on anything else.
+raise on anything else. Both dtypes take head dims up to 256, each kernel
+instantiated at 64, 128 and 256 with a head dim between them zero-filled
+to the next; a larger one raises ``ValueError``.
 
 Layouts are the kernel layout of the JAX module: q [B,Hq,Tq,D], k/v
 [B,Hkv,Tkv,D], with any strides whose head-dim axis is contiguous (the
@@ -276,8 +278,8 @@ def _check_cuda(q, k, v, do=None):
                         f"of one dtype, not {[t.dtype for t in ts]}")
     if any(t.stride(-1) != 1 for t in ts):
         raise ValueError("the head-dim axis of q/k/v/do must be contiguous")
-    if q.shape[-1] > 128:
-        raise ValueError(f"head_dim {q.shape[-1]} > 128 is not supported")
+    if q.shape[-1] > 256:
+        raise ValueError(f"head_dim {q.shape[-1]} > 256 is not supported")
     if q.shape[1] % k.shape[1] != 0 or k.shape != v.shape:
         raise ValueError("query heads must be a multiple of KV heads and k, "
                          "v of one shape")

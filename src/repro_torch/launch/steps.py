@@ -36,12 +36,16 @@ def optimizer_for(cfg: ModelConfig) -> OptimizerConfig:
     return OptimizerConfig(name="adamw")
 
 
-def make_train_step(cfg: ModelConfig, hp: Optional[OptimizerConfig] = None,
+def make_train_step(cfg: ModelConfig, loss_seq_chunk: Optional[int] = None,
+                    hp: Optional[OptimizerConfig] = None,
                     attn_impl: str = "kernel", device="cuda"):
     """(train_step, opt_init). ``train_step(params, opt_state, batch)``
     returns ``(params, opt_state, {"loss", "lr", "grad_norm"})``, with
     params and moments updated in place; the batch may be numpy (it is
-    moved to ``device``). ``hp`` defaults to :func:`optimizer_for`."""
+    moved to ``device``). ``loss_seq_chunk``: the cross entropy over
+    sequence chunks of that length (``lm.loss_fn``), so the [B,S,V]
+    logits and their gradient never exist whole. ``hp`` defaults to
+    :func:`optimizer_for`."""
     dev = resolve_device(device)
     hp = hp if hp is not None else optimizer_for(cfg)
     opt_init, opt_update = opt_lib.make_optimizer(hp, cfg)
@@ -52,7 +56,8 @@ def make_train_step(cfg: ModelConfig, hp: Optional[OptimizerConfig] = None,
         for p in flat.values():
             p.requires_grad_(True)
         try:
-            loss = api.train_loss(params, batch, cfg, attn_impl=attn_impl)
+            loss = api.train_loss(params, batch, cfg, attn_impl=attn_impl,
+                                  loss_seq_chunk=loss_seq_chunk)
             grads = torch.autograd.grad(loss, list(flat.values()))
         finally:
             for p in flat.values():

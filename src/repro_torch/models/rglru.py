@@ -7,14 +7,19 @@ RG-LRU: r_t = sigmoid(W_a u_t + b_a)         (recurrence gate)
         a_t = exp(c * r_t * log(sigmoid(lam)))  in (0,1),  c = 8
         h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * u_t)
 
-Order of operations: the recurrence runs as a plain sequential loop over
-time, ``h = a_t * h + b_t`` with the carried state as ``h`` before the
-first step. JAX runs an associative scan (a tree of combines), which
-rounds differently in the last bits; the port is held to it at the tests'
-tolerance. The loop rounds a T-token pass exactly as T one-token passes
-given the same gates, so a replay of the accepted path advances the state
-as that many single-token decodes would (the projections' matmuls may
-still round differently at a different number of rows).
+Order of operations: a pass that carries state (prefill, decode, the
+replay of an accepted path: ``state`` or ``snap_at`` given) runs the
+recurrence as a plain sequential loop over time, ``h = a_t * h + b_t``
+with the carried state as ``h`` before the first step. The loop rounds a
+T-token pass exactly as T one-token passes given the same gates, so a
+replay of the accepted path advances the state as that many single-token
+decodes would (the projections' matmuls may still round differently at a
+different number of rows); JAX's scan rounds differently in the last
+bits, and the port is held to it at the tests' tolerance. A stateless
+pass over a whole sequence (``lm.forward(states=None)``: the training
+loss) runs JAX's associative scan instead, the same tree of combines
+(:func:`associative_scan`), in log2(T) steps of whole-sequence torch ops
+where the loop took T.
 
 Decode carries (h, conv buffer) state, both fp32 as in JAX.
 """
@@ -88,6 +93,41 @@ def _causal_conv1d(x, w, buf, snap_at=None):
     return out, xx[rows, idx]
 
 
+def _combine(a1, b1, a2, b2):
+    """Two steps of h -> a h + b, the first (a1, b1), as one (JAX's
+    ``combine``)."""
+    return a1 * a2, a2 * b1 + b2
+
+
+def _interleave(even, odd):
+    """[even0, odd0, even1, odd1, ...] along axis 1; ``even`` is as long
+    as ``odd`` or one longer."""
+    n = even.shape[1] + odd.shape[1]
+    if even.shape[1] > odd.shape[1]:
+        odd = torch.cat([odd, even[:, -1:]], dim=1)       # cut off below
+    return torch.stack([even, odd], dim=2).flatten(1, 2)[:, :n]
+
+
+def associative_scan(a, b):
+    """The prefix compositions of h -> a_t h + b_t along axis 1: (a_1 ...
+    a_t, h_t with h_{-1} = 0), as ``jax.lax.associative_scan`` forms them
+    (pairs combined, the half-length scan recursively, then the even
+    positions), so each element is the same tree of products and sums."""
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    ra, rb = _combine(a[:, 0:n - 1:2], b[:, 0:n - 1:2], a[:, 1::2],
+                      b[:, 1::2])
+    oa, ob = associative_scan(ra, rb)
+    if n % 2 == 0:
+        ea, eb = _combine(oa[:, :-1], ob[:, :-1], a[:, 2::2], b[:, 2::2])
+    else:
+        ea, eb = _combine(oa, ob, a[:, 2::2], b[:, 2::2])
+    ea = torch.cat([a[:, :1], ea], dim=1)
+    eb = torch.cat([b[:, :1], eb], dim=1)
+    return _interleave(ea, oa), _interleave(eb, ob)
+
+
 def rglru_block(p, x, cfg, state: Optional[Dict] = None, snap_at=None):
     """x: [B,T,d] -> (y [B,T,d], new_state).
 
@@ -108,12 +148,18 @@ def rglru_block(p, x, cfg, state: Optional[Dict] = None, snap_at=None):
     gated_in = torch.sqrt(torch.clamp(1.0 - torch.square(a), min=1e-12)) \
         * (i * uf)
 
-    hs = []
     h = st["rg_h"].float()
-    for s in range(t):
-        h = a[:, s] * h + gated_in[:, s]
-        hs.append(h)
-    hseq = torch.stack(hs, dim=1)                            # [B,T,W]
+    if state is None and snap_at is None:
+        # stateless (training): the scan, h_{-1} = 0 folded into b_0 as JAX
+        b0 = gated_in[:, :1] + a[:, :1] * h[:, None]
+        _, hseq = associative_scan(a, torch.cat([b0, gated_in[:, 1:]], 1))
+        h = hseq[:, -1]
+    else:
+        hs = []
+        for s in range(t):
+            h = a[:, s] * h + gated_in[:, s]
+            hs.append(h)
+        hseq = torch.stack(hs, dim=1)                        # [B,T,W]
     y = dense(p["w_out"], (gate.float() * hseq).to(x.dtype))
     h_fin = h if snap_at is None else snap_rows(hseq, snap_at)
     return y, {"rg_h": h_fin, "conv_buf": conv_buf.to(st["conv_buf"].dtype)}

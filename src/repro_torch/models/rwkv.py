@@ -125,15 +125,22 @@ def _time_mix_scan(r, k, v, w, u, s0, snap_at=None):
 
     snap_at: optional [B]: the returned state is the one after exactly
     ``snap_at`` tokens (a conditional snapshot carried through the loop,
-    as JAX carries it through its scan)."""
+    as JAX carries it through its scan).
+
+    The loop reads each step's slices from ``unbind(1)``: autograd then
+    stacks the T slices' grads once, where indexing ``x[:, i]`` gave each
+    step a zero-filled gradient of the whole [B,T,...] input to add up
+    (O(T^2) bytes: 103 s a training step of four layers at T 4096 on an
+    H100). The values are the same either way."""
     t = r.shape[1]
     kv = k[..., :, None] * v[..., None, :]                  # [B,T,H,K,V]
     bonus = (r * u * k).sum(-1, keepdim=True) * v
     s, snap = s0, s0
     os_ = []
+    rs, ws, kvs = r.unbind(1), w.unbind(1), kv.unbind(1)
     for i in range(t):
-        os_.append(torch.einsum("bhk,bhkv->bhv", r[:, i], s))
-        s = w[:, i][..., None] * s + kv[:, i]
+        os_.append(torch.einsum("bhk,bhkv->bhv", rs[i], s))
+        s = ws[i][..., None] * s + kvs[i]
         if snap_at is not None:
             take = (i + 1) <= snap_at                       # [B]
             snap = torch.where(take[:, None, None, None], s, snap)

@@ -23,7 +23,9 @@ cores (``csrc/flash_attention_sm90.cu``), fp32 all three too (in
 bitwise repeatable below); the tile-edge cases hold them at a
 partial 128-row block, a single query row, a kv_len that ends inside a
 key tile, key tiles that no query sees (dk = dv = 0 there), and head
-dims 64 and 96 (the latter zero-filled to 128).
+dims 64 and 96 (the latter zero-filled to 128); head_dim 256 (GQA 8/4,
+MQA 10/1, ragged; the fp32 kernels also bitwise repeatable there) and
+192 (zero-filled to 256) hold the D 256 instantiations.
 
 The on-device decode loop (``generate_ondevice``, one CUDA graph replay a
 cycle) is held to the eager host loop at tiny size in fp32, token for
@@ -229,6 +231,17 @@ FLASH_CASES = {   # b, hq, hkv, tq, tkv, d, [B,T,H,D] layout, options
     # key tiles 1 and 2 lie past every query's causal edge: dk/dv must
     # write zeros there
     "unseen_keys": (2, 8, 2, 128, 384, 128, True, dict(causal=True)),
+    # head_dim 256: gemma2-2b's GQA 8/4 with the softcap, recurrentgemma-
+    # 2b's MQA 10/1 with a window, a ragged case; and D 192, zero-filled
+    # to the D 256 kernels
+    "d256_gqa": (2, 8, 4, 300, 300, 256, True,
+                 dict(causal=True, attn_softcap=50.0)),
+    "d256_mqa": (2, 10, 1, 300, 300, 256, True,
+                 dict(causal=True, window=128)),
+    "d256_ragged": (2, 8, 4, 200, 300, 256, True,
+                    dict(causal=True, q_offset=100, kv_len=[300, 237],
+                         window=160, attn_softcap=50.0)),
+    "d192": (2, 8, 2, 129, 129, 192, True, dict(causal=True)),
 }
 
 
@@ -337,7 +350,7 @@ def test_flash_bwd_tf32x3_split_on_card(dev, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["causal", "ragged"])
+@pytest.mark.parametrize("case", ["causal", "ragged", "d256_ragged"])
 def test_flash_bwd_fp32_is_deterministic(dev, case):
     """The fp32 dq and dk/dv kernels use no atomics (dk/dv sum the GQA
     group in the block): two calls on the same inputs give bitwise equal
@@ -387,7 +400,7 @@ def test_flash_fwd_tf32x3_split_on_card(dev, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["causal", "ragged"])
+@pytest.mark.parametrize("case", ["causal", "ragged", "d256_ragged"])
 def test_flash_fwd_fp32_is_deterministic(dev, case):
     """The fp32 forward kernel uses no atomics: two calls on the same
     inputs give bitwise equal o and lse."""
@@ -396,6 +409,27 @@ def test_flash_fwd_fp32_is_deterministic(dev, case):
     second = tfa.flash_attention_fwd(q, k, v, **kw)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_refuses_head_dim_over_256(dev, dtype):
+    """Each kernel takes head dims up to 256; above, every wrapper raises
+    ValueError before a launch (no plain fallback on a CUDA tensor)."""
+    q = torch.zeros((1, 2, 16, 264), device=dev, dtype=dtype)
+    lse = torch.zeros((1, 2, 16), device=dev)
+    before = [getattr(tfa, n).launches for n in (
+        "flash_attention_fwd", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkv")]
+    with pytest.raises(ValueError, match="256"):
+        tfa.flash_attention_fwd(q, q, q)
+    with pytest.raises(ValueError, match="256"):
+        tfa.flash_attention_bwd_dq(q, q, q, q, lse, lse)
+    with pytest.raises(ValueError, match="256"):
+        tfa.flash_attention_bwd_dkv(q, q, q, q, lse, lse)
+    assert [getattr(tfa, n).launches for n in (
+        "flash_attention_fwd", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkv")] == before
 
 
 @pytest.mark.cuda

@@ -6,7 +6,10 @@ them, and to the port's own one-softmax oracle.
 On the CPU the kernel wrappers run their plain torch versions, so these
 tests pin the arithmetic the CUDA kernels are held to on the card
 (``chip_smoke.py``, ``tests/test_torch_cuda.py``). Inputs come from a
-numpy seed. Outputs are compared over query rows with at least one live
+numpy seed; the cases include head_dim 256 (gemma2-2b's GQA 8/4 with
+the softcap, recurrentgemma-2b's MQA 10/1 with a window, a ragged one)
+and 192, which the card's D 256 kernels take. Outputs are compared over
+query rows with at least one live
 key: a row with none is o = 0 in the port, the mean of V in Pallas (it
 counts masked keys into the softmax sum), and never occurs in training.
 Tolerances: fp32 o/lse atol 1e-5 and grads atol 1e-4 (both sides fp32;
@@ -43,6 +46,17 @@ CASES = [
     (2, 4, 2, 100, 300, 64, True, None, None, "float32"),
 ]
 RAGGED = (2, 4, 2, 200, 300, 64, True, 150, 30.0, "float32")
+# head_dim 256, the training path of gemma2-2b (GQA 8/4, softcap 50) and
+# recurrentgemma-2b's local layers (MQA 10/1, a window), and D 192 (the
+# card zero-fills it to the D 256 kernels); then a ragged D 256 case
+D256_CASES = [
+    (1, 8, 4, 256, 256, 256, True, None, 50.0, "float32"),
+    (1, 10, 1, 200, 260, 256, True, 64, None, "float32"),
+    (1, 8, 4, 256, 256, 256, True, 100, 50.0, "bfloat16"),
+    (1, 4, 2, 130, 130, 192, True, None, 50.0, "float32"),
+]
+RAGGED_D256 = (2, 10, 1, 200, 260, 256, True, 64, 50.0, "float32")
+FWD_CASES = CASES + [RAGGED] + D256_CASES + [RAGGED_D256]
 
 BWD_CASES = [
     (1, 2, 2, 128, 128, 64, True, None, None, "float32"),
@@ -50,7 +64,12 @@ BWD_CASES = [
     (1, 4, 2, 128, 128, 64, True, None, 30.0, "float32"),
     (1, 2, 1, 128, 256, 64, True, 64, None, "float32"),
     RAGGED,
+    D256_CASES[0], D256_CASES[1], D256_CASES[3], RAGGED_D256,
 ]
+
+
+def _ragged(case):
+    return case is RAGGED or case is RAGGED_D256
 
 
 def _inputs(case, seed):
@@ -106,11 +125,11 @@ def _close(got, want, live, dtype, atol):
                                dtype == "bfloat16" else 0)
 
 
-@pytest.mark.parametrize("i", range(len(CASES) + 1))
+@pytest.mark.parametrize("i", range(len(FWD_CASES)))
 def test_flash_forward_matches_jax_kernel(i):
-    case = CASES[i] if i < len(CASES) else RAGGED
+    case = FWD_CASES[i]
     dtype = case[-1]
-    kw, kv_len = _kw(case, ragged=i == len(CASES))
+    kw, kv_len = _kw(case, ragged=_ragged(case))
     q, k, v, _ = _inputs(case, i)
     jo, jlse = j_fwd(_jax(q, dtype), _jax(k, dtype), _jax(v, dtype),
                      kv_len=jnp.asarray(kv_len), **kw)
@@ -131,7 +150,7 @@ def test_flash_backward_matches_jax_kernel(i):
     from the Pallas forward's (o, lse)."""
     case = BWD_CASES[i]
     dtype = case[-1]
-    kw, kv_len = _kw(case, ragged=case is RAGGED)
+    kw, kv_len = _kw(case, ragged=_ragged(case))
     q, k, v, do = _inputs(case, 100 + i)
     jq, jk, jv, jdo = (_jax(x, dtype) for x in (q, k, v, do))
     jo, jlse = j_fwd(jq, jk, jv, kv_len=jnp.asarray(kv_len), **kw)
@@ -155,8 +174,8 @@ def test_flash_autograd_matches_oracle_autodiff(i):
     ``test_flash_backward_matches_autodiff`` holds the Pallas op; in the
     model's [B,T,H,D] layout, as ``attend(impl="kernel")`` calls it."""
     case = BWD_CASES[i]
-    kw, kv_len = _kw(case, ragged=case is RAGGED)
-    if case is not RAGGED:
+    kw, kv_len = _kw(case, ragged=_ragged(case))
+    if not _ragged(case):
         kv_len = None
     q, k, v, _ = _inputs(case, 200 + i)
 

@@ -6,6 +6,10 @@
 * each block's outputs and new states against its JAX twin on the same
   params, inputs and carried states (numpy seeds), with and without
   ``snap_at``, at ``ATOL`` 1e-5 in fp32;
+* the RG-LRU's stateless pass (the associative scan of training) against
+  JAX in output and grads over T 300 and 301, grads within ``TOL_GRAD``
+  2e-4 of each leaf's largest magnitude; the state-carrying passes never
+  reach the scan;
 * ``time_mix``'s chunked path against its scan (the mirror of
   ``tests/test_models.py::test_rwkv_chunked_equals_scan``) and against
   JAX's chunked path;
@@ -79,6 +83,76 @@ def test_rglru_block_matches_jax(t_len, snap):
     close(ty, jy)
     for k in trg.STATE_KEYS:
         close(tst[k], jst[k])
+
+
+TOL_GRAD = 2e-4    # grads, relative to each leaf's largest magnitude
+
+
+@pytest.mark.parametrize("t_len", [300, 301])
+def test_rglru_stateless_scan_matches_jax(t_len):
+    """A stateless pass (no state, no ``snap_at``: the training loss) runs
+    the recurrence as JAX's associative scan. Output and the grads of a
+    fixed cotangent's dot product with it, with respect to every param
+    and the input, against JAX's ``jax.grad``, over T 300 and 301 (even
+    and odd splits at every level of the tree)."""
+    cfg = ModelConfig(dtype="float32", rglru_width=48, conv1d_width=4,
+                      **HYBRID, **BASE)
+    jp = jrg.rglru_block_init(jax.random.PRNGKey(0), cfg)
+    rng = np.random.default_rng(t_len)
+    x = _rand(rng, 2, t_len, 64)
+    ct = _rand(rng, 2, t_len, 64)
+
+    def jloss(p, x_):
+        y, _ = jrg.rglru_block(p, x_, cfg)
+        return jnp.sum(y * jnp.asarray(ct)), y
+
+    (_, jy), (jgp, jgx) = jax.value_and_grad(jloss, argnums=(0, 1),
+                                            has_aux=True)(
+        jp, jnp.asarray(x))
+    tp = {k: v.requires_grad_() for k, v in _tp(jp).items()}
+    tx = t(x).requires_grad_()
+    ty, _ = trg.rglru_block(tp, tx, port_model_cfg(cfg))
+    (ty * t(ct)).sum().backward()
+    _close_scaled(ty, jy)
+    for name, g in tp.items():
+        _close_scaled(g.grad, np.asarray(jgp[name]), tol=TOL_GRAD)
+    _close_scaled(tx.grad, np.asarray(jgx), tol=TOL_GRAD)
+
+
+def test_rglru_scan_only_on_stateless_passes(monkeypatch):
+    """The state-carrying passes (a prefill with ``snap_at``, a decode
+    step, a replay) keep the sequential loop, and so the parent's
+    rounding, tokens and states: with ``associative_scan`` made to raise
+    they run the hybrid stack as before; the stateless pass (the training
+    loss) calls it over the whole sequence, once a recurrent layer (the
+    scan's own recursion calls it on the shorter halves)."""
+    cfg = port_model_cfg(ModelConfig(dtype="float32", **HYBRID, **BASE))
+    p = tlm.lm_init(cfg, seed=0, device="cpu")
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, 97, (2, 9))).long()
+    calls = []
+    real = trg.associative_scan
+
+    def counting(a, b):
+        calls.append(a.shape[1])
+        return real(a, b)
+
+    def refuse(a, b):
+        raise AssertionError("a state-carrying pass ran the scan")
+
+    monkeypatch.setattr(trg, "associative_scan", refuse)
+    st = tlm.init_states(cfg, 2, 32, device="cpu")
+    out = tlm.forward(p, toks, cfg, states=st, write_kv=True,
+                      snap_at=torch.tensor([9, 6]))
+    out = tlm.forward(p, toks[:, :1], cfg, states=out["states"],
+                      write_kv=True, attend_cache_on_write=True)
+    tlm.forward(p, toks[:, :3], cfg, states=out["states"], write_kv=True,
+                snap_at=torch.tensor([2, 3]), attend_cache_on_write=True)
+    monkeypatch.setattr(trg, "associative_scan", counting)
+    loss = tlm.loss_fn(p, {"tokens": toks, "labels": toks}, cfg)
+    assert torch.isfinite(loss)
+    n_rec = sum(k == "recurrent" for k in cfg.pattern_for_depth())
+    assert calls.count(9) == n_rec     # the top-level call of each layer
 
 
 # --------------------------------------------------------------- RWKV-6 ---

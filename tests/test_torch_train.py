@@ -47,6 +47,16 @@ CONFIGS = {
     "gemma": dict(num_layers=2, layer_pattern=("local", "global"),
                   sliding_window=64, attn_softcap=50.0, logit_softcap=30.0,
                   use_post_norm=True, mlp_act="gelu"),
+    # gemma2-2b's and recurrentgemma-2b's head_dim 256 (the card's D 256
+    # flash kernels); the hybrid's RG-LRU layers run the associative scan
+    "gemma-d256": dict(num_layers=2, layer_pattern=("local", "global"),
+                       sliding_window=64, attn_softcap=50.0,
+                       logit_softcap=30.0, use_post_norm=True,
+                       mlp_act="gelu", head_dim=256),
+    "rgemma-d256": dict(num_layers=3, num_kv_heads=1, head_dim=256,
+                        layer_pattern=("recurrent", "recurrent", "local"),
+                        sliding_window=64, rglru_width=64, conv1d_width=4,
+                        mlp_act="gelu"),
 }
 
 
@@ -81,7 +91,9 @@ def _port_loss_grads(params, batch, cfg, **kw):
 
 @pytest.mark.parametrize("name,remat,chunk", [
     ("qwen", False, None), ("qwen", True, None), ("qwen", True, 128),
-    ("gemma", False, None), ("gemma", True, None)])
+    ("gemma", False, None), ("gemma", True, None),
+    ("gemma-d256", True, None), ("gemma-d256", True, 128),
+    ("rgemma-d256", True, None), ("rgemma-d256", False, 128)])
 def test_loss_and_grads_match_jax_pallas(name, remat, chunk):
     jparams, jloss, jgrads = _jax_loss_grads(name, chunk)
     tcfg = port_model_cfg(_jcfg(name), remat=remat)
@@ -95,6 +107,42 @@ def test_loss_and_grads_match_jax_pallas(name, remat, chunk):
     for path, g in grads.items():
         np.testing.assert_allclose(g.numpy(), want[path].numpy(), atol=2e-6,
                                    rtol=1e-4, err_msg=path)
+
+
+def test_train_step_loss_seq_chunk_matches_jax():
+    """One step of ``make_train_step(cfg, loss_seq_chunk=128)`` (the
+    optimizer ``optimizer_for`` picks, the flash op) against one step of
+    JAX's ``make_train_step(cfg, loss_seq_chunk)`` on the same weights and
+    batch, at head_dim 256: the loss (rtol 1e-5), the grad norm (rtol
+    1e-4) and the params, whose mean difference stays within 1e-3 of
+    their mean move and whose largest within two steps of the learning
+    rate (an element whose grad is rounding from zero may step either
+    way), as ``chip_smoke.py``'s fp32 training gate holds the card."""
+    from repro.launch import steps as jsteps
+    jcfg = _jcfg("gemma-d256")
+    jparams = jax_lm_init(jax.random.PRNGKey(3), jcfg)
+    tcfg = port_model_cfg(jcfg, remat=True)
+    params = port_lm(jparams, tcfg)
+    jstep, jinit = jsteps.make_train_step(jcfg, loss_seq_chunk=128)
+    jnew, _, jm = jax.jit(jstep)(jparams, jinit(jparams),
+                                 {k: jnp.asarray(v)
+                                  for k, v in _batch().items()})
+    step, opt_init = make_train_step(tcfg, loss_seq_chunk=128, device="cpu")
+    init = {k: v.clone() for k, v in pm.flatten(params).items()}
+    new, _, m = step(params, opt_init(params), _batch())
+    np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(m["grad_norm"]),
+                               float(jm["grad_norm"]), rtol=1e-4)
+    want = pm.flatten(convert.convert_tree(np_tree(jnew), tcfg,
+                                           device="cpu"))
+    got = pm.flatten(new)
+    assert set(got) == set(want)
+    diff = sum(float((got[k] - want[k]).abs().sum()) for k in got)
+    move = sum(float((want[k] - init[k]).abs().sum()) for k in got)
+    worst = max(float((got[k] - want[k]).abs().max()) for k in got)
+    assert diff <= 1e-3 * move, (diff, move)
+    assert worst <= 2 * float(m["lr"]), (worst, float(m["lr"]))
 
 
 def test_remat_recomputes_the_flash_forward():
@@ -313,10 +361,13 @@ def test_straggler_monitor_flags_outliers():
     assert m.flagged == [20]
 
 
-def test_launcher_trains_the_smoke_config(tmp_path):
+@pytest.mark.parametrize("arch", ["paper-target", "gemma2-2b",
+                                  "recurrentgemma-2b", "rwkv6-1.6b"])
+def test_launcher_trains_the_smoke_config(tmp_path, arch):
     from repro_torch.launch import train as launch
-    out = launch.main(["--steps", "3", "--batch", "2", "--seq", "32",
-                       "--ckpt-dir", str(tmp_path)], device="cpu")
+    out = launch.main(["--arch", arch, "--steps", "3", "--batch", "2",
+                       "--seq", "32", "--ckpt-dir", str(tmp_path)],
+                      device="cpu")
     losses = [m["loss"] for m in out["metrics"]]
     assert len(losses) == 3 and np.isfinite(losses).all()
     assert out["restarts"] == 0
