@@ -71,16 +71,16 @@ Phases, each printing one JSON line (any failure exits non-zero):
            replay; the launches of the loop's first cycle and capture
            held exact (40 paged, 36 dense)
   modes    fp32 greedy through ``generate_ondevice`` (kernel path, 32
-           new tokens, the main path's model cut to 12 of its 36 layers:
+           new tokens, the main path's model cut to 6 of its 36 layers:
            the run's time limit) in the modes beside d2sd: naive_k, eagle
            (drafter 1 causal), dflash_second (drafter 1 as drafter 2) and
            d2sd with the third level, paged and dense: tokens held to
            plain greedy, cascade launches a cycle held to the mode's count
-           (12 dense; paged 14, 42, 16, 18: 12 target layers and 2 a
+           (6 dense; paged 8, 36, 10, 12: 6 target layers and 2 a
            drafter pass), the third level's host loop held to its graph
            loop; each mode's paged loop profiled (ms and device ms a
            replay, graph pool bytes, phase-1 launches by name)
-  sampled  fp32 d2sd at temperature 1, paged, kernel path, one seed (12
+  sampled  fp32 d2sd at temperature 1, paged, kernel path, one seed (6
            layers, as modes): the
            graph loop's tokens and every cycle's acceptance uniforms
            held to the host loop's (and no two cycles' uniforms equal),
@@ -89,7 +89,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
            kernels (one cycle over 2000 copies of a prompt: TV of the
            first token against the target's softmax, every mode)
   serving  fp32 ``ServingEngine`` (batch 4, pages of 64, a pool of 160) at
-           the main path's model cut to 12 of its 36 layers (the run's
+           the main path's model cut to 6 of its 36 layers (the run's
            time limit), gamma 16, K 4: 10 requests behind a
            320-token system prompt (two sharing 352 tokens, one a second
            turn over an earlier answer; ``max_new`` 8-48; the first
@@ -109,7 +109,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
            (paged: 36 target layers, 2 x 2 drafter layers) or 36 (dense)
            launches a cycle through the bf16 cascade kernels
            (cascade_phase1_sm90.cu) and none through cascade_phase1.cu
-  profile  six bf16 decode cycles (kernel path, paged cache) under
+  profile  three bf16 decode cycles (kernel path, paged cache) under
            torch.profiler: device time per cycle, the device's idle share
            and the kernels that take the most device time
   graph_bf16  the bf16 kernel runs of both caches through
@@ -120,9 +120,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
            phase-1 kernel being phase1_sm90_kernel (launches held exact
            through the sm90 kernels)
   modes_bf16  each mode of the modes phase and d2sd sampled in bf16
-           (12 layers, as modes), paged, graph loop: ms a replay, decode
+           (6 layers, as modes), paged, graph loop: ms a replay, decode
            tokens/s, launches through the sm90 kernels, profile
-  serving_bf16  the serving requests in bfloat16 (12 layers, as
+  serving_bf16  the serving requests in bfloat16 (6 layers, as
            serving) as a Poisson trace at 1 request/s through the
            overlapped front end and the synchronous baseline (paged, prefix cache, kernel path, the
            card's own clock): ms a cycle, engine cycles, tokens over the
@@ -170,10 +170,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
            replays profiled (paged); kimi-k2-1t-a32b (384 experts, top 8,
            a shared expert) in bf16 at 1 of 61 layers, kernel against
            gather by the bf16 near-tie rule
-  ctx      llama-3.2-vision-11b (8 cross layers over 1601 random vision
-           tokens) and whisper-medium (24 encoder layers over 1500 random
-           frames, then the decoder over the encoder's output) at full
-           size in fp32 through ``generate(ctx=)``: the kernel path on
+  ctx      llama-3.2-vision-11b cut to 20 of its 40 layers (4 cross
+           layers over 1601 random vision tokens) and whisper-medium (24
+           encoder layers over 1500 random frames, then 12 of its 24
+           decoder layers over the encoder's output) at full width in
+           fp32 (the cuts pay for study and distill_full) through ``generate(ctx=)``: the kernel path on
            paged and dense caches and the gather path, tokens held to
            each other and to plain greedy (a prefill with the context,
            then one-token steps that read the cross caches)
@@ -212,6 +213,35 @@ Phases, each printing one JSON line (any failure exits non-zero):
            / 8 for recurrentgemma-2b in bf16); rwkv6-1.6b cut to 4 of 24
            layers in bf16 at batch 2 x 1024: finite losses that fall over
            four steps, ms a step, no flash launch
+  study    the empirical study at its own size: ``run_study.main`` at
+           its defaults (paper_target.smoke() in fp32 pretrained 240
+           steps, 48 greedy rollouts a task of 32 + 160 tokens, the
+           DFlash, VP and AR drafters (drafter_small, D 48) 400 steps
+           each at batch 24): every loss falls (mean of the last tenth
+           below the first tenth's), flash launches exact (4 forward, dq
+           and dk/dv a pretrain step, 4 forward a teacher pass); then
+           ``load_study`` and the held-out decode of
+           benchmarks/common.py::measure (12 prompts of 48 tokens a task
+           from seed 777 at offset 5e6, 96 new tokens) in d2sd, dflash,
+           eagle, naive_k and dflash_second, the kernel path on paged and
+           dense caches and the gather path (host loop): tokens held to
+           plain greedy and to the gather run, cascade launches a cycle
+           exact, alpha by method and task; d2sd with seeded random
+           drafters beside it: the trained drafters' alpha must be above
+           1.0 and above the random ones' on every task; seconds of each
+           stage
+  distill_full  paper_target.full() cut to 12 of 36 layers (the run's
+           time limit) in bf16, random seeded weights: 16 greedy
+           rollouts of 128 + 128 tokens, then d1 (DFlash) and d2 (VP)
+           for ``production_drafter`` (d 1024, 8 heads over 2, vocab
+           151936, features 3 x 4096) distilled 150 steps each at batch
+           16, the teacher through the bf16 flash forward (12 launches a
+           step, exact): falling losses, ms a step, peak memory; then d2sd
+           through the bf16 graph loop (paged, 4 prompts of 128, 64 new)
+           with the trained and with random drafters: alpha, ms a
+           replay, decode tokens/s, launches of the eager cycle and the
+           capture exact, the kernel path held to the gather path by the
+           bf16 near-tie rule
 
 Then a ``{"kernels": [...]}`` line (each flash row with a ``d256`` entry:
 gemma2-2b's shape, the launches a step of train_archs), the card's name
@@ -1342,7 +1372,7 @@ MODES = {"naive_k": ("naive_k", False), "eagle": ("eagle", False),
          "dflash_second": ("dflash_second", False),
          "third_level": ("d2sd", True)}
 MODE_NEW = 32           # tokens a row in the modes and sampled phases
-MODE_LAYERS = 12        # paper-target cut in depth for them (time limit)
+MODE_LAYERS = 6         # paper-target cut in depth for them (time limit)
 SAMPLE_T, SAMPLE_SEED = 1.0, 5
 
 
@@ -1389,9 +1419,9 @@ def modes_path(bundle, prompts):
     """fp32 greedy, full width, through ``generate_ondevice`` (kernel
     path): each mode of ``MODES`` on the paged and dense caches, tokens
     held to plain greedy of ``bundle``'s target (near ties excepted), the
-    cascade launches of a cycle held to ``replay_launches`` (at 12
-    layers: 12 dense; paged 14 naive_k, 16 dflash_second, 18
-    third_level, 42 eagle), the third level's host loop (``generate``)
+    cascade launches of a cycle held to ``replay_launches`` (at 6
+    layers: 6 dense; paged 8 naive_k, 10 dflash_second, 12
+    third_level, 36 eagle), the third level's host loop (``generate``)
     held to its graph run; then each mode's paged loop profiled
     (``profile_loop``: wall and device ms a replay, the phase-1 kernel's
     launches by name)."""
@@ -1671,19 +1701,21 @@ def oracle_path(bundle, prompts, ref_toks, gaps):
           "runs": runs, "launches": launches, "near_ties": ties})
 
 
-def to_bf16(bundle):
-    """``bundle`` in bfloat16: each weight is replaced by its bf16 copy
-    inside the param dicts, so the fp32 copy is freed as it goes."""
-    def cast_(tree):
-        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
-        for k, v in list(items):
-            if isinstance(v, (dict, list)):
-                cast_(v)
-            else:
-                tree[k] = v.to(torch.bfloat16)
+def cast_bf16_(tree):
+    """Each weight of a param tree replaced by its bf16 copy inside its
+    dict or list, so the fp32 copy is freed as it goes."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in list(items):
+        if isinstance(v, (dict, list)):
+            cast_bf16_(v)
+        else:
+            tree[k] = v.to(torch.bfloat16)
 
+
+def to_bf16(bundle):
+    """``bundle`` in bfloat16 (:func:`cast_bf16_` on each param tree)."""
     for params in (bundle.target_params, bundle.d1_params, bundle.d2_params):
-        cast_(params)
+        cast_bf16_(params)
     torch.cuda.empty_cache()
     return dataclasses.replace(
         bundle, target_cfg=dataclasses.replace(bundle.target_cfg,
@@ -1951,7 +1983,7 @@ def replay_launches(bundle, cache):
     return n
 
 
-def profile_cycles(bundle, prompts, ms_per_cycle, n_cycles=6):
+def profile_cycles(bundle, prompts, ms_per_cycle, n_cycles=3):
     """Where a decode cycle's device time goes: ``n_cycles`` cycles of the
     kernel path on the paged cache under torch.profiler (prefill and one
     warm-up cycle outside it). The idle share is read against the cycle
@@ -2311,8 +2343,8 @@ SERVE_PREFIX = 5              # pages of the shared system prompt (320)
 SERVE_SFX = (1, 2, 3, 14, 5, 7, 9, 2, 11)  # suffixes, in half pages (32)
 SERVE_NEW = (24, 8, 40, 16, 48, 12, 32, 20, 36, 28)
 SERVE_RATE = 1.0              # requests/s of the bf16 phase's Poisson trace
-SERVE_LAYERS = 12             # paper-target cut in depth for the serving
-                              # phases (a third of 36: their eager cycles
+SERVE_LAYERS = 6              # paper-target cut in depth for the serving
+                              # phases (a sixth of 36: their eager cycles
                               # are host-bound and the run's time limit
                               # binds)
 
@@ -2696,22 +2728,6 @@ RECURRENT = {"hybrid": ("recurrentgemma-2b", (2000, 2013, 2027, 2040), 64,
              "ssm": ("rwkv6-1.6b", (512, 512, 512, 512), 32, 6)}
 
 
-def production_drafter(tcfg, dtype, gamma=GAMMA):
-    """The drafter JAX's ``launch/steps.py::production_drafter`` sizes for
-    a target, copied: d = max(512, d_model / 4 rounded down to 128),
-    heads of 128, 2 KV heads when the heads are even (else 1), ff 3d, two
-    layers."""
-    from repro_torch.core.drafter import DrafterConfig
-    from repro_torch.models import lm
-    d = max(512, (tcfg.d_model // 4) // 128 * 128)
-    heads = max(4, d // 128)
-    return DrafterConfig(
-        d_model=d, num_layers=2, num_heads=heads,
-        num_kv_heads=2 if heads % 2 == 0 else 1, d_ff=3 * d,
-        vocab_size=tcfg.vocab_size, target_feature_dim=lm.feature_dim(tcfg),
-        gamma=gamma, dtype=dtype)
-
-
 def recurrent_bundle(arch, layers=None):
     """fp32 full-width ``arch`` (cut to ``layers`` layers when given) with
     random seeded weights and two production drafters, d2sd at gamma 16,
@@ -2720,11 +2736,13 @@ def recurrent_bundle(arch, layers=None):
     from repro_torch.config.registry import get_config
     from repro_torch.core import pipeline as pl
     from repro_torch.core.drafter import drafter_init
+    from repro_torch.launch.steps import production_drafter
     from repro_torch.models import lm
     tcfg = get_config(arch)
     tcfg = dataclasses.replace(tcfg, dtype="float32",
                                num_layers=layers or tcfg.num_layers)
-    dcfg = production_drafter(tcfg, "float32")
+    dcfg = dataclasses.replace(production_drafter(tcfg, gamma=GAMMA),
+                               dtype="float32")
     spec = SpecConfig(gamma=GAMMA, top_k_branches=K_BRANCHES, mode="d2sd")
     return pl.SpecBundle(tcfg, dcfg, dcfg, spec,
                          lm.lm_init(tcfg, seed=0, device=DEVICE),
@@ -2904,9 +2922,12 @@ ARCH_PROMPT, ARCH_NEW = 512, 32   # 4 prompts a phase, tokens a row
 # experts 16.9e9 a layer (bf16 1 layer: about 39 GB); internlm2-20b
 # 79 GB in fp32 at its 48 layers. The dense archs run at about half
 # their depth or less (internlm2-20b 8 of 48), which pays for the
-# train_archs phase within the run's time limit
+# train_archs phase within the run's time limit; the cross-attention
+# targets at half their decoder depth (llama-3.2-vision-11b 20 of 40, 4
+# of its 8 cross layers; whisper-medium's decoder 12 of 24, its encoder
+# whole), which pays for the study and distill_full phases
 GROK_LAYERS, GROK_BF16_LAYERS, KIMI_LAYERS = 2, 4, 1
-CTX_ARCHS = ("llama-3.2-vision-11b", "whisper-medium")
+CTX_ARCHS = (("llama-3.2-vision-11b", 20), ("whisper-medium", 12))
 DENSE_ARCHS = (("qwen2.5-3b", 18), ("gemma2-2b", 13),
                ("stablelm-3b", 16), ("internlm2-20b", 8))
 
@@ -2922,11 +2943,13 @@ def arch_bundle(arch, dtype, layers=None):
     from repro_torch.config.registry import get_config
     from repro_torch.core import pipeline as pl
     from repro_torch.core.drafter import drafter_init
+    from repro_torch.launch.steps import production_drafter
     from repro_torch.models import encdec, lm
     cfg = get_config(arch)
     cfg = dataclasses.replace(cfg, dtype=dtype, param_dtype=dtype,
                               num_layers=layers or cfg.num_layers)
-    dcfg = production_drafter(cfg, dtype)
+    dcfg = dataclasses.replace(production_drafter(cfg, gamma=GAMMA),
+                               dtype=dtype)
     enc = None
     if cfg.is_encoder_decoder:
         both = encdec.encdec_init(cfg, seed=0, device=DEVICE)
@@ -3178,10 +3201,10 @@ def moe_path():
 
 
 def ctx_path():
-    """llama-3.2-vision-11b (8 cross layers over 1601 random vision
-    tokens) and whisper-medium (24 encoder layers over 1500 random
-    frames, then the decoder reading the encoder's output), full size,
-    fp32: ``generate(ctx=)`` through the kernel path on paged and dense
+    """llama-3.2-vision-11b (20 of 40 layers: 4 cross layers over 1601
+    random vision tokens) and whisper-medium (24 encoder layers over
+    1500 random frames, then 12 of the 24 decoder layers reading the
+    encoder's output), full width, fp32: ``generate(ctx=)`` through the kernel path on paged and dense
     caches and the gather path (paged), held to each other and to plain
     greedy (a prefill with ``ctx``, then one-token steps that read the
     cross caches). Returns launches a cycle by model."""
@@ -3191,14 +3214,15 @@ def ctx_path():
     t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     recs, launches = {}, {}
-    for seed, arch in enumerate(CTX_ARCHS):
-        bundle, enc = arch_bundle(arch, "float32")
+    for seed, (arch, layers) in enumerate(CTX_ARCHS):
+        bundle, enc = arch_bundle(arch, "float32", layers)
         cfg = bundle.target_cfg
         gen = torch.Generator(device=DEVICE)
         gen.manual_seed(31 + seed)
         feats = torch.randn((4, ctx_len_for(cfg), cfg.d_model),
                             generator=gen, device=DEVICE)
-        rec = {"params": cfg.param_count(), "ctx_len": feats.shape[1]}
+        rec = {"layers": cfg.num_layers, "params": cfg.param_count(),
+               "ctx_len": feats.shape[1]}
         if enc is not None:
             torch.cuda.synchronize()
             te = time.perf_counter()
@@ -3271,6 +3295,250 @@ def archs_path():
     return launches
 
 
+# ------------------------------------------------------------------ study --
+# The held-out decode of benchmarks/common.py::measure: 12 prompts of 48
+# tokens a task from seed 777 at offset 5e6, 96 new tokens, gamma from the
+# study, K 4
+STUDY_PROMPTS, STUDY_PROMPT_LEN, STUDY_NEW = 12, 48, 96
+STUDY_SEED, STUDY_OFFSET, STUDY_K = 777, 5 * 10 ** 6, 4
+STUDY_METHODS = ("d2sd", "dflash", "eagle", "naive_k", "dflash_second")
+
+
+def study_bundle(method, tcfg, dcfg, dcfg_ar, params, gamma):
+    """``benchmarks/common.py::build_bundle``'s bundle of ``method`` over
+    the study's weights: eagle drafts with the AR drafter, naive_k and
+    dflash_second reuse the DFlash drafter as drafter 2."""
+    from repro_torch.config.base import SpecConfig
+    from repro_torch.core import pipeline as pl
+    spec = SpecConfig(gamma=gamma, top_k_branches=STUDY_K, mode=method)
+    d1cfg = dcfg_ar if method == "eagle" else dcfg
+    d1 = params["ar"] if method == "eagle" else params["d1"]
+    d2 = params["d1"] if method in ("dflash_second", "naive_k") \
+        else params["d2"]
+    return pl.SpecBundle(tcfg, d1cfg, dcfg, spec, params["target"], d1, d2)
+
+
+def _falls(name, losses):
+    """Finite losses whose mean over the last tenth is below the first
+    tenth's; returns the two means."""
+    n = max(len(losses) // 10, 1)
+    first, last = float(np.mean(losses[:n])), float(np.mean(losses[-n:]))
+    if not np.isfinite(losses).all() or not last < first:
+        fail(f"{name}: losses do not fall: first tenth {first}, last "
+             f"tenth {last}")
+    return {"first_tenth": first, "last_tenth": last}
+
+
+def _study_runs(bundle, prompts, ref_toks, gaps, where):
+    """The kernel path on the paged and dense caches and the gather path
+    on the paged one (host loop), counts zeroed just before each run and
+    read just after: exact cascade launches a cycle, tokens held to plain
+    greedy and each kernel run to the gather run. Returns the runs'
+    records by (impl, cache) and the near ties that passed."""
+    plan = (("kernel", "paged"), ("kernel", "dense"), ("gather", "paged"))
+    toks, runs, ties = {}, {}, {}
+    for impl, cache in plan:
+        _zero_launches()
+        toks[impl, cache], info = run_generate(bundle, prompts, impl, cache,
+                                               max_new=STUDY_NEW)
+        counts = _launches()
+        if impl == "kernel":
+            _launch_check(f"{where} {cache}", counts,
+                          _want_launches(bundle, cache), info["cycles"])
+            info["launches_per_cycle"] = {
+                k: v / info["cycles"] for k, v in counts.items() if v}
+        elif any(counts.values()):
+            fail(f"{where} gather: cascade launches {counts}")
+        runs[f"{impl}/{cache}"] = info
+    for (impl, cache), t in toks.items():
+        ties[f"{impl}/{cache} vs greedy"] = agreement(where, t, ref_toks,
+                                                      gaps)
+        if impl == "kernel":
+            ties[f"{impl}/{cache} vs gather"] = agreement(
+                where, t, toks[("gather", "paged")], gaps)
+    return runs, {k: v for k, v in ties.items() if v}
+
+
+def study_path():
+    """``run_study.main`` at its defaults (the smoke target in fp32,
+    drafter_small), then the held-out decode of every method with the
+    trained drafters and d2sd with seeded random ones."""
+    from repro_torch.core.drafter import drafter_init
+    from repro_torch.data.synthetic import TASKS, SyntheticDataset
+    from repro_torch.training import run_study
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _zero_flash_launches()
+    _zero_launches()
+    rec = run_study.main([])
+    flash, casc = _flash_launches(), _launches()
+    falls = {"target": _falls("study target", rec["target_losses"])}
+    for name, losses in rec["drafter_losses"].items():
+        falls[name] = _falls(f"study drafter {name}", losses)
+    # smoke(): 4 attention layers, no remat; every pretrain step runs the
+    # forward, dq and dk/dv once a layer, every drafter step one teacher
+    # forward a layer
+    n_t, n_d = rec["target_steps"], rec["drafter_steps"]
+    want = {"flash_fwd": 4 * (n_t + 3 * n_d), "flash_bwd_dq": 4 * n_t,
+            "flash_bwd_dkv": 4 * n_t}
+    if {k: v for k, v in flash.items() if v} != want or any(casc.values()):
+        fail(f"study: flash launches {flash} (expected {want}), cascade "
+             f"{casc} (expected none: rollouts read through gather)")
+
+    t0 = time.perf_counter()
+    tcfg, dcfg, dcfg_ar, params, meta = run_study.load_study(DEVICE)
+    gamma = meta["gamma"]
+    random = {**params, "d1": drafter_init(dcfg, seed=1, device=DEVICE),
+              "d2": drafter_init(dcfg, seed=2, device=DEVICE)}
+    alpha, alpha_random, runs, ties = {}, {}, {}, {}
+    for task in TASKS:
+        prompts = SyntheticDataset(task, 1, 64, seed=STUDY_SEED).prompts(
+            STUDY_PROMPTS, STUDY_PROMPT_LEN, offset=STUDY_OFFSET)
+        ref_toks, gaps = greedy_reference(
+            params["target"], tcfg, torch.as_tensor(prompts, device=DEVICE),
+            STUDY_NEW)
+        for method in STUDY_METHODS:
+            where = f"study {method}/{task}"
+            r, t = _study_runs(study_bundle(method, tcfg, dcfg, dcfg_ar,
+                                            params, gamma),
+                               prompts, ref_toks, gaps, where)
+            runs[where], ties[where] = r, t
+            alpha.setdefault(method, {})[task] = r["kernel/paged"]["alpha"]
+        rb = study_bundle("d2sd", tcfg, dcfg, dcfg_ar, random, gamma)
+        _zero_launches()
+        _, info = run_generate(rb, prompts, "kernel", "paged",
+                               max_new=STUDY_NEW)
+        _launch_check(f"study d2sd/{task} random", _launches(),
+                      _want_launches(rb, "paged"), info["cycles"])
+        alpha_random[task] = info["alpha"]
+        if alpha["d2sd"][task] <= max(1.0, info["alpha"]):
+            fail(f"study {task}: d2sd alpha {alpha['d2sd'][task]} with the "
+                 f"trained drafters, {info['alpha']} with random ones")
+    seconds = {**rec["seconds"], "eval": time.perf_counter() - t0}
+    emit({"phase": "study", "ok": True, "dtype": "float32",
+          "target": tcfg.name, "drafter_d_model": dcfg.d_model,
+          "head_dims": {"target": tcfg.d_model // tcfg.num_heads,
+                        "drafter": dcfg.head_dim},
+          "args": {k: rec[k] for k in ("gamma", "target_steps",
+                                       "drafter_steps", "rollouts")},
+          "losses": falls, "seconds": seconds, "flash_launches": flash,
+          "flash_launches_per_step": {"pretrain": 4, "teacher": 4},
+          "alpha": alpha, "alpha_random_d2sd": alpha_random,
+          "near_ties": {k: v for k, v in ties.items() if v},
+          "runs": {k: {name: {f: r[f] for f in (
+              "cycles", "alpha", "ms_per_cycle", "launches_per_cycle")
+              if f in r} for name, r in v.items()} for k, v in runs.items()}})
+    first = runs[f"study d2sd/{TASKS[0]}"]
+    return {"flash": flash, "cascade_per_cycle": {
+        cache: first[f"kernel/{cache}"]["launches_per_cycle"]
+        for cache in ("paged", "dense")}}
+
+
+# -------------------------------------------------- distillation at width --
+DISTILL_LAYERS = 12      # paper-target cut in depth (the run's time limit)
+DISTILL_ROWS, DISTILL_PROMPT, DISTILL_NEW = 16, 128, 128   # rollouts
+DISTILL_STEPS, DISTILL_BATCH = 150, 16
+DISTILL_DECODE = (4, 128, 64)     # rows, prompt, new tokens of the decode
+
+
+def distill_full():
+    """paper-target at full width cut to DISTILL_LAYERS layers, bf16,
+    random seeded weights: greedy rollouts, then d1 (DFlash) and d2 (VP)
+    for ``production_drafter`` distilled on them with the teacher through
+    the bf16 flash forward; then d2sd through the bf16 graph loop (paged)
+    with the trained and with random drafters, each held to its gather
+    run by the bf16 near-tie rule."""
+    from repro_torch.config.base import SpecConfig
+    from repro_torch.configs import paper_target
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core.drafter import drafter_init
+    from repro_torch.launch.steps import production_drafter
+    from repro_torch.models import lm
+    from repro_torch.training import distill
+    tcfg = dataclasses.replace(paper_target.full(), num_layers=DISTILL_LAYERS,
+                               dtype="bfloat16")
+    params = lm.lm_init(tcfg, seed=0, device=DEVICE)
+    cast_bf16_(params)
+    _free()
+    rng = np.random.default_rng(21)
+    prompts = rng.integers(0, tcfg.vocab_size, (DISTILL_ROWS,
+                                                DISTILL_PROMPT))
+    t0 = time.perf_counter()
+    rolls = distill.generate_rollouts(params, tcfg, prompts, DISTILL_NEW,
+                                      device=DEVICE)
+    rollout_s = time.perf_counter() - t0
+    dcfg = production_drafter(tcfg, gamma=GAMMA)
+    drafters, train = {}, {}
+    for name, vp in (("d1", False), ("d2", True)):
+        _zero_flash_launches()
+        _zero_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        drafters[name], losses = distill.train_drafter(
+            dcfg, params, tcfg, rolls, vp=vp, steps=DISTILL_STEPS,
+            batch=DISTILL_BATCH, device=DEVICE, log=lambda *_: None)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        flash, casc = _flash_launches(), _launches()
+        want = {"flash_fwd_sm90": DISTILL_STEPS * DISTILL_LAYERS}
+        if {k: v for k, v in flash.items() if v} != want \
+                or any(casc.values()):
+            fail(f"distill_full {name}: flash launches {flash} (expected "
+                 f"{want}: one teacher pass a step), cascade {casc}")
+        train[name] = {"losses": _falls(f"distill_full {name}", losses),
+                       "first_loss": losses[0], "last_loss": losses[-1],
+                       "seconds": sec, "ms_per_step": 1e3 * sec
+                       / DISTILL_STEPS,
+                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       "flash_launches": flash}
+    n_rows, p_len, n_new = DISTILL_DECODE
+    prompts = rng.integers(0, tcfg.vocab_size, (n_rows, p_len))
+    spec = SpecConfig(gamma=GAMMA, top_k_branches=K_BRANCHES, mode="d2sd")
+    decode = {}
+    for label, (p1, p2) in (
+            ("trained", (drafters["d1"], drafters["d2"])),
+            ("random", (drafter_init(dcfg, seed=1, device=DEVICE),
+                        drafter_init(dcfg, seed=2, device=DEVICE)))):
+        bundle = to_bf16(pl.SpecBundle(tcfg, dcfg, dcfg, spec, params, p1,
+                                       p2))
+        want = replay_launches(bundle, "paged")
+        # the gather run first: the kernel run, timed, finds the graph
+        # path warm
+        gt, ginfo = run_generate(bundle, prompts, "gather", "paged",
+                                 ondevice=True, max_new=n_new)
+        _zero_launches()
+        kt, kinfo = run_generate(bundle, prompts, "kernel", "paged",
+                                 ondevice=True, max_new=n_new)
+        counts = _launches()
+        if counts["cascade_phase1_paged_sm90"] != 2 * want \
+                or sum(counts.values()) != 2 * want:
+            fail(f"distill_full {label}: cascade launches {counts} in the "
+                 f"eager cycle and the capture, expected {2 * want} "
+                 "through cascade_phase1_paged_sm90 alone")
+        decode[label] = {
+            "alpha": kinfo["alpha"], "cycles": kinfo["cycles"],
+            "ms_per_replay": kinfo["ms_per_cycle"],
+            "capture_s": kinfo["capture_s"],
+            "decode_tokens_per_s": kinfo["decode_tokens_per_s"],
+            "gather_alpha": ginfo["alpha"],
+            "agree_with_gather": float((kt == gt).mean()),
+            "first_divergence_per_row": bf16_divergences(
+                bundle, prompts, kt, gt, "paged"),
+            "replay_launches": want}
+    emit({"phase": "distill_full", "ok": True, "dtype": "bfloat16",
+          "target": tcfg.name, "layers": DISTILL_LAYERS,
+          "drafter": dataclasses.asdict(dcfg),
+          "rollouts": list(rolls.shape), "rollout_s": rollout_s,
+          "steps": DISTILL_STEPS, "batch": DISTILL_BATCH, "train": train,
+          "decode": {"rows": n_rows, "prompt": p_len, "max_new": n_new,
+                     **decode}})
+    del params, drafters, bundle
+    _free()
+    return {"teacher_fwd_per_step": DISTILL_LAYERS,
+            "graph_launches_per_cycle": decode["trained"]["replay_launches"]}
+
+
 def main():
     if len(sys.argv) > 1:
         fail(f"chip_smoke.py takes no arguments: {sys.argv[1:]}")
@@ -3329,7 +3597,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     arch_steps = train_archs()
-    torch.cuda.synchronize()
+    _free()
+    study = study_path()
+    distilled = distill_full()
 
     # cascade rows: one per kernel at its dtype, the decode verify shape,
     # launches of the decode runs in that dtype (the fp32 main path, or
@@ -3361,6 +3631,14 @@ def main():
         # the recurrent targets' kernel runs (host loop) in this dtype
         for phase, rec in recurrent.items():
             extra[f"{phase}_launches_per_cycle"] = rec[dn][cache][name]
+        # the study's d2sd host runs (fp32), distill_full's graph loop
+        # (bf16, paged)
+        if dtype == torch.float32:
+            extra["study_launches_per_cycle"] = study["cascade_per_cycle"][
+                cache].get(name)
+        elif cache == "paged":
+            extra["distill_full_graph_launches_per_cycle"] = distilled[
+                "graph_launches_per_cycle"]
         # the moe, ctx and archs phases' kernel runs, by model and cache
         extra["archs_launches_per_cycle"] = {
             arch: {c: n[name] for c, n in rec[dn].items() if n.get(name)}
@@ -3377,11 +3655,18 @@ def main():
         dn = str(dtype).replace("torch.", "")
         counts = bf16_launches if dtype == torch.bfloat16 else fp32_launches
         d256 = flash_timing[wrapper][dn + "_d256"]
+        # the study's pretraining and teacher passes (fp32, in all);
+        # distill_full's teacher passes (bf16, a drafter step)
+        extra = ({"study_launches": study["flash"][name]}
+                 if dtype == torch.float32 else
+                 {"distill_full_launches_per_step": distilled[
+                     "teacher_fwd_per_step"] if name == "flash_fwd_sm90"
+                  else 0})
         rows.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/csrc/{src}",
                      "replaces": f"src/repro/kernels/flash_attention.py:"
                                  f"{line}",
-                     "launches": counts[name],
+                     "launches": counts[name], **extra,
                      "max_abs_err": flash_worst[wrapper][dn], "dtype": dn,
                      **_timing_keys(flash_timing[wrapper][dn]),
                      # gemma2-2b's shape; launches a step of train_archs

@@ -47,6 +47,7 @@ HYBRID_LENS = tuple(2049 + (37 * i) % 105 for i in range(20))
 # its local layers roll over a window of 4096 (the rows past it wrap),
 # its global ones are paged
 GEMMA2 = dict(d=256, hq=8, hkv=4, softcap=50.0, lens=(3990, 4100, 4507, 5003))
+STUDY_LENS = (48, 70, 101, 143)
 
 # name -> options of ``case_inputs`` (``nan``: the caller pre-fills the
 # outputs with NaN, so a split with no key must write finite zeros)
@@ -108,6 +109,17 @@ CASES = {
     "d256_gemma2_rolling": dict(GEMMA2, kind="dense", s=4096, window=4096,
                                 rolling=True),
     "d256_gemma2_paged": dict(GEMMA2, kind="paged", s=5120),
+    # the study's models (paper_target.smoke() and drafter_small()): the
+    # target's verify (D 64, 4 query heads over 2, Tq 76) and the
+    # drafters' feature-cache reads (D 48, 4 over 2, a gamma-16 block),
+    # over the caches of 48-token prompts and 96 new tokens
+    **{name: dict(lens=STUDY_LENS, s=256, hq=4, hkv=2, **opts)
+       for name, opts in {
+           "d64_study": dict(kind="dense", d=64),
+           "d64_study_paged": dict(kind="paged", d=64),
+           "d48_drafter": dict(kind="dense", d=48, tq=16),
+           "d48_drafter_paged": dict(kind="paged", d=48, tq=16, nan=True),
+       }.items()},
 }
 
 

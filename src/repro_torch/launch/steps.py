@@ -1,5 +1,7 @@
-"""Training step, optimizer choice and the prefill step (twin of the
-training and prefill parts of ``repro/launch/steps.py``).
+"""Training step, optimizer choice, the production drafter's size and the
+prefill and serve steps (twin of ``repro/launch/steps.py`` but its
+``build_cell`` and abstract specs, which only the multi-device dry run
+uses).
 
 The step is ``loss.backward()`` on ``models.api.train_loss`` with
 ``attn_impl="kernel"``: on the card every attention layer runs the CUDA
@@ -19,10 +21,31 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.config.base import ModelConfig, OptimizerConfig
+from repro_torch.core import pipeline as pl
 from repro_torch.core import state as state_lib
-from repro_torch.models import api, encdec
+from repro_torch.core.drafter import DrafterConfig
+from repro_torch.models import api, encdec, lm
 from repro_torch.models import param as pm
 from repro_torch.optim import optimizers as opt_lib
+
+
+GAMMA_PROD = 16
+K_PROD = 4
+
+
+def production_drafter(tcfg: ModelConfig, gamma: int = GAMMA_PROD,
+                       causal: bool = False) -> DrafterConfig:
+    """The drafter served beside ``tcfg``: d = max(512, d_model / 4
+    rounded down to 128), heads of 128, 2 KV heads when the heads are
+    even (else 1), ff 3d, two layers, reading the target's features."""
+    d = max(512, (tcfg.d_model // 4) // 128 * 128)
+    heads = max(4, d // 128)
+    kv = 2 if heads % 2 == 0 else 1          # must divide heads
+    return DrafterConfig(
+        d_model=d, num_layers=2, num_heads=heads,
+        num_kv_heads=kv, d_ff=3 * d,
+        vocab_size=tcfg.vocab_size, target_feature_dim=lm.feature_dim(tcfg),
+        gamma=gamma, causal=causal)
 
 
 def optimizer_for(cfg: ModelConfig) -> OptimizerConfig:
@@ -96,3 +119,10 @@ def make_prefill_step(cfg: ModelConfig):
     def step(bundle, est, prompts):
         return state_lib.prefill(bundle, est, prompts)
     return step
+
+
+def make_serve_step():
+    """``serve_step(bundle, state, gen)``: one decode cycle, no stats."""
+    def serve_step(bundle, est, gen):
+        return pl.decode_cycle(bundle, est, gen, collect_stats=False)
+    return serve_step

@@ -2,7 +2,8 @@
 (twin of ``repro/optim/optimizers.py``).
 
 The interface is the JAX one, with the model config beside the
-hyperparameters: ``init(params) -> state`` and
+hyperparameters (``None`` for a tree that is not a target's, such as a
+drafter's): ``init(params) -> state`` and
 ``update(grads, state, params) -> (params, state, metrics)``, over the
 port's param trees (nested dicts and the ``layers`` list). Unlike JAX's
 immutable arrays, ``update`` writes the new params and moments into the
@@ -18,11 +19,14 @@ period position's leaf is stacked over the periods (``period/p{j}/...``,
 256, Adafactor's factored second moment (a stacked 1-D leaf is 2-D) and
 its update clip all span the layers of one stack, so they need that view.
 AdamW proper is elementwise and updates one layer at a time, into views
-of the stacked moments.
+of the stacked moments. Without a config (a drafter: ``tok``,
+``feat_proj``, ``ln_f``, ``head``, ``layer{i}``) every leaf is a group of
+its own, as JAX lays out the moments of a tree with no period axis.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -57,10 +61,13 @@ def clip_by_global_norm(grads, max_norm):
 
 
 # ---------------------------------------------------------- JAX layout ----
-def _groups(tree, cfg: ModelConfig):
+def _groups(tree, cfg: Optional[ModelConfig]):
     """{JAX path: (port leaves, stacked)}: the leaves of a port param tree
     regrouped as the JAX package holds them. A ``period/p{j}`` group lists
-    its layers in period order and is ``stacked``; the others hold one."""
+    its layers in period order and is ``stacked``; the others hold one.
+    ``cfg`` None: each leaf is its own unstacked group."""
+    if cfg is None:
+        return {path: ([t], False) for path, t in pm.flatten(tree).items()}
     spec, n_periods, _ = period_spec(cfg)
     plen = len(spec)
     groups = {}
@@ -103,7 +110,7 @@ def _scatter(leaves, stacked, new):
         t.copy_(n)
 
 
-def _init_state(params, cfg: ModelConfig, make):
+def _init_state(params, cfg: Optional[ModelConfig], make):
     return _nest({path: make(_shape(ts, stacked), ts[0].device)
                   for path, (ts, stacked) in _groups(params, cfg).items()})
 
@@ -134,7 +141,8 @@ def _step0():
     return torch.zeros((), dtype=torch.int32)
 
 
-def adamw_init(params, cfg: ModelConfig, quantized: bool = False):
+def adamw_init(params, cfg: Optional[ModelConfig],
+               quantized: bool = False):
     def zero_like(shape, dev):
         if quantized:
             nblk = (math.prod(shape) + _Q8_BLOCK - 1) // _Q8_BLOCK
@@ -149,8 +157,8 @@ def adamw_init(params, cfg: ModelConfig, quantized: bool = False):
 
 
 @torch.no_grad()
-def adamw_update(grads, state, params, hp: OptimizerConfig, cfg: ModelConfig,
-                 quantized: bool = False):
+def adamw_update(grads, state, params, hp: OptimizerConfig,
+                 cfg: Optional[ModelConfig], quantized: bool = False):
     step = state["step"] + 1
     lr = lr_schedule(hp, step)
     grads, gn = clip_by_global_norm(grads, hp.grad_clip)
@@ -197,7 +205,7 @@ def adamw_update(grads, state, params, hp: OptimizerConfig, cfg: ModelConfig,
 
 
 # -------------------------------------------------------------- Adafactor --
-def adafactor_init(params, cfg: ModelConfig):
+def adafactor_init(params, cfg: Optional[ModelConfig]):
     def factored(shape, dev):
         z = lambda sh: torch.zeros(sh, dtype=torch.float32,  # noqa: E731
                                    device=dev)
@@ -210,7 +218,7 @@ def adafactor_init(params, cfg: ModelConfig):
 
 @torch.no_grad()
 def adafactor_update(grads, state, params, hp: OptimizerConfig,
-                     cfg: ModelConfig):
+                     cfg: Optional[ModelConfig]):
     step = state["step"] + 1
     lr = lr_schedule(hp, step)
     grads, gn = clip_by_global_norm(grads, hp.grad_clip)
@@ -243,9 +251,9 @@ def adafactor_update(grads, state, params, hp: OptimizerConfig,
 
 
 # ------------------------------------------------------------- dispatcher --
-def make_optimizer(hp: OptimizerConfig, cfg: ModelConfig):
+def make_optimizer(hp: OptimizerConfig, cfg: Optional[ModelConfig] = None):
     """(init, update) for ``hp.name``; ``cfg`` gives the period layout of
-    the moments."""
+    a target's moments (None: one group a leaf, for any other tree)."""
     if hp.name == "adamw":
         return (lambda p: adamw_init(p, cfg, False),
                 lambda g, s, p: adamw_update(g, s, p, hp, cfg, False))

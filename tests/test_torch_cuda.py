@@ -73,7 +73,10 @@ CARD_CASES = {"dense": "dense_tq76", "paged": "paged_tq76",
               "d80": "d80_group1_paged", "group6": "group6",
               "d64_group1": "d64_group1_paged",
               "d256_gemma2_rolling": "d256_gemma2_rolling",
-              "d256_gemma2_paged": "d256_gemma2_paged"}
+              "d256_gemma2_paged": "d256_gemma2_paged",
+              # the study's smoke target (D 64) and drafter_small (D 48)
+              "d64_study": "d64_study", "d48_drafter": "d48_drafter",
+              "d48_drafter_paged": "d48_drafter_paged"}
 
 
 def _inputs(dev, dtype, kind, **opts):

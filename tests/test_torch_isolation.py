@@ -8,6 +8,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -69,6 +70,7 @@ def _entry_points():
     from repro_torch.launch import train as launch_train
     from repro_torch.models import api, lm
     from repro_torch.serving.engine import ServingEngine
+    from repro_torch.training import distill, run_study
     tcfg = paper_target.smoke()
     dcfg = paper_target.drafter_small(gamma=4)
     bundle = pipeline.SpecBundle(tcfg, dcfg, dcfg,
@@ -89,6 +91,13 @@ def _entry_points():
         "launch_train": lambda: launch_train.main(["--steps", "1"]),
         "serving_engine": lambda: ServingEngine(bundle),
         "launch_serve": lambda: launch_serve.main(["--requests", "1"]),
+        "pretrain_target": lambda: distill.pretrain_target(tcfg, steps=1),
+        "generate_rollouts": lambda: distill.generate_rollouts(
+            None, tcfg, [[1, 2]], 2),
+        "train_drafter": lambda: distill.train_drafter(
+            dcfg, None, tcfg, np.zeros((1, 8), np.int32), vp=True),
+        "run_study": lambda: run_study.main(["--fast"]),
+        "load_study": lambda: run_study.load_study(),
     }
 
 
@@ -97,7 +106,10 @@ def _entry_points():
                                   "generate_ondevice", "convert_lm",
                                   "convert_drafter", "init_model",
                                   "make_train_step", "launch_train",
-                                  "serving_engine", "launch_serve"])
+                                  "serving_engine", "launch_serve",
+                                  "pretrain_target", "generate_rollouts",
+                                  "train_drafter", "run_study",
+                                  "load_study"])
 def test_entry_point_without_device_raises_here(name):
     """Without ``device=`` an entry point asks for the card; on a machine
     without one it raises instead of running on the CPU."""
