@@ -14,7 +14,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
            ragged cache lengths, q in the model's layout), adversarial
            rolling capacities, a shuffled page table with sentinel
            entries, softcap 50, window 256 (splits that hold only masked
-           keys), the pos_stride/pos_offset shard contract, pages of 8 and
+           keys), the pos_stride/pos_offset shard contract (and the
+           sharded engine's reads: a rank's 32- or 16-slot runs of
+           64-key pages at offsets 0-48, Tq 76 and 16), pages of 8 and
            16, Tq 1 and 136, GQA groups 1 and 8, D 64 and 96, and outputs
            pre-filled with NaN (splits with no key must write acc = l = 0,
            m = -1e30), and head_dim 256 with 10 query heads over one
@@ -131,6 +133,29 @@ Phases, each printing one JSON line (any failure exits non-zero):
            bf16 near-tie rule. A smoke reading of the path, not a serving
            metric: ten requests have no tail, and the slots are not kept
            full
+  sharded  the serving phase's engine (the same requests, batch 4, pages
+           of 64, a pool of 160, prefix cache, fp32, 6 layers, weights
+           from the same seeds) spanning a 2-rank kv_seq mesh: two gloo
+           ranks spawned on this card (``launch/mesh.py::run_ranks``),
+           each holding 32 slots of every page, every verify and drafter
+           feature-cache read through kernel #2 on the rank's pool with
+           pos_stride 64 and pos_offset 0 / 32, merged by the LSE
+           all-reduce; the kernel path and the gather path: tokens equal
+           across ranks and held to plain greedy by the serving phase's
+           near-tie rule (so to the unsharded engine), kv_shards,
+           pool_shard_slots, decode_collective_bytes equal to the byte
+           formula, prefix hits, and each rank's #2 launches with a
+           pos_stride (the wrapper's exact count) equal a cycle to the
+           unsharded engine's #2 launches, none without one, none through
+           the bf16 kernels, none on the gather path; ms a cycle beside
+           the unsharded engine's, the host time in the merges, bytes a
+           cycle, each rank's peak memory. Ranks time-share one card: a
+           record, not a multi-card speed
+  sharded_bf16  the same in bfloat16 over 4 ranks (16 slots of every
+           page, pos_offset up to 48): the kernel path held to the
+           gather path inside the mesh by the bf16 near-tie rule, the
+           sm90 #2 launches with a pos_stride equal a cycle to the
+           unsharded engine's
   hybrid   recurrentgemma-2b at full width cut to 8 of its 26 layers
            (RG-LRU blocks and 2 MQA sliding-window layers of head_dim
            256, vocab 256000; the cut pays for train_archs), random
@@ -1164,13 +1189,19 @@ def committed_cache_error(bundle, prompts, seq, cache_impl,
     return worst
 
 
-def build_bundle(dtype):
+def build_bundle(dtype, layers=None):
+    """paper-target at full width and depth (or cut to ``layers``: the
+    same weights as ``cut_depth`` of the full bundle, since ``lm_init``
+    draws the embedding and head before the layers, in order) and two
+    2-layer drafters at its widths, random weights from seeds 0, 1, 2."""
     from repro_torch.config.base import SpecConfig
     from repro_torch.configs import paper_target
     from repro_torch.core import pipeline as pl
     from repro_torch.core.drafter import DrafterConfig, drafter_init
     from repro_torch.models import lm
     tcfg = dataclasses.replace(paper_target.full(), dtype=dtype)
+    if layers is not None:
+        tcfg = dataclasses.replace(tcfg, num_layers=layers)
     # two drafters at the target's own widths (4096, 32/8 heads, ff 12288)
     dcfg = DrafterConfig(d_model=tcfg.d_model, num_layers=2,
                          num_heads=tcfg.num_heads,
@@ -2600,7 +2631,7 @@ def serving_path(bundle):
           "near_ties": {k: v for k, v in ties.items() if v},
           "live_table_check": live_table,
           "seconds": time.perf_counter() - t0})
-    return reqs, {n: toks[n] for n in ("prefix_gather",)}, by
+    return reqs, {n: toks[n] for n in ("prefix_gather", "prefix_kernel")}, by
 
 
 def serving_bf16(bundle, reqs):
@@ -2684,7 +2715,7 @@ def serving_bf16(bundle, reqs):
           "seconds": time.perf_counter() - t0})
     gc.collect()
     torch.cuda.empty_cache()
-    return runs
+    return runs, toks["sync"]
 
 
 def _time_cycles(eng):
@@ -2706,6 +2737,165 @@ def _time_cycles(eng):
 
     eng.dispatch_cycle, eng.complete_cycle = timed_dispatch, timed_complete
     return durs
+
+
+# ------------------------------------------------- kv_seq-sharded serving --
+# phase -> (ranks, dtype): fp32 over 2 ranks (32 slots of each 64-key
+# page a rank), bf16 over 4 (16 slots, pos_offset up to 48)
+SHARDED = {"sharded": (2, "float32"), "sharded_bf16": (4, "bfloat16")}
+
+
+def _merge_bytes(bundle, batches, md=4):
+    """The LSE-merge payload a rank sends over the given cycles (one row
+    count each), by JAX's formula (acc and l in the merge dtype, m in
+    fp32) summed over the cycle's sharded reads: every target layer over
+    the verify tree (gamma + K (gamma - 1) rows), every drafter-1 layer
+    over its block (gamma) and every drafter-2 layer over the K forks'
+    blocks (K gamma)."""
+    g, k = bundle.spec.gamma, bundle.spec.top_k_branches
+    rows = (bundle.target_cfg.num_layers * (g + k * (g - 1))
+            + bundle.d1_cfg.num_layers * g + bundle.d2_cfg.num_layers * k * g)
+    tc = bundle.target_cfg
+    return sum(b * tc.num_heads * rows * ((tc.head_dim + 1) * md + 4)
+               for b in batches)
+
+
+def sharded_rank(rank, n, dtype, reqs):
+    """One rank of a sharded phase: the serving bundle built from the
+    seeds (one rank after another, so that at most one fp32 build is on
+    the card beside the finished ranks), then the serving requests
+    through the engine inside the mesh, by the kernel path (merges timed)
+    and the gather path. Returns this rank's record; rank 0 also holds
+    each run to plain greedy (fp32) or the kernel run to the gather run
+    (bf16) by the near-tie rules, outside the mesh."""
+    import torch.distributed as dist
+    from repro_torch.core import pipeline as pl
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed import spdecode as sp
+    from repro_torch.kernels import cascade_attention as casc
+    from repro_torch.launch.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(1, n)
+    for i in range(n):
+        if i == rank:
+            bundle = build_bundle("float32", layers=SERVE_LAYERS)
+            if dtype == "bfloat16":
+                bundle = to_bf16(bundle)
+        dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    paged = casc.cascade_phase1_paged
+    runs, toks = {}, {}
+    with sh.use_sharding(mesh, dict(sh.LOGICAL_RULES, kv_seq="model")):
+        for impl in ("kernel", "gather"):
+            _zero_launches()
+            paged.sharded_launches = 0
+            sp.PAYLOAD.reset()
+            sp.PAYLOAD.timed = impl == "kernel"
+            batches = []
+            eng, toks[impl], info = serve_run(
+                pl.with_attn_impl(bundle, impl), reqs, f"sharded_{impl}",
+                snoop=lambda _, state: batches.append(state.batch),
+                cache_impl="paged", page_size=SERVE_PAGE,
+                pool_pages=SERVE_POOL, prefix_cache=True)
+            sp.PAYLOAD.timed = False
+            st = eng.stats
+            info.update(
+                launches=_launches(), sharded_launches=paged.sharded_launches,
+                kv_shards=st["kv_shards"],
+                pool_shard_slots=st["pool_shard_slots"],
+                decode_collective_bytes=st["decode_collective_bytes"],
+                collective_bytes_formula=_merge_bytes(bundle, batches),
+                merge_calls=sp.PAYLOAD.calls,
+                merge_ms_per_cycle=1e3 * sp.PAYLOAD.merge_s
+                / info["decode_cycles"])
+            runs[impl] = info
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+    rec = {"rank": rank, "runs": runs,
+           "tokens": {impl: {u: t.tolist() for u, t in tk.items()}
+                      for impl, tk in toks.items()},
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    if rank == 0:
+        # single-rank plain forwards, outside the mesh (no collective)
+        if dtype == "float32":
+            rec["near_ties"] = {impl: _serve_agreement(
+                f"sharded {impl}", bundle, reqs, toks[impl])
+                for impl in toks}
+        else:
+            rec["first_divergence"] = {
+                uid: bf16_divergences(bundle, [p], toks["kernel"][uid][None],
+                                      toks["gather"][uid][None], "paged")[0]
+                for uid, (p, _) in enumerate(reqs)
+                if not np.array_equal(toks["kernel"][uid],
+                                      toks["gather"][uid])}
+    dist.barrier()
+    return rec
+
+
+def sharded_path(phase, reqs, unsharded):
+    """A sharded phase (``SHARDED``): spawn its ranks on this card and
+    hold what they return. ``unsharded``: the unsharded engine's record
+    of the same requests in this dtype ({"tokens", "launches_per_cycle",
+    "ms_per_cycle"})."""
+    from repro_torch.launch.mesh import run_ranks
+    t0 = time.perf_counter()
+    n, dtype = SHARDED[phase]
+    entry = ("cascade_phase1_paged_sm90" if dtype == "bfloat16"
+             else "cascade_phase1_paged")
+    recs = run_ranks(sharded_rank, n, n, dtype, reqs)
+    for impl in ("kernel", "gather"):
+        if any(r["tokens"][impl] != recs[0]["tokens"][impl] for r in recs):
+            fail(f"{phase} {impl}: the ranks' tokens differ")
+    for r in recs:
+        for impl, info in r["runs"].items():
+            where = f"{phase} rank {r['rank']} {impl}"
+            counts = info["launches"]
+            if info["kv_shards"] != n or info["pool_shard_slots"] * n != \
+                    info["pool_pages"] * SERVE_PAGE or info["prefix_hits"] \
+                    <= 0 or info["decode_collective_bytes"] != info[
+                        "collective_bytes_formula"]:
+                fail(f"{where}: mesh stats {info}")
+            if impl == "gather":
+                if any(counts.values()) or info["sharded_launches"]:
+                    fail(f"{where} launched {counts}")
+                continue
+            per_cycle = info["sharded_launches"] / info["decode_cycles"]
+            others = {k: v for k, v in counts.items() if k != entry}
+            if counts[entry] != info["sharded_launches"] or any(
+                    others.values()) or per_cycle != unsharded[
+                        "launches_per_cycle"]:
+                fail(f"{where}: #2 launches {counts}, "
+                     f"{info['sharded_launches']} with a pos_stride, "
+                     f"{per_cycle} a cycle against the unsharded "
+                     f"{unsharded['launches_per_cycle']}")
+    r0 = recs[0]
+    kern = r0["runs"]["kernel"]
+    same = {impl: float(np.mean([
+        np.array_equal(r0["tokens"][impl][u], unsharded["tokens"][u])
+        for u in unsharded["tokens"]])) for impl in ("kernel", "gather")}
+    emit({"phase": phase, "ok": True, "dtype": dtype, "ranks": n,
+          "page": SERVE_PAGE, "page_loc": SERVE_PAGE // n,
+          "layers": SERVE_LAYERS, "gpu": nvidia_smi_line(),
+          "ms_per_cycle": kern["ms_per_cycle"],
+          "unsharded_ms_per_cycle": unsharded["ms_per_cycle"],
+          "merge_ms_per_cycle": kern["merge_ms_per_cycle"],
+          "merge_share": kern["merge_ms_per_cycle"] / kern["ms_per_cycle"],
+          "collective_bytes_per_cycle": kern["decode_collective_bytes"]
+          / kern["decode_cycles"],
+          "peak_gib_per_rank": [r["peak_gib"] for r in recs],
+          "sharded_launches_per_cycle": kern["sharded_launches"]
+          / kern["decode_cycles"],
+          "unsharded_launches_per_cycle": unsharded["launches_per_cycle"],
+          "tokens_equal_to_unsharded": same,
+          "runs": {impl: {k: v for k, v in info.items() if k != "launches"}
+                   for impl, info in r0["runs"].items()},
+          "near_ties": r0.get("near_ties"),
+          "first_divergence": r0.get("first_divergence"),
+          "note": "ranks time-share one card",
+          "seconds": time.perf_counter() - t0})
+    return kern["sharded_launches"] / kern["decode_cycles"]
 
 
 # ------------------------------------------------------------------ main --
@@ -3574,18 +3764,33 @@ def main():
     graph_prof_fp32 = profile_graph(bundle, prompts)
     modes_path(cut_depth(bundle, MODE_LAYERS), prompts)
     sampled_path(cut_depth(bundle, MODE_LAYERS), prompts)
-    serve_reqs, _, serve_fp32 = serving_path(cut_depth(bundle, SERVE_LAYERS))
+    serve_reqs, serve_toks, serve_fp32 = serving_path(
+        cut_depth(bundle, SERVE_LAYERS))
     bundle, ms_cycle, bf16_casc, bf16_per_cycle, eager = bf16_path(
         bundle, prompts)
     profile_cycles(bundle, prompts, ms_cycle)
     graph_bf16(bundle, prompts, eager)
     graph_prof = profile_graph(bundle, prompts)
     modes_bf16(cut_depth(bundle, MODE_LAYERS), prompts)
-    serve_bf16 = serving_bf16(cut_depth(bundle, SERVE_LAYERS), serve_reqs)
+    serve_bf16, serve_bf16_toks = serving_bf16(
+        cut_depth(bundle, SERVE_LAYERS), serve_reqs)
     del bundle, eager
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    # the engine spanning a kv_seq mesh of ranks on this card, held to the
+    # unsharded engine's runs of the same requests above
+    pk, sy = serve_fp32["prefix_kernel"], serve_bf16["sync"]
+    sharded = {
+        "sharded": sharded_path("sharded", serve_reqs, {
+            "tokens": serve_toks["prefix_kernel"],
+            "launches_per_cycle": pk["launches_per_cycle"][
+                "cascade_phase1_paged"],
+            "ms_per_cycle": pk["ms_per_cycle"]}),
+        "sharded_bf16": sharded_path("sharded_bf16", serve_reqs, {
+            "tokens": serve_bf16_toks,
+            "launches_per_cycle": sy["launches_per_cycle"],
+            "ms_per_cycle": sy["ms_per_cycle"]})}
     recurrent = {phase: recurrent_path(phase) for phase in RECURRENT}
     serving_recurrent()
     more_archs = {**moe_path(), **ctx_path(), **archs_path()}
@@ -3628,6 +3833,11 @@ def main():
             extra["serving_launches_per_cycle"] = (
                 serve_bf16["overlapped"]["launches_per_cycle"]
                 if cache == "paged" else None)
+        # each rank's launches with a pos_stride a cycle of the sharded
+        # phases (kv_seq mesh: fp32 over 2 ranks, bf16 over 4); #2 only
+        if cache == "paged":
+            extra["sharded_launches_per_cycle"] = sharded[
+                "sharded" if dtype == torch.float32 else "sharded_bf16"]
         # the recurrent targets' kernel runs (host loop) in this dtype
         for phase, rec in recurrent.items():
             extra[f"{phase}_launches_per_cycle"] = rec[dn][cache][name]

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.config.base import ATTN_IMPLS
+from repro_torch.distributed import spdecode as sp
 from repro_torch.models import kvcache as kvc
 from repro_torch.models import param as pm
 from repro_torch.models.attention import attend
@@ -97,7 +98,8 @@ def init_feat_cache(dcfg: DrafterConfig, batch: int, max_len: int, dtype,
             batch, max_len, page_size, pool_pages, page_table, device)
         if ext_pool is not None:
             k, v = ext_pool
-            assert k.shape == (l, pool_pages, page_size, hkv, dh) \
+            assert k.shape == (l, pool_pages, kvc.local_page(page_size),
+                               hkv, dh) \
                 and k.dtype == dtype, ("retained pool geometry mismatch",
                                        tuple(k.shape))
         else:
@@ -183,14 +185,20 @@ def drafter_forward(p, dcfg: DrafterConfig, block_tokens, feat_cache,
         else block_mask
 
     paged = kvc.is_paged(feat_cache)
+    axis = sp.kv_seq_axis()
     # Kernel read: every layer hands its pool slice + the page table to the
     # paged cascade kernel, no gathered copy of the cache. Block slots sit
     # at positions >= feat_len, so the kernel's kpos <= q_abs clamp is
     # implied by its kpos < feat_len mask and both paths attend alike.
-    use_kernel = paged and dcfg.attn_impl == "kernel"
+    use_kernel = paged and dcfg.attn_impl == "kernel" and axis is None
+    # kv_seq-sharded feature pools: the hook the verify read uses (each
+    # rank reads its local pool run, by the gather or kernel #2 with
+    # pos_stride/pos_offset, merged by the float32 LSE all-reduce)
+    use_sharded = paged and axis is not None
     ctx_k, ctx_v = feat_cache["k"], feat_cache["v"]
     full_mask = None
-    if not use_kernel:
+    use_sp = False
+    if not (use_kernel or use_sharded):
         if paged:
             # logical per-row view gathered once for all drafter layers
             ctx_k = kvc.pool_view(ctx_k, feat_cache["pt"])
@@ -199,6 +207,10 @@ def drafter_forward(p, dcfg: DrafterConfig, block_tokens, feat_cache,
         ctx_ok = (torch.arange(cap, device=dev)[None, None, :]
                   < feat_len[:, None, None]).expand(b, t, cap)
         full_mask = torch.cat([ctx_ok, blk], dim=-1)
+        # a dense feature cache under a kv_seq mesh: the dense hook
+        # (merged in bfloat16: JAX passes no merge dtype here either)
+        n_sh = sp.kv_seq_shards()
+        use_sp = axis is not None and cap % n_sh == 0 and cap // n_sh >= 128
 
     for i in range(dcfg.num_layers):
         lp = p[f"layer{i}"]
@@ -214,6 +226,19 @@ def drafter_forward(p, dcfg: DrafterConfig, block_tokens, feat_cache,
                 q, ctx_k[i].to(k.dtype), ctx_v[i].to(v.dtype),
                 feat_cache["pt"], k, v, cache_len=feat_len, q_abs=positions,
                 tree_mask=blk)
+        elif use_sharded:
+            y = sp.sharded_paged_cache_attend(
+                q, ctx_k[i].to(k.dtype), ctx_v[i].to(v.dtype),
+                feat_cache["pt"], k, v, cache_len=feat_len, q_abs=positions,
+                attn_softcap=None, blk_mask=blk,
+                page_size=kvc.page_geometry(feat_cache)[0],
+                kv_chunk=kv_chunk, read_impl=dcfg.attn_impl)
+        elif use_sp:
+            y = sp.sharded_cache_attend(
+                q, ctx_k[i].to(k.dtype), ctx_v[i].to(v.dtype), k, v,
+                cache_len=feat_len, q_abs=positions, window=None,
+                attn_softcap=None, blk_mask=blk, rolling=False,
+                kv_chunk=kv_chunk)
         else:
             kk = torch.cat([ctx_k[i].to(k.dtype), k], dim=1)
             vv = torch.cat([ctx_v[i].to(v.dtype), v], dim=1)

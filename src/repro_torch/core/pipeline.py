@@ -245,6 +245,7 @@ class OnDeviceLoop:
 
     def __init__(self, bundle: SpecBundle, state: EngineState, max_new: int,
                  gen: torch.Generator):
+        _refuse_kv_seq_mesh()
         dev = state.anchor.device
         b = state.anchor.shape[0]
 
@@ -362,6 +363,19 @@ def _lengths(true_len, dev):
     return torch.as_tensor(np.asarray(true_len), device=dev).to(torch.int32)
 
 
+def _refuse_kv_seq_mesh():
+    """A cycle under a kv_seq mesh merges its reads by gloo all-reduces,
+    host-side collectives that no CUDA graph can hold."""
+    from repro_torch.distributed import spdecode
+    if spdecode.kv_seq_axis() is not None:
+        raise NotImplementedError(
+            "generate_ondevice / OnDeviceLoop inside a kv_seq mesh: the "
+            "sharded reads merge through gloo collectives on the host, which "
+            "a CUDA graph cannot capture; use generate (the eager cycle). "
+            "The graph-captured sharded loop comes with NCCL (ROADMAP.md "
+            "queue 1)")
+
+
 def generate_ondevice(bundle: SpecBundle, prompts, max_new: int,
                       seed: int = 0, max_len: Optional[int] = None,
                       cache_impl: str = "dense", page_size: int = 64,
@@ -379,8 +393,10 @@ def generate_ondevice(bundle: SpecBundle, prompts, max_new: int,
     the eager first one included, not the capture); capture_s is the
     capture alone and graph_pool_bytes the memory its private pool took
     (both 0 on the CPU). ``true_len``: ragged prompts, as in
-    :func:`generate`.
+    :func:`generate`. Inside a kv_seq mesh it raises
+    ``NotImplementedError`` (collectives cannot go into a CUDA graph).
     """
+    _refuse_kv_seq_mesh()
     dev = resolve_device(device)
     gen = pm.make_generator(seed, dev)
     prompts = torch.as_tensor(np.asarray(prompts), device=dev).long()

@@ -15,7 +15,9 @@ tensor runs the plain torch version (``*_plain``, the same arithmetic
 the kernel does, and the oracle the kernel is held to on the card), a
 CUDA tensor launches the kernel or raises. There is no fallback. Each
 wrapper counts its launches in ``<wrapper>.launches``, and those of them
-that went to the bf16 kernel in ``<wrapper>.sm90_launches``.
+that went to the bf16 kernel in ``<wrapper>.sm90_launches``; the paged
+one also counts in ``sharded_launches`` those made with a ``pos_stride``
+(the kv_seq-sharded reads of ``distributed/spdecode.py``).
 
 Split semantics match the Pallas kernels so partials compare one to one:
 dense ``ns = min(n_splits, ceil(S/bk))`` splits over the cache padded to
@@ -287,11 +289,13 @@ def cascade_phase1_paged(q, pool_k, pool_v, page_table, *, cache_len, q_abs,
     _raise_on(rc, fn)
     cascade_phase1_paged.launches += 1
     cascade_phase1_paged.sm90_launches += sm90
+    cascade_phase1_paged.sharded_launches += pos_stride is not None
     return acc, m, l
 
 
 cascade_phase1_paged.launches = 0
 cascade_phase1_paged.sm90_launches = 0
+cascade_phase1_paged.sharded_launches = 0
 
 
 def cascade_attention_paged(q, pool_k, pool_v, page_table, blk_k, blk_v, *,

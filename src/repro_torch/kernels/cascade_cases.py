@@ -69,6 +69,15 @@ CASES = {
     "dense_window": dict(kind="dense", window=256),
     # the kv_seq shard contract: logical page i at i * 64 + 32
     "pos_stride": dict(kind="paged", page=16, pos=(64, 32)),
+    # the kv_seq-sharded engine's reads (chip_smoke.py's sharded phases):
+    # rank r of P holds page_loc = 64 // P slots of every 64-key page, at
+    # i * 64 + r * page_loc; the verify block (Tq 76) and a drafter's
+    # (Tq 16); each logical page spans 64 positions the pool page fills
+    # only page_loc of, so tile spans hold dead slots
+    "shard2_r0": dict(kind="paged", page=32, pos=(64, 0)),
+    "shard2_r1": dict(kind="paged", page=32, pos=(64, 32)),
+    "shard4_r3": dict(kind="paged", page=16, pos=(64, 48)),
+    "shard4_r1_tq16": dict(kind="paged", page=16, pos=(64, 16), tq=16),
     "page8": dict(kind="paged", page=8),
     "page16": dict(kind="paged", page=16),
     # tile edges of the tensor-core kernels: 128 stacked rows a block, the

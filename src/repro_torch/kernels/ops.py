@@ -69,13 +69,16 @@ def cascade_attention(q, cache_k, cache_v, blk_k, blk_v, *, cache_len,
 
 def cascade_attention_paged(q, pool_k, pool_v, page_table, blk_k, blk_v, *,
                             cache_len, q_abs, tree_mask, window=None,
-                            attn_softcap=None, scale=None, n_splits=8):
+                            attn_softcap=None, scale=None, n_splits=8,
+                            pos_stride=None, pos_offset=None):
     """Cascade verify over a PAGED cache: pools [P,page,Hkv,D] plus
-    page_table [B, max_pages]."""
+    page_table [B, max_pages]; logical page ``i`` at positions
+    ``i*pos_stride + pos_offset + [0, page)`` (default: ``i*page``)."""
     q, blk_k, blk_v, pool_k, pool_v = (
         x.transpose(1, 2) for x in (q, blk_k, blk_v, pool_k, pool_v))
     o = casc.cascade_attention_paged(
         q, pool_k, pool_v, page_table, blk_k, blk_v, cache_len=cache_len,
         q_abs=q_abs, tree_mask=tree_mask, window=window,
-        attn_softcap=attn_softcap, scale=scale, n_splits=n_splits)
+        attn_softcap=attn_softcap, scale=scale, n_splits=n_splits,
+        pos_stride=pos_stride, pos_offset=pos_offset)
     return o.transpose(1, 2)

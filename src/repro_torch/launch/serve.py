@@ -10,10 +10,22 @@ with two 2-layer drafters at its widths, which needs the card's memory.
 ``--traffic`` replays an open-loop arrival trace through the overlapped
 front-end instead of a fixed batch. Runs on ``--device cuda`` unless
 ``--device cpu`` is asked for.
+
+``--mesh-model P`` (P > 1) serves with ONE engine spanning a ``(1, P)``
+mesh: the launcher starts its P gloo ranks itself
+(``launch/mesh.py::run_ranks``; on a card every rank uses device 0),
+each builds the same weights from the same seeds, and with ``--cache-impl
+paged`` each rank holds ``page_size // P`` slots of every page and the
+decode reads merge across ranks (``--kv-seq-axis off`` keeps the mesh
+and replicates the pool). Rank 0 prints. ``--mesh-data`` above 1 raises
+``NotImplementedError`` (ROADMAP.md queue 1, item 10); ``--traffic``
+under a mesh needs ``--virtual-clock``, since every rank must take the
+same admission decisions.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -108,7 +120,25 @@ def parse_args(argv=None):
                     help="drive the trace with the synchronous baseline")
     ap.add_argument("--virtual-clock", action="store_true",
                     help="replay in simulated time (1 s a decode cycle)")
+    ap.add_argument("--mesh-data", type=int, default=1,
+                    help="data mesh axis size (only 1 is ported)")
+    ap.add_argument("--mesh-model", type=int, default=1,
+                    help="model mesh axis size: P ranks serve as one "
+                         "engine; with --cache-impl paged each holds "
+                         "page_size // P slots of every page (page_size "
+                         "must be divisible by P) and the decode reads "
+                         "merge by an LSE all-reduce (default 1: no mesh)")
+    ap.add_argument("--kv-seq-axis", default="model",
+                    choices=["model", "off"],
+                    help="mesh axis backing the kv_seq logical axis; 'off' "
+                         "replicates the KV pool inside the mesh")
     args = ap.parse_args(argv)
+    if args.mesh_model < 1 or args.mesh_data < 1:
+        ap.error("--mesh-data and --mesh-model must be positive")
+    if args.mesh_model > 1 and args.traffic is not None \
+            and not args.virtual_clock:
+        ap.error("--traffic under a mesh needs --virtual-clock: every rank "
+                 "must take the same admission decisions")
     if args.bucket_sizes is not None:
         if args.bucket_sizes.strip().lower() in ("off", "none"):
             args.bucket_sizes = None
@@ -125,7 +155,32 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
+    """Serve; returns the stats (rank 0's under a mesh)."""
     args = parse_args(argv)
+    if args.mesh_data != 1:
+        raise NotImplementedError(
+            f"--mesh-data {args.mesh_data}: batch rows over a data axis come "
+            "with the batch and parameter rules (ROADMAP.md queue 1, item "
+            "10)")
+    if args.mesh_model > 1:
+        from repro_torch.launch.mesh import run_ranks
+        return run_ranks(_serve_rank, args.mesh_model, args)[0]
+    return _serve(args)
+
+
+def _serve_rank(rank, args):
+    """One rank of a ``--mesh-model`` run: the engine inside the mesh."""
+    from repro_torch.distributed.sharding import LOGICAL_RULES, use_sharding
+    from repro_torch.launch.mesh import make_mesh
+    rules = dict(LOGICAL_RULES,
+                 kv_seq=None if args.kv_seq_axis == "off" else "model")
+    with use_sharding(make_mesh(args.mesh_data, args.mesh_model), rules):
+        with contextlib.redirect_stdout(None) if rank else \
+                contextlib.nullcontext():
+            return _serve(args)
+
+
+def _serve(args):
     dev = resolve_device(args.device)
     bundle = build_bundle(args, dev)
     kw = dict(batch_size=args.requests, cache_impl=args.cache_impl,
@@ -180,10 +235,14 @@ def main(argv=None):
         prefix = (f" | prefix_hits={stats['prefix_hits']} "
                   f"saved={stats['prefill_tokens_saved']}tok "
                   f"cow={stats['cow_copies']}")
+    mesh_note = ""
+    if stats["kv_shards"] > 1:
+        mesh_note = (f" | kv_shards={stats['kv_shards']} "
+                     f"shard_slots={stats['pool_shard_slots']}")
     print(f"mode={args.mode} served {len(eng.done)} requests on {dev} | "
           f"alpha={stats.get('alpha', 0):.2f} | "
           f"{stats['tokens_per_s']:.1f} tok/s | "
-          f"{stats['cycles']} cycles" + prefix)
+          f"{stats['cycles']} cycles" + prefix + mesh_note)
     return stats
 
 

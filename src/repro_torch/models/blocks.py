@@ -39,6 +39,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.config.base import ModelConfig
+from repro_torch.distributed import spdecode
 from repro_torch.models import kvcache as kvc
 from repro_torch.models.attention import (attend, attend_cache_plus_block,
                                           attn_init, out_proj, project_qkv)
@@ -156,9 +157,9 @@ def _self_state(cfg, kind, batch, max_len, dtype, device, cache_impl,
     if kind == "global" and cache_impl == "paged":
         if ext_pool is not None:
             k, v = ext_pool
-            assert k.shape == (pool_pages, page_size, hkv, dh) \
-                and k.dtype == dtype, ("retained pool geometry mismatch",
-                                       tuple(k.shape))
+            assert k.shape == (pool_pages, kvc.local_page(page_size), hkv,
+                               dh) and k.dtype == dtype, (
+                "retained pool geometry mismatch", tuple(k.shape))
             return {"k": k, "v": v, "pt": page_table}
         return {"k": kvc.init_pool(pool_pages, page_size, hkv, dh, dtype,
                                    device),
@@ -298,8 +299,8 @@ def _attention(p, h, cfg, kind, *, state, cache_len, positions, write_kv,
 
         def cache_view():
             if paged:
-                ck = kvc.pool_view(state["k"], state["pt"])
-                cv = kvc.pool_view(state["v"], state["pt"])
+                ck = kvc.logical_view(state["k"], state["pt"])
+                cv = kvc.logical_view(state["v"], state["pt"])
             else:
                 ck, cv = state["k"], state["v"]
             return ck.to(k.dtype), cv.to(v.dtype)
@@ -337,8 +338,14 @@ def _attention(p, h, cfg, kind, *, state, cache_len, positions, write_kv,
                 else:
                     _scatter_kv_(state[name], new, cache_len, rolling,
                                  write_len=snap_at)
-        elif cfg.attn_impl == "kernel":
-            # the CUDA cascade kernels read the cache buffers in place
+        elif (y := _sharded_read(q, k, v, state, cfg, paged, rolling,
+                                 window, cap, cache_len, q_abs, extra_mask,
+                                 kv_chunk)) is not None:
+            kv_out = (k, v)
+        elif cfg.attn_impl == "kernel" and spdecode.kv_seq_axis() is None:
+            # the CUDA cascade kernels read the cache buffers in place (as
+            # in JAX, not inside a kv_seq mesh: what the sharded hook
+            # leaves there reads through the gather path)
             from repro_torch.kernels import ops as kops
             blk_mask = extra_mask
             if blk_mask is None:
@@ -369,6 +376,44 @@ def _attention(p, h, cfg, kind, *, state, cache_len, positions, write_kv,
                 kv_chunk=kv_chunk, rolling=rolling)
             kv_out = (k, v)
     return out_proj(p["attn"], y), kv_out
+
+
+def _sharded_read(q, k, v, state, cfg, paged, rolling, window, cap,
+                  cache_len, q_abs, extra_mask, kv_chunk):
+    """The decode read under a kv_seq mesh (twin of the JAX hook in
+    ``blocks.py``), or None where it does not apply: a paged, non-rolling,
+    windowless cache goes to ``sharded_paged_cache_attend`` with
+    ``read_impl=cfg.attn_impl`` (the local pool: kernel #2 with
+    pos_stride/pos_offset, or the gather of the local run); a dense one
+    whose capacity the axis divides into runs of at least 128 slots to
+    ``sharded_cache_attend`` (merged in bfloat16, as JAX's hook passes no
+    merge dtype); anything else reads unsharded (and so does every
+    read without a kv_seq axis). ``q_abs``: a function that gives the
+    queries' absolute positions."""
+    if spdecode.kv_seq_axis() is None:
+        return None
+    n_sh = spdecode.kv_seq_shards()
+    blk_mask = extra_mask
+    if blk_mask is None:
+        tb = k.shape[1]
+        blk_mask = torch.ones((tb, tb), dtype=torch.bool,
+                              device=q.device).tril()
+    if not paged:
+        if cap % n_sh or cap // n_sh < 128:
+            return None
+        return spdecode.sharded_cache_attend(
+            q, state["k"].to(k.dtype), state["v"].to(v.dtype), k, v,
+            cache_len=cache_len, q_abs=q_abs(), window=window,
+            attn_softcap=cfg.attn_softcap, blk_mask=blk_mask,
+            rolling=rolling, kv_chunk=kv_chunk)
+    if rolling or window is not None:
+        return None
+    page_size = kvc.page_geometry(state)[0]
+    return spdecode.sharded_paged_cache_attend(
+        q, state["k"].to(k.dtype), state["v"].to(v.dtype), state["pt"], k, v,
+        cache_len=cache_len, q_abs=q_abs(), attn_softcap=cfg.attn_softcap,
+        blk_mask=blk_mask, page_size=page_size, kv_chunk=kv_chunk,
+        read_impl=cfg.attn_impl)
 
 
 def _scatter_kv_(buf, new, start, rolling: bool, write_len=None):

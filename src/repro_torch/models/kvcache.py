@@ -21,6 +21,18 @@ capture them.
 :class:`PagePool` is the host-side refcounted allocator the serving
 engine hands pages out from; :func:`copy_page_` is the copy-on-write
 step of a prefix-cache hit that ends inside a page.
+
+Mesh layout (page identity global, page bytes per rank): under a
+``use_sharding`` context with a ``kv_seq`` axis of P ranks, each rank's
+pool is a real allocation of its run of every page, ``[.., pool_pages,
+page_size // P, H, D]``: rank r holds slots ``[r*page/P, (r+1)*page/P)``
+(JAX's ``shard_pool`` places the same bytes). The host allocator,
+refcounts, radix tree and page tables are global and run alike on every
+rank. :func:`page_geometry` reports the global page; every writer
+(:func:`pool_scatter_`, so the commits, installs and feature-cache
+extensions, and :func:`copy_page_`) writes only the local run; the
+decode hook reads the local run (``distributed/spdecode.py``), and
+:func:`logical_view` gathers every rank's run for the reads outside it.
 """
 from __future__ import annotations
 
@@ -28,6 +40,9 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from repro_torch.distributed import sharding as sh
+from repro_torch.distributed import spdecode as sp
 
 #: Page-table entry marking an unallocated logical page (int32 max; its
 #: own copy of ``repro.models.kvcache.PAGE_SENTINEL``). Reads clamp it to
@@ -45,9 +60,12 @@ def pages_for(n_tokens: int, page_size: int) -> int:
 
 
 def page_geometry(cache_dict):
-    """(page_size, max_pages, pool_pages) of a paged cache dict."""
+    """(page_size, max_pages, pool_pages) of a paged cache dict. Under a
+    kv_seq mesh the pool holds this rank's run of each page, and the
+    global page is that run times the axis size."""
     pool = cache_dict["k"]
-    return pool.shape[-3], cache_dict["pt"].shape[-1], pool.shape[-4]
+    return (pool.shape[-3] * sp.kv_seq_shards(), cache_dict["pt"].shape[-1],
+            pool.shape[-4])
 
 
 def logical_len(cache_dict) -> int:
@@ -76,11 +94,28 @@ def default_page_layout(batch: int, max_len: int, page_size: int,
     return pool_pages, page_table
 
 
+def local_page(page_size: int) -> int:
+    """Slots of each page this rank's pool holds: ``page_size``, or under
+    a kv_seq mesh of P ranks ``page_size // P`` (twin of JAX's
+    ``shard_pool`` placement). A page that P does not divide raises."""
+    n = sp.kv_seq_shards()
+    if page_size % n:
+        raise ValueError(
+            f"page_size={page_size} must be divisible by the kv_seq mesh "
+            f"axis size ({n}): each rank holds page_size // {n} slots of "
+            "every page")
+    return page_size // n
+
+
 def init_pool(pool_pages: int, page_size: int, num_kv_heads: int,
               head_dim: int, dtype, device, lead: tuple = ()):
-    """Zeroed K or V page pool [*lead, P, page, Hkv, Dh]."""
-    return torch.zeros((*lead, pool_pages, page_size, num_kv_heads,
-                        head_dim), dtype=dtype, device=device)
+    """Zeroed K or V page pool [*lead, P, page, Hkv, Dh]; under a kv_seq
+    mesh this rank's pool [*lead, P, page // n_shards, Hkv, Dh]: rank r
+    holds slots ``[r*page/n, (r+1)*page/n)`` of every page
+    (:func:`local_page`), and page ids, tables and the host allocator stay
+    global."""
+    return torch.zeros((*lead, pool_pages, local_page(page_size),
+                        num_kv_heads, head_dim), dtype=dtype, device=device)
 
 
 def pool_view(pool, table):
@@ -102,6 +137,24 @@ def pool_view(pool, table):
     return v.reshape(v.shape[0], b, mp * v.shape[3], *v.shape[4:])
 
 
+def logical_view(pool, table):
+    """:func:`pool_view` of the whole logical pool. Under a kv_seq mesh
+    every rank's local view is all-gathered and put back in page order
+    (what JAX's GSPMD gathers for a read outside the sharded decode hook:
+    a prefill after a prefix hit, the replay of the state-replay
+    verifier); without one, :func:`pool_view` itself."""
+    mesh, axis = sh.active_mesh(), sp.kv_seq_axis()
+    loc = pool_view(pool, table)
+    if axis is None:
+        return loc
+    n, b, mp = mesh.size(axis), table.shape[0], table.shape[1]
+    parts = mesh.all_gather(loc, axis)       # [n, .., B, MP*page_loc, H, D]
+    lead = parts.shape[1:-4]
+    parts = parts.reshape(n, *lead, b, mp, -1, *parts.shape[-2:])
+    out = parts.movedim(0, -4)               # [.., B, MP, n, page_loc, H, D]
+    return out.reshape(*lead, b, -1, *out.shape[-2:])
+
+
 def pool_scatter_(pool, table, new, pos, valid=None):
     """Write ``new`` at logical positions ``pos`` of each row's paged
     stream, in place. Returns ``pool``.
@@ -111,27 +164,34 @@ def pool_scatter_(pool, table, new, pos, valid=None):
     pos: [B, T] logical positions; valid: optional [B, T] bool. Entries
     that are invalid, or whose position falls outside the row's table or
     onto an unallocated (out-of-range) page, are dropped
-    (:func:`drop_put_`).
+    (:func:`drop_put_`). Under a kv_seq mesh the pool is this rank's run
+    of each page, and so are dropped the entries whose in-page slot lies
+    in another rank's run.
     """
-    page = pool.shape[-3]
+    loc = pool.shape[-3]
+    n_sh = sp.kv_seq_shards()
+    page = loc * n_sh
     n_phys = pool.shape[-4]
     mp = table.shape[-1]
     pos = pos.long()
     pidx = torch.div(pos, page, rounding_mode="floor")
     slot = pos - pidx * page
     ok = (pos >= 0) & (pidx < mp)
+    if n_sh > 1:
+        slot = slot - sp.kv_seq_index() * loc
+        ok = ok & (slot >= 0) & (slot < loc)
     if valid is not None:
         ok = ok & valid
     phys = torch.gather(table.long(), 1, pidx.clamp(0, mp - 1))
     ok = ok & (phys >= 0) & (phys < n_phys)
-    flat = (phys * page + slot).reshape(-1)
+    flat = (phys * loc + slot).reshape(-1)
     tail = pool.shape[-2:]
     if pool.ndim == 4:
-        drop_put_(pool.view(n_phys * page, *tail), 0, flat,
+        drop_put_(pool.view(n_phys * loc, *tail), 0, flat,
                   new.reshape(-1, *tail), ok.reshape(-1))
     else:
         lead = pool.shape[0]
-        drop_put_(pool.view(lead, n_phys * page, *tail), 1, flat,
+        drop_put_(pool.view(lead, n_phys * loc, *tail), 1, flat,
                   new.reshape(lead, -1, *tail), ok.reshape(-1))
     return pool
 
@@ -168,7 +228,7 @@ def copy_page_(pool, src: int, dst: int):
     """Copy physical page ``src`` to ``dst`` in place (the COW step).
 
     pool: [..., P, page, H, D] (any stacked leading axes, as the drafter
-    layers'). Used when a prefix-cache hit ends inside a page: the shared
+    layers'); under a kv_seq mesh this rank's run of the page. Used when a prefix-cache hit ends inside a page: the shared
     partial tail page is duplicated into a freshly allocated page before
     the new row's first write, so a page with refcount > 1 is never
     written. Returns ``pool``."""

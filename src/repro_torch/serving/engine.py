@@ -49,17 +49,32 @@ injected :class:`~repro_torch.serving.metrics.Clock`.
 
 Random numbers: one ``torch.Generator`` per engine (``seed``), which
 every install and cycle draws from in order, in place of JAX's key
-splits. Not ported here: mesh residency (ROADMAP.md queue 1, slice E;
-the stats keep its keys for one device: ``kv_shards`` 1,
-``pool_shard_slots`` the pool's slots, ``decode_collective_bytes`` 0).
-Cross-attention targets (VLM, encoder-decoder) are refused: a request
-carries no context, and JAX's engine serves them against a zero cross
-cache.
+splits. Cross-attention targets (VLM, encoder-decoder) are refused: a
+request carries no context, and JAX's engine serves them against a zero
+cross cache.
+
+Mesh residency: build the engine inside a ``use_sharding`` context with
+a ``kv_seq`` axis (``launch/serve.py --mesh-model P``), in every rank of
+the mesh, and the ranks serve as ONE engine. Page identity is global,
+page bytes are per rank: the host allocator, radix tree, page tables and
+admission run alike in every rank (they are deterministic given the
+same requests and seed), while each rank's pools hold its
+``page_size // kv_shards`` slots of every page
+(``models/kvcache.py``), and every decode read runs the sharded hook of
+``distributed/spdecode.py``, merged by the LSE all-reduce. The mesh
+context is captured at construction and re-entered around the engine's
+work. Stats: ``kv_shards``, ``pool_shard_slots`` (each rank's slots,
+``pool_pages * page_size / kv_shards``) and ``decode_collective_bytes``
+(what each rank's decode merges sent, counted every cycle).
+:meth:`ServingEngine.agree_across_ranks` checks that the ranks' books
+agree.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import hashlib
 from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
@@ -70,10 +85,21 @@ from repro_torch.core import pipeline as pl
 from repro_torch.core.state import (EngineState, capture_pools, cow_copy_page,
                                     engine_init, install_rows,
                                     refill_copy_bytes)
+from repro_torch.distributed import sharding as sh
+from repro_torch.distributed import spdecode
 from repro_torch.models import kvcache as kvc
 from repro_torch.models import param as pm
 from repro_torch.serving.metrics import Clock, MetricsRecorder, MonotonicClock
 from repro_torch.serving.prefix_cache import PrefixCache, PrefixHit
+
+
+def _in_mesh(method):
+    """Run an engine method inside the engine's sharding context."""
+    @functools.wraps(method)
+    def wrapped(self, *args, **kw):
+        with self._mesh_scope():
+            return method(self, *args, **kw)
+    return wrapped
 
 
 @dataclasses.dataclass
@@ -166,7 +192,18 @@ class ServingEngine:
                 "must be masked so they cannot write through stale page "
                 "tables into freed (reallocated) pages")
         self.device = resolve_device(device)
-        self.kv_shards = 1
+        # mesh residency: the sharding context captured once, re-entered
+        # around the engine's work (_mesh_scope)
+        self._mesh = sh.active_mesh()
+        self._rules = (dict(sh.active_rules()) if self._mesh is not None
+                       else None)
+        self.kv_shards = spdecode.kv_seq_shards()
+        if cache_impl == "paged" and page_size % self.kv_shards != 0:
+            raise ValueError(
+                f"page_size={page_size} must be divisible by the kv_seq "
+                f"mesh axis size ({self.kv_shards}): page payloads are "
+                "split WITHIN the page, each rank owns page_size // "
+                "n_shards slots of every page")
         self.bundle = bundle
         self.batch_size = batch_size
         self.early_exit = early_exit
@@ -226,6 +263,42 @@ class ServingEngine:
         # batch, capacity, pool pages), the JAX engine's trace key
         self._install_shapes = set()
 
+    @contextlib.contextmanager
+    def _mesh_scope(self):
+        """Re-enter the construction-time sharding context (it is
+        thread-local: a front end may drive the engine from a thread that
+        never saw the caller's ``use_sharding`` block)."""
+        if self._mesh is None:
+            yield
+        else:
+            with sh.use_sharding(self._mesh, self._rules):
+                yield
+
+    def agree_across_ranks(self, wave: Optional[Wave] = None) -> None:
+        """Under a kv_seq mesh: one small all-reduce compares a hash of
+        this rank's page tables and committed tokens (``wave``'s, or every
+        finished request's) with every other rank's, and raises
+        ``RuntimeError`` on any difference. A no-op without a mesh."""
+        axis = spdecode.kv_seq_axis()
+        if axis is None:
+            return
+        h = hashlib.sha256()
+        if wave is not None:
+            h.update(wave.state.d1_feat["pt"].cpu().numpy().tobytes()
+                     if "pt" in wave.state.d1_feat else b"")
+            h.update(wave.bufs.tobytes())
+            h.update(wave.filled.tobytes())
+        for r in self.done:
+            h.update(np.int64(r.uid).tobytes())
+            h.update(np.asarray(r.out).tobytes())
+        v = int.from_bytes(h.digest()[:7], "little")
+        t = torch.tensor([v, -v], dtype=torch.int64)
+        sh.active_mesh().all_reduce_(t, torch.distributed.ReduceOp.MAX, axis)
+        if int(t[0]) != v or int(-t[1]) != v:
+            raise RuntimeError(
+                "the ranks of the mesh disagree on their page tables or "
+                "committed tokens")
+
     def submit(self, prompt: np.ndarray, max_new: int,
                t_arrival: Optional[float] = None) -> int:
         uid = self._next_uid
@@ -279,6 +352,7 @@ class ServingEngine:
         return live + int(np.ceil(self.pool_headroom * live))
 
     # ------------------------------------------------------ step API ------
+    @_in_mesh
     def start_wave(self, width: Optional[int] = None) -> bool:
         """Allocate + prefill the next running batch. False if queue empty.
 
@@ -553,6 +627,7 @@ class ServingEngine:
         return np.array([r is not None and w.filled[i] < w.targets[i]
                          for i, r in enumerate(w.requests)])
 
+    @_in_mesh
     def dispatch_cycle(self):
         """Enqueue ONE decode cycle and return without waiting for it.
 
@@ -571,7 +646,10 @@ class ServingEngine:
         # which must not reach the host snapshot ``active`` of this cycle
         w.state = w.state.replace(active=torch.tensor(
             mask, dtype=torch.bool, device=self.device))
+        b0 = spdecode.PAYLOAD.bytes
         w.state, out = self._cycle(w.state, self.gen)
+        # bytes the cycle's sharded reads sent into their LSE merges
+        self.stats["decode_collective_bytes"] += spdecode.PAYLOAD.bytes - b0
         w.cycles += 1
         self.clock.tick("cycle")
         if w.pool is not None:
@@ -581,6 +659,7 @@ class ServingEngine:
         self.stats["wasted_row_cycles"] += int(b - active.sum())
         return active, out, self.clock.now()
 
+    @_in_mesh
     def complete_cycle(self, handle) -> bool:
         """Read a dispatched cycle's results, bank tokens, retire: the
         wave's only device-sync boundary. Returns True while any slot
@@ -624,6 +703,7 @@ class ServingEngine:
         """ONE decode cycle, dispatch + complete back-to-back."""
         return self.complete_cycle(self.dispatch_cycle())
 
+    @_in_mesh
     def admit_idle(self) -> int:
         """Fill idle slots from the queue while a dispatched cycle is in
         flight (the overlap window); installs are grouped by suffix
@@ -728,6 +808,7 @@ class ServingEngine:
         if w.pool is not None and self.pool_scope == "engine":
             # borrowed-pool contract: the next wave adopts these tensors
             self._pools = capture_pools(w.state)
+        self.agree_across_ranks(w)
         self.wave = None
 
     # ----------------------------------------------------- drain loop -----

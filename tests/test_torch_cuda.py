@@ -62,6 +62,8 @@ def dev():
 CARD_CASES = {"dense": "dense_tq76", "paged": "paged_tq76",
               "softcap": "paged_softcap", "window": "paged_window",
               "dense_window": "dense_window", "pos_stride": "pos_stride",
+              # a 4-rank kv_seq mesh's read: 16-slot runs at offset 48
+              "shard": "shard4_r3",
               "page8": "page8", "rolling": "rolling97_w50", "tq1": "tq1",
               "tq136": "tq136", "group1": "group1", "group8": "group8",
               "d64": "d64", "d96": "d96",
