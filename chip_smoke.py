@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py            # every phase, full width and depth
+    python3 chip_smoke.py            # every phase, full width, cut depth
 
 Phases, each printing one JSON line (any failure exits non-zero):
 
@@ -73,16 +73,16 @@ Phases, each printing one JSON line (any failure exits non-zero):
            replay; the launches of the loop's first cycle and capture
            held exact (40 paged, 36 dense)
   modes    fp32 greedy through ``generate_ondevice`` (kernel path, 32
-           new tokens, the main path's model cut to 6 of its 36 layers:
+           new tokens, the main path's model cut to 3 of its 36 layers:
            the run's time limit) in the modes beside d2sd: naive_k, eagle
            (drafter 1 causal), dflash_second (drafter 1 as drafter 2) and
            d2sd with the third level, paged and dense: tokens held to
            plain greedy, cascade launches a cycle held to the mode's count
-           (6 dense; paged 8, 36, 10, 12: 6 target layers and 2 a
+           (3 dense; paged 5, 33, 7, 9: 3 target layers and 2 a
            drafter pass), the third level's host loop held to its graph
            loop; each mode's paged loop profiled (ms and device ms a
            replay, graph pool bytes, phase-1 launches by name)
-  sampled  fp32 d2sd at temperature 1, paged, kernel path, one seed (6
+  sampled  fp32 d2sd at temperature 1, paged, kernel path, one seed (3
            layers, as modes): the
            graph loop's tokens and every cycle's acceptance uniforms
            held to the host loop's (and no two cycles' uniforms equal),
@@ -91,7 +91,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
            kernels (one cycle over 2000 copies of a prompt: TV of the
            first token against the target's softmax, every mode)
   serving  fp32 ``ServingEngine`` (batch 4, pages of 64, a pool of 160) at
-           the main path's model cut to 6 of its 36 layers (the run's
+           the main path's model cut to 3 of its 36 layers (the run's
            time limit), gamma 16, K 4: 10 requests behind a
            320-token system prompt (two sharing 352 tokens, one a second
            turn over an earlier answer; ``max_new`` 8-48; the first
@@ -122,9 +122,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
            phase-1 kernel being phase1_sm90_kernel (launches held exact
            through the sm90 kernels)
   modes_bf16  each mode of the modes phase and d2sd sampled in bf16
-           (6 layers, as modes), paged, graph loop: ms a replay, decode
+           (3 layers, as modes), paged, graph loop: ms a replay, decode
            tokens/s, launches through the sm90 kernels, profile
-  serving_bf16  the serving requests in bfloat16 (6 layers, as
+  serving_bf16  the serving requests in bfloat16 (3 layers, as
            serving) as a Poisson trace at 1 request/s through the
            overlapped front end and the synchronous baseline (paged, prefix cache, kernel path, the
            card's own clock): ms a cycle, engine cycles, tokens over the
@@ -134,7 +134,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
            metric: ten requests have no tail, and the slots are not kept
            full
   sharded  the serving phase's engine (the same requests, batch 4, pages
-           of 64, a pool of 160, prefix cache, fp32, 6 layers, weights
+           of 64, a pool of 160, prefix cache, fp32, 3 layers, weights
            from the same seeds) spanning a 2-rank kv_seq mesh: two gloo
            ranks spawned on this card (``launch/mesh.py::run_ranks``),
            each holding 32 slots of every page, every verify and drafter
@@ -195,6 +195,36 @@ Phases, each printing one JSON line (any failure exits non-zero):
            replays profiled (paged); kimi-k2-1t-a32b (384 experts, top 8,
            a shared expert) in bf16 at 1 of 61 layers, kernel against
            gather by the bf16 near-tie rule
+  ep       expert parallelism: grok-1-314b in fp32 at the moe phase's
+           depth over 2 gloo ranks spawned on the card, each drawing only
+           its 4 of the 8 experts from the seeds (the rest of the model
+           whole on every rank), kv_seq and experts on the same axis
+           (pages of 64: 32 slots a rank); the moe phase's four prompts
+           as engine requests of 16 new tokens (one wave, prefix
+           cache; the moe phase runs 32: the time limit): the kernel
+           and gather paths at capacity factor 1.25 and the kernel path
+           at E/k; tokens equal across ranks; on every rank #2's launches
+           with a pos_stride a cycle equal to the unsharded count and no
+           other cascade launch (none on the gather path), #2 on the
+           rank's live pools held to its plain version, the EP layer on
+           the kernel run's first verify pass (304 tokens) held to a
+           plain fp32 sum of the rank's experts, all-reduced (1e-4 of
+           its largest magnitude), the kernel run held to the gather run
+           by the near-tie rule and the no-drop run to the moe phase's
+           plain greedy; ms a cycle, the EP all-reduces' and the merges'
+           host time a cycle, dropped pairs a cycle, peak and expert
+           memory a rank
+  ep_bf16  the same for kimi-k2-1t-a32b in bf16 at 1 layer over 4 ranks
+           (96 of its 384 experts a rank, the shared expert on every
+           rank; 16 slots of each page), kernel and gather paths, the EP
+           layer held within 16 roundings of bf16 (2^-5 of the largest
+           magnitude); each request's first divergence of the kernel run
+           from the gather run reported with its gap in bf16 ulps, not
+           held (they part on gaps wider than the near-tie rule's); the
+           same pair with the kv_seq axis off (pools replicated, reads
+           through the unsharded #2: launches held to the same count a
+           cycle, none with a pos_stride), its divergences reported beside
+           them
   ctx      llama-3.2-vision-11b cut to 20 of its 40 layers (4 cross
            layers over 1601 random vision tokens) and whisper-medium (24
            encoder layers over 1500 random frames, then 12 of its 24
@@ -248,19 +278,20 @@ Phases, each printing one JSON line (any failure exits non-zero):
            ``load_study`` and the held-out decode of
            benchmarks/common.py::measure (12 prompts of 48 tokens a task
            from seed 777 at offset 5e6, 96 new tokens) in d2sd, dflash,
-           eagle, naive_k and dflash_second, the kernel path on paged and
-           dense caches and the gather path (host loop): tokens held to
+           eagle, naive_k and dflash_second, the kernel path on the paged
+           cache (and for d2sd the dense one: the run's time limit) and
+           the gather path (host loop): tokens held to
            plain greedy and to the gather run, cascade launches a cycle
            exact, alpha by method and task; d2sd with seeded random
            drafters beside it: the trained drafters' alpha must be above
            1.0 and above the random ones' on every task; seconds of each
            stage
-  distill_full  paper_target.full() cut to 12 of 36 layers (the run's
+  distill_full  paper_target.full() cut to 6 of 36 layers (the run's
            time limit) in bf16, random seeded weights: 16 greedy
            rollouts of 128 + 128 tokens, then d1 (DFlash) and d2 (VP)
            for ``production_drafter`` (d 1024, 8 heads over 2, vocab
            151936, features 3 x 4096) distilled 150 steps each at batch
-           16, the teacher through the bf16 flash forward (12 launches a
+           16, the teacher through the bf16 flash forward (6 launches a
            step, exact): falling losses, ms a step, peak memory; then d2sd
            through the bf16 graph loop (paged, 4 prompts of 128, 64 new)
            with the trained and with random drafters: alpha, ms a
@@ -1403,7 +1434,7 @@ MODES = {"naive_k": ("naive_k", False), "eagle": ("eagle", False),
          "dflash_second": ("dflash_second", False),
          "third_level": ("d2sd", True)}
 MODE_NEW = 32           # tokens a row in the modes and sampled phases
-MODE_LAYERS = 6         # paper-target cut in depth for them (time limit)
+MODE_LAYERS = 3         # paper-target cut in depth for them (time limit)
 SAMPLE_T, SAMPLE_SEED = 1.0, 5
 
 
@@ -1794,13 +1825,14 @@ def bf16_path(bundle, prompts):
     return b16, kinfo["ms_per_cycle"], launches, per_cycle, eager
 
 
-def bf16_divergences(bundle, prompts, kt, gt, cache):
+def bf16_divergences(bundle, prompts, kt, gt, cache, gate=True):
     """Where each row of the bf16 kernel run first leaves the gather run,
     the top-2 gap of a plain bf16 forward over the context the two runs
     share (the prompt and the tokens before it), in bf16 ulps of the top
     logit. A divergence passes only on a gap below NEAR_TIE_BF16_ULPS.
     Each record also says how far one verify step over that context moves
-    the same gap when the read path changes (``step_shift_ulps``)."""
+    the same gap when the read path changes (``step_shift_ulps``).
+    ``gate=False``: the records only (the caller holds them)."""
     from repro_torch.models import lm
     out = []
     for r in range(kt.shape[0]):
@@ -1822,7 +1854,7 @@ def bf16_divergences(bundle, prompts, kt, gt, cache):
                "step_shift_ulps": _step_gap_shift(bundle, ctx, cache,
                                                   ids) / ulp}
         out.append(rec)
-        if rec["ulps"] >= NEAR_TIE_BF16_ULPS:
+        if gate and rec["ulps"] >= NEAR_TIE_BF16_ULPS:
             fail(f"bf16 {cache}: row {r}: the kernel run leaves the "
                  f"gather run on a wide gap: {rec}")
     return out
@@ -2374,10 +2406,11 @@ SERVE_PREFIX = 5              # pages of the shared system prompt (320)
 SERVE_SFX = (1, 2, 3, 14, 5, 7, 9, 2, 11)  # suffixes, in half pages (32)
 SERVE_NEW = (24, 8, 40, 16, 48, 12, 32, 20, 36, 28)
 SERVE_RATE = 1.0              # requests/s of the bf16 phase's Poisson trace
-SERVE_LAYERS = 6              # paper-target cut in depth for the serving
-                              # phases (a sixth of 36: their eager cycles
-                              # are host-bound and the run's time limit
-                              # binds)
+SERVE_LAYERS = 3              # paper-target cut in depth for the serving
+                              # and sharded phases (a twelfth of 36, the
+                              # drafters' 3 feature layers: their eager
+                              # cycles are host-bound and the run's time
+                              # limit binds)
 
 
 def serving_traffic(bundle):
@@ -2440,10 +2473,13 @@ def _pool_owned_by_tree(eng, where):
              f"tree owns {len(tree)}")
 
 
-def serve_run(bundle, reqs, name, snoop=None, **kw):
-    """Request 0, then the other nine, through one ``ServingEngine``
-    (batch 4, pages of 64): per-request tokens and a record of the run.
-    ``snoop(eng, state)``, when given, sees the state before each cycle."""
+def serve_run(bundle, reqs, name, snoop=None, first_alone=True,
+              in_cycle=contextlib.nullcontext, **kw):
+    """Request 0, then the other nine (``first_alone``; else all at once),
+    through one ``ServingEngine`` (batch 4, pages of 64): per-request
+    tokens and a record of the run. ``snoop(eng, state)``, when given,
+    sees the state before each cycle; each cycle runs inside
+    ``in_cycle()``."""
     from repro_torch.serving.engine import ServingEngine
     eng = ServingEngine(bundle, batch_size=SERVE_BATCH, device=DEVICE, **kw)
     n_cycles = [0]
@@ -2453,13 +2489,14 @@ def serve_run(bundle, reqs, name, snoop=None, **kw):
         n_cycles[0] += 1
         if snoop is not None:
             snoop(eng, state)
-        return cycle(state, gen)
+        with in_cycle():
+            return cycle(state, gen)
 
     eng._cycle = counted
     cycle_s = _time_cycles(eng)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for part in (reqs[:1], reqs[1:]):
+    for part in (reqs[:1], reqs[1:]) if first_alone else (reqs,):
         for p, n in part:
             eng.submit(p, n)
         stats = eng.run()
@@ -3122,17 +3159,21 @@ DENSE_ARCHS = (("qwen2.5-3b", 18), ("gemma2-2b", 13),
                ("stablelm-3b", 16), ("internlm2-20b", 8))
 
 
-def arch_bundle(arch, dtype, layers=None):
+def arch_bundle(arch, dtype, layers=None, mesh=None):
     """``arch`` at full width (cut to ``layers`` when given) in ``dtype``
     with random seeded weights and two drafters by JAX's
     ``production_drafter`` rule, d2sd at gamma 16, K 4. A MoE's expert
     stacks are drawn straight into ``dtype`` (``param_dtype``); the other
-    weights are drawn in fp32 and, for bf16, cast in place. Returns
-    (bundle, the encoder's params or None)."""
+    weights are drawn in fp32 and, for bf16, cast in place (the target's
+    before the drafters are drawn). ``mesh``: a MoE target keeps only
+    this rank's part of each expert stack (``lm_init(expert_part=)``:
+    every expert drawn, the rest dropped). Returns (bundle, the encoder's
+    params or None)."""
     from repro_torch.config.base import SpecConfig
     from repro_torch.config.registry import get_config
     from repro_torch.core import pipeline as pl
     from repro_torch.core.drafter import drafter_init
+    from repro_torch.distributed import ep
     from repro_torch.launch.steps import production_drafter
     from repro_torch.models import encdec, lm
     cfg = get_config(arch)
@@ -3145,7 +3186,11 @@ def arch_bundle(arch, dtype, layers=None):
         both = encdec.encdec_init(cfg, seed=0, device=DEVICE)
         enc, tp = both["encoder"], both["decoder"]
     else:
-        tp = lm.lm_init(cfg, seed=0, device=DEVICE)
+        tp = lm.lm_init(cfg, seed=0, device=DEVICE, expert_part=(
+            None if mesh is None else ep.mesh_expert_part(cfg, mesh)))
+    if dtype == "bfloat16":
+        cast_bf16_(tp)
+        torch.cuda.empty_cache()
     spec = SpecConfig(gamma=GAMMA, top_k_branches=K_BRANCHES, mode="d2sd")
     bundle = pl.SpecBundle(cfg, dcfg, dcfg, spec, tp,
                            drafter_init(dcfg, seed=1, device=DEVICE),
@@ -3245,12 +3290,15 @@ def _hold(where, toks, ref, gaps, greedy=True):
 
 class MoeProbe:
     """While installed, works out from the routing itself
-    (``moe._capacity``, ``_positions``) what each MoE pass did, kept on
-    the card: by the pass's token count (the prefill's B x P, a verify
-    pass's B x n_tree) the passes, (token, expert) pairs and dropped
-    pairs. The program keeps no such record."""
+    (``moe._capacity``, ``_positions``; inside an experts mesh, expert
+    parallelism's own capacity ``ep.ep_capacity`` of the rank's tokens)
+    what each MoE pass did, kept on the card: by the pass's token count
+    (the prefill's B x P, a verify pass's B x n_tree) the passes, (token,
+    expert) pairs and dropped pairs, over all experts (every rank routes
+    every token). The program keeps no such record."""
 
     def __enter__(self):
+        from repro_torch.distributed import ep
         from repro_torch.models import moe
         self.moe, self.real = moe, moe.moe_apply
         self.counts = {}
@@ -3260,8 +3308,9 @@ class MoeProbe:
             x2 = x.reshape(-1, x.shape[-1])
             probs = torch.softmax(x2.float() @ p["router"].float(), -1)
             idx = torch.topk(probs, m.top_k, dim=-1).indices
-            keep = (moe._positions(idx, m.num_experts)
-                    < moe._capacity(x2.shape[0], cfg))
+            cap = (ep.ep_capacity(x2.shape[0], cfg) if ep.ep_available(cfg)
+                   else moe._capacity(x2.shape[0], cfg))
+            keep = moe._positions(idx, m.num_experts) < cap
             rec = self.counts.setdefault(x2.shape[0], torch.zeros(
                 3, dtype=torch.long, device=x.device))
             rec += torch.stack([torch.ones_like(rec[0]),
@@ -3293,7 +3342,8 @@ def moe_path():
     at 4 layers, six profiled graph replays (paged), and kimi-k2-1t-a32b
     in bf16 at 1 of 61 layers (384 experts, top 8, a shared expert):
     kernel against gather by the bf16 near-tie rule. Returns launches a
-    cycle by model, dtype and cache."""
+    cycle by model, dtype and cache, and the no-drop run's plain greedy
+    reference ({"layers", "tokens", "gaps"}: the ``ep`` phase's)."""
     from repro_torch.core import pipeline as pl
     t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3334,6 +3384,7 @@ def moe_path():
     ref, gaps = greedy_reference(nodrop.target_params, nodrop.target_cfg,
                                  torch.as_tensor(prompts, device=DEVICE),
                                  ARCH_NEW)
+    nodrop_ref = {"layers": cfg.num_layers, "tokens": ref, "gaps": gaps}
     probes = {}
     toks, runs, _ = _arch_runs("moe grok-1 no-drop", nodrop, prompts,
                                [("kernel", "paged", False)], probes=probes)
@@ -3387,7 +3438,415 @@ def moe_path():
                    "kimi-k2-1t-a32b": f"bf16 {KIMI_LAYERS} of 61 layers"},
           **out, "launches_per_cycle": launches,
           "seconds": time.perf_counter() - t0})
-    return launches
+    return launches, nodrop_ref
+
+
+# ------------------------------------------------- expert parallelism --
+# phase -> (ranks, dtype, arch, layers, prompt seed): grok-1 fp32 over 2
+# ranks (4 of its 8 experts a rank) at the moe phase's depth and prompts;
+# kimi-k2 bf16 over 4 (96 of 384 experts a rank, the shared expert on
+# every rank) at 1 of 61 layers. Every rank holds its part of the expert
+# stacks and a whole copy of everything else, on the one card; kv_seq
+# shards the pools over the same axis (page 64: 32 or 16 slots a rank)
+EP = {"ep": (2, "float32", "grok-1-314b", GROK_LAYERS, 21),
+      "ep_bf16": (4, "bfloat16", "kimi-k2-1t-a32b", KIMI_LAYERS, 22)}
+EP_NEW = 16     # new tokens a request (the moe phase's first ARCH_NEW: time)
+
+
+class CycleReduces:
+    """Inside each decode cycle (``serve_run(in_cycle=)``): the EP
+    all-reduces timed after a synchronize (``ep.REDUCES.timed``), their
+    calls, bytes and host seconds kept apart from the installs'."""
+
+    def __init__(self):
+        self.calls = self.bytes = 0
+        self.seconds = 0.0
+
+    @contextlib.contextmanager
+    def __call__(self):
+        from repro_torch.distributed import ep
+        r = ep.REDUCES
+        before = (r.calls, r.bytes, r.merge_s)
+        r.timed = True
+        try:
+            yield
+        finally:
+            r.timed = False
+            self.calls += r.calls - before[0]
+            self.bytes += r.bytes - before[1]
+            self.seconds += r.merge_s - before[2]
+
+
+def _first_divergences(bundle, reqs, kt, gt):
+    """Each request's first divergence of the kernel run from the gather
+    run ({uid: record}) with the near-tie measure of its dtype: fp32, the
+    top-2 gap there of a teacher-forced plain forward over the gather
+    run's tokens (``greedy_gaps``; ``_serve_agreement``'s rule: a tie
+    below NEAR_TIE); bf16, ``bf16_divergences``' gap in bf16 ulps (a tie
+    below NEAR_TIE_BF16_ULPS) and its one-step read shift. Inside an
+    experts mesh every rank runs the forwards (collectives)."""
+    uids = [u for u in range(len(reqs)) if not np.array_equal(kt[u], gt[u])]
+    if bundle.target_cfg.dtype == "bfloat16":
+        return {u: dict(rec, tie=rec["ulps"] < NEAR_TIE_BF16_ULPS)
+                for u in uids for rec in bf16_divergences(
+                    bundle, [reqs[u][0]], kt[u][None], gt[u][None], "paged",
+                    gate=False)}
+    out = {}
+    for u, (_, gaps) in zip(uids, greedy_gaps(
+            bundle, [reqs[u] for u in uids], [gt[u] for u in uids])):
+        j = int(np.nonzero(kt[u] != gt[u])[0][0])
+        out[u] = {"pos": j, "ref_top2_gap": float(gaps[0, j]),
+                  "tie": float(gaps[0, j]) < NEAR_TIE}
+    return out
+
+
+class LiveRead:
+    """A snoop for ``serve_run``: at the first decode cycle, this rank's
+    layer-0 pools (its run of every page), the page table and the
+    lengths; :meth:`check` then holds #2 on them, with this rank's
+    ``pos_stride`` / ``pos_offset``, to its plain version at the verify
+    shape (random queries in the model's dtype) under the kernels
+    phase's gates."""
+
+    def __init__(self):
+        self.snap = None
+
+    def __call__(self, eng, state):
+        if self.snap is None:
+            layer = state.target["layers"][0]
+            self.snap = {"k": layer["k"].clone(), "v": layer["v"].clone(),
+                         "pt": state.d1_feat["pt"].clone(),
+                         "len": state.length.clone()}
+
+    def check(self, where, bundle, rank, n):
+        from repro_torch.kernels import cascade_attention as casc
+        from repro_torch.kernels.cascade_cases import TOL_FLASH, TOL_PART
+        s, cfg = self.snap, bundle.target_cfg
+        dt = getattr(torch, cfg.dtype)
+        b, tq = s["pt"].shape[0], GAMMA + K_BRANCHES * (GAMMA - 1)
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(3)
+        q = torch.randn((b, tq, cfg.num_heads, cfg.head_dim), generator=gen,
+                        device=DEVICE).to(dt).transpose(1, 2)
+        args = (q, s["k"].transpose(1, 2), s["v"].transpose(1, 2), s["pt"])
+        kw = dict(cache_len=s["len"], q_abs=s["len"][:, None].long()
+                  + torch.arange(tq, device=DEVICE),
+                  scale=cfg.head_dim ** -0.5, pos_stride=SERVE_PAGE,
+                  pos_offset=rank * (SERVE_PAGE // n))
+        kern = casc.cascade_phase1_paged(*args, **kw)
+        plain = casc.cascade_phase1_paged_plain(*args, **kw)
+        live = plain[1] > -1e29
+        if dt == torch.bfloat16:
+            acc = (kern[0] - plain[0]).abs().amax(-1) / plain[0].abs().amax(
+                -1).clamp_min(1e-30)
+        else:
+            acc = ((kern[0] - plain[0]).abs() / (1 + plain[0].abs())).amax(-1)
+        err = {"acc": acc[live].max().item() if live.any() else 0.0,
+               "m_l": max(((a - p).abs() / (1 + p.abs()))[live].max().item()
+                          if live.any() else 0.0
+                          for a, p in zip(kern[1:], plain[1:])),
+               "live_splits": int(live.sum()), "rows": b, "tq": tq,
+               "pos_offset": kw["pos_offset"]}
+        tol = TOL_FLASH[dt] if dt == torch.bfloat16 else TOL_PART
+        if err["acc"] > tol or err["m_l"] > TOL_PART:
+            fail(f"{where}: #2 on this rank's live pools is off its plain "
+                 f"version: {err}")
+        return err
+
+
+# the EP layer on the card against a plain fp32 sum of the same experts
+# (EpLayerHold), max |error| over max |plain|: fp32, the products' orders
+# of summation differ; bf16, a pair's output takes 6 roundings (three
+# products, the activation, the gated product, the gate's), a token's sum
+# 7 adds of its pairs and 3 of the all-reduce: 16 roundings at bf16's
+# unit roundoff 2^-9. A wrong expert part, combine or all-reduce moves
+# the output by an expert's share of it
+TOL_EP_LAYER = {"float32": 1e-4, "bfloat16": 16 * 2.0 ** -9}
+
+
+class EpLayerHold:
+    """While installed: the hidden state entering the first MoE pass of
+    ``n_tokens`` tokens (a verify pass of the live run, this rank's copy)
+    and that layer's params. :meth:`check` then runs the program's EP
+    layer (``ep.moe_apply_ep``) on it and holds it to :func:`plain_ep_sum`
+    of the same experts at ``TOL_EP_LAYER``, on every rank."""
+
+    def __init__(self, n_tokens):
+        self.n, self.snap = n_tokens, None
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.real = moe, moe.moe_apply
+
+        def probed(p, x, cfg, dispatch=None):
+            if self.snap is None and x.shape[0] * x.shape[1] == self.n:
+                self.snap = (p, x.detach().clone())
+            return self.real(p, x, cfg, dispatch)
+
+        moe.moe_apply = probed
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.moe_apply = self.real
+
+    def check(self, where, cfg, mesh):
+        from repro_torch.distributed import ep
+        if self.snap is None:
+            fail(f"{where}: no MoE pass of {self.n} tokens to hold")
+        p, x = self.snap
+        with torch.no_grad():
+            got = ep.moe_apply_ep(p, x, cfg).float()
+            want = plain_ep_sum(p, x, cfg, mesh)
+        err = ((got - want).abs().max() / want.abs().max()).item()
+        rec = {"rel_err": err, "tol": TOL_EP_LAYER[cfg.dtype],
+               "tokens": self.n, "max_abs": want.abs().max().item()}
+        if not err <= rec["tol"]:
+            fail(f"{where}: the EP layer is off a plain fp32 sum of the "
+                 f"same experts: {rec}")
+        return rec
+
+
+def plain_ep_sum(p, x, cfg, mesh):
+    """The routed experts' output [B, T, d] in fp32, written out plainly:
+    fp32 routing (softmax, top-k, gates renormalised), each expert's queue
+    in row-major (token, choice) order cut at EP's capacity max(8, int(T k
+    / E cf) + 1), and for each of this rank's experts (E / M of them from
+    rank r E / M, the stacks ``p`` holds) its products in fp32 on its kept
+    tokens, gate-weighted into the output; the ranks' sums all-reduced in
+    fp32 over "model"."""
+    import torch.distributed as dist
+    from repro_torch.models.layers import act_fn
+    m, d = cfg.moe, cfg.d_model
+    x2 = x.reshape(-1, d).float()
+    n = x2.shape[0]
+    g, idx = torch.topk(torch.softmax(x2 @ p["router"].float(), -1),
+                        m.top_k, dim=-1)
+    g = g / g.sum(-1, keepdim=True)
+    cap = max(8, int(n * m.top_k / m.num_experts * m.capacity_factor) + 1)
+    ranks, rank = mesh.size("model"), mesh.index("model")
+    e_loc = m.num_experts // ranks
+    if e_loc * ranks != m.num_experts or p["moe_w_in"].shape[0] != e_loc:
+        fail(f"plain_ep_sum: {m.num_experts} experts over {ranks} ranks")
+    act = act_fn(cfg.mlp_act)
+    y = torch.zeros_like(x2)
+    for j in range(e_loc):
+        tok, choice = (idx == rank * e_loc + j).nonzero(as_tuple=True)
+        tok, choice = tok[:cap], choice[:cap]
+        if tok.numel() == 0:
+            continue
+        xe = x2[tok]
+        h = xe @ p["moe_w_in"][j].float()
+        if cfg.mlp_gated:
+            h = act(xe @ p["moe_w_gate"][j].float()) * h
+        else:
+            h = act(h)
+        y.index_add_(0, tok, g[tok, choice, None]
+                     * (h @ p["moe_w_out"][j].float()))
+    mesh.all_reduce_(y, dist.ReduceOp.SUM, "model")
+    return y.reshape(x.shape)
+
+
+def ep_rank(rank, n, phase, nodrop_ref):
+    """One rank of an EP phase: the target built from the seeds with this
+    rank's part of the expert stacks (one rank after another), then the
+    moe phase's four prompts as engine requests of ``EP_NEW`` new tokens
+    (one wave, page 64, the prefix cache) inside the ``(1, n)`` mesh,
+    kv_seq and experts on "model": the kernel and gather paths at the
+    config's capacity factor, and for fp32 the kernel path at E/k. Every
+    rank (the plain forwards and the EP layer are collective) holds #2
+    on its live pools to the plain version (:class:`LiveRead`) and the
+    EP layer on the kernel
+    run's first verify pass to a plain fp32 sum of the same experts
+    (:class:`EpLayerHold`); in fp32 the kernel run to the gather run by
+    the near-tie rule and the no-drop run to plain greedy. bf16's first
+    divergences of the kernel run from the gather run are recorded with
+    their gaps in bf16 ulps and not held: they part on gaps wider than
+    the rule's (PERF.md, PR 27); bf16 also runs the pair with the kv_seq
+    axis off, whose divergences are recorded beside them (a witness that
+    parts the sharded read from the rest). Returns this rank's record."""
+    import torch.distributed as dist
+    from repro_torch.core import pipeline as pl
+    from repro_torch.distributed import ep
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed import spdecode as sp
+    from repro_torch.kernels import cascade_attention as casc
+    from repro_torch.launch.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _, dtype, arch, layers, seed = EP[phase]
+    mesh = make_mesh(1, n)
+    paged = casc.cascade_phase1_paged
+    with sh.use_sharding(mesh, dict(sh.LOGICAL_RULES, kv_seq="model")):
+        t0 = time.perf_counter()
+        for i in range(n):
+            if i == rank:
+                bundle, _ = arch_bundle(arch, dtype, layers, mesh=mesh)
+                torch.cuda.empty_cache()
+            dist.barrier()
+        build_s = time.perf_counter() - t0
+        cfg = bundle.target_cfg
+        expert_bytes = sum(w.numel() * w.element_size()
+                           for lp in bundle.target_params["layers"]
+                           for k, w in lp["ffn"].items()
+                           if k.startswith("moe_w_"))
+        sm90 = dtype == "bfloat16"
+        sfx = "_sm90" if sm90 else ""
+        want = _want_launches(bundle, "paged", sm90)
+        reqs = [(p.astype(np.int32), EP_NEW)
+                for p in _arch_prompts(cfg, seed)]
+        nodrop = dataclasses.replace(bundle, target_cfg=dataclasses.replace(
+            cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=cfg.moe.num_experts
+                / cfg.moe.top_k)))
+        # (run, bundle, kv_seq on): bf16 adds the same EP engine with the
+        # pools replicated (kv_seq off: every read through the unsharded
+        # #2 or the gather), the witness that parts the EP layer from the
+        # sharded read
+        plan = [("kernel", bundle, True), ("gather", bundle, True)]
+        if phase == "ep":
+            plan.append(("kernel_nodrop", nodrop, True))
+        else:
+            plan += [("kernel_kvoff", bundle, False),
+                     ("gather_kvoff", bundle, False)]
+        torch.cuda.reset_peak_memory_stats()
+        runs, toks = {}, {}
+        live = LiveRead()
+        verify_rows = SERVE_BATCH * (GAMMA + K_BRANCHES * (GAMMA - 1))
+        layer_hold = EpLayerHold(verify_rows)
+        for name, b, kv in plan:
+            impl = name.split("_")[0]
+            _zero_launches()
+            paged.sharded_launches = 0
+            sp.PAYLOAD.reset()
+            sp.PAYLOAD.timed = impl == "kernel"
+            ep.REDUCES.reset()
+            red = CycleReduces()
+            with sh.use_sharding(mesh, dict(
+                    sh.LOGICAL_RULES, kv_seq="model" if kv else None)), \
+                    MoeProbe() as probe, (
+                        layer_hold if name == "kernel"
+                        else contextlib.nullcontext()):
+                eng, toks[name], info = serve_run(
+                    pl.with_attn_impl(b, impl), reqs, f"{phase}_{name}",
+                    snoop=live if name == "kernel" else None,
+                    first_alone=False, in_cycle=red, cache_impl="paged",
+                    page_size=SERVE_PAGE, prefix_cache=True)
+            sp.PAYLOAD.timed = False
+            cycles = info["decode_cycles"]
+            drops = probe.drops()
+            info.update(
+                launches=_launches(), sharded_launches=paged.sharded_launches,
+                kv_shards=eng.stats["kv_shards"], kv_seq=kv,
+                merge_ms_per_cycle=1e3 * sp.PAYLOAD.merge_s / cycles,
+                ep_reduce_ms_per_cycle=1e3 * red.seconds / cycles,
+                ep_reduces_per_cycle=red.calls / cycles,
+                ep_reduce_bytes_per_cycle=red.bytes / cycles,
+                ep_reduces_all_passes=ep.REDUCES.calls, drops=drops,
+                dropped_per_cycle=drops.get(str(verify_rows), {}).get(
+                    "dropped", 0) / cycles)
+            runs[name] = info
+            del eng
+            _free()
+        peak = torch.cuda.max_memory_allocated()
+        where = f"{phase} rank {rank}"
+        holds = {"live_read": live.check(where, bundle, rank, n),
+                 "ep_layer": layer_hold.check(where, cfg, mesh),
+                 "kernel_vs_gather": _first_divergences(
+                     bundle, reqs, toks["kernel"], toks["gather"])}
+        if "kernel_kvoff" in toks:
+            with sh.use_sharding(mesh, dict(sh.LOGICAL_RULES, kv_seq=None)):
+                holds["kvoff_kernel_vs_gather"] = _first_divergences(
+                    bundle, reqs, toks["kernel_kvoff"], toks["gather_kvoff"])
+        if dtype == "float32":
+            # fp32: a first divergence passes only on a near tie
+            wide = {u: r for u, r in holds["kernel_vs_gather"].items()
+                    if not r["tie"]}
+            if wide:
+                fail(f"{where}: the kernel run leaves the gather run on a "
+                     f"wide gap: {wide}")
+            if nodrop_ref["layers"] != cfg.num_layers:
+                # plain greedy at this depth, inside the mesh: one-token
+                # passes and a prefill at E/k drop nothing either way
+                nodrop_ref = dict(zip(("tokens", "gaps"), greedy_reference(
+                    nodrop.target_params, nodrop.target_cfg, torch.as_tensor(
+                        np.stack([p for p, _ in reqs]), device=DEVICE),
+                    EP_NEW)))
+            holds["nodrop_vs_greedy"] = agreement(
+                f"{phase} rank {rank} no-drop",
+                np.stack([toks["kernel_nodrop"][u]
+                          for u in range(len(reqs))]),
+                nodrop_ref["tokens"][:, :EP_NEW],
+                nodrop_ref["gaps"][:, :EP_NEW])
+        dist.barrier()
+    return {"rank": rank, "runs": runs, "holds": holds,
+            "want": want[f"cascade_phase1_paged{sfx}"], "entry":
+            f"cascade_phase1_paged{sfx}", "layers": cfg.num_layers,
+            "tokens": {k: {u: t.tolist() for u, t in v.items()}
+                       for k, v in toks.items()},
+            "peak_gib": peak / 2 ** 30, "expert_gib": expert_bytes / 2 ** 30,
+            "build_s": build_s}
+
+
+def ep_path(phase, nodrop_ref):
+    """An EP phase (``EP``): spawn its ranks on this card and hold what
+    they return: tokens equal across ranks; on every rank the kernel
+    runs' #2 launches ``_want_launches`` a cycle, all with a pos_stride
+    (none with the kv_seq axis off), with no #1 launch, and the gather
+    runs launch nothing. Returns #2's
+    launches a cycle with a pos_stride (the kernel run at the config's
+    capacity)."""
+    from repro_torch.launch.mesh import run_ranks
+    t0 = time.perf_counter()
+    n, dtype, arch, layers, _ = EP[phase]
+    recs = run_ranks(ep_rank, n, n, phase, nodrop_ref)
+    r0 = recs[0]
+    for name in r0["tokens"]:
+        if any(r["tokens"][name] != r0["tokens"][name] for r in recs):
+            fail(f"{phase} {name}: the ranks' tokens differ")
+    for r in recs:
+        for name, info in r["runs"].items():
+            where = f"{phase} rank {r['rank']} {name}"
+            counts = info["launches"]
+            if info["kv_shards"] != (n if info["kv_seq"] else 1):
+                fail(f"{where}: kv_shards {info['kv_shards']}")
+            if name.startswith("gather"):
+                if any(counts.values()) or info["sharded_launches"]:
+                    fail(f"{where} launched {counts}")
+                continue
+            # kv_seq on: every #2 launch carries a pos_stride; off: none
+            per_cycle = counts[r["entry"]] / info["decode_cycles"]
+            others = {k: v for k, v in counts.items() if k != r["entry"]}
+            if info["sharded_launches"] != (
+                    counts[r["entry"]] if info["kv_seq"] else 0) or any(
+                    others.values()) or per_cycle != r["want"]:
+                fail(f"{where}: #2 launches {counts}, "
+                     f"{info['sharded_launches']} with a pos_stride, "
+                     f"{per_cycle} a cycle against {r['want']}")
+    kern = r0["runs"]["kernel"]
+    emit({"phase": phase, "ok": True, "dtype": dtype, "arch": arch,
+          "ranks": n, "layers": r0["layers"], "max_new": EP_NEW,
+          "page": SERVE_PAGE,
+          "page_loc": SERVE_PAGE // n, "gpu": nvidia_smi_line(),
+          "ms_per_cycle": kern["ms_per_cycle"],
+          "ep_reduce_ms_per_cycle": kern["ep_reduce_ms_per_cycle"],
+          "ep_reduces_per_cycle": kern["ep_reduces_per_cycle"],
+          "ep_reduce_bytes_per_cycle": kern["ep_reduce_bytes_per_cycle"],
+          "merge_ms_per_cycle": kern["merge_ms_per_cycle"],
+          "dropped_per_cycle": kern["dropped_per_cycle"],
+          "peak_gib_per_rank": [r["peak_gib"] for r in recs],
+          "expert_gib_per_rank": [r["expert_gib"] for r in recs],
+          "build_s_per_rank": [r["build_s"] for r in recs],
+          "ep_launches_per_cycle": kern["sharded_launches"]
+          / kern["decode_cycles"],
+          "want_launches_per_cycle": r0["want"],
+          "runs": {name: {k: v for k, v in info.items() if k != "launches"}
+                   for name, info in r0["runs"].items()},
+          "holds": r0["holds"],
+          "live_read_per_rank": [r["holds"]["live_read"] for r in recs],
+          "ep_layer_per_rank": [r["holds"]["ep_layer"] for r in recs],
+          "note": "ranks time-share one card",
+          "seconds": time.perf_counter() - t0})
+    return kern["sharded_launches"] / kern["decode_cycles"]
 
 
 def ctx_path():
@@ -3519,13 +3978,14 @@ def _falls(name, losses):
     return {"first_tenth": first, "last_tenth": last}
 
 
-def _study_runs(bundle, prompts, ref_toks, gaps, where):
-    """The kernel path on the paged and dense caches and the gather path
-    on the paged one (host loop), counts zeroed just before each run and
-    read just after: exact cascade launches a cycle, tokens held to plain
-    greedy and each kernel run to the gather run. Returns the runs'
-    records by (impl, cache) and the near ties that passed."""
-    plan = (("kernel", "paged"), ("kernel", "dense"), ("gather", "paged"))
+def _study_runs(bundle, prompts, ref_toks, gaps, where, dense=True):
+    """The kernel path on the paged and (``dense``) dense caches and the
+    gather path on the paged one (host loop), counts zeroed just before
+    each run and read just after: exact cascade launches a cycle, tokens
+    held to plain greedy and each kernel run to the gather run. Returns
+    the runs' records by (impl, cache) and the near ties that passed."""
+    plan = (("kernel", "paged"),) + ((("kernel", "dense"),) if dense
+                                     else ()) + (("gather", "paged"),)
     toks, runs, ties = {}, {}, {}
     for impl, cache in plan:
         _zero_launches()
@@ -3589,9 +4049,11 @@ def study_path():
             STUDY_NEW)
         for method in STUDY_METHODS:
             where = f"study {method}/{task}"
+            # the dense cache for d2sd alone (the run's time limit)
             r, t = _study_runs(study_bundle(method, tcfg, dcfg, dcfg_ar,
                                             params, gamma),
-                               prompts, ref_toks, gaps, where)
+                               prompts, ref_toks, gaps, where,
+                               dense=method == "d2sd")
             runs[where], ties[where] = r, t
             alpha.setdefault(method, {})[task] = r["kernel/paged"]["alpha"]
         rb = study_bundle("d2sd", tcfg, dcfg, dcfg_ar, random, gamma)
@@ -3625,7 +4087,7 @@ def study_path():
 
 
 # -------------------------------------------------- distillation at width --
-DISTILL_LAYERS = 12      # paper-target cut in depth (the run's time limit)
+DISTILL_LAYERS = 6       # paper-target cut in depth (the run's time limit)
 DISTILL_ROWS, DISTILL_PROMPT, DISTILL_NEW = 16, 128, 128   # rollouts
 DISTILL_STEPS, DISTILL_BATCH = 150, 16
 DISTILL_DECODE = (4, 128, 64)     # rows, prompt, new tokens of the decode
@@ -3793,7 +4255,12 @@ def main():
             "ms_per_cycle": sy["ms_per_cycle"]})}
     recurrent = {phase: recurrent_path(phase) for phase in RECURRENT}
     serving_recurrent()
-    more_archs = {**moe_path(), **ctx_path(), **archs_path()}
+    moe_launches, nodrop_ref = moe_path()
+    _free()
+    # expert parallelism over ranks on this card: grok-1 fp32, kimi-k2
+    # bf16 (#2's launches with a pos_stride a cycle)
+    ep_runs = {phase: ep_path(phase, nodrop_ref) for phase in EP}
+    more_archs = {**moe_launches, **ctx_path(), **archs_path()}
 
     fp32_launches = train_identity()
     run, bf16_launches, ms_step = train_bf16()
@@ -3838,6 +4305,10 @@ def main():
         if cache == "paged":
             extra["sharded_launches_per_cycle"] = sharded[
                 "sharded" if dtype == torch.float32 else "sharded_bf16"]
+            # the same on the EP phases (grok-1 fp32 over 2 ranks, kimi-k2
+            # bf16 over 4)
+            extra["ep_launches_per_cycle"] = ep_runs[
+                "ep" if dtype == torch.float32 else "ep_bf16"]
         # the recurrent targets' kernel runs (host loop) in this dtype
         for phase, rec in recurrent.items():
             extra[f"{phase}_launches_per_cycle"] = rec[dn][cache][name]

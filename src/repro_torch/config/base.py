@@ -242,7 +242,8 @@ class OptimizerConfig:
     eps: float = 1e-8
     grad_clip: float = 1.0
     grad_accum: int = 1
-    # int8 gradient all-reduce with error feedback (multi-GPU, not ported)
+    # int8 gradient all-reduce with error feedback: the trainer does not
+    # read it (not ported); distributed/collectives.py has the all-reduce
     compress_grads: bool = False
 
 

@@ -39,6 +39,7 @@ from repro_torch.core import drafter as dr
 from repro_torch.core import strategies as strat_lib
 from repro_torch.core import verify as verify_lib
 from repro_torch.core.state import EngineState, engine_init, prefill
+from repro_torch.distributed import sharding as sh
 from repro_torch.models import kvcache as kvc
 from repro_torch.models import param as pm
 
@@ -153,6 +154,7 @@ def generate(bundle: SpecBundle, prompts, max_new: int, seed: int = 0,
     prefill; the port's is fixed storage), and every cycle reads them.
     The graph loop takes no ``ctx``, as JAX's ``generate_ondevice``.
     """
+    sh.refuse_data_axis("pipeline.generate")
     dev = resolve_device(device)
     gen = pm.make_generator(seed, dev)
     prompts = torch.as_tensor(np.asarray(prompts), device=dev).long()
@@ -245,7 +247,7 @@ class OnDeviceLoop:
 
     def __init__(self, bundle: SpecBundle, state: EngineState, max_new: int,
                  gen: torch.Generator):
-        _refuse_kv_seq_mesh()
+        _refuse_collective_mesh(bundle)
         dev = state.anchor.device
         b = state.anchor.shape[0]
 
@@ -363,17 +365,19 @@ def _lengths(true_len, dev):
     return torch.as_tensor(np.asarray(true_len), device=dev).to(torch.int32)
 
 
-def _refuse_kv_seq_mesh():
-    """A cycle under a kv_seq mesh merges its reads by gloo all-reduces,
-    host-side collectives that no CUDA graph can hold."""
-    from repro_torch.distributed import spdecode
-    if spdecode.kv_seq_axis() is not None:
+def _refuse_collective_mesh(bundle):
+    """A cycle under a kv_seq mesh merges its reads, and a MoE target's
+    cycle under an experts axis its experts' outputs, by gloo
+    all-reduces: host-side collectives that no CUDA graph can hold."""
+    from repro_torch.distributed import ep, spdecode
+    if spdecode.kv_seq_axis() is not None \
+            or ep.ep_available(bundle.target_cfg):
         raise NotImplementedError(
-            "generate_ondevice / OnDeviceLoop inside a kv_seq mesh: the "
-            "sharded reads merge through gloo collectives on the host, which "
-            "a CUDA graph cannot capture; use generate (the eager cycle). "
-            "The graph-captured sharded loop comes with NCCL (ROADMAP.md "
-            "queue 1)")
+            "generate_ondevice / OnDeviceLoop inside a kv_seq mesh (or an "
+            "experts mesh over a MoE target): the ranks merge through gloo "
+            "collectives on the host, which a CUDA graph cannot capture; "
+            "use generate (the eager cycle). The graph-captured sharded "
+            "loop comes with NCCL (ROADMAP.md queue 1)")
 
 
 def generate_ondevice(bundle: SpecBundle, prompts, max_new: int,
@@ -393,10 +397,11 @@ def generate_ondevice(bundle: SpecBundle, prompts, max_new: int,
     the eager first one included, not the capture); capture_s is the
     capture alone and graph_pool_bytes the memory its private pool took
     (both 0 on the CPU). ``true_len``: ragged prompts, as in
-    :func:`generate`. Inside a kv_seq mesh it raises
-    ``NotImplementedError`` (collectives cannot go into a CUDA graph).
+    :func:`generate`. Inside a kv_seq mesh, or an experts mesh over a MoE
+    target, it raises ``NotImplementedError`` (collectives cannot go into
+    a CUDA graph).
     """
-    _refuse_kv_seq_mesh()
+    _refuse_collective_mesh(bundle)
     dev = resolve_device(device)
     gen = pm.make_generator(seed, dev)
     prompts = torch.as_tensor(np.asarray(prompts), device=dev).long()

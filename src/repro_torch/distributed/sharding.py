@@ -8,10 +8,13 @@ Usage, inside every rank of a process group (``launch/mesh.py``)::
         ...   # the decode reads shard the KV sequence over "model"
 
 Outside a ``use_sharding`` context (or with ``mesh=None``) every reader
-sees no mesh and the model code runs as on one device. Of the rules only
-``kv_seq`` is read (``distributed/spdecode.py``); the batch and parameter
-rules (``param_pspec``, ``params_shardings``, ``constrain``, ``fit_spec``)
-are ROADMAP.md queue 1, item 10.
+sees no mesh and the model code runs as on one device. Of the rules
+``kv_seq`` (``distributed/spdecode.py``) and ``experts``
+(``distributed/ep.py``) are read; the batch fit of expert parallelism
+lives in ``ep.py``, as in JAX. The parameter rules (``param_pspec``,
+``params_shardings``, ``constrain``, ``fit_spec``) are ROADMAP.md queue
+1, item 10, and a data axis above 1 is refused by the callers that
+cannot split their rows over it yet (:func:`refuse_data_axis`, item 9a).
 
 ``mesh_tag`` has no twin: in JAX it splits the jit caches between traces
 made inside and outside a mesh, and the port has no jit cache to split.
@@ -27,7 +30,7 @@ import torch
 import torch.distributed as dist
 
 # logical axis -> mesh axis (or a tuple of mesh axes, or None = replicate);
-# the JAX table as it is, of which the port reads ``kv_seq``
+# the JAX table as it is, of which the port reads ``kv_seq`` and ``experts``
 LOGICAL_RULES: Dict[str, object] = {
     "batch": ("pod", "data"),
     "seq": None,
@@ -125,10 +128,11 @@ def active_rules() -> Dict[str, object]:
     return _CTX.rules
 
 
-def mesh_axis(logical: str) -> Optional[str]:
+def mesh_axis(logical: str, mesh: Optional[Mesh] = None) -> Optional[str]:
     """The mesh axis the active rules map ``logical`` to (the first of a
-    tuple), or None without a mesh or when that axis is not in it."""
-    mesh = _CTX.mesh
+    tuple), or None without a mesh or when that axis is not in it.
+    ``mesh``: this mesh instead of the active one."""
+    mesh = mesh if mesh is not None else _CTX.mesh
     if mesh is None:
         return None
     ax = _CTX.rules.get(logical)
@@ -137,3 +141,16 @@ def mesh_axis(logical: str) -> Optional[str]:
     if ax is None or ax not in mesh.axis_names:
         return None
     return ax
+
+
+def refuse_data_axis(what: str) -> None:
+    """Raise ``NotImplementedError`` inside a mesh whose ``data`` axis is
+    larger than 1: ``what`` cannot split its rows over that axis yet."""
+    mesh = _CTX.mesh
+    if mesh is not None and "data" in mesh.axis_names \
+            and mesh.size("data") > 1:
+        raise NotImplementedError(
+            f"{what} inside a mesh with data={mesh.size('data')}: batch "
+            "rows over a data axis are not ported for it (ROADMAP.md "
+            "queue 1, item 9a: the engine's data axis, whose page pool is "
+            "replicated over data)")

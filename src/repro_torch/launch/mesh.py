@@ -6,8 +6,9 @@ gloo ranks on this machine (``torch.multiprocessing.spawn``, rendezvous
 through a ``FileStore`` in a temporary directory, so no TCP port is
 taken), runs one function in each and returns what each returned; inside
 a rank, :func:`make_mesh` builds that rank's :class:`Mesh` from the
-initialised process group. Every rank on a card uses device 0: ranks
-time-share one card, and the collectives go through gloo on the host.
+initialised process group, with a process group for each of its axes.
+Every rank on a card uses device 0: ranks time-share one card, and the
+collectives go through gloo on the host.
 """
 from __future__ import annotations
 
@@ -34,14 +35,18 @@ def make_production_mesh(*, multi_pod: bool = False):
 
 def make_mesh(data: int, model: int, pod: int = 1) -> Mesh:
     """This rank's ``("data", "model")`` mesh over the initialised process
-    group, whose size must be ``data * model``. Only the ``model`` axis
-    (the kv_seq axis of sharded decode) is ported: ``data`` > 1 and
-    ``pod`` > 1 raise ``NotImplementedError``."""
-    if data != 1 or pod != 1:
+    group, whose size must be ``data * model``. Rank ``r`` sits at
+    ``(r // model, r % model)``; each axis gets one process group for
+    every row (``model``) or column (``data``) of the mesh, made in the
+    same order on every rank (``dist.new_group`` is collective), and an
+    axis of size 1 gets none. ``pod`` > 1 raises ``NotImplementedError``
+    (it comes with pipeline parallelism, ROADMAP.md queue 1, item 10).
+    Callers that cannot yet split rows over ``data`` (the serving engine,
+    ``pipeline.generate``) refuse a data axis above 1 themselves."""
+    if pod != 1:
         raise NotImplementedError(
-            f"make_mesh(data={data}, pod={pod}): only the model (kv_seq) "
-            "axis is ported; batch rows over a data axis come with the "
-            "batch and parameter rules (ROADMAP.md queue 1, item 10)")
+            f"make_mesh(pod={pod}): the pod axis comes with pipeline "
+            "parallelism (ROADMAP.md queue 1, item 10)")
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialised process group "
                            "(run it inside run_ranks)")
@@ -49,9 +54,21 @@ def make_mesh(data: int, model: int, pod: int = 1) -> Mesh:
     if world != data * model:
         raise ValueError(f"a {data}x{model} mesh needs {data * model} "
                          f"ranks, the process group has {world}")
-    group = dist.group.WORLD if model > 1 else None
-    return Mesh(("data", "model"), (data, model), (0, dist.get_rank()),
-                (None, group))
+    rank = dist.get_rank()
+    row, col = divmod(rank, model)
+    data_group = model_group = None
+    if data > 1:
+        for c in range(model):
+            g = dist.new_group([c + i * model for i in range(data)])
+            if c == col:
+                data_group = g
+    if model > 1:
+        for r in range(data):
+            g = dist.new_group([r * model + j for j in range(model)])
+            if r == row:
+                model_group = g
+    return Mesh(("data", "model"), (data, model), (row, col),
+                (data_group, model_group))
 
 
 def run_ranks(fn, n: int, *args, threads=None):

@@ -17,8 +17,11 @@ mesh: the launcher starts its P gloo ranks itself
 each builds the same weights from the same seeds, and with ``--cache-impl
 paged`` each rank holds ``page_size // P`` slots of every page and the
 decode reads merge across ranks (``--kv-seq-axis off`` keeps the mesh
-and replicates the pool). Rank 0 prints. ``--mesh-data`` above 1 raises
-``NotImplementedError`` (ROADMAP.md queue 1, item 10); ``--traffic``
+and replicates the pool). A MoE target (``--arch grok-1-314b``) runs its
+experts in parallel over the same axis (``distributed/ep.py``: each rank
+keeps its share of every expert stack, ``ep_shard_target``), with the
+kv_seq axis on or off. Rank 0 prints. ``--mesh-data`` above 1 raises
+``NotImplementedError`` (ROADMAP.md queue 1, item 9a); ``--traffic``
 under a mesh needs ``--virtual-clock``, since every rank must take the
 same admission decisions.
 """
@@ -121,7 +124,7 @@ def parse_args(argv=None):
     ap.add_argument("--virtual-clock", action="store_true",
                     help="replay in simulated time (1 s a decode cycle)")
     ap.add_argument("--mesh-data", type=int, default=1,
-                    help="data mesh axis size (only 1 is ported)")
+                    help="data mesh axis size (only 1 is served)")
     ap.add_argument("--mesh-model", type=int, default=1,
                     help="model mesh axis size: P ranks serve as one "
                          "engine; with --cache-impl paged each holds "
@@ -159,9 +162,8 @@ def main(argv=None):
     args = parse_args(argv)
     if args.mesh_data != 1:
         raise NotImplementedError(
-            f"--mesh-data {args.mesh_data}: batch rows over a data axis come "
-            "with the batch and parameter rules (ROADMAP.md queue 1, item "
-            "10)")
+            f"--mesh-data {args.mesh_data}: the engine cannot split its "
+            "rows over a data axis yet (ROADMAP.md queue 1, item 9a)")
     if args.mesh_model > 1:
         from repro_torch.launch.mesh import run_ranks
         return run_ranks(_serve_rank, args.mesh_model, args)[0]
@@ -169,20 +171,27 @@ def main(argv=None):
 
 
 def _serve_rank(rank, args):
-    """One rank of a ``--mesh-model`` run: the engine inside the mesh."""
+    """One rank of a ``--mesh-model`` run: the engine inside the mesh, a
+    MoE target's expert stacks cut to this rank's part."""
+    from repro_torch.distributed.ep import ep_shard_target
     from repro_torch.distributed.sharding import LOGICAL_RULES, use_sharding
     from repro_torch.launch.mesh import make_mesh
     rules = dict(LOGICAL_RULES,
                  kv_seq=None if args.kv_seq_axis == "off" else "model")
-    with use_sharding(make_mesh(args.mesh_data, args.mesh_model), rules):
+    mesh = make_mesh(args.mesh_data, args.mesh_model)
+    with use_sharding(mesh, rules):
+        bundle = build_bundle(args, resolve_device(args.device))
+        bundle = dataclasses.replace(bundle, target_params=ep_shard_target(
+            bundle.target_params, bundle.target_cfg, mesh))
         with contextlib.redirect_stdout(None) if rank else \
                 contextlib.nullcontext():
-            return _serve(args)
+            return _serve(args, bundle)
 
 
-def _serve(args):
+def _serve(args, bundle=None):
     dev = resolve_device(args.device)
-    bundle = build_bundle(args, dev)
+    if bundle is None:
+        bundle = build_bundle(args, dev)
     kw = dict(batch_size=args.requests, cache_impl=args.cache_impl,
               page_size=args.page_size, prefix_cache=args.prefix_cache,
               bucket_sizes=args.bucket_sizes, pool_scope=args.pool_scope,

@@ -95,7 +95,7 @@ def layer_specs(cfg: ModelConfig) -> Tuple[BlockSpec2, ...]:
 
 
 # ----------------------------------------------------------------- block ---
-def block_init(gen, cfg: ModelConfig, spec: BlockSpec2):
+def block_init(gen, cfg: ModelConfig, spec: BlockSpec2, expert_part=None):
     kind = spec.kind
     if kind not in KINDS:
         raise NotImplementedError(f"block kind {kind!r} is not ported")
@@ -112,7 +112,7 @@ def block_init(gen, cfg: ModelConfig, spec: BlockSpec2):
     if kind == "rwkv":
         p["rwkv_cm"] = rwkv_lib.channel_mix_init(gen, cfg)
     elif cfg.moe is not None:
-        p["ffn"] = moe_lib.moe_init(gen, cfg)
+        p["ffn"] = moe_lib.moe_init(gen, cfg, expert_part)
     else:
         p["ffn"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_gated)
     if spec.cross:

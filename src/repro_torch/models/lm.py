@@ -31,8 +31,12 @@ FEATURE_LAYERS = 3
 
 
 # ------------------------------------------------------------------ init ---
-def lm_init(cfg: ModelConfig, seed: int = 0, device="cuda"):
-    """Random weights drawn on ``device`` from a generator seeded ``seed``."""
+def lm_init(cfg: ModelConfig, seed: int = 0, device="cuda",
+            expert_part=None):
+    """Random weights drawn on ``device`` from a generator seeded ``seed``.
+    ``expert_part``: keep only that part of every MoE expert stack
+    (``distributed/ep.py::mesh_expert_part``), the numbers drawn as for
+    the whole stacks."""
     check_supported(cfg)
     dev = resolve_device(device)
     gen = pm.make_generator(seed, dev)
@@ -44,7 +48,8 @@ def lm_init(cfg: ModelConfig, seed: int = 0, device="cuda"):
     if not cfg.tie_embeddings:
         p["lm_head"] = pm.dense_init(gen, cfg.d_model, cfg.vocab_size,
                                      scale=0.02)
-    p["layers"] = [block_init(gen, cfg, spec) for spec in layer_specs(cfg)]
+    p["layers"] = [block_init(gen, cfg, spec, expert_part)
+                   for spec in layer_specs(cfg)]
     return p
 
 

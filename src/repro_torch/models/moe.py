@@ -6,8 +6,12 @@ Dispatch paths (same math; held to each other and to JAX):
 * ``scatter`` — capacity buckets: the kept (token, expert) pairs are
   written into ``[E, C, d]`` expert inputs, the experts run as batched
   products, and each token gathers its k outputs back. ``all_to_all``
-  (JAX's expert-parallel dispatch under a mesh) runs this path here: the
-  port has no mesh yet.
+  runs this path too.
+
+Inside a mesh whose ``experts`` axis is active (``distributed/ep.py``:
+``ep_available``), both non-einsum dispatches go to expert parallelism,
+``ep.moe_apply_ep``, with its own capacity; the shared experts are added
+on every rank.
 
 Routing: softmax over the experts, top-k, the k gates renormalized;
 capacity ``C = max(ceil(T*k/E * capacity_factor), min(8, T))`` over all
@@ -33,26 +37,33 @@ from repro_torch.models.layers import act_fn
 from repro_torch.models.mlp import mlp, mlp_init
 
 
-def moe_init(gen, cfg):
+def moe_init(gen, cfg, expert_part=None):
     """Router [d, E], expert stacks [E, d, ff] / [E, ff, d] and the shared
     expert's MLP. The stacks are allocated once in ``cfg.param_dtype`` and
     filled an expert at a time, so a stack never exists twice (kimi-k2's
-    three stacks are 16.9e9 parameters a layer)."""
+    three stacks are 16.9e9 parameters a layer). ``expert_part`` (an
+    expert-parallel rank's ``ep.expert_part``): every expert is drawn as
+    here, and only that part of each stack is kept."""
     m = cfg.moe
     d, dff, e = cfg.d_model, cfg.d_ff, m.num_experts
     dtype = getattr(torch, cfg.param_dtype)
+    e0, ne, f0, nf = expert_part or (0, e, 0, dff)
 
-    def stack(din, dout, scale=None):
-        w = torch.empty((e, din, dout), dtype=dtype, device=gen.device)
+    def stack(name, din, dout, scale=None):
+        out = name == "moe_w_out"
+        w = torch.empty((ne, nf if out else din, dout if out else nf),
+                        dtype=dtype, device=gen.device)
         for i in range(e):
-            w[i].copy_(pm.dense_init(gen, din, dout, scale=scale))
+            wi = pm.dense_init(gen, din, dout, scale=scale)
+            if e0 <= i < e0 + ne:
+                w[i - e0].copy_(wi[f0:f0 + nf] if out else wi[:, f0:f0 + nf])
         return w
 
     p = {"router": pm.dense_init(gen, d, e, scale=0.02),
-         "moe_w_in": stack(d, dff),
-         "moe_w_out": stack(dff, d, scale=dff ** -0.5)}
+         "moe_w_in": stack("moe_w_in", d, dff),
+         "moe_w_out": stack("moe_w_out", dff, d, scale=dff ** -0.5)}
     if cfg.mlp_gated:
-        p["moe_w_gate"] = stack(d, dff)
+        p["moe_w_gate"] = stack("moe_w_gate", d, dff)
     if m.num_shared_experts:
         p["shared"] = mlp_init(gen, d, dff * m.num_shared_experts,
                                cfg.mlp_gated)
@@ -90,13 +101,21 @@ def moe_apply(p, x, cfg, dispatch: Optional[str] = None):
     m = cfg.moe
     dispatch = dispatch or m.dispatch
     b, t, d = x.shape
+    if dispatch != "einsum":
+        from repro_torch.distributed import ep
+        if ep.ep_available(cfg):
+            y = ep.moe_apply_ep(p, x, cfg)
+            if m.num_shared_experts:
+                y = y + mlp(p["shared"], x, cfg.mlp_act,
+                            cfg.mlp_gated).to(y.dtype)
+            return y.to(x.dtype)
     x2 = x.reshape(b * t, d)
     gates, idx = _route(p, x2, cfg)
     cap = _capacity(b * t, cfg)
     if dispatch == "einsum":
         y2 = _apply_einsum(p, x2, gates, idx, cap, cfg)
     elif dispatch in ("scatter", "all_to_all"):
-        y2 = _apply_scatter(p, x2, gates, idx, cap, cfg)
+        y2 = _apply_scatter(p, x2, gates, idx, cap, cfg).sum(1)
     else:
         raise ValueError(dispatch)
     if m.num_shared_experts:
@@ -131,21 +150,26 @@ def _apply_einsum(p, x2, gates, idx, cap, cfg):
     return torch.einsum("tec,ecd->td", comb, xout)
 
 
-def _apply_scatter(p, x2, gates, idx, cap, cfg):
+def _apply_scatter(p, x2, gates, idx, cap, cfg, experts=None):
+    """The (token, choice) pairs' gated expert outputs, [T, k, d]. The kept
+    pairs of the experts ``experts`` = (first, count) (all of them by
+    default; an expert-parallel rank's part, whose stacks ``p`` holds) are
+    written into ``[count, C, d]`` buckets, the experts run as batched
+    products, and each pair gathers its output back; every other pair
+    gives zero."""
     e = cfg.moe.num_experts
+    e0, e_loc = experts or (0, e)
     t, d = x2.shape
     k = idx.shape[1]
     dt = x2.dtype
     pos = _positions(idx, e).reshape(-1)
-    keep = pos < cap
-    ef = idx.reshape(-1)
-    # the kept pairs own distinct slots; every dropped pair of an expert
-    # goes to one spare slot past the capacity, which no one reads
-    slot = ef * (cap + 1) + torch.where(keep, pos, cap)
-    xin = x2.new_zeros((e * (cap + 1), d)).index_copy(
-        0, slot, x2.repeat_interleave(k, dim=0))
-    xin = xin.view(e, cap + 1, d)[:, :cap]
-    xout = _expert_ffn(p, xin, cfg)
-    picked = xout[ef, torch.where(keep, pos, 0)] * keep[:, None].to(dt)
-    w = gates.reshape(-1)[:, None].to(dt)
-    return (picked * w).reshape(t, k, d).sum(1)
+    le = idx.reshape(-1) - e0
+    keep = (le >= 0) & (le < e_loc) & (pos < cap)
+    # the kept pairs own distinct slots; every other pair goes to one
+    # spare slot past the buckets, which no one reads
+    slot = torch.where(keep, le * cap + pos, e_loc * cap)
+    xin = x2.new_zeros((e_loc * cap + 1, d)).index_copy(
+        0, slot, x2.repeat_interleave(k, dim=0))[:-1].view(e_loc, cap, d)
+    xout = _expert_ffn(p, xin, cfg).reshape(e_loc * cap, d)
+    picked = xout[torch.where(keep, slot, 0)] * keep[:, None].to(dt)
+    return (picked * gates.reshape(-1)[:, None].to(dt)).view(t, k, d)

@@ -63,7 +63,11 @@ same requests and seed), while each rank's pools hold its
 (``models/kvcache.py``), and every decode read runs the sharded hook of
 ``distributed/spdecode.py``, merged by the LSE all-reduce. The mesh
 context is captured at construction and re-entered around the engine's
-work. Stats: ``kv_shards``, ``pool_shard_slots`` (each rank's slots,
+work. A MoE target inside a mesh whose ``experts`` axis is active runs
+its experts in parallel (``distributed/ep.py``): the caller builds each
+rank's bundle with its part of the expert stacks (``ep_shard_target``).
+A ``data`` axis above 1 is refused (ROADMAP.md queue 1, item 9a).
+Stats: ``kv_shards``, ``pool_shard_slots`` (each rank's slots,
 ``pool_pages * page_size / kv_shards``) and ``decode_collective_bytes``
 (what each rank's decode merges sent, counted every cycle).
 :meth:`ServingEngine.agree_across_ranks` checks that the ranks' books
@@ -194,6 +198,7 @@ class ServingEngine:
         self.device = resolve_device(device)
         # mesh residency: the sharding context captured once, re-entered
         # around the engine's work (_mesh_scope)
+        sh.refuse_data_axis("ServingEngine")
         self._mesh = sh.active_mesh()
         self._rules = (dict(sh.active_rules()) if self._mesh is not None
                        else None)

@@ -107,11 +107,19 @@ def _quirk(x):
         rolling=False).numpy()
 
 
+def _engine_in_data_mesh(bundle):
+    """``make_mesh(data=2)`` builds its groups; the engine inside it
+    refuses the data axis (ROADMAP.md queue 1, item 9a)."""
+    with sh.use_sharding(make_mesh(data=2, model=1), RULES):
+        ServingEngine(bundle, batch_size=2, cache_impl="paged", page_size=8,
+                      device="cpu")
+
+
 def _refusals(bundle):
     """Each refusal inside the mesh: (what, raised error's type name)."""
     got = {}
     cases = {
-        "make_mesh_data": lambda: make_mesh(data=2, model=1),
+        "make_mesh_data": lambda: _engine_in_data_mesh(bundle),
         "page_not_divisible": lambda: ServingEngine(
             bundle, batch_size=2, cache_impl="paged", page_size=9,
             device="cpu"),
