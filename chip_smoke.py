@@ -156,6 +156,25 @@ Phases, each printing one JSON line (any failure exits non-zero):
            gather path inside the mesh by the bf16 near-tie rule, the
            sm90 #2 launches with a pos_stride equal a cycle to the
            unsharded engine's
+  data     the same engine with a wave's rows split over a data axis:
+           fp32 over a (2, 1) mesh, kv_seq off (each rank 2 of a wave's
+           4 rows and its replica of the whole pool, #2 unsharded on
+           it; the pool writes gathered into every replica once a cycle
+           and once an install, the results of each cycle gathered),
+           the kernel and gather paths: tokens equal across ranks and
+           held to plain greedy by the near-tie rule, the stats to the
+           unsharded engine's, each rank's #2 launches a cycle to the
+           unsharded engine's, #2 on the rank's live replica to its
+           plain version, the replicas compared at every wave's end
+           (the engine's own check); then ``generate`` on a dense cache
+           over the same mesh (4 x 512 prompts, 16 new: #1 on each
+           rank's 2 rows, launches a cycle held to an unsharded run's,
+           tokens to plain greedy); ms a cycle, the write gather's bytes
+           and host ms, the results gather's ms, peak memory a rank
+  data_bf16  the same in bfloat16 over a (2, 2) mesh (4 ranks: 2 rows
+           and 32 slots of every page a rank, #2 with a pos_stride):
+           the kernel path held to the gather path by the bf16 near-tie
+           rule
   hybrid   recurrentgemma-2b at full width cut to 8 of its 26 layers
            (RG-LRU blocks and 2 MQA sliding-window layers of head_dim
            256, vocab 256000; the cut pays for train_archs), random
@@ -2935,6 +2954,283 @@ def sharded_path(phase, reqs, unsharded):
     return kern["sharded_launches"] / kern["decode_cycles"]
 
 
+# --------------------------------------------- the mesh's batch axes --
+# phase -> (data, model, dtype): fp32 over data 2 (a rank holds 2 of a
+# wave's 4 rows and the whole pool, kv_seq off: #2 unsharded on each
+# replica), bf16 over a (2, 2) mesh (2 rows a rank, 32 slots of every
+# page: #2 with pos_stride / pos_offset)
+DATA = {"data": (2, 1, "float32"), "data_bf16": (2, 2, "bfloat16")}
+DATA_NEW = 16        # new tokens a row of the data phase's dense generate
+_SERVE_STATS = ("cycles", "tokens", "alpha", "wasted_row_cycles", "refills",
+                "installs", "install_calls", "install_traces", "pool_pages",
+                "pool_peak_pages", "pool_utilization", "prefix_hits",
+                "prefix_misses", "prefix_hit_tokens", "prefill_tokens_saved",
+                "cow_copies", "prefix_evictions", "refill_copy_bytes",
+                "waves")
+
+
+def _split_run(state):
+    return state.run is not None and state.run.split
+
+
+class CycleGathers:
+    """``serve_run``'s ``in_cycle``: the batch axes' pool-write and
+    result gathers inside decode cycles (their calls, the bytes this rank
+    sent, host seconds); what ``sharding.WRITES`` holds beyond them is
+    the installs'."""
+
+    def __init__(self):
+        self.calls, self.bytes, self.write_s, self.result_s = 0, 0, 0.0, 0.0
+
+    @contextlib.contextmanager
+    def __call__(self):
+        from repro_torch.distributed import sharding as sh
+        w, r = sh.WRITES, sh.RESULTS
+        c0, b0, s0, t0 = w.calls, w.bytes, w.merge_s, r.merge_s
+        yield
+        self.calls += w.calls - c0
+        self.bytes += w.bytes - b0
+        self.write_s += w.merge_s - s0
+        self.result_s += r.merge_s - t0
+
+
+def data_rank(rank, n, phase, reqs):
+    """One rank of a batch-axes phase (``DATA``): the serving bundle built
+    from the seeds (one rank after another), then the serving requests
+    through the engine inside the mesh, a wave's rows split over data
+    (request 0's wave of one row is not split), by the kernel path (the
+    pool-write, host-result and LSE-merge gathers timed) and the gather
+    path; #2 on this rank's live replica at the first split cycle held to
+    its plain version (:class:`LiveRead`). The fp32 phase also runs
+    ``generate`` on a dense cache over the same mesh, 4 x 512 prompts,
+    ``DATA_NEW`` new tokens (#1 on the rank's 2 rows). Rank 0 then holds
+    the runs outside the mesh: fp32 to plain greedy by the near-tie rules
+    (and runs the unsharded ``generate`` the mesh's is held to), bf16 the
+    kernel run to the gather run. Returns this rank's record."""
+    import torch.distributed as dist
+    from repro_torch.core import pipeline as pl
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed import spdecode as sp
+    from repro_torch.kernels import cascade_attention as casc
+    from repro_torch.launch.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    data, model, dtype = DATA[phase]
+    mesh = make_mesh(data, model)
+    for i in range(n):
+        if i == rank:
+            bundle = build_bundle("float32", layers=SERVE_LAYERS)
+            if dtype == "bfloat16":
+                bundle = to_bf16(bundle)
+        dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    paged = casc.cascade_phase1_paged
+    counters = (sp.PAYLOAD, sh.WRITES, sh.RESULTS)
+    rules = dict(sh.LOGICAL_RULES, kv_seq="model" if model > 1 else None)
+    prompts = np.random.default_rng(0).integers(
+        0, bundle.target_cfg.vocab_size, size=(4, 512))
+    runs, toks, gen = {}, {}, None
+    with sh.use_sharding(mesh, rules):
+        kv_i, kv_n = sp.kv_seq_index(), sp.kv_seq_shards()
+        for impl in ("kernel", "gather"):
+            _zero_launches()
+            paged.sharded_launches = 0
+            for c in counters:
+                c.reset()
+                c.timed = impl == "kernel"
+            batches, splits, live = [], [], LiveRead(when=_split_run)
+            gathers = CycleGathers()
+
+            def snoop(eng, state):
+                batches.append(state.batch)
+                splits.append(_split_run(state))
+                if impl == "kernel":
+                    live(eng, state)
+
+            eng, toks[impl], info = serve_run(
+                pl.with_attn_impl(bundle, impl), reqs, f"{phase}_{impl}",
+                snoop=snoop, in_cycle=gathers, cache_impl="paged",
+                page_size=SERVE_PAGE, pool_pages=SERVE_POOL,
+                prefix_cache=True)
+            for c in counters:
+                c.timed = False
+            st, cyc = eng.stats, info["decode_cycles"]
+            # the gathers a cycle of a split wave (request 0's wave of
+            # one row splits nothing), and the installs' apart
+            n_split = max(sum(splits), 1)
+            info.update(
+                launches=_launches(), sharded_launches=paged.sharded_launches,
+                batch_shards=eng.batch_shards, kv_shards=st["kv_shards"],
+                split_cycles=sum(splits),
+                decode_collective_bytes=st["decode_collective_bytes"],
+                collective_bytes_formula=_merge_bytes(bundle, batches)
+                if kv_n > 1 else 0,
+                write_gathers=sh.WRITES.calls,
+                cycle_write_gathers=gathers.calls,
+                write_bytes_per_cycle=gathers.bytes / n_split,
+                write_ms_per_cycle=1e3 * gathers.write_s / n_split,
+                install_write_bytes=sh.WRITES.bytes - gathers.bytes,
+                install_write_ms=1e3 * (sh.WRITES.merge_s
+                                        - gathers.write_s),
+                result_gathers=sh.RESULTS.calls,
+                results_ms_per_cycle=1e3 * gathers.result_s / n_split,
+                merge_ms_per_cycle=1e3 * sp.PAYLOAD.merge_s / cyc)
+            if impl == "kernel":
+                info["live_read"] = live.check(f"{phase} rank {rank}",
+                                               bundle, kv_i, kv_n)
+            runs[impl] = info
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        if phase == "data":
+            _zero_launches()
+            gtoks, ginfo = run_generate(bundle, prompts, "kernel", "dense",
+                                        max_new=DATA_NEW)
+            gen = {"tokens": gtoks.tolist(), **ginfo,
+                   "launches": _launches()}
+    rec = {"rank": rank, "runs": runs, "generate": gen,
+           "tokens": {impl: {u: t.tolist() for u, t in tk.items()}
+                      for impl, tk in toks.items()},
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    if rank == 0:
+        # single-rank plain forwards and runs, outside the mesh
+        if dtype == "float32":
+            rec["near_ties"] = {impl: _serve_agreement(
+                f"{phase} {impl}", bundle, reqs, toks[impl])
+                for impl in toks}
+            _zero_launches()
+            rtoks, rinfo = run_generate(bundle, prompts, "kernel", "dense",
+                                        max_new=DATA_NEW)
+            rinfo["launches"] = _launches()
+            ref, gaps = greedy_reference(
+                bundle.target_params, bundle.target_cfg,
+                torch.as_tensor(prompts, device=DEVICE), DATA_NEW)
+            rec["generate_ref"] = {"tokens": rtoks.tolist(), **rinfo}
+            rec["generate_near_ties"] = {
+                "mesh": agreement(f"{phase} generate", np.asarray(
+                    gen["tokens"]), ref, gaps),
+                "unsharded": agreement(f"{phase} unsharded generate",
+                                       rtoks, ref, gaps)}
+        else:
+            rec["first_divergence"] = {
+                uid: bf16_divergences(bundle, [p], toks["kernel"][uid][None],
+                                      toks["gather"][uid][None], "paged")[0]
+                for uid, (p, _) in enumerate(reqs)
+                if not np.array_equal(toks["kernel"][uid],
+                                      toks["gather"][uid])}
+    dist.barrier()
+    return rec
+
+
+def data_path(phase, reqs, unsharded):
+    """A batch-axes phase (``DATA``): spawn its ranks on this card and
+    hold what they return. ``unsharded``: the unsharded engine's record
+    of the same requests in this dtype ({"tokens", "launches_per_cycle",
+    "ms_per_cycle"}, and in fp32 "stats": the run's record). Returns the
+    kernel run's #2 launches a
+    cycle and (fp32) the dense generate's #1 launches a cycle."""
+    from repro_torch.launch.mesh import run_ranks
+    t0 = time.perf_counter()
+    data, model, dtype = DATA[phase]
+    n = data * model
+    sfx = "_sm90" if dtype == "bfloat16" else ""
+    entry = "cascade_phase1_paged" + sfx
+    recs = run_ranks(data_rank, n, n, phase, reqs)
+    for impl in ("kernel", "gather"):
+        if any(r["tokens"][impl] != recs[0]["tokens"][impl] for r in recs):
+            fail(f"{phase} {impl}: the ranks' tokens differ")
+    for r in recs:
+        for impl, info in r["runs"].items():
+            where = f"{phase} rank {r['rank']} {impl}"
+            counts = info["launches"]
+            if info["batch_shards"] != data or info["kv_shards"] != model \
+                    or info["split_cycles"] <= 0 \
+                    or info["cycle_write_gathers"] != info["split_cycles"] \
+                    or info["prefix_hits"] <= 0 \
+                    or info["decode_collective_bytes"] != info[
+                        "collective_bytes_formula"]:
+                fail(f"{where}: mesh stats {info}")
+            if impl == "gather":
+                if any(counts.values()) or info["sharded_launches"]:
+                    fail(f"{where} launched {counts}")
+                continue
+            per_cycle = counts[entry] / info["decode_cycles"]
+            others = {k: v for k, v in counts.items() if k != entry}
+            pos = info["sharded_launches"]
+            if any(others.values()) or per_cycle != unsharded[
+                    "launches_per_cycle"] or pos != (counts[entry]
+                                                     if model > 1 else 0):
+                fail(f"{where}: #2 launches {counts}, {pos} with a "
+                     f"pos_stride, {per_cycle} a cycle against the "
+                     f"unsharded {unsharded['launches_per_cycle']}")
+    r0 = recs[0]
+    kern = r0["runs"]["kernel"]
+    same = {impl: float(np.mean([
+        np.array_equal(r0["tokens"][impl][u], unsharded["tokens"][u])
+        for u in unsharded["tokens"]])) for impl in ("kernel", "gather")}
+    # fp32: the serving phase's prefix_kernel run is the same engine on
+    # the same requests (bf16's unsharded runs replay a trace)
+    stats_diff = None if dtype != "float32" else {
+        k: (kern[k], unsharded["stats"][k]) for k in _SERVE_STATS
+        if kern[k] != unsharded["stats"][k]}
+    if same["kernel"] == 1.0 and stats_diff:
+        fail(f"{phase}: the stats leave the unsharded engine's: "
+             f"{stats_diff}")
+    gen = None
+    if r0["generate"] is not None:
+        ref = r0["generate_ref"]
+        g_cyc = {r["rank"]: r["generate"]["launches"]["cascade_phase1"]
+                 / r["generate"]["cycles"] for r in recs}
+        ref_cyc = ref["launches"]["cascade_phase1"] / ref["cycles"]
+        if any(r["generate"]["tokens"] != r0["generate"]["tokens"]
+               for r in recs) or any(v != ref_cyc for v in g_cyc.values()) \
+                or any(sum(v for k, v in r["generate"]["launches"].items()
+                           if k != "cascade_phase1") for r in recs):
+            fail(f"{phase} generate: launches {g_cyc} a cycle against the "
+                 f"unsharded {ref_cyc}, or the ranks' tokens differ")
+        gen = {"ms_per_cycle": r0["generate"]["ms_per_cycle"],
+               "unsharded_ms_per_cycle": ref["ms_per_cycle"],
+               "cycles": r0["generate"]["cycles"],
+               "unsharded_cycles": ref["cycles"],
+               "launches_per_cycle": g_cyc[0],
+               "unsharded_launches_per_cycle": ref_cyc,
+               "tokens_equal_to_unsharded": r0["generate"]["tokens"]
+               == ref["tokens"],
+               "near_ties": {k: v for k, v in r0[
+                   "generate_near_ties"].items() if v}}
+    emit({"phase": phase, "ok": True, "dtype": dtype, "mesh": [data, model],
+          "ranks": n, "rows_a_rank": SERVE_BATCH // data,
+          "layers": SERVE_LAYERS, "gpu": nvidia_smi_line(),
+          "ms_per_cycle": kern["ms_per_cycle"],
+          "unsharded_ms_per_cycle": unsharded["ms_per_cycle"],
+          # a cycle of a split wave; the installs' gathers apart
+          "write_gather_bytes_per_cycle": kern["write_bytes_per_cycle"],
+          "write_gather_ms_per_cycle": kern["write_ms_per_cycle"],
+          "install_write_gathers": kern["write_gathers"]
+          - kern["cycle_write_gathers"],
+          "install_write_bytes": kern["install_write_bytes"],
+          "install_write_ms": kern["install_write_ms"],
+          "results_gather_ms_per_cycle": kern["results_ms_per_cycle"],
+          "merge_ms_per_cycle": kern["merge_ms_per_cycle"],
+          "peak_gib_per_rank": [r["peak_gib"] for r in recs],
+          "launches_per_cycle": kern["launches"][entry]
+          / kern["decode_cycles"],
+          "unsharded_launches_per_cycle": unsharded["launches_per_cycle"],
+          "tokens_equal_to_unsharded": same,
+          "stats_differ_from_unsharded": stats_diff,
+          "live_read": {r["rank"]: r["runs"]["kernel"]["live_read"]
+                        for r in recs},
+          "generate": gen,
+          "runs": {impl: {k: v for k, v in info.items() if k != "launches"}
+                   for impl, info in r0["runs"].items()},
+          "near_ties": r0.get("near_ties"),
+          "first_divergence": r0.get("first_divergence"),
+          "note": "ranks time-share one card",
+          "seconds": time.perf_counter() - t0})
+    return {"paged": kern["launches"][entry] / kern["decode_cycles"],
+            "dense": gen["launches_per_cycle"] if gen else None}
+
+
 # ------------------------------------------------------------------ main --
 def _timing_keys(t):
     return {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -3508,11 +3804,12 @@ class LiveRead:
     shape (random queries in the model's dtype) under the kernels
     phase's gates."""
 
-    def __init__(self):
+    def __init__(self, when=None):
         self.snap = None
+        self.when = when        # a state predicate (default: the first)
 
     def __call__(self, eng, state):
-        if self.snap is None:
+        if self.snap is None and (self.when is None or self.when(state)):
             layer = state.target["layers"][0]
             self.snap = {"k": layer["k"].clone(), "v": layer["v"].clone(),
                          "pt": state.d1_feat["pt"].clone(),
@@ -4253,6 +4550,18 @@ def main():
             "tokens": serve_bf16_toks,
             "launches_per_cycle": sy["launches_per_cycle"],
             "ms_per_cycle": sy["ms_per_cycle"]})}
+    # the engine's rows split over the mesh's batch axes, the pool
+    # replicated over them, held to the same unsharded runs
+    data = {
+        "data": data_path("data", serve_reqs, {
+            "tokens": serve_toks["prefix_kernel"],
+            "launches_per_cycle": pk["launches_per_cycle"][
+                "cascade_phase1_paged"],
+            "ms_per_cycle": pk["ms_per_cycle"], "stats": pk}),
+        "data_bf16": data_path("data_bf16", serve_reqs, {
+            "tokens": serve_bf16_toks,
+            "launches_per_cycle": sy["launches_per_cycle"],
+            "ms_per_cycle": sy["ms_per_cycle"]})}
     recurrent = {phase: recurrent_path(phase) for phase in RECURRENT}
     serving_recurrent()
     moe_launches, nodrop_ref = moe_path()
@@ -4309,6 +4618,11 @@ def main():
             # bf16 over 4)
             extra["ep_launches_per_cycle"] = ep_runs[
                 "ep" if dtype == torch.float32 else "ep_bf16"]
+        # each batch rank's launches a cycle of the batch-axes phases: the
+        # engine's run of a wave's rows (#2: fp32 over data 2, bf16 over
+        # (2, 2) with a pos_stride), the dense generate's (#1, fp32)
+        extra["data_launches_per_cycle"] = data[
+            "data" if dtype == torch.float32 else "data_bf16"][cache]
         # the recurrent targets' kernel runs (host loop) in this dtype
         for phase, rec in recurrent.items():
             extra[f"{phase}_launches_per_cycle"] = rec[dn][cache][name]

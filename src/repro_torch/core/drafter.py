@@ -136,7 +136,10 @@ def extend_feat_cache(p, dcfg, cache, target_features, positions, n_new):
     """Append features of newly committed tokens (per-example ragged), in
     place, by a fixed-shape write (``kvcache.drop_put_``). positions:
     [B,P] absolute; n_new: [B] valid counts. Returns the cache dict with
-    ``length`` advanced."""
+    ``length`` advanced. A paged cache is written through
+    ``kvcache.pool_scatter_``, so under a batch split the writes reach
+    the other ranks' replicas in the cycle's (or install's) one gather;
+    the reads see the rank's run of the rows over its whole replica."""
     k_new, v_new = project_features(p, dcfg, target_features, positions)
     b, pl = positions.shape
     dev = positions.device

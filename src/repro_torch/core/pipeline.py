@@ -38,7 +38,8 @@ from repro_torch.config.base import ModelConfig, SpecConfig
 from repro_torch.core import drafter as dr
 from repro_torch.core import strategies as strat_lib
 from repro_torch.core import verify as verify_lib
-from repro_torch.core.state import EngineState, engine_init, prefill
+from repro_torch.core.state import (EngineState, engine_init, on_run,
+                                    prefill)
 from repro_torch.distributed import sharding as sh
 from repro_torch.models import kvcache as kvc
 from repro_torch.models import param as pm
@@ -78,7 +79,48 @@ def decode_cycle(bundle: SpecBundle, state: EngineState, gen,
     ``collect_stats`` and a strategy that has a diffusion trunk, out also
     holds ``conf`` [B, gamma-1] (the trunk confidences) and ``trunk_ok``
     [B, gamma-1] (the trunk nodes' acceptance).
+
+    A state that holds a run of a batch-split wave (``state.run``) cycles
+    its rows only (``state.on_run``: the draws keep its rows, one gather
+    a cycle syncs the pool replicas) and ``out`` is gathered back to the
+    wave's rows, the same on every rank.
     """
+    with on_run(state):
+        state2, out = _cycle(bundle, state, gen, collect_stats)
+    if state.run is not None and state.run.split:
+        out = _gather_out(out, state.run)
+    return state2, out
+
+
+def _gather_out(out, run):
+    """A batch-split cycle's per-row results (``out``: this run's rows)
+    as the wave's: one gather over the run's batch axes of every result
+    packed into int64 columns (float32 by its bits)."""
+    cols, spec = [], []
+    for k, v in out.items():
+        if v is None:
+            spec.append((k, None, None, 0))
+            continue
+        w = v.reshape(v.shape[0], -1)
+        if v.dtype == torch.float32:
+            w = w.view(torch.int32)
+        cols.append(w.long())
+        spec.append((k, v.dtype, v.shape[1:], w.shape[1]))
+    packed = sh.gather_rows(torch.cat(cols, 1), run)
+    res, at = {}, 0
+    for k, dt, shape, n in spec:
+        if dt is None:
+            res[k] = None
+            continue
+        w = packed[:, at:at + n]
+        at += n
+        if dt == torch.float32:
+            w = w.int().view(torch.float32)
+        res[k] = w.to(dt).reshape(run.b, *shape)
+    return res
+
+
+def _cycle(bundle, state, gen, collect_stats):
     strategy = strat_lib.get_strategy(bundle.spec.mode)
     backend = verify_lib.select_backend(bundle.target_cfg)
     active = state.active
@@ -153,8 +195,13 @@ def generate(bundle: SpecBundle, prompts, max_new: int, seed: int = 0,
     cross caches, sized here to ``T_ctx`` (JAX's state grows them at the
     prefill; the port's is fixed storage), and every cycle reads them.
     The graph loop takes no ``ctx``, as JAX's ``generate_ondevice``.
+
+    Inside a mesh whose batch axes split the B rows
+    (``sharding.batch_run``), each rank decodes its run of them (dense
+    caches of its rows; a paged pool of every row's pages, replicated
+    over the batch axes) and every cycle's results are gathered, so every
+    rank returns the whole batch's tokens and stats.
     """
-    sh.refuse_data_axis("pipeline.generate")
     dev = resolve_device(device)
     gen = pm.make_generator(seed, dev)
     prompts = torch.as_tensor(np.asarray(prompts), device=dev).long()
@@ -162,18 +209,21 @@ def generate(bundle: SpecBundle, prompts, max_new: int, seed: int = 0,
     g = bundle.spec.gamma
     max_len = max_len or (p + max_new + 2 * g + 8)
     t0 = time.perf_counter()
+    run = sh.batch_run(b)
     if ctx is not None:
-        ctx = torch.as_tensor(ctx, device=dev)
+        ctx = torch.as_tensor(ctx, device=dev)[run.rows]
+    true_len = _lengths(true_len, dev)
     state = engine_init(bundle, b, max_len,
                         ctx_len=0 if ctx is None else ctx.shape[1],
                         cache_impl=cache_impl, page_size=page_size,
-                        device=dev)
-    state = prefill(bundle, state, prompts, gen, ctx=ctx,
+                        device=dev, run=run)
+    state = prefill(bundle, state, prompts[run.rows], gen, ctx=ctx,
                     temperature=bundle.spec.temperature,
-                    true_len=_lengths(true_len, dev))
+                    true_len=None if true_len is None
+                    else true_len[run.rows])
 
     out_buf = np.zeros((b, max_new + g + 1), np.int64)
-    out_buf[:, 0] = state.anchor.cpu().numpy()
+    out_buf[:, 0] = sh.gather_rows(state.anchor, run).cpu().numpy()
     t1 = time.perf_counter()
     filled = np.ones((b,), np.int64)
     n_cycles = act_cycles = committed = 0
@@ -181,7 +231,8 @@ def generate(bundle: SpecBundle, prompts, max_new: int, seed: int = 0,
     while filled.min() < max_new:
         below = filled < max_new
         act_cycles += int(below.sum())
-        state = state.replace(active=torch.as_tensor(below, device=dev))
+        state = state.replace(active=torch.as_tensor(below[run.rows],
+                                                     device=dev))
         state, out = decode_cycle(bundle, state, gen,
                                   collect_stats=collect_stats)
         toks = out["tokens"].cpu().numpy()
@@ -366,18 +417,20 @@ def _lengths(true_len, dev):
 
 
 def _refuse_collective_mesh(bundle):
-    """A cycle under a kv_seq mesh merges its reads, and a MoE target's
-    cycle under an experts axis its experts' outputs, by gloo
-    all-reduces: host-side collectives that no CUDA graph can hold."""
+    """A cycle under a kv_seq mesh merges its reads, a MoE target's cycle
+    under an experts axis its experts' outputs, and a cycle in a mesh
+    with batch axes gathers its rows' results and pool writes, by gloo
+    collectives on the host, which no CUDA graph can hold."""
     from repro_torch.distributed import ep, spdecode
     if spdecode.kv_seq_axis() is not None \
-            or ep.ep_available(bundle.target_cfg):
+            or ep.ep_available(bundle.target_cfg) or sh.batch_shards() > 1:
         raise NotImplementedError(
-            "generate_ondevice / OnDeviceLoop inside a kv_seq mesh (or an "
-            "experts mesh over a MoE target): the ranks merge through gloo "
-            "collectives on the host, which a CUDA graph cannot capture; "
-            "use generate (the eager cycle). The graph-captured sharded "
-            "loop comes with NCCL (ROADMAP.md queue 1)")
+            "generate_ondevice / OnDeviceLoop inside a kv_seq mesh, an "
+            "experts mesh over a MoE target or a mesh with batch axes: the "
+            "ranks merge and gather through gloo collectives on the host, "
+            "which a CUDA graph cannot capture; use generate (the eager "
+            "cycle). The graph-captured mesh loop comes with NCCL "
+            "(ROADMAP.md queue 1, item 9b)")
 
 
 def generate_ondevice(bundle: SpecBundle, prompts, max_new: int,
@@ -397,9 +450,9 @@ def generate_ondevice(bundle: SpecBundle, prompts, max_new: int,
     the eager first one included, not the capture); capture_s is the
     capture alone and graph_pool_bytes the memory its private pool took
     (both 0 on the CPU). ``true_len``: ragged prompts, as in
-    :func:`generate`. Inside a kv_seq mesh, or an experts mesh over a MoE
-    target, it raises ``NotImplementedError`` (collectives cannot go into
-    a CUDA graph).
+    :func:`generate`. Inside a kv_seq mesh, an experts mesh over a MoE
+    target or a mesh with batch axes, it raises ``NotImplementedError``
+    (collectives cannot go into a CUDA graph: ROADMAP.md item 9b).
     """
     _refuse_collective_mesh(bundle)
     dev = resolve_device(device)

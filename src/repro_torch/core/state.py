@@ -26,9 +26,21 @@ other rows. Pool ownership is external (the borrowed-pool contract):
 :func:`capture_pools` harvests the pool tensors at wave turnover and
 :func:`engine_init` (``pools=``) adopts them into the next wave, so pages
 the radix prefix cache retained keep their KV across waves.
+
+Batch axes: inside a mesh whose batch axes split a wave's rows
+(``sharding.batch_run``), a rank's state holds its run of the rows
+(``EngineState.run``): dense caches, lengths, anchors and its page-table
+rows, with the whole page pool, replicated over the batch axes. Under
+:func:`on_run` a rank's random draws keep its rows of the whole batch's
+numbers and its pool writes are logged; on leaving, one gather over the
+batch group copies every rank's written slots into every replica
+(:func:`prefill`, :func:`install_rows` and ``pipeline.decode_cycle``: one
+a cycle, one an install). :func:`cow_copy_page` runs alike on every
+replica.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, Optional
 
@@ -37,6 +49,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import drafter as dr
+from repro_torch.distributed import sharding as sh
 from repro_torch.models import kvcache as kvc
 from repro_torch.models import lm
 from repro_torch.models import param as pm
@@ -53,6 +66,8 @@ class EngineState:
     d2_feat: Dict[str, Any]
     anchor: torch.Tensor          # [B] long
     active: torch.Tensor          # [B] bool
+    # the wave's rows this state holds (None: all of them)
+    run: Optional[sh.BatchRun] = None
 
     @property
     def batch(self) -> int:
@@ -136,7 +151,8 @@ def _adopt_block_(dst, src, row, src_row, axis, seen):
 def engine_init(bundle, batch: int, max_len: int, ctx_len: int = 0,
                 cache_impl: str = "dense", page_size: int = 64,
                 pool_pages=None, page_table=None, device="cuda",
-                pools: Optional[Dict[str, Any]] = None) -> EngineState:
+                pools: Optional[Dict[str, Any]] = None,
+                run: Optional[sh.BatchRun] = None) -> EngineState:
     """Allocate the caches of a request wave. Under ``cache_impl="paged"``
     every paged cache (target global KV and both feature caches) shares
     one page-id space and one page-table tensor (default: the identity
@@ -145,13 +161,19 @@ def engine_init(bundle, batch: int, max_len: int, ctx_len: int = 0,
 
     pools: pool tensors retained from the previous wave
     (:func:`capture_pools`), adopted as they are instead of allocating
-    zeroed pools; their geometry must match this allocation."""
+    zeroed pools; their geometry must match this allocation.
+
+    run: this rank's run of the ``batch`` rows (``sharding.batch_run``):
+    the state holds ``run.n`` rows, and rows ``run.rows`` of the page
+    table, and the whole pool (the page layout is the wave's)."""
     dev = resolve_device(device)
     tcfg = bundle.target_cfg
     if cache_impl == "paged":
         pool_pages, page_table = kvc.default_page_layout(
             batch, max_len, page_size, pool_pages, page_table, dev)
         page_table = _to_device(page_table, dev, torch.int32)
+        if run is not None:
+            page_table = page_table[run.rows].clone()
     else:
         assert not pools, "retained pool buffers require cache_impl='paged'"
     pools = pools or {}
@@ -159,6 +181,8 @@ def engine_init(bundle, batch: int, max_len: int, ctx_len: int = 0,
               pool_pages=pool_pages, page_table=page_table)
     tgt_pools = {int(name[len("target/"):]): kv
                  for name, kv in pools.items() if name.startswith("target/")}
+    if run is not None:
+        batch = run.n
     return EngineState(
         target=lm.init_states(tcfg, batch, max_len, ctx_len=ctx_len,
                               dtype=getattr(torch, tcfg.dtype), device=dev,
@@ -171,7 +195,37 @@ def engine_init(bundle, batch: int, max_len: int, ctx_len: int = 0,
                                    ext_pool=pools.get("d2_feat"), **kw),
         anchor=torch.zeros((batch,), dtype=torch.long, device=dev),
         active=torch.ones((batch,), dtype=torch.bool, device=dev),
+        run=run,
     )
+
+
+def _pool_tensors(state: EngineState):
+    return [t for _, d in _paged_dicts(state) for t in (d["k"], d["v"])]
+
+
+@contextlib.contextmanager
+def on_run(state: EngineState, keep=None, total: Optional[int] = None):
+    """This rank's work on its rows of a wave whose rows split over the
+    batch axes (``state.run``; a no-op otherwise). Inside, the random
+    draws take the numbers of ``total`` rows and keep rows ``keep``
+    (default: the wave's, and this rank's run), and the pool writes are
+    logged; on leaving, one gather over the run's batch axes copies every
+    rank's written slots into every replica of the pools
+    (``kvcache.sync_replicas_``, counted in ``sharding.WRITES``). Every
+    rank of the batch group must enter it alike."""
+    run = state.run
+    if run is None or not run.split:
+        yield
+        return
+    total = run.b if total is None else total
+    keep = range(run.lo, run.lo + run.n) if keep is None else keep
+    paged = state.cache_impl == "paged"
+    with sh.row_subset(total, keep), kvc.log_pool_writes(paged) as log:
+        yield
+    if paged:
+        with sh.WRITES.timing(state.anchor.device):
+            sh.WRITES.bytes += kvc.sync_replicas_(
+                _pool_tensors(state), log, sh.active_mesh(), run.axes)
 
 
 def prefill(bundle, state: EngineState, prompts, gen=None, ctx=None,
@@ -196,7 +250,17 @@ def prefill(bundle, state: EngineState, prompts, gen=None, ctx=None,
     row), ``prompts`` is only the uncached suffix, and the forward attends
     [cache ++ suffix] (the gather view of the cache) at positions offset
     by ``start``. The state's lengths must already be ``start``.
+
+    A state that holds a run of a batch-split wave takes its run's rows of
+    ``prompts`` (:func:`on_run`: its draws and pool writes are the run's).
     """
+    with on_run(state):
+        return _prefill(bundle, state, prompts, gen, ctx, temperature,
+                        true_len, start)
+
+
+def _prefill(bundle, state, prompts, gen, ctx, temperature, true_len,
+             start):
     b, p = prompts.shape
     dev = prompts.device
     warm = start is not None
@@ -353,7 +417,33 @@ def install_rows(bundle, state: EngineState, rows, prompts, gen=None,
 
     At temperature > 0 the K anchors come from one draw of ``gen``; the
     engine routes only greedy installs here.
+
+    Under a batch split (``state.run``) ``rows`` are the wave's: this rank
+    prefills the rows its run holds (maybe none) and every rank takes
+    part in the install's pool-write gather (:func:`on_run`).
     """
+    run = state.run
+    if run is None or not run.split:
+        return _install(bundle, state, rows, prompts, gen, temperature,
+                        row_tables, true_len, prefix_hits)
+    keep = [i for i, r in enumerate(rows) if run.lo <= r < run.lo + run.n]
+
+    def take(x):
+        return None if x is None else x[keep]
+
+    with on_run(state, keep=keep, total=len(rows)):
+        if keep:
+            _install(bundle, state, [rows[i] - run.lo for i in keep],
+                     take(prompts), gen, temperature, take(row_tables),
+                     take(true_len), take(prefix_hits))
+        elif temperature > 0:
+            # the anchors' draw, of which this rank keeps no row
+            pm.gumbel(gen, (0, bundle.target_cfg.vocab_size))
+    return state
+
+
+def _install(bundle, state, rows, prompts, gen, temperature, row_tables,
+             true_len, prefix_hits):
     dev = state.anchor.device
     prompts = _to_device(prompts, dev, torch.long)
     k = prompts.shape[0]

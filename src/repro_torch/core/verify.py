@@ -61,7 +61,7 @@ def sampling_draws(gen, tree: Tree, vocab: int, max_children: int):
     per depth and child slot, in the order the rule visits them) and the
     bonus's Gumbel noise [B, V]."""
     b, d = tree.b, tree.max_depth
-    u = torch.rand((d * max_children, b), generator=gen, device=gen.device)
+    u = pm.uniform(gen, (d * max_children, b), dim=1)
     return u, pm.gumbel(gen, (b, vocab))
 
 

@@ -9,8 +9,11 @@ group (gloo, on the CPU and on the card: NCCL refuses two ranks on one
 device, and a CUDA payload is staged through host memory).
 
 * ``sharding`` — the :class:`~repro_torch.distributed.sharding.Mesh`
-  (axis names, shape, this rank's coordinates, a process group per axis),
-  the logical-axis rules and the thread-local ``use_sharding`` context;
+  (axis names, shape, this rank's coordinates, its process groups), the
+  logical-axis rules with JAX's ``logical_to_pspec`` / ``fit_spec``, the
+  thread-local ``use_sharding`` context and the batch axes' runs of rows
+  (``batch_run``: a wave's rows split over ``pod`` and ``data``, each
+  rank computing its run);
 * ``spdecode`` — KV-sequence-sharded decode attention: the dense and the
   paged cache reads under a ``kv_seq`` axis and their log-sum-exp merge;
 * ``ep`` — expert parallelism over the ``experts`` axis: each rank runs
@@ -22,8 +25,7 @@ device, and a CUDA payload is staged through host memory).
 ``repro/distributed/compat.py`` has no twin: it only spells JAX APIs
 across JAX versions (``shard_map``'s ``check_vma`` / ``check_rep``,
 ``make_mesh``'s ``axis_types``, ``pvary``), none of which the SPMD form
-needs. A mesh has a process group for each of its ``data`` and
-``model`` axes (``launch/mesh.py::make_mesh``); the serving engine and
-``pipeline.generate`` refuse a ``data`` axis larger than 1 with
-``NotImplementedError`` (ROADMAP.md queue 1, item 9a).
+needs. A mesh has a process group for each line of each of its axes
+(``pod``, ``data``, ``model``) and a batch group over ``("pod",
+"data")`` (``launch/mesh.py::make_mesh``).
 """

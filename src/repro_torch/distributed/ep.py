@@ -18,24 +18,32 @@ SPMD form: a rank holds only its part of every expert stack
 (:func:`ep_local_params`, or :func:`ep_shard_target` over a target, or
 ``lm_init(expert_part=)``, which draws the whole stacks' numbers and
 keeps the part); the router and the shared experts stay whole. ``x`` is
-JAX's global view, every token on every rank: under a data axis a rank
-runs its experts over its own run of the tokens (:func:`data_slice`,
-JAX's batch fit, ``ep.py:83-91``: the contiguous run of the flattened
-tokens a data rank takes, or all of them when the axis does not divide
-the count), and the runs are all-gathered back. JAX's ``shard_map`` makes
-its function differentiable; here ``x`` and the gates enter the rank's
-experts through :class:`_SumGrad` (identity forward, SUM all-reduce
-backward) and the output leaves through :class:`_SumOut` (SUM all-reduce
-forward, identity backward); under a data split, :class:`_DataRun` and
-:class:`_DataGather` carry the runs and the expert stacks' gradients are
-summed over the data axis. So the router's and ``x``'s gradients are
-whole and equal on every rank, and each rank's expert gradients are its
-part of JAX's.
+JAX's global view of the rows the rank holds. JAX fits the flattened
+tokens over the batch axes (``ep.py:83-91``: ``pod``, then ``data``, each
+kept while it divides the count) and gives each (pod, data) index a
+contiguous run of them, whose capacity comes from its own count:
+
+* when the rank holds every row (the batch axes did not split them), it
+  runs its experts over its own run (:func:`data_slice`) and the runs are
+  all-gathered back over the fitted axes;
+* when it holds its part of a batch split over the batch axes
+  (``sharding.row_subset``: a cycle's run of a wave, an install's rows),
+  it runs its experts over each of JAX's runs that fall in its rows
+  (:func:`row_runs`), with no gather: its batch peers hold the others.
+
+JAX's ``shard_map`` makes its function differentiable; here ``x`` and
+the gates enter the rank's experts through :class:`_SumGrad` (identity
+forward, SUM all-reduce backward) and the output leaves through
+:class:`_SumOut` (SUM all-reduce forward, identity backward); under a
+token split, :class:`_DataRun` and :class:`_DataGather` carry the runs
+and the expert stacks' gradients are summed over the fitted axes. So the
+router's and ``x``'s gradients are whole and equal on every rank, and
+each rank's expert gradients are its part of JAX's.
 """
 from __future__ import annotations
 
 import time
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -130,17 +138,45 @@ def ep_shard_target(params, cfg, mesh):
 
 
 def data_slice(n_tokens: int, mesh) -> Tuple[int, int]:
-    """JAX's batch fit (``ep.py:83-91``) over the port's batch axis,
-    ``data`` (``make_mesh`` refuses a ``pod`` axis): the contiguous run
-    ``[start, stop)`` of ``n_tokens`` flattened tokens this rank computes,
-    its data index's share when the axis divides the count, all of them
-    otherwise."""
-    nd = mesh.size("data") if "data" in mesh.axis_names else 1
-    if nd == 1 or n_tokens % nd:
-        return 0, n_tokens
-    t_loc = n_tokens // nd
-    i = mesh.index("data")
+    """The contiguous run ``[start, stop)`` of ``n_tokens`` flattened
+    tokens (every row of the batch) that this rank computes under JAX's
+    batch fit (``ep.py:83-91``, the batch rule's axes: ``pod``, then
+    ``data``, each kept while the product divides the count): its
+    flattened (pod, data) index's share, all of them when no axis
+    divides the count."""
+    axes = sh.batch_axes(n_tokens, mesh)
+    k = mesh.size(axes)
+    t_loc = n_tokens // k
+    i = mesh.index(axes)
     return i * t_loc, (i + 1) * t_loc
+
+
+def row_runs(total: int, keep, t: int, mesh) -> List[Tuple[int, int]]:
+    """JAX's token runs (:func:`data_slice` over ``total`` rows of ``t``
+    tokens) that fall in this rank's rows ``keep`` (positions among the
+    ``total``, in the order the rank holds them), as ranges of the rank's
+    own flattened tokens. A run that straddles rows of two batch ranks
+    raises ``NotImplementedError``: no rank holds all of its tokens."""
+    n = total * t
+    axes = sh.batch_axes(n, mesh)
+    t_loc = n // mesh.size(axes)
+    at = {r: i for i, r in enumerate(keep)}
+    out = []
+    for a in range(0, n, t_loc):
+        rows = range(a // t, (a + t_loc - 1) // t + 1)
+        mine = [r in at for r in rows]
+        if not any(mine):
+            continue
+        if not all(mine) or any(at[r] - at[rows[0]] != r - rows[0]
+                                for r in rows):
+            raise NotImplementedError(
+                f"expert parallelism: a token run of {t_loc} of {n} "
+                f"straddles rows {list(rows)} held by different batch "
+                "ranks")
+        lo = at[rows[0]] * t + a - rows[0] * t
+        out.append((lo, lo + t_loc))
+    assert sum(z - a for a, z in out) == len(keep) * t, (out, keep, t)
+    return out
 
 
 def ep_capacity(t_loc: int, cfg) -> int:
@@ -189,43 +225,45 @@ class _SumOut(torch.autograd.Function):
         return g, None, None
 
 
-def _gather_runs(t: torch.Tensor, mesh) -> torch.Tensor:
-    """Every data rank's run of rows, in rank order."""
-    return mesh.all_gather(t.contiguous(), "data").flatten(0, 1)
+def _gather_runs(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Every rank's run of rows over ``axes``, in rank order."""
+    return mesh.all_gather(t.contiguous(), axes).flatten(0, 1)
 
 
 class _DataRun(torch.autograd.Function):
-    """Rows ``[a, z)`` of a tensor replicated over the data axis; backward:
-    the ranks' runs of the cotangent all-gathered, the whole gradient."""
+    """Rows ``[a, z)`` of a tensor replicated over ``axes``; backward: the
+    ranks' runs of the cotangent all-gathered, the whole gradient."""
 
     @staticmethod
-    def forward(ctx, t, a, z, mesh):
-        ctx.mesh = mesh
+    def forward(ctx, t, a, z, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
         return t[a:z].clone()
 
     @staticmethod
     def backward(ctx, g):
-        return _gather_runs(g, ctx.mesh), None, None, None
+        return _gather_runs(g, ctx.mesh, ctx.axes), None, None, None, None
 
 
 class _DataGather(torch.autograd.Function):
-    """The data ranks' runs all-gathered; backward: this rank's run."""
+    """The ranks' runs all-gathered over ``axes``; backward: this rank's
+    run."""
 
     @staticmethod
-    def forward(ctx, t, a, z, mesh):
+    def forward(ctx, t, a, z, mesh, axes):
         ctx.a, ctx.z = a, z
-        return _gather_runs(t, mesh)
+        return _gather_runs(t, mesh, axes)
 
     @staticmethod
     def backward(ctx, g):
-        return g[ctx.a:ctx.z], None, None, None
+        return g[ctx.a:ctx.z], None, None, None, None
 
 
 def moe_apply_ep(p, x, cfg):
-    """x: [B, T, d], every token (replicated over the mesh) -> [B, T, d],
-    the same on every rank: the routed experts' sum over the experts axis
-    (the caller adds the shared experts). Requires :func:`ep_available`
-    and this rank's part of every expert stack in ``p``."""
+    """x: [B, T, d], the tokens of the rows this rank holds (replicated
+    over the experts axis) -> [B, T, d], the same on every rank of that
+    axis: the routed experts' sum over the experts axis (the caller adds
+    the shared experts). Requires :func:`ep_available` and this rank's
+    part of every expert stack in ``p``."""
     from repro_torch.models.moe import _apply_scatter, _route
     mesh = sh.active_mesh()
     ax = experts_axis(mesh)
@@ -245,19 +283,31 @@ def moe_apply_ep(p, x, cfg):
     # renormalised gates cast to x's dtype (ep.py:60-64)
     gates, idx = _route(p, x2, cfg)
     gates = gates.to(dt)
-    a, z = data_slice(b * t, mesh)
+    rows = sh.active_rows()
+    if rows is None:
+        # every row here: this rank's run of JAX's fit, gathered back
+        axes = sh.batch_axes(b * t, mesh)
+        a, z = data_slice(b * t, mesh)
+        runs = [(0, z - a)]
+    else:
+        # this rank's rows of a split batch: each of JAX's runs in them
+        assert len(rows[1]) == b, (rows, b)
+        axes, a, z = (), 0, b * t
+        runs = row_runs(rows[0], rows[1], t, mesh)
     split = z - a < b * t
     if split:
-        x2 = _DataRun.apply(x2, a, z, mesh)
-        gates = _DataRun.apply(gates, a, z, mesh)
+        x2 = _DataRun.apply(x2, a, z, mesh, axes)
+        gates = _DataRun.apply(gates, a, z, mesh, axes)
         idx = idx[a:z]
-        p = {n: _SumGrad.apply(w, mesh, "data") if n in _STACKS else w
+        p = {n: _SumGrad.apply(w, mesh, axes) if n in _STACKS else w
              for n, w in p.items()}
-    # the rank's experts over its run at EP's capacity; priority in
+    # the rank's experts over each run at EP's capacity; priority in
     # row-major (token, choice) order over each expert's queue
-    contrib = _apply_scatter(
-        p, _SumGrad.apply(x2, mesh, ax), _SumGrad.apply(gates, mesh, ax),
-        idx, ep_capacity(z - a, cfg), cfg, (e0, e_loc))
+    xe = _SumGrad.apply(x2, mesh, ax)
+    ge = _SumGrad.apply(gates, mesh, ax)
+    contrib = torch.cat([_apply_scatter(
+        p, xe[s:e], ge[s:e], idx[s:e], ep_capacity(e - s, cfg), cfg,
+        (e0, e_loc)) for s, e in runs])
     # the combine in JAX's order and rounding: from zero, a token's pairs
     # added in x's dtype by ascending expert (its loop over the rank's
     # experts), then the ranks' partial sums, in x's dtype
@@ -268,5 +318,5 @@ def moe_apply_ep(p, x, cfg):
         y = y + contrib[:, j]
     y = _SumOut.apply(y, mesh, ax)
     if split:
-        y = _DataGather.apply(y, a, z, mesh)
+        y = _DataGather.apply(y, a, z, mesh, axes)
     return y.reshape(b, t, d)

@@ -11,10 +11,13 @@ in-flight tree / block KV is replicated: every rank computes its part
 alike and merges it locally.
 
 SPMD form: every function here runs in each rank on that rank's tensors.
-Queries, blocks, lengths and page tables are the same on every rank
-(replicated); a dense cache is replicated too and each rank reads its
-slice of it; a page pool holds only this rank's run of every page
-(``models/kvcache.py``).
+A rank holds its run of the batch's rows (every row when the batch axes
+do not split them: ``sharding.batch_run``), which is JAX's ``bspec``
+slice of its ``shard_map``: queries, blocks, lengths and page tables are
+the run's, the same on every rank of the kv_seq axis; a dense cache
+holds the run's rows, replicated over kv_seq, and each rank reads its
+slice of it; a page pool holds this rank's run of every page
+(``models/kvcache.py``), replicated over the batch axes.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.distributed import sharding as sh
+from repro_torch.distributed.sharding import PayloadCounter
 from repro_torch.models.attention import attend_chunked, merge_attn_stats
 
 
@@ -45,25 +49,14 @@ def kv_seq_index() -> int:
     return 0 if axis is None else sh.active_mesh().index(axis)
 
 
-class PayloadCounter:
-    """Bytes each rank sends into the LSE merges of
-    :func:`sharded_paged_cache_attend`, by JAX's formula (acc and l in the
-    merge dtype, m in float32), counted at every call; JAX's
-    ``PAYLOAD_TRACE`` logs once per trace, which is once per call of a
-    jitted cycle that runs each read once. ``timed``: each merge is
-    timed on the host after a device synchronize, into ``merge_s``."""
-
-    def __init__(self):
-        self.calls = 0
-        self.bytes = 0
-        self.timed = False
-        self.merge_s = 0.0
-
-    def reset(self):
-        self.calls = self.bytes = 0
-        self.merge_s = 0.0
-
-
+#: bytes each rank sends into the LSE merges of
+#: :func:`sharded_paged_cache_attend`, by JAX's formula (acc and l in the
+#: merge dtype, m in float32), counted at every call over this rank's
+#: rows (JAX's ``PAYLOAD_TRACE`` logs once per trace, which is once per
+#: call of a jitted cycle that runs each read once, over the whole
+#: batch: under a batch split a rank's count is its run's ``n / b`` of
+#: it). ``timed``: each merge is timed on the host after a device
+#: synchronize, into ``merge_s``.
 PAYLOAD = PayloadCounter()
 
 

@@ -13,9 +13,11 @@ collectives go through gloo on the host.
 from __future__ import annotations
 
 import datetime
+import math
 import os
 import tempfile
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
@@ -30,45 +32,55 @@ def make_production_mesh(*, multi_pod: bool = False):
     """The 16x16 (or 2x16x16) production mesh: queued with the dry run."""
     raise NotImplementedError(
         "make_production_mesh: the production meshes (16x16, 2x16x16) "
-        "come with the dry run (ROADMAP.md queue 1)")
+        "come with the dry run (ROADMAP.md queue 1, item 10)")
 
 
 def make_mesh(data: int, model: int, pod: int = 1) -> Mesh:
     """This rank's ``("data", "model")`` mesh over the initialised process
-    group, whose size must be ``data * model``. Rank ``r`` sits at
-    ``(r // model, r % model)``; each axis gets one process group for
-    every row (``model``) or column (``data``) of the mesh, made in the
-    same order on every rank (``dist.new_group`` is collective), and an
-    axis of size 1 gets none. ``pod`` > 1 raises ``NotImplementedError``
-    (it comes with pipeline parallelism, ROADMAP.md queue 1, item 10).
-    Callers that cannot yet split rows over ``data`` (the serving engine,
-    ``pipeline.generate``) refuse a data axis above 1 themselves."""
-    if pod != 1:
-        raise NotImplementedError(
-            f"make_mesh(pod={pod}): the pod axis comes with pipeline "
-            "parallelism (ROADMAP.md queue 1, item 10)")
+    group, or with ``pod`` > 1 its ``("pod", "data", "model")`` mesh (JAX's
+    ``make_mesh``); the group's size must be the mesh's. Rank ``r`` sits
+    at its row-major coordinates, ``r = (p * data + d) * model + m``.
+    Every line of every axis gets a process group (an axis of size 1
+    none), and every model index one batch group over ``("pod",
+    "data")`` when both are above 1, all made in the same order on every
+    rank (``dist.new_group`` is collective)."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialised process group "
                            "(run it inside run_ranks)")
+    names, shape = ("data", "model"), (data, model)
+    if pod > 1:
+        names, shape = ("pod",) + names, (pod,) + shape
     world = dist.get_world_size()
-    if world != data * model:
-        raise ValueError(f"a {data}x{model} mesh needs {data * model} "
-                         f"ranks, the process group has {world}")
+    if world != math.prod(shape):
+        raise ValueError(f"a {'x'.join(map(str, shape))} mesh needs "
+                         f"{math.prod(shape)} ranks, the process group has "
+                         f"{world}")
     rank = dist.get_rank()
-    row, col = divmod(rank, model)
-    data_group = model_group = None
-    if data > 1:
-        for c in range(model):
-            g = dist.new_group([c + i * model for i in range(data)])
-            if c == col:
-                data_group = g
-    if model > 1:
-        for r in range(data):
-            g = dist.new_group([r * model + j for j in range(model)])
-            if r == row:
-                model_group = g
-    return Mesh(("data", "model"), (data, model), (row, col),
-                (data_group, model_group))
+    coords = tuple(int(c) for c in np.unravel_index(rank, shape))
+
+    def build(axes):
+        """One group per line over ``axes``; this rank's."""
+        dims = [names.index(a) for a in axes]
+        mine = None
+        for other in np.ndindex(*[shape[i] for i in range(len(shape))
+                                  if i not in dims]):
+            ranks = []
+            for along in np.ndindex(*[shape[i] for i in dims]):
+                c, it_o, it_a = [], iter(other), iter(along)
+                for i in range(len(shape)):
+                    c.append(next(it_a) if i in dims else next(it_o))
+                ranks.append(int(np.ravel_multi_index(c, shape)))
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                mine = g
+        return mine
+
+    groups = tuple(build((a,)) if n > 1 else None
+                   for a, n in zip(names, shape))
+    multi = {}
+    if pod > 1 and data > 1:
+        multi[("pod", "data")] = build(("pod", "data"))
+    return Mesh(names, shape, coords, groups, multi)
 
 
 def run_ranks(fn, n: int, *args, threads=None):

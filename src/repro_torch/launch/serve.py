@@ -20,10 +20,12 @@ decode reads merge across ranks (``--kv-seq-axis off`` keeps the mesh
 and replicates the pool). A MoE target (``--arch grok-1-314b``) runs its
 experts in parallel over the same axis (``distributed/ep.py``: each rank
 keeps its share of every expert stack, ``ep_shard_target``), with the
-kv_seq axis on or off. Rank 0 prints. ``--mesh-data`` above 1 raises
-``NotImplementedError`` (ROADMAP.md queue 1, item 9a); ``--traffic``
-under a mesh needs ``--virtual-clock``, since every rank must take the
-same admission decisions.
+kv_seq axis on or off. ``--mesh-data N`` adds a data axis: the launcher
+starts ``N * P`` ranks of a ``(N, P)`` mesh, a wave's rows split over
+the data axis where N divides them, and the pool is replicated over it
+(``serving/engine.py``). Rank 0 prints (with a mesh, ``batch_shards=N
+kv_shards=P``); ``--traffic`` under a mesh needs ``--virtual-clock``,
+since every rank must take the same admission decisions.
 """
 from __future__ import annotations
 
@@ -124,7 +126,9 @@ def parse_args(argv=None):
     ap.add_argument("--virtual-clock", action="store_true",
                     help="replay in simulated time (1 s a decode cycle)")
     ap.add_argument("--mesh-data", type=int, default=1,
-                    help="data mesh axis size (only 1 is served)")
+                    help="data mesh axis size: ONE resident engine spans "
+                         "the (data, model) mesh; batch rows shard over "
+                         "this axis when divisible (default 1)")
     ap.add_argument("--mesh-model", type=int, default=1,
                     help="model mesh axis size: P ranks serve as one "
                          "engine; with --cache-impl paged each holds "
@@ -138,7 +142,7 @@ def parse_args(argv=None):
     args = ap.parse_args(argv)
     if args.mesh_model < 1 or args.mesh_data < 1:
         ap.error("--mesh-data and --mesh-model must be positive")
-    if args.mesh_model > 1 and args.traffic is not None \
+    if args.mesh_data * args.mesh_model > 1 and args.traffic is not None \
             and not args.virtual_clock:
         ap.error("--traffic under a mesh needs --virtual-clock: every rank "
                  "must take the same admission decisions")
@@ -160,19 +164,17 @@ def parse_args(argv=None):
 def main(argv=None):
     """Serve; returns the stats (rank 0's under a mesh)."""
     args = parse_args(argv)
-    if args.mesh_data != 1:
-        raise NotImplementedError(
-            f"--mesh-data {args.mesh_data}: the engine cannot split its "
-            "rows over a data axis yet (ROADMAP.md queue 1, item 9a)")
-    if args.mesh_model > 1:
+    n = args.mesh_data * args.mesh_model
+    if n > 1:
         from repro_torch.launch.mesh import run_ranks
-        return run_ranks(_serve_rank, args.mesh_model, args)[0]
+        return run_ranks(_serve_rank, n, args)[0]
     return _serve(args)
 
 
 def _serve_rank(rank, args):
-    """One rank of a ``--mesh-model`` run: the engine inside the mesh, a
-    MoE target's expert stacks cut to this rank's part."""
+    """One rank of a ``--mesh-data`` / ``--mesh-model`` run: the engine
+    inside the mesh, a MoE target's expert stacks cut to this rank's
+    part."""
     from repro_torch.distributed.ep import ep_shard_target
     from repro_torch.distributed.sharding import LOGICAL_RULES, use_sharding
     from repro_torch.launch.mesh import make_mesh
@@ -245,7 +247,10 @@ def _serve(args, bundle=None):
                   f"saved={stats['prefill_tokens_saved']}tok "
                   f"cow={stats['cow_copies']}")
     mesh_note = ""
-    if stats["kv_shards"] > 1:
+    if eng.batch_shards > 1:
+        mesh_note = (f" | batch_shards={eng.batch_shards} "
+                     f"kv_shards={stats['kv_shards']}")
+    elif stats["kv_shards"] > 1:
         mesh_note = (f" | kv_shards={stats['kv_shards']} "
                      f"shard_slots={stats['pool_shard_slots']}")
     print(f"mode={args.mode} served {len(eng.done)} requests on {dev} | "

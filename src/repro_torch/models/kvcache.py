@@ -33,9 +33,19 @@ rank. :func:`page_geometry` reports the global page; every writer
 extensions, and :func:`copy_page_`) writes only the local run; the
 decode hook reads the local run (``distributed/spdecode.py``), and
 :func:`logical_view` gathers every rank's run for the reads outside it.
+
+Replicas over the batch axes: when a wave's rows split over the mesh's
+batch axes (``sharding.batch_run``), every batch rank holds the whole
+pool (its kv_seq run of every page) and writes only its own rows'
+pages. Inside :func:`log_pool_writes` each :func:`pool_scatter_` records
+the slots it kept, and :func:`sync_replicas_` then ships every rank's
+written slots to every other replica in one gather (``core/state.py``:
+one a cycle, one an install).
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -185,6 +195,8 @@ def pool_scatter_(pool, table, new, pos, valid=None):
     phys = torch.gather(table.long(), 1, pidx.clamp(0, mp - 1))
     ok = ok & (phys >= 0) & (phys < n_phys)
     flat = (phys * loc + slot).reshape(-1)
+    if _LOG.entries is not None:
+        _LOG.entries.append((pool, flat, ok.reshape(-1)))
     tail = pool.shape[-2:]
     if pool.ndim == 4:
         drop_put_(pool.view(n_phys * loc, *tail), 0, flat,
@@ -194,6 +206,89 @@ def pool_scatter_(pool, table, new, pos, valid=None):
         drop_put_(pool.view(lead, n_phys * loc, *tail), 1, flat,
                   new.reshape(lead, -1, *tail), ok.reshape(-1))
     return pool
+
+
+class _WriteLog(threading.local):
+    def __init__(self):
+        self.entries = None
+
+
+_LOG = _WriteLog()
+
+
+@contextlib.contextmanager
+def log_pool_writes(on: bool = True):
+    """While inside (and ``on``), every :func:`pool_scatter_` records the
+    pool it wrote, the flat slot indices and which it kept. Yields the
+    record list (None when off) for :func:`sync_replicas_`."""
+    if not on:
+        yield None
+        return
+    old = _LOG.entries
+    _LOG.entries = []
+    try:
+        yield _LOG.entries
+    finally:
+        _LOG.entries = old
+
+
+def _slots(pool):
+    """``pool`` as ``([.., n_slots, H, D] view, slot axis)``."""
+    n = pool.shape[-4] * pool.shape[-3]
+    if pool.ndim == 4:
+        return pool.view(n, *pool.shape[-2:]), 0
+    return pool.view(pool.shape[0], n, *pool.shape[-2:]), 1
+
+
+def sync_replicas_(pools: Sequence[torch.Tensor], log, mesh, axes) -> int:
+    """Every batch rank's logged writes (:func:`log_pool_writes`) into
+    this rank's replica of ``pools``, in place: one gather over ``axes``
+    (each rank's written slot count per pool, then the padded payload of
+    slot indices and values, staged through the host). The ranks write
+    disjoint pages (a shared page is never written), so the order of the
+    copies does not matter. Returns the bytes this rank sent."""
+    at = {id(p): j for j, p in enumerate(pools)}
+    written = [[] for _ in pools]
+    for pool, flat, ok in log:
+        written[at[id(pool)]].append(flat[ok])
+    parts, counts = [], []
+    for pool, w in zip(pools, written):
+        view, dim = _slots(pool)
+        idx = (torch.unique(torch.cat(w)) if w else
+               torch.zeros((0,), dtype=torch.long, device=pool.device))
+        vals = view.index_select(dim, idx).cpu().contiguous()
+        parts += [idx.cpu().view(torch.uint8),
+                  vals.view(torch.uint8).reshape(-1)]
+        counts.append(idx.numel())
+    n = torch.tensor(counts, dtype=torch.long)
+    all_n = mesh.all_gather(n, axes)                 # [ranks, pools]
+    # bytes a written slot takes: its index, then its values
+    per = torch.tensor([8 + p.numel() // (p.shape[-4] * p.shape[-3])
+                        * p.element_size() for p in pools], dtype=torch.long)
+    sizes = (all_n * per).sum(1)
+    payload = torch.zeros((int(sizes.max()),), dtype=torch.uint8)
+    mine = torch.cat(parts) if parts else payload[:0]
+    payload[:mine.numel()] = mine
+    everyone = mesh.all_gather(payload, axes)
+    me = mesh.index(axes)
+    for r in range(everyone.shape[0]):
+        if r == me:
+            continue
+        buf, o = everyone[r], 0
+        for j, pool in enumerate(pools):
+            c = int(all_n[r, j])
+            view, dim = _slots(pool)
+            idx = buf[o:o + 8 * c].clone().view(torch.long)
+            o += 8 * c
+            nb = c * (int(per[j]) - 8)
+            shape = list(view.shape)
+            shape[dim] = c
+            vals = buf[o:o + nb].clone().view(view.dtype).reshape(shape)
+            o += nb
+            if c:
+                view.index_copy_(dim, idx.to(pool.device),
+                                 vals.to(pool.device))
+    return int(n.numel() * 8 + mine.numel())
 
 
 def drop_put_(buf, dim, idx, src, ok):

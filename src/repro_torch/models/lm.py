@@ -263,6 +263,9 @@ def commit_kv(states, kv_outs, cfg: ModelConfig, path_idx, n_commit):
     path_idx: [B, P] tree-node indices of the best path (anchor first).
     n_commit: [B] tokens to commit per example; entries past it are not
     written (a fixed-shape write, ``kvcache.drop_put_``). Returns the states with ``length`` advanced by ``n_commit``.
+    Paged writes go through ``kvcache.pool_scatter_``, so under a batch
+    split (``core/state.py::on_run``) they reach the other ranks' pool
+    replicas in the cycle's one gather.
     """
     length = states["length"].long()
     b, p = path_idx.shape

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import sharding as sh
+
 
 def trunc_normal(gen: torch.Generator, shape, dtype=torch.float32,
                  stddev=0.02):
@@ -47,10 +49,29 @@ def make_generator(seed: int, device: torch.device) -> torch.Generator:
 # capture it. A graph must register ``gen``
 # (``CUDAGraph.register_generator_state``) for each replay to draw fresh
 # numbers.
+def uniform(gen: torch.Generator, shape, dim: int = 0) -> torch.Tensor:
+    """Uniform [0, 1) float32 numbers of ``shape``, whose axis ``dim``
+    runs over a batch's rows. Inside ``sharding.row_subset`` (a rank that
+    computes some rows of a batch) the draw takes every row's numbers and
+    keeps this rank's, so each row gets what a meshless run draws for
+    it."""
+    rows = sh.active_rows()
+    if rows is None:
+        return torch.rand(shape, generator=gen, device=gen.device)
+    total, keep = rows
+    assert shape[dim] == len(keep), (tuple(shape), dim, len(keep))
+    full = list(shape)
+    full[dim] = total
+    u = torch.rand(full, generator=gen, device=gen.device)
+    return u.index_select(dim, torch.tensor(keep, dtype=torch.long,
+                                            device=gen.device))
+
+
 def gumbel(gen: torch.Generator, shape) -> torch.Tensor:
     """Standard Gumbel noise, float32: -log(-log(u)) with u uniform in
-    [tiny, 1), as ``jax.random.gumbel`` draws it."""
-    u = torch.rand(shape, generator=gen, device=gen.device)
+    [tiny, 1), as ``jax.random.gumbel`` draws it; axis 0 runs over rows
+    (:func:`uniform`)."""
+    u = uniform(gen, shape)
     return -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
 
 

@@ -66,12 +66,23 @@ context is captured at construction and re-entered around the engine's
 work. A MoE target inside a mesh whose ``experts`` axis is active runs
 its experts in parallel (``distributed/ep.py``): the caller builds each
 rank's bundle with its part of the expert stacks (``ep_shard_target``).
-A ``data`` axis above 1 is refused (ROADMAP.md queue 1, item 9a).
+Batch axes (``--mesh-data``; ``pod``): a wave's rows split over them
+where they divide its width (``sharding.batch_run``), and slot b lives
+on the rank whose run holds it. That rank installs and decodes it; every
+rank holds the whole pool (its kv_seq run of every page), replicated
+over the batch axes, and the pool writes of each cycle and install reach
+every replica by one gather (``core/state.py::on_run``). Each cycle's
+per-row results (and pending anchors) are gathered too, so every rank
+keeps the whole wave's books and takes the same decisions (admission,
+retire, refill, the radix tree, COW, eviction). A wave the batch axes do
+not divide runs every row on every rank, as JAX's fit replicates it.
 Stats: ``kv_shards``, ``pool_shard_slots`` (each rank's slots,
 ``pool_pages * page_size / kv_shards``) and ``decode_collective_bytes``
-(what each rank's decode merges sent, counted every cycle).
+(what each rank's decode merges sent over its rows, counted every
+cycle); the gathers of the batch axes are counted beside them, in
+``sharding.WRITES`` and ``sharding.RESULTS``.
 :meth:`ServingEngine.agree_across_ranks` checks that the ranks' books
-agree.
+agree, and the pool replicas.
 """
 from __future__ import annotations
 
@@ -198,11 +209,11 @@ class ServingEngine:
         self.device = resolve_device(device)
         # mesh residency: the sharding context captured once, re-entered
         # around the engine's work (_mesh_scope)
-        sh.refuse_data_axis("ServingEngine")
         self._mesh = sh.active_mesh()
         self._rules = (dict(sh.active_rules()) if self._mesh is not None
                        else None)
         self.kv_shards = spdecode.kv_seq_shards()
+        self.batch_shards = sh.batch_shards()
         if cache_impl == "paged" and page_size % self.kv_shards != 0:
             raise ValueError(
                 f"page_size={page_size} must be divisible by the kv_seq "
@@ -280,29 +291,62 @@ class ServingEngine:
                 yield
 
     def agree_across_ranks(self, wave: Optional[Wave] = None) -> None:
-        """Under a kv_seq mesh: one small all-reduce compares a hash of
-        this rank's page tables and committed tokens (``wave``'s, or every
-        finished request's) with every other rank's, and raises
-        ``RuntimeError`` on any difference. A no-op without a mesh."""
-        axis = spdecode.kv_seq_axis()
-        if axis is None:
+        """Inside a mesh: one small all-gather over every rank compares a
+        hash of this rank's books (the host page tables, committed tokens
+        and refcounts of ``wave``, or of every finished request) with
+        every other rank's, the device page-table rows of its run with
+        those of every rank holding the same run, and (under batch
+        axes) a hash of its pool replica with every batch peer's; any
+        difference raises ``RuntimeError``. A no-op without a mesh."""
+        mesh = sh.active_mesh()
+        if mesh is None:
             return
-        h = hashlib.sha256()
+
+        def digest(*parts):
+            h = hashlib.sha256()
+            for x in parts:
+                h.update(x)
+            return int.from_bytes(h.digest()[:7], "little")
+
+        books, tables, run = [], [], None
+        pool = wave.pool if wave is not None else self.pool
         if wave is not None:
-            h.update(wave.state.d1_feat["pt"].cpu().numpy().tobytes()
-                     if "pt" in wave.state.d1_feat else b"")
-            h.update(wave.bufs.tobytes())
-            h.update(wave.filled.tobytes())
+            run = wave.state.run
+            if "pt" in wave.state.d1_feat:
+                for t in wave.row_tables:
+                    books.append(b"-" if t is None else t.tobytes())
+                tables.append(wave.state.d1_feat["pt"].cpu().numpy()
+                              .tobytes())
+            books += [wave.bufs.tobytes(), wave.filled.tobytes()]
         for r in self.done:
-            h.update(np.int64(r.uid).tobytes())
-            h.update(np.asarray(r.out).tobytes())
-        v = int.from_bytes(h.digest()[:7], "little")
-        t = torch.tensor([v, -v], dtype=torch.int64)
-        sh.active_mesh().all_reduce_(t, torch.distributed.ReduceOp.MAX, axis)
-        if int(t[0]) != v or int(-t[1]) != v:
+            books += [np.int64(r.uid).tobytes(), np.asarray(r.out).tobytes()]
+        if pool is not None:
+            books.append(np.asarray(pool.refcounts(), np.int64).tobytes())
+        replica = []
+        if self.batch_shards > 1:
+            pools = (capture_pools(wave.state) if wave is not None
+                     else self._pools) or {}
+            for name in sorted(pools):
+                for t in pools[name]:
+                    replica.append(t.cpu().contiguous().view(torch.uint8)
+                                   .numpy())
+        mine = torch.tensor([digest(*books), run.lo if run else 0,
+                             digest(*tables), spdecode.kv_seq_index(),
+                             digest(*replica)], dtype=torch.int64)
+        every = mesh.all_gather(mine, mesh.axis_names)
+        same_run = every[:, 1] == mine[1]
+        same_slots = every[:, 3] == mine[3]
+        if (every[:, 0] != mine[0]).any():
             raise RuntimeError(
                 "the ranks of the mesh disagree on their page tables or "
                 "committed tokens")
+        if (every[same_run, 2] != mine[2]).any():
+            raise RuntimeError(
+                "the ranks holding one run of rows disagree on its device "
+                "page table")
+        if (every[same_slots, 4] != mine[4]).any():
+            raise RuntimeError(
+                "the batch ranks' replicas of the page pool differ")
 
     def submit(self, prompt: np.ndarray, max_new: int,
                t_arrival: Optional[float] = None) -> int:
@@ -388,6 +432,7 @@ class ServingEngine:
         # candidates (requests that do not fit wait for the next wave)
         cand = reqs + self.queue[: self.batch_size]
         cap = max(self._bufs_needed(r, g) for r in cand)
+        run = sh.batch_run(b)
         pool = None
         row_pages = None
         cache = None
@@ -414,7 +459,8 @@ class ServingEngine:
                                 cache_impl="paged",
                                 page_size=self.page_size,
                                 pool_pages=pool_pages, page_table=table,
-                                device=self.device, pools=self._pools)
+                                device=self.device, pools=self._pools,
+                                run=run)
             self._pools = None
             self.stats["pool_pages"] = max(self.stats["pool_pages"],
                                            pool_pages)
@@ -423,8 +469,10 @@ class ServingEngine:
                 pool_pages * (self.page_size // self.kv_shards))
         else:
             max_len = max(self._cache_needed(r, g) for r in cand)
-            state = engine_init(self.bundle, b, max_len, device=self.device)
-        state = state.replace(active=torch.zeros((b,), dtype=torch.bool,
+            state = engine_init(self.bundle, b, max_len, device=self.device,
+                                run=run)
+        state = state.replace(active=torch.zeros((state.batch,),
+                                                 dtype=torch.bool,
                                                  device=self.device))
         self.wave = Wave(requests=[None] * b, state=state,
                          bufs=np.zeros((b, cap), np.int32),
@@ -548,7 +596,7 @@ class ServingEngine:
             if self.recorder is not None:
                 self.recorder.on_admit(r.uid)
         self._install_shapes.add(
-            (k, pad, warm, w.state.batch, w.state.max_len,
+            (k, pad, warm, len(w.requests), w.state.max_len,
              w.pool.n_pages if w.pool is not None else 0))
         self.stats["install_traces"] = len(self._install_shapes)
         self.stats["installs"] += k
@@ -585,11 +633,12 @@ class ServingEngine:
 
     def _flush_anchors(self) -> None:
         """Read pending install anchors into ``bufs``: one device read
-        covers every install since the last flush."""
+        (under a batch split, one gather of the runs' anchors) covers
+        every install since the last flush."""
         w = self.wave
         if w is None or not w.pending_anchor:
             return
-        anchors = w.state.anchor.cpu().numpy()
+        anchors = sh.gather_rows(w.state.anchor, w.state.run).cpu().numpy()
         for slot in w.pending_anchor:
             w.bufs[slot, 0] = int(anchors[slot])
         w.pending_anchor.clear()
@@ -650,7 +699,7 @@ class ServingEngine:
         # a copy: an install splices its row into this tensor in place,
         # which must not reach the host snapshot ``active`` of this cycle
         w.state = w.state.replace(active=torch.tensor(
-            mask, dtype=torch.bool, device=self.device))
+            mask[w.state.run.rows], dtype=torch.bool, device=self.device))
         b0 = spdecode.PAYLOAD.bytes
         w.state, out = self._cycle(w.state, self.gen)
         # bytes the cycle's sharded reads sent into their LSE merges

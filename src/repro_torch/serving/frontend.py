@@ -28,12 +28,15 @@ every cycle. Both drivers share the engine's injected clock and
 :class:`~repro_torch.serving.metrics.VirtualClock` a replay is fully
 deterministic and its numbers equal the JAX front-end's.
 
-Mesh residency: nothing here is mesh-aware. A kv_seq-sharded engine
-(built inside ``use_sharding`` in every rank of the mesh) captures its
+Mesh residency: nothing here is mesh-aware. An engine built inside
+``use_sharding`` in every rank of a mesh (kv_seq-sharded pools, or a
+wave's rows split over the batch axes: slot b lives on the rank whose
+run holds it, and every rank keeps the whole wave's books) captures its
 sharding context at construction and re-enters it around its own work,
-so this loop drives it as it drives one on a single device. Every rank
-runs the loop and must take the same admission decisions, so a sharded
-replay runs on a :class:`~repro_torch.serving.metrics.VirtualClock`
+so this loop drives it as it drives one on a single device, and
+:meth:`ServingEngine.admit_idle` installs into every rank's books alike.
+Every rank runs the loop and must take the same admission decisions, so
+a mesh replay runs on a :class:`~repro_torch.serving.metrics.VirtualClock`
 (the wall clock differs from rank to rank); the engine's end-of-wave
 check raises if the ranks' books part.
 """

@@ -96,18 +96,35 @@ def _raises(fn):
 def _refusals(bundle, cases, mesh):
     """In an experts mesh: a full expert stack raises, and so does the
     graph loop of a MoE target with the kv_seq axis off. In a data mesh:
-    the engine and ``generate`` raise."""
+    the engine builds and serves a request (None: nothing raised), and the
+    graph loop with kv_seq and experts off (only the batch axes left)
+    raises, naming ROADMAP.md item 9b."""
     cfg, p, x, _ = cases["e4_gated_skew"]
     got = {"full_stack": _raises(lambda: moe.moe_apply(p, x, cfg))}
     with sh.use_sharding(mesh, dict(RULES, kv_seq=None)):
         got["graph_loop"] = _raises(lambda: pl.generate_ondevice(
             bundle, np.zeros((1, 4), np.int32), 2, device="cpu"))
-    with sh.use_sharding(make_mesh(2, mesh.size("model") // 2), RULES):
-        got["engine_data"] = _raises(lambda: ServingEngine(
-            bundle, batch_size=2, cache_impl="paged", page_size=PAGE,
-            device="cpu"))
-        got["generate_data"] = _raises(lambda: pl.generate(
-            bundle, np.zeros((1, 4), np.int32), 2, device="cpu"))
+    m22 = make_mesh(2, mesh.size("model") // 2)
+
+    def serve_one():
+        eng = ServingEngine(_rank_bundle(bundle, m22), batch_size=2,
+                            cache_impl="paged", page_size=PAGE, device="cpu")
+        eng.submit(np.arange(3, 9, dtype=np.int32), max_new=3)
+        eng.submit(np.arange(4, 11, dtype=np.int32), max_new=3)
+        assert eng.run()["tokens"] == 6
+
+    def graph_loop():
+        try:
+            pl.generate_ondevice(bundle, np.zeros((2, 4), np.int32), 2,
+                                 device="cpu")
+        except NotImplementedError as e:
+            assert "9b" in str(e), e
+            raise
+
+    with sh.use_sharding(m22, RULES):
+        got["engine_data"] = _raises(serve_one)
+    with sh.use_sharding(m22, dict(RULES, kv_seq=None, experts=None)):
+        got["generate_data"] = _raises(graph_loop)
     return got
 
 

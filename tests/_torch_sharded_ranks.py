@@ -107,19 +107,26 @@ def _quirk(x):
         rolling=False).numpy()
 
 
-def _engine_in_data_mesh(bundle):
-    """``make_mesh(data=2)`` builds its groups; the engine inside it
-    refuses the data axis (ROADMAP.md queue 1, item 9a)."""
-    with sh.use_sharding(make_mesh(data=2, model=1), RULES):
-        ServingEngine(bundle, batch_size=2, cache_impl="paged", page_size=8,
-                      device="cpu")
+def _graph_loop_in_data_mesh(bundle):
+    """``make_mesh(data=2)`` builds its groups; the graph loop inside it
+    (kv_seq off, so only the batch axis is there) refuses it, naming
+    ROADMAP.md item 9b: its gathers are host collectives."""
+    with sh.use_sharding(make_mesh(data=2, model=1),
+                         dict(RULES, kv_seq=None)):
+        try:
+            pl.generate_ondevice(bundle, np.zeros((2, 4), np.int32), 2,
+                                 device="cpu")
+        except NotImplementedError as e:
+            if "9b" not in str(e):
+                raise AssertionError(f"the refusal names no item: {e}")
+            raise
 
 
 def _refusals(bundle):
     """Each refusal inside the mesh: (what, raised error's type name)."""
     got = {}
     cases = {
-        "make_mesh_data": lambda: _engine_in_data_mesh(bundle),
+        "make_mesh_data": lambda: _graph_loop_in_data_mesh(bundle),
         "page_not_divisible": lambda: ServingEngine(
             bundle, batch_size=2, cache_impl="paged", page_size=9,
             device="cpu"),

@@ -696,6 +696,43 @@ def test_fp32_cascade_accumulator_over_long_splits(dev, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["paged", "shard"])
+def test_paged_kernel_on_a_batch_ranks_run(dev, case, dtype):
+    """#2 as one batch rank of a data axis of 2 calls it: its run of the
+    rows (the last two of four: queries, table rows, lengths) over the
+    whole pool, which every batch rank holds (``case`` "shard": a kv_seq
+    rank's run of each page, pos_stride / pos_offset). The partials hold
+    to the plain version's under the gates of
+    ``test_cuda_kernel_matches_plain`` and equal the whole batch's call
+    at those rows bit for bit (the kernel's blocks are per row)."""
+    kern_fn, plain_fn, args, kw = _inputs(
+        dev, dtype, **cascade_cases.CASES[CARD_CASES[case]])
+    q, pk, pv, pt = args
+    run = slice(2, 4)
+    assert q.shape[0] == 4
+    rkw = dict(kw, cache_len=kw["cache_len"][run], q_abs=kw["q_abs"][run])
+    whole = kern_fn(*args, **kw)
+    before = kern_fn.launches
+    kern = kern_fn(q[run], pk, pv, pt[run], **rkw)
+    plain = plain_fn(q[run], pk, pv, pt[run], **rkw)
+    torch.cuda.synchronize()
+    assert kern_fn.launches == before + 1
+    for a, w in zip(kern, whole):
+        assert torch.equal(a, w[run])
+    live = plain[1] > -1e29
+    assert live.any()
+    for a, b_ in zip(kern[1:], plain[1:]):
+        assert ((a - b_).abs() / (1 + b_.abs()))[live].max().item() < 1e-4
+    if dtype == torch.bfloat16:
+        acc = (kern[0] - plain[0]).abs().amax(-1) / plain[0].abs().amax(-1)
+        assert acc[live].max().item() < 8e-3
+    else:
+        acc = ((kern[0] - plain[0]).abs() / (1 + plain[0].abs())).amax(-1)
+        assert acc[live].max().item() < 1e-4
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name", ["dense", "paged", "prefix"])
 def test_serving_engine_on_card(dev, name):
     """The port's ServingEngine on the card, fp32 kernel path, at the

@@ -320,16 +320,19 @@ def test_refusals(runs):
     (nothing slices it quietly) and a MoE target's graph loop
     ``NotImplementedError`` with the kv_seq axis off too (the EP
     all-reduce is a host-side collective); inside a data-2 mesh the
-    engine and ``generate`` raise ``NotImplementedError``; so does
-    ``launch/serve.py --mesh-data 2``, naming ROADMAP.md item 9a."""
+    engine serves (nothing raised) and the graph loop with only the batch
+    axes raises ``NotImplementedError`` naming ROADMAP.md item 9b; and
+    ``launch/serve.py --mesh-data 2`` serves its requests over two
+    ranks."""
     from repro_torch.launch import serve
     for r in runs["port"][4]:
         assert r["refusals"] == {"full_stack": "ValueError",
                                  "graph_loop": "NotImplementedError",
-                                 "engine_data": "NotImplementedError",
+                                 "engine_data": None,
                                  "generate_data": "NotImplementedError"}
-    with pytest.raises(NotImplementedError, match="9a"):
-        serve.main(["--device", "cpu", "--mesh-data", "2"])
+    stats = serve.main(["--device", "cpu", "--mesh-data", "2",
+                        "--requests", "2", "--max-new", "4"])
+    assert stats["tokens"] == 8, stats
 
 
 @pytest.mark.parametrize("kv_seq", ["model", "off"])

@@ -289,9 +289,10 @@ def test_dense_merge_quirk_pinned(runs):
 
 
 def test_mesh_refusals(runs):
-    """The engine inside a ``make_mesh(data=2)`` mesh, a page the axis
-    does not divide and ``generate_ondevice`` inside a mesh each raise the
-    documented error."""
+    """The graph loop inside a ``make_mesh(data=2)`` mesh (naming
+    ROADMAP.md item 9b), a page the axis does not divide and
+    ``generate_ondevice`` inside a mesh each raise the documented
+    error."""
     assert runs["port"][2][0]["refusals"] == {
         "make_mesh_data": "NotImplementedError",
         "page_not_divisible": "ValueError",
