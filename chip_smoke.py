@@ -53,7 +53,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
            the kernels; tokens held to the gather path and to plain
            one-token-at-a-time greedy; launch counts read: both fp32
            cascade kernels (cascade_phase1.cu), no bf16 one
-  oracle   the same fp32 runs with drafts that hold the greedy reference,
+  oracle   the same fp32 runs (32 new tokens a row: the run's time limit)
+           with drafts that hold the greedy reference,
            spoiled from a depth that varies by row and cycle, so a cycle
            accepts a path along the trunk and on into a branch (and, with
            the third level, on into a third-level branch): tokens held
@@ -72,7 +73,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
            (phase1_tf32x3_kernel) by name: its launches and device ms a
            replay; the launches of the loop's first cycle and capture
            held exact (40 paged, 36 dense)
-  modes    fp32 greedy through ``generate_ondevice`` (kernel path, 32
+  modes    fp32 greedy through ``generate_ondevice`` (kernel path, 16
            new tokens, the main path's model cut to 3 of its 36 layers:
            the run's time limit) in the modes beside d2sd: naive_k, eagle
            (drafter 1 causal), dflash_second (drafter 1 as drafter 2) and
@@ -94,7 +95,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
            the main path's model cut to 3 of its 36 layers (the run's
            time limit), gamma 16, K 4: 10 requests behind a
            320-token system prompt (two sharing 352 tokens, one a second
-           turn over an earlier answer; ``max_new`` 8-48; the first
+           turn over an earlier answer; ``max_new`` 4-24; the first
            request served before the other nine) through legacy waves,
            dense refill, the paged engine pool, and the pool with the
            prefix cache through the kernels and through the gather path:
@@ -104,7 +105,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
            page in use the radix tree's, launches through #1 (dense) and
            #2 (paged) from the wrappers, and #2 held to its plain version
            on a live page table with shared pages and sentinel tails
-  bf16     the same runs in bfloat16 (the config's dtype), paged and dense:
+  bf16     the same runs in bfloat16 (the config's dtype), paged and dense,
+           32 new tokens a row (the run's time limit):
            tokens/s, agreement with the gather path (where a row first
            leaves it, the top-2 gap of a plain bf16 forward over the shared
            context must be a near tie in bf16 ulps), and at least 40
@@ -179,8 +181,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
            (RG-LRU blocks and 2 MQA sliding-window layers of head_dim
            256, vocab 256000; the cut pays for train_archs), random
            seeded weights, two drafters sized by JAX's
-           production_drafter rule, gamma 16, K 4, 64 new tokens for 4
-           prompts of 2000-2040 tokens (ragged: every row's rolling local
+           production_drafter rule, gamma 16, K 4, 32 new tokens for 4
+           prompts of 2020-2041 tokens (ragged: every row's rolling local
            buffers wrap): fp32 through the state-replay verifier, the
            kernel path through the host loop (paged) and the graph loop
            (both caches), the gather path through the graph loop (both
@@ -194,7 +196,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
            through the sm90 kernels held exact
   ssm      the same for rwkv6-1.6b (6 of its 24 RWKV-6 layers,
            attention-free, d 2048, vocab 65536) with 4 prompts of 512 and
-           32 new tokens: #1 0, #2 4 a paged cycle
+           16 new tokens: #1 0, #2 4 a paged cycle
   serving_recurrent  fp32 ``ServingEngine`` over the hybrid target (8
            layers, as the hybrid phase), kernel path: the serving phase's
            10 requests through dense refill and the paged engine pool (paged drafter feature
@@ -219,8 +221,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
            its 4 of the 8 experts from the seeds (the rest of the model
            whole on every rank), kv_seq and experts on the same axis
            (pages of 64: 32 slots a rank); the moe phase's four prompts
-           as engine requests of 16 new tokens (one wave, prefix
-           cache; the moe phase runs 32: the time limit): the kernel
+           as engine requests of 8 new tokens (one wave, prefix
+           cache; the moe phase runs 16: the time limit): the kernel
            and gather paths at capacity factor 1.25 and the kernel path
            at E/k; tokens equal across ranks; on every rank #2's launches
            with a pos_stride a cycle equal to the unsharded count and no
@@ -255,7 +257,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
   archs    qwen2.5-3b, gemma2-2b, stablelm-3b and internlm2-20b at
            full width cut to 18 of 36, 13 of 26, 16 of 32 and 8 of 48
            layers (the run's time limit), fp32, paged: the kernel path held to the gather path and plain
-           greedy. Each of these three phases: 4 prompts of 512, 32 new
+           greedy. Each of these three phases: 4 prompts of 512, 16 new
            tokens, random seeded weights, drafters by JAX's
            production_drafter rule, exact cascade launches a host cycle
   train_fp32   paper_target.full() cut to 4 layers (the only cut; 2.02e9
@@ -276,27 +278,65 @@ Phases, each printing one JSON line (any failure exits non-zero):
   train_archs  training at head_dim 256 and through the recurrent
            layers, full width, batch 2 x 4096, the cross entropy in
            chunks of 512 (``make_train_step(loss_seq_chunk=)``):
-           gemma2-2b cut to 4 of 26 layers and recurrentgemma-2b to 6
-           (its RG-LRU layers through the associative scan) in fp32, three
+           gemma2-2b cut to 2 of 26 layers and recurrentgemma-2b to 3
+           (its RG-LRU layers through the associative scan) in fp32,
+           three
            kernel steps against three plain ones, held as train_fp32
-           holds them; both at full depth in bf16, three plain steps then
-           a warm-up and three timed kernel steps, the first three losses
-           held to the plain path's, ms a step, tokens/s, peak memory and
-           one step profiled; flash launches a step exact (remat: 2 / 1 /
-           1 an attention layer, so 52 / 26 / 26 for gemma2-2b and 16 / 8
-           / 8 for recurrentgemma-2b in bf16); rwkv6-1.6b cut to 4 of 24
-           layers in bf16 at batch 2 x 1024: finite losses that fall over
-           four steps, ms a step, no flash launch
+           holds them; both at 6 of 26 layers in bf16 (these depths pay
+           for the mesh phases' time), three
+           plain steps then a warm-up and three timed kernel steps, the
+           first three losses held to the plain path's, ms a step,
+           tokens/s, peak memory and one step profiled; flash launches a
+           step exact (remat: 2 / 1 / 1 an attention layer, so 12 / 6 /
+           6 for gemma2-2b and 4 / 2 / 2 for recurrentgemma-2b in
+           bf16); rwkv6-1.6b cut to 2 of 24 layers in
+           bf16 at batch 2 x 1024: finite losses that fall over four
+           steps, ms a step, no flash launch
+  mesh_train  training on a (data 2, model 2) mesh with FSDP: 4 gloo
+           ranks on this card, paper_target.full() cut to 2 of 36
+           layers (remat), fp32, AdamW, batch 4 x 1024 (2 rows a data
+           rank, each row's mask cut at 1024, 1024, 700 and 300 tokens:
+           the data ranks' counts differ), the cross entropy in chunks
+           of 512; a rank stores its slices by JAX's parameter rules,
+           runs its 16 of the 32 query heads and the 4 KV heads they
+           read through the flash kernels, its 512 of the 1024 tokens
+           between blocks (sequence parallelism), its vocab columns of
+           the head (vocab-parallel cross entropy), and gathers its FSDP
+           leaves at use; held to the unsharded kernel step run first
+           on the same weights and batches: the loss and grad norm of
+           three steps, every leaf of step 1's gradient (each rank's
+           shard against the unsharded gradient's slice) and the params
+           after step 3; flash launches a step a rank exact (4 / 2 / 2)
+           at (Hq, Hkv) (16, 4); ms a step, the collectives' calls and
+           MB a step, peak memory a rank
+  mesh_train_bf16  the same mesh and model in bf16: a warm-up and two
+           timed steps (ms a step, the median; tokens/s), each
+           collective timed on the host after a synchronize (host ms and
+           MB a step of the gathers, reduce-scatters and all-reduces),
+           peak memory a rank, sm90 flash launches a step exact, the
+           losses beside the unsharded bf16 step's (readings: ranks
+           time-share one card). The step's collectives between ranks on
+           one card exchange on the card through CUDA IPC
+           (``distributed/device_exchange.py``), gloo carrying only the
+           barriers
+  pipeline GPipe over a pod axis of 2 (ranks 0 and 1 of the same spawn):
+           one full-width paper-target block a stage, 4 microbatches of
+           1 x 512, stateless through the fp32 flash forward: every
+           rank's result held to sequential application of both blocks
+           (1e-5 of the largest magnitude), 5 #3 launches a rank (M + S
+           - 1, JAX's schedule)
   study    the empirical study at its own size: ``run_study.main`` at
-           its defaults (paper_target.smoke() in fp32 pretrained 240
-           steps, 48 greedy rollouts a task of 32 + 160 tokens, the
-           DFlash, VP and AR drafters (drafter_small, D 48) 400 steps
-           each at batch 24): every loss falls (mean of the last tenth
+           its defaults but the steps (paper_target.smoke() in fp32
+           pretrained 120 steps, 48 greedy rollouts a task of 32 + 160
+           tokens, the DFlash, VP and AR drafters (drafter_small, D 48)
+           150 steps each at batch 24: these steps, below run_study's
+           defaults of 240 and 400, pay for the run's time limit): every
+           loss falls (mean of the last tenth
            below the first tenth's), flash launches exact (4 forward, dq
            and dk/dv a pretrain step, 4 forward a teacher pass); then
            ``load_study`` and the held-out decode of
            benchmarks/common.py::measure (12 prompts of 48 tokens a task
-           from seed 777 at offset 5e6, 96 new tokens) in d2sd, dflash,
+           from seed 777 at offset 5e6, 48 new tokens) in d2sd, dflash,
            eagle, naive_k and dflash_second, the kernel path on the paged
            cache (and for d2sd the dense one: the run's time limit) and
            the gather path (host loop): tokens held to
@@ -309,7 +349,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
            time limit) in bf16, random seeded weights: 16 greedy
            rollouts of 128 + 128 tokens, then d1 (DFlash) and d2 (VP)
            for ``production_drafter`` (d 1024, 8 heads over 2, vocab
-           151936, features 3 x 4096) distilled 150 steps each at batch
+           151936, features 3 x 4096) distilled 100 steps each at batch
            16, the teacher through the bf16 flash forward (6 launches a
            step, exact): falling losses, ms a step, peak memory; then d2sd
            through the bf16 graph loop (paged, 4 prompts of 128, 64 new)
@@ -319,7 +359,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
            bf16 near-tie rule
 
 Then a ``{"kernels": [...]}`` line (each flash row with a ``d256`` entry:
-gemma2-2b's shape, the launches a step of train_archs), the card's name
+gemma2-2b's shape, the launches a step of train_archs; and a rank's
+launches a step of the mesh phases and of the pipeline), the card's name
 and power limit as
 nvidia-smi prints them, and the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -344,6 +385,8 @@ ROOT = Path(__file__).resolve().parent
 T_START = time.perf_counter()
 DEVICE = "cuda"
 MAX_NEW = 64                                # tokens generated per row
+ORACLE_NEW = 32     # a row's tokens with the oracle's drafts (time limit)
+BF16_NEW = 32       # a row's tokens in the bf16 phases at 36 layers (time)
 GAMMA, K_BRANCHES = 16, 4                   # 76 tree nodes per row
 PEAK_BYTES_S = 3.35e12                      # H100 SXM HBM3
 PEAK_BF16 = 989e12                          # bf16 tensor cores, dense
@@ -1422,13 +1465,14 @@ def graph_fp32(bundle, prompts, eager, ref_toks, gaps):
     exact = gaps.min() >= NEAR_TIE      # no near tie: the oracle's count holds
     for cache in ("paged", "dense"):
         oracle.reset()
-        ot, info = run_generate(ob, prompts, "kernel", cache, ondevice=True)
+        ot, info = run_generate(ob, prompts, "kernel", cache, ondevice=True,
+                                max_new=ORACLE_NEW)
         count = oracle.read()
         info["oracle_alpha"] = count["committed"] / count["row_cycles"]
         info["branch_paths"] = count["branch_paths"]
         runs.append(info)
         ties[f"graph oracle/{cache} vs greedy"] = agreement(
-            "graph oracle", ot, ref_toks[:, :MAX_NEW], gaps)
+            "graph oracle", ot, ref_toks[:, :ORACLE_NEW], gaps)
         if exact and info["alpha"] != info["oracle_alpha"]:
             fail(f"graph oracle {cache}: alpha {info['alpha']} but the "
                  f"drafts must give {info['oracle_alpha']}")
@@ -1437,7 +1481,7 @@ def graph_fp32(bundle, prompts, eager, ref_toks, gaps):
         info["cache_rel_err"] = committed_cache_error(
             pl.with_attn_impl(ob, "kernel"),
             torch.as_tensor(prompts, device=DEVICE), seq, cache,
-            ondevice=True)
+            max_new=ORACLE_NEW, ondevice=True)
         if info["cache_rel_err"] > TOL_CACHE:
             fail(f"graph oracle {cache}: committed caches differ from a "
                  f"prefill of the same tokens: {info}")
@@ -1452,7 +1496,7 @@ def graph_fp32(bundle, prompts, eager, ref_toks, gaps):
 MODES = {"naive_k": ("naive_k", False), "eagle": ("eagle", False),
          "dflash_second": ("dflash_second", False),
          "third_level": ("d2sd", True)}
-MODE_NEW = 32           # tokens a row in the modes and sampled phases
+MODE_NEW = 16           # tokens a row in the modes and sampled phases
 MODE_LAYERS = 3         # paper-target cut in depth for them (time limit)
 SAMPLE_T, SAMPLE_SEED = 1.0, 5
 
@@ -1751,8 +1795,8 @@ def oracle_path(bundle, prompts, ref_toks, gaps):
         for impl in ("kernel", "gather"):
             for cache in ("paged", "dense"):
                 oracle.reset()
-                toks[(impl, cache)], info = run_generate(ob, prompts, impl,
-                                                         cache)
+                toks[(impl, cache)], info = run_generate(
+                    ob, prompts, impl, cache, max_new=ORACLE_NEW)
                 count = oracle.read()
                 info["oracle_alpha"] = count["committed"] / count[
                     "row_cycles"]
@@ -1768,7 +1812,8 @@ def oracle_path(bundle, prompts, ref_toks, gaps):
                     fail(f"oracle {level} {impl}/{cache}: drafts too weak: "
                          f"{info}")
                 info["cache_rel_err"] = committed_cache_error(
-                    pl.with_attn_impl(ob, impl), prompts_t, seq, cache)
+                    pl.with_attn_impl(ob, impl), prompts_t, seq, cache,
+                    max_new=ORACLE_NEW)
                 if info["cache_rel_err"] > TOL_CACHE:
                     fail(f"oracle {level} {impl}/{cache}: committed caches "
                          f"differ from a prefill of the same tokens: {info}")
@@ -1776,9 +1821,10 @@ def oracle_path(bundle, prompts, ref_toks, gaps):
                 launches[level] = _launches()
                 _check_fp32_launches(launches[level], f"oracle {level}")
         ties.update({f"{level} {k}": v for k, v in _check_runs(
-            toks, ref_toks[:, :MAX_NEW], gaps).items()})
+            toks, ref_toks[:, :ORACLE_NEW], gaps).items()})
     emit({"phase": "oracle", "ok": True, "dtype": "float32",
-          "alpha_checked": bool(exact), "tol_cache": TOL_CACHE,
+          "max_new": ORACLE_NEW, "alpha_checked": bool(exact),
+          "tol_cache": TOL_CACHE,
           "runs": runs, "launches": launches, "near_ties": ties})
 
 
@@ -1817,9 +1863,11 @@ def bf16_path(bundle, prompts):
             ("paged", "cascade_phase1_paged", n_target + n_drafter),
             ("dense", "cascade_phase1", n_target)):
         _zero_launches()
-        kt, kinfo = run_generate(b16, prompts, "kernel", cache)
+        kt, kinfo = run_generate(b16, prompts, "kernel", cache,
+                                 max_new=BF16_NEW)
         counts = _launches()
-        gt, ginfo = run_generate(b16, prompts, "gather", cache)
+        gt, ginfo = run_generate(b16, prompts, "gather", cache,
+                                 max_new=BF16_NEW)
         runs += [kinfo, ginfo]
         n = counts[f"{entry}_sm90"]
         per_cycle[f"{entry}_sm90"] = n / kinfo["cycles"]
@@ -1834,7 +1882,7 @@ def bf16_path(bundle, prompts):
         first[cache] = bf16_divergences(b16, prompts, kt, gt, cache)
         eager[cache] = (kt, kinfo)
     kinfo = runs[0]
-    emit({"phase": "bf16", "ok": True, "runs": runs,
+    emit({"phase": "bf16", "ok": True, "max_new": BF16_NEW, "runs": runs,
           "tokens_per_s": kinfo["tokens_per_s"],
           "decode_tokens_per_s": kinfo["decode_tokens_per_s"],
           "ms_per_cycle": kinfo["ms_per_cycle"],
@@ -1915,7 +1963,7 @@ def graph_bf16(bundle, prompts, eager):
                          ("dense", "cascade_phase1")):
         _zero_launches()
         gt, info = run_generate(bundle, prompts, "kernel", cache,
-                                ondevice=True)
+                                ondevice=True, max_new=BF16_NEW)
         counts = _launches()
         if not counts[f"{entry}_sm90"] or counts["cascade_phase1"] \
                 or counts["cascade_phase1_paged"]:
@@ -2337,13 +2385,14 @@ def profile_train_step(run, ms_per_step):
 
 # arch -> (layers of the fp32 identity run, of the bf16 run): full width;
 # the fp32 identity (three kernel and three plain steps, fp32 AdamW state)
-# at a depth that keeps both runs short, the bf16 run at full depth (about
-# 42 GB of fp32 params, grads and AdamW moments)
-TRAIN_ARCHS = {"gemma2-2b": (4, 26), "recurrentgemma-2b": (6, 26)}
+# at a depth that keeps both runs short (a local and a global layer; two
+# RG-LRU layers and a local one), the bf16 run at 6 of 26 layers (once 4,
+# 6 and full depth: cut for the mesh phases' time)
+TRAIN_ARCHS = {"gemma2-2b": (2, 6), "recurrentgemma-2b": (3, 6)}
 # arch, layers, sequence length: T 1024, since a four-layer step at T 4096
 # takes 18.2 s on an H100 (the time-mix scan is a host-bound loop of T
-# steps a layer)
-RWKV_TRAIN = ("rwkv6-1.6b", 4, 1024)
+# steps a layer); 2 layers (4 once: cut for the mesh phases' time)
+RWKV_TRAIN = ("rwkv6-1.6b", 2, 1024)
 LOSS_SEQ_CHUNK = 512                      # the cross entropy's chunks
 TRAIN_ARCH_TIMED = 3                      # bf16 steps timed after a warm-up
 
@@ -2364,7 +2413,7 @@ def train_archs():
     with the cross entropy in ``LOSS_SEQ_CHUNK`` chunks: for gemma2-2b
     and recurrentgemma-2b the fp32 identity (:func:`_identity`) at the
     depth ``TRAIN_ARCHS`` gives, then the bf16 run (:func:`_bf16_run`) at
-    full depth with one step profiled; rwkv6-1.6b (no attention) in bf16
+    its bf16 depth with one step profiled; rwkv6-1.6b (no attention) in bf16
     cut to ``RWKV_TRAIN``'s depth: finite losses that fall over a warm-up
     and three timed steps (AdamW at lr 1e-3 after one warm-up step, as
     the launcher schedules it). Flash launches gated exact in each run.
@@ -2419,11 +2468,447 @@ def train_archs():
     return per_step
 
 
+# ---------------------------------------------------- training on the mesh --
+# paper-target at full width cut to MESH_LAYERS layers (remat) on a (data
+# 2, model 2) mesh with FSDP, 4 gloo ranks on this card; batch 4 x 1024
+# (2 rows a data rank), the cross entropy in chunks of MESH_CHUNK; each
+# row's mask cut at MESH_ROWS tokens, so the data ranks' counts differ
+MESH_SHAPE = (2, 2)
+MESH_LAYERS = 2
+MESH_B, MESH_T, MESH_CHUNK = 4, 1024, 512
+MESH_ROWS = (1024, 1024, 700, 300)
+MESH_STEPS = 3                 # fp32 steps held to the unsharded ones
+MESH_BF16_TIMED = 2            # bf16 steps timed after a warm-up
+TOL_MESH_GRAD = 1e-4    # fp32 step-1 gradient, each leaf's max |diff| over
+                        # its largest magnitude: sums in other orders (the
+                        # ranks' partial products, gloo's host sums)
+PIPE_M, PIPE_T = 4, 512        # microbatches of 1 x 512 through 2 stages
+TOL_PIPE = 1e-5         # pipeline vs sequential, relative to the largest
+                        # magnitude (the same kernels on the same inputs)
+
+
+def mesh_train_cfg(dtype):
+    """paper-target at full width, cut to MESH_LAYERS layers, remat on."""
+    from repro_torch.configs import paper_target
+    return dataclasses.replace(paper_target.full(), num_layers=MESH_LAYERS,
+                               remat=True, dtype=dtype)
+
+
+def mesh_batches(n):
+    """``n`` batches of the mixture stream (seed 0), each row's mask cut
+    at its ``MESH_ROWS`` length."""
+    from repro_torch.data.synthetic import SyntheticDataset
+    ds = SyntheticDataset("mixture", MESH_B, MESH_T, seed=0)
+    out = []
+    for _ in range(n):
+        b = ds.next_batch()
+        for i, n_tok in enumerate(MESH_ROWS):
+            b["mask"][i, n_tok:] = 0.0
+        out.append(b)
+    return out
+
+
+def _first_step(cfg, params, batch, grad_hook=None):
+    """Step 1 of ``make_train_step`` taken in its two parts, so that its
+    gradient can be read: ``make_grad_fn`` (loss and gradient, on the
+    mesh the rank's summed shards), ``grad_hook(grads, plan)`` on it,
+    then the optimizer's update (``shard_axes`` on the mesh). Returns
+    (params, state, step, loss, grad norm, seconds)."""
+    from repro_torch.launch.steps import (make_grad_fn, make_train_step,
+                                          optimizer_for)
+    from repro_torch.optim import optimizers as opt_lib
+    gf = make_grad_fn(cfg, loss_seq_chunk=MESH_CHUNK, device=DEVICE)
+    step, init = make_train_step(cfg, loss_seq_chunk=MESH_CHUNK,
+                                 device=DEVICE)
+    state = init(params)
+    update = opt_lib.make_optimizer(optimizer_for(cfg), cfg)[1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads, plan = gf(params, batch)
+    if grad_hook is not None:
+        grad_hook(grads, plan)
+    params, state, m = update(grads, state, params, shard_axes=None
+                              if plan is None else plan.norm_axes)
+    gnorm = float(m["grad_norm"])
+    torch.cuda.synchronize()
+    return params, state, step, float(loss), gnorm, time.perf_counter() - t0
+
+
+def _mesh_unsharded():
+    """The unsharded kernel steps the mesh phases are held to: fp32 from
+    seed 0 (step 1's gradient, then MESH_STEPS steps: losses, grad norms,
+    the params after), bf16 (the losses of 1 + MESH_BF16_TIMED steps).
+    The seed-0 params (both phases' start: a bf16 model keeps fp32
+    params) and the fp32 trees stay on the card: the ranks map them."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import api
+    from repro_torch.models import param as pm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = mesh_train_cfg("float32")
+    batches = mesh_batches(MESH_STEPS)
+    params = api.init_model(cfg, seed=0, device=DEVICE)
+    init = pm.tree_map(torch.clone, params)
+    kept = {}
+
+    def keep(grads, _):
+        kept.update({k: g.clone() for k, g in pm.flatten(grads).items()})
+
+    params, state, step, loss1, gn1, s1 = _first_step(cfg, params,
+                                                      batches[0], keep)
+    _, _, losses, gnorms, secs = _run_list(params, state, step, batches[1:])
+    del state, step
+    _free()
+    ref = {"init": init, "grads": kept, "params": pm.flatten(params),
+           "losses": [loss1] + losses, "grad_norms": [gn1] + gnorms,
+           "ms_per_step": 1e3 * (s1 + secs) / MESH_STEPS}
+    cfg = mesh_train_cfg("bfloat16")
+    params = api.init_model(cfg, seed=0, device=DEVICE)
+    step, init = make_train_step(cfg, loss_seq_chunk=MESH_CHUNK,
+                                 device=DEVICE)
+    _, _, ref["bf16_losses"], _, secs = _run_list(
+        params, init(params), step, mesh_batches(1 + MESH_BF16_TIMED))
+    ref["bf16_ms_per_step"] = 1e3 * secs / (1 + MESH_BF16_TIMED)
+    del params, step
+    _free()
+    return ref
+
+
+def _run_list(params, state, step, batches, times=None):
+    """``step`` over ``batches``: (params, state, losses, grad norms,
+    seconds); ``times`` gets each step's seconds (synchronized)."""
+    losses, gnorms = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        t1 = time.perf_counter()
+        params, state, m = step(params, state, b)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        if times is not None:
+            times.append(time.perf_counter() - t1)
+    if not np.isfinite(losses + gnorms).all():
+        fail(f"mesh training: a loss or grad norm is not finite: {losses} "
+             f"{gnorms}")
+    return params, state, losses, gnorms, time.perf_counter() - t0
+
+
+def _mesh_params(init, plan):
+    """The rank's storage of the seed-0 params ``init`` (the parent's, on
+    the card): its slices by the plan, every leaf a copy of its own (the
+    replicated ones too: the optimizer writes in place)."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import param as pm
+    return pm.tree_map(torch.clone, sh.constrain_params(init,
+                                                         plan.shardings))
+
+
+def _collectives(steps):
+    """Calls, MB and (when timed) host ms a step of the training
+    collectives since the last reset."""
+    from repro_torch.distributed import train_mesh as tm
+    return {name: {"calls": c.calls / steps, "mb": c.bytes / steps / 1e6,
+                   "host_ms": 1e3 * c.merge_s / steps if c.timed else None}
+            for name, c in (("gathers", tm.GATHERS),
+                            ("reduce_scatters", tm.SCATTERS),
+                            ("all_reduces", tm.REDUCES))}
+
+
+def _mesh_fp32(ref, mesh_heads):
+    """The fp32 phase on one rank: step 1's gradient shards against the
+    unsharded gradient's slices, then MESH_STEPS steps (losses, grad
+    norms, launches a step, the params after against the unsharded
+    params' slices)."""
+    from repro_torch.distributed import train_mesh as tm
+    from repro_torch.launch.steps import make_grad_fn
+    from repro_torch.models import param as pm
+    cfg = mesh_train_cfg("float32")
+    plan = make_grad_fn(cfg, loss_seq_chunk=MESH_CHUNK,
+                        device=DEVICE).plan()
+    params = _mesh_params(ref["init"], plan)
+    torch.cuda.reset_peak_memory_stats()
+    batches = mesh_batches(MESH_STEPS)
+    init_p = pm.flatten(ref["init"])
+    _zero_flash_launches()
+    tm.reset_counters()
+    mesh_heads.clear()
+    errs = {}
+
+    def hold(grads, _):
+        # each leaf of this rank's gradient shard against the unsharded
+        # gradient's slice
+        for path, g in pm.flatten(grads).items():
+            r = ref["grads"][path][plan.leaves[path].index]
+            errs[path] = ((g - r).abs().max() / r.abs().max().clamp_min(
+                1e-30)).item()
+
+    params, state, step, loss1, gn1, s1 = _first_step(cfg, params,
+                                                      batches[0], hold)
+    times = [s1]
+    params, state, losses, gnorms, secs = _run_list(params, state, step,
+                                                    batches[1:], times)
+    losses, gnorms, secs = [loss1] + losses, [gn1] + gnorms, secs + s1
+    launches = _flash_launches()
+    coll = _collectives(MESH_STEPS)
+    diff_max = diff_sum = move_sum = 0.0
+    count = 0
+    for path, p in pm.flatten(params).items():
+        index = plan.leaves[path].index
+        r = ref["params"][path][index]
+        d = (p - r).abs()
+        diff_max = max(diff_max, d.max().item())
+        diff_sum += d.sum().item()
+        move_sum += (r - init_p[path][index]).abs().sum().item()
+        count += p.numel()
+    worst = max(errs, key=errs.get)
+    out = {"losses": losses, "grad_norms": gnorms, "launches": launches,
+           "heads": sorted(mesh_heads), "grad_rel_err": errs[worst],
+           "grad_worst_leaf": worst, "param_max_abs_diff": diff_max,
+           "param_diff_sum": diff_sum, "param_move_sum": move_sum,
+           "param_count": count, "ms_per_step": 1e3 * secs / MESH_STEPS,
+           "step_ms": [1e3 * t for t in times], "collectives": coll,
+           "storage_gb": sum(t.numel() * t.element_size() for t in
+                             pm.flatten(params).values()) / 1e9,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "plan": {"hq": plan.hq, "hkv": plan.hkv, "q_lo": plan.q_lo,
+                    "kv_lo": plan.kv_lo}}
+    del params, state, init_p, step
+    _free()
+    return out
+
+
+def _mesh_bf16(ref, mesh_heads):
+    """The bf16 phase on one rank: a warm-up and MESH_BF16_TIMED timed
+    steps, each collective counted and timed on the host after a
+    synchronize (the staging through the host synchronizes anyway)."""
+    from repro_torch.distributed import train_mesh as tm
+    from repro_torch.launch.steps import make_grad_fn, make_train_step
+    cfg = mesh_train_cfg("bfloat16")
+    plan = make_grad_fn(cfg, loss_seq_chunk=MESH_CHUNK,
+                        device=DEVICE).plan()
+    params = _mesh_params(ref["init"], plan)
+    step, init = make_train_step(cfg, loss_seq_chunk=MESH_CHUNK,
+                                 device=DEVICE)
+    state = init(params)
+    batches = mesh_batches(1 + MESH_BF16_TIMED)
+    torch.cuda.reset_peak_memory_stats()
+    mesh_heads.clear()
+    params, state, warm, _, warm_s = _run_list(params, state, step,
+                                               batches[:1])
+    _zero_flash_launches()
+    tm.reset_counters(timed=True)
+    times = []
+    params, state, losses, _, secs = _run_list(params, state, step,
+                                               batches[1:], times)
+    coll = _collectives(MESH_BF16_TIMED)
+    tm.reset_counters()
+    launches = _flash_launches()
+    ms = 1e3 * float(np.median(times))
+    out = {"losses": warm + losses, "warmup_s": warm_s,
+           "ms_per_step": ms, "step_ms": [1e3 * t for t in times],
+           "tokens_per_s": MESH_B * MESH_T / (ms / 1e3),
+           "collectives": coll, "heads": sorted(mesh_heads),
+           "launches": launches, "peak_gib":
+               torch.cuda.max_memory_allocated() / 2 ** 30}
+    del params, state, step
+    _free()
+    return out
+
+
+def _pipeline_rank(rank, group):
+    """GPipe over a pod axis of 2 (ranks 0 and 1): one full-width
+    paper-target block a stage (drawn from seed 7 on both ranks, each
+    keeping its own as its stage slice), PIPE_M microbatches of 1 x
+    PIPE_T, stateless through #3; held to sequential application of both
+    blocks on this rank; #3 launches counted around the pipeline only."""
+    from repro_torch.distributed import pipeline_parallel as pp
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import param as pm
+    from repro_torch.models.blocks import block_apply, block_init, layer_specs
+    cfg = mesh_train_cfg("float32")
+    spec = layer_specs(cfg)[0]
+    gen = pm.make_generator(7, torch.device(DEVICE))
+    blocks = [block_init(gen, cfg, spec) for _ in range(2)]
+    xs = torch.randn((PIPE_M, 1, PIPE_T, cfg.d_model), generator=gen,
+                     device=DEVICE)
+
+    def stage(p, x):
+        return block_apply(p, x, cfg, spec, attn_impl="kernel")[0]
+
+    mesh = sh.Mesh(("pod", "data", "model"), (2, 1, 1), (rank, 0, 0),
+                   (group, None, None))
+    with torch.no_grad():
+        seq = torch.stack([stage(blocks[1], stage(blocks[0], x)) for x in xs])
+        own = pm.tree_map(lambda t: t[None], blocks[rank])
+        with sh.use_sharding(mesh):
+            _zero_flash_launches()
+            pp.STAGE_CALLS["n"] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = pp.pipeline_apply(stage, own, xs)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = {k: v for k, v in _flash_launches().items() if v}
+    return {"rel_err": ((y - seq).abs().max() / seq.abs().max()).item(),
+            "launches": launches, "stage_calls": pp.STAGE_CALLS["n"],
+            "ms": 1e3 * secs}
+
+
+def mesh_rank(rank, n, ref):
+    """One rank of the mesh phases: fp32 and bf16 training on the (data
+    2, model 2) mesh with FSDP, then (ranks 0 and 1) the pipeline.
+    Returns this rank's record."""
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(*MESH_SHAPE)
+    heads = set()
+    flash = kops.flash_attention
+
+    def seen(q, k, v, **kw):
+        heads.add((q.shape[2], k.shape[2]))
+        return flash(q, k, v, **kw)
+
+    kops.flash_attention = seen
+    out = {"rank": rank}
+    with sh.use_sharding(mesh, sh.LOGICAL_RULES, fsdp=True):
+        out["fp32"] = _mesh_fp32(ref, heads)
+        out["bf16"] = _mesh_bf16(ref, heads)
+    kops.flash_attention = flash
+    # every rank lets go of its peers' exchange buffers before any exits
+    _free()
+    dist.barrier()
+    group = dist.new_group([0, 1])
+    if rank < 2:
+        out["pipeline"] = _pipeline_rank(rank, group)
+    dist.barrier()
+    return out
+
+
+def mesh_train_path():
+    """The mesh phases: the unsharded kernel steps first (fp32, bf16),
+    then 4 ranks on this card (:func:`mesh_rank`), held here: ``mesh_train``
+    (fp32 against the unsharded step), ``mesh_train_bf16`` (readings) and
+    ``pipeline``. Returns the flash launches a step a rank by dtype and
+    the pipeline's #3 launches a rank."""
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch.steps import optimizer_for
+    from repro_torch.optim.optimizers import lr_schedule
+    t0 = time.perf_counter()
+    ref = _mesh_unsharded()
+    ref_s = time.perf_counter() - t0
+    n = MESH_SHAPE[0] * MESH_SHAPE[1]
+    recs = run_ranks(mesh_rank, n, n, ref)
+    cfg = mesh_train_cfg("float32")
+    r32 = [r["fp32"] for r in recs]
+    for r in r32[1:]:
+        if r["losses"] != r32[0]["losses"] or r["grad_norms"] != r32[0][
+                "grad_norms"]:
+            fail(f"mesh_train: the ranks' losses differ: {r32}")
+    f = r32[0]
+    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(f["losses"],
+                                                      ref["losses"]))
+    gn_rel = max(abs(x - y) / abs(y) for x, y in zip(f["grad_norms"],
+                                                     ref["grad_norms"]))
+    grad_rel = max(r["grad_rel_err"] for r in r32)
+    diff_max = max(r["param_max_abs_diff"] for r in r32)
+    param_rel = sum(r["param_diff_sum"] for r in r32) / max(
+        sum(r["param_move_sum"] for r in r32), 1e-30)
+    hp = optimizer_for(cfg)
+    sign_bound = 2 * sum(float(lr_schedule(hp, s))
+                         for s in range(1, MESH_STEPS + 1))
+    per_step = [_check_flash_launches(r["launches"], MESH_STEPS, False,
+                                      MESH_LAYERS, "mesh_train")
+                for r in r32]
+    for r in r32:
+        if [tuple(h) for h in r["heads"]] != [(16, 4)]:
+            fail(f"mesh_train: flash ran at (Hq, Hkv) {r['heads']}, not "
+                 "(16, 4)")
+    out = {"mesh": list(MESH_SHAPE), "fsdp": True, "ranks": n,
+           "layers": MESH_LAYERS, "params": cfg.param_count(),
+           "batch": MESH_B, "seq": MESH_T, "loss_seq_chunk": MESH_CHUNK,
+           "mask_rows": list(MESH_ROWS), "optimizer": hp.name,
+           "losses": f["losses"], "grad_norms": f["grad_norms"],
+           "unsharded": {k: ref[k] for k in ("losses", "grad_norms",
+                                             "ms_per_step")},
+           "loss_rel_err": loss_rel, "grad_norm_rel_err": gn_rel,
+           "grad_rel_err": grad_rel,
+           "grad_worst_leaf": max(r32, key=lambda r: r["grad_rel_err"])[
+               "grad_worst_leaf"],
+           "param_max_abs_diff": diff_max, "param_rel_err": param_rel,
+           "param_sign_bound": sign_bound,
+           "launches_per_step": per_step[0], "heads": f["heads"],
+           "plans": [r["plan"] for r in r32],
+           "ms_per_step": [r["ms_per_step"] for r in r32],
+           "collectives_per_step": f["collectives"],
+           "storage_gb_per_rank": [r["storage_gb"] for r in r32],
+           "peak_gib_per_rank": [r["peak_gib"] for r in r32],
+           "unsharded_s": ref_s, "gpu": nvidia_smi_line(),
+           "tol": {"loss": TOL_TRAIN_LOSS, "grad_norm": TOL_TRAIN_GNORM,
+                   "grad": TOL_MESH_GRAD, "param": TOL_TRAIN_PARAM},
+           "note": "ranks time-share one card"}
+    if loss_rel > TOL_TRAIN_LOSS or gn_rel > TOL_TRAIN_GNORM or \
+            grad_rel > TOL_MESH_GRAD or param_rel > TOL_TRAIN_PARAM or \
+            diff_max > sign_bound:
+        fail(f"mesh_train: the sharded step disagrees with the unsharded "
+             f"one: {out}")
+    emit({"phase": "mesh_train", "ok": True, **out})
+    b16 = [r["bf16"] for r in recs]
+    for r in b16[1:]:
+        if r["losses"] != b16[0]["losses"]:
+            fail(f"mesh_train_bf16: the ranks' losses differ: {b16}")
+    b = b16[0]
+    per16 = [_check_flash_launches(r["launches"], MESH_BF16_TIMED, True,
+                                   MESH_LAYERS, "mesh_train_bf16")
+             for r in b16]
+    rel16 = max(abs(x - y) / abs(y) for x, y in zip(b["losses"],
+                                                   ref["bf16_losses"]))
+    out16 = {"mesh": list(MESH_SHAPE), "fsdp": True, "ranks": n,
+             "layers": MESH_LAYERS, "batch": MESH_B, "seq": MESH_T,
+             "losses": b["losses"], "unsharded_losses": ref["bf16_losses"],
+             "loss_rel_err": rel16, "tol_loss": TOL_TRAIN_BF16_LOSS,
+             "ms_per_step": [r["ms_per_step"] for r in b16],
+             "step_ms": b["step_ms"],
+             "unsharded_ms_per_step": ref["bf16_ms_per_step"],
+             "tokens_per_s": b["tokens_per_s"],
+             "collectives_per_step": b["collectives"],
+             "launches_per_step": per16[0], "heads": b["heads"],
+             "peak_gib_per_rank": [r["peak_gib"] for r in b16],
+             "warmup_s": b["warmup_s"], "gpu": nvidia_smi_line(),
+             "note": "readings: ranks time-share one card; the "
+                     "collectives exchange on the card (CUDA IPC)"}
+    if rel16 > TOL_TRAIN_BF16_LOSS:
+        fail(f"mesh_train_bf16: losses off the unsharded bf16 step's: "
+             f"{out16}")
+    emit({"phase": "mesh_train_bf16", "ok": True, **out16})
+    pipe = [r["pipeline"] for r in recs if "pipeline" in r]
+    want = PIPE_M + 2 - 1
+    for p in pipe:
+        if p["launches"] != {"flash_fwd": want} or p["stage_calls"] != want \
+                or p["rel_err"] > TOL_PIPE:
+            fail(f"pipeline: {pipe}")
+    emit({"phase": "pipeline", "ok": True, "stages": 2, "microbatches":
+          PIPE_M, "microbatch": [1, PIPE_T], "layers_per_stage": 1,
+          "launches_per_rank": pipe[0]["launches"],
+          "stage_calls_per_rank": [p["stage_calls"] for p in pipe],
+          "rel_err": [p["rel_err"] for p in pipe], "tol": TOL_PIPE,
+          "ms": [p["ms"] for p in pipe], "gpu": nvidia_smi_line(),
+          "seconds": time.perf_counter() - t0})
+    del ref
+    _free()
+    return {"float32": per_step[0], "bfloat16": per16[0],
+            "pipeline": pipe[0]["launches"]}
+
+
 # --------------------------------------------------------------- serving --
 SERVE_BATCH, SERVE_PAGE, SERVE_POOL = 4, 64, 160
 SERVE_PREFIX = 5              # pages of the shared system prompt (320)
 SERVE_SFX = (1, 2, 3, 14, 5, 7, 9, 2, 11)  # suffixes, in half pages (32)
-SERVE_NEW = (24, 8, 40, 16, 48, 12, 32, 20, 36, 28)
+SERVE_NEW = (12, 4, 20, 8, 24, 6, 16, 10, 18, 14)
 SERVE_RATE = 1.0              # requests/s of the bf16 phase's Poisson trace
 SERVE_LAYERS = 3              # paper-target cut in depth for the serving
                               # and sharded phases (a twelfth of 36, the
@@ -2438,7 +2923,7 @@ def serving_traffic(bundle):
     32-448 tokens; requests 1 and 7 share 352 tokens (a match that ends
     inside a page: a COW copy); request 9 is request 0's prompt, its
     plain greedy answer (``greedy_reference``) and 40 new tokens (a
-    second turn, hitting generated tokens); ``max_new`` 8-48. Request 0
+    second turn, hitting generated tokens); ``max_new`` 4-24. Request 0
     is served first on its own (the earlier turn), the other nine after
     it, FIFO. Returns [(prompt, max_new)]."""
     rng = np.random.default_rng(21)
@@ -3240,15 +3725,15 @@ def _timing_keys(t):
 # ------------------------------------------------------ recurrent targets --
 # phase -> (arch, prompt length of each row, new tokens a row, layers):
 # the hybrid's prompts are ragged and long enough that every row's rolling
-# local buffers (window 2048) wrap during its 64 new tokens; the ssm
-# phase is cut to 32 (its eager fp32 cycle is host-bound, about 230 ms).
+# local buffers (window 2048) wrap during its 32 new tokens; the ssm
+# phase is cut to 16 (its eager fp32 cycle is host-bound, about 230 ms).
 # Both run at full width cut in depth (recurrentgemma-2b 8 of 26 layers:
 # 2 of its 8 local layers; rwkv6-1.6b 6 of 24), which pays for the
 # train_archs phase within the run's time limit; serving_recurrent
 # serves the hybrid at the same depth
-RECURRENT = {"hybrid": ("recurrentgemma-2b", (2000, 2013, 2027, 2040), 64,
+RECURRENT = {"hybrid": ("recurrentgemma-2b", (2020, 2027, 2034, 2041), 32,
                         8),
-             "ssm": ("rwkv6-1.6b", (512, 512, 512, 512), 32, 6)}
+             "ssm": ("rwkv6-1.6b", (512, 512, 512, 512), 16, 6)}
 
 
 def recurrent_bundle(arch, layers=None):
@@ -3438,7 +3923,7 @@ def serving_recurrent():
 
 
 # ---------------------------------------------- MoE, cross, other archs --
-ARCH_PROMPT, ARCH_NEW = 512, 32   # 4 prompts a phase, tokens a row
+ARCH_PROMPT, ARCH_NEW = 512, 16   # 4 prompts a phase, tokens a row
 # full width; depth cut where one card cannot hold the model:
 # grok-1-314b 4.92e9 parameters a layer and 1.61e9 in the embedding and
 # head (fp32 2 layers: 45.8 GB; bf16 4 layers: 42.6 GB); kimi-k2's 384
@@ -3746,7 +4231,7 @@ def moe_path():
 # shards the pools over the same axis (page 64: 32 or 16 slots a rank)
 EP = {"ep": (2, "float32", "grok-1-314b", GROK_LAYERS, 21),
       "ep_bf16": (4, "bfloat16", "kimi-k2-1t-a32b", KIMI_LAYERS, 22)}
-EP_NEW = 16     # new tokens a request (the moe phase's first ARCH_NEW: time)
+EP_NEW = 8      # new tokens a request (the moe phase's first ARCH_NEW: time)
 
 
 class CycleReduces:
@@ -4245,9 +4730,12 @@ def archs_path():
 # The held-out decode of benchmarks/common.py::measure: 12 prompts of 48
 # tokens a task from seed 777 at offset 5e6, 96 new tokens, gamma from the
 # study, K 4
-STUDY_PROMPTS, STUDY_PROMPT_LEN, STUDY_NEW = 12, 48, 96
+STUDY_PROMPTS, STUDY_PROMPT_LEN, STUDY_NEW = 12, 48, 48
 STUDY_SEED, STUDY_OFFSET, STUDY_K = 777, 5 * 10 ** 6, 4
 STUDY_METHODS = ("d2sd", "dflash", "eagle", "naive_k", "dflash_second")
+# the target's pretraining steps and each drafter's (below run_study's
+# defaults of 240 and 400: cut for the run's time limit)
+STUDY_TARGET_STEPS, STUDY_DRAFTER_STEPS = 120, 150
 
 
 def study_bundle(method, tcfg, dcfg, dcfg_ar, params, gamma):
@@ -4307,8 +4795,9 @@ def _study_runs(bundle, prompts, ref_toks, gaps, where, dense=True):
 
 
 def study_path():
-    """``run_study.main`` at its defaults (the smoke target in fp32,
-    drafter_small), then the held-out decode of every method with the
+    """``run_study.main`` at its defaults but the steps
+    (``STUDY_TARGET_STEPS``, ``STUDY_DRAFTER_STEPS``; the smoke target in
+    fp32, drafter_small), then the held-out decode of every method with the
     trained drafters and d2sd with seeded random ones."""
     from repro_torch.core.drafter import drafter_init
     from repro_torch.data.synthetic import TASKS, SyntheticDataset
@@ -4317,7 +4806,8 @@ def study_path():
     torch.backends.cudnn.allow_tf32 = False
     _zero_flash_launches()
     _zero_launches()
-    rec = run_study.main([])
+    rec = run_study.main(["--target-steps", str(STUDY_TARGET_STEPS),
+                          "--drafter-steps", str(STUDY_DRAFTER_STEPS)])
     flash, casc = _flash_launches(), _launches()
     falls = {"target": _falls("study target", rec["target_losses"])}
     for name, losses in rec["drafter_losses"].items():
@@ -4386,7 +4876,7 @@ def study_path():
 # -------------------------------------------------- distillation at width --
 DISTILL_LAYERS = 6       # paper-target cut in depth (the run's time limit)
 DISTILL_ROWS, DISTILL_PROMPT, DISTILL_NEW = 16, 128, 128   # rollouts
-DISTILL_STEPS, DISTILL_BATCH = 150, 16
+DISTILL_STEPS, DISTILL_BATCH = 100, 16
 DISTILL_DECODE = (4, 128, 64)     # rows, prompt, new tokens of the decode
 
 
@@ -4579,6 +5069,9 @@ def main():
     torch.cuda.empty_cache()
     arch_steps = train_archs()
     _free()
+    # training on a (data 2, model 2) mesh of ranks on this card (fp32
+    # held to the unsharded step, bf16 readings) and GPipe over pod 2
+    mesh_steps = mesh_train_path()
     study = study_path()
     distilled = distill_full()
 
@@ -4657,6 +5150,12 @@ def main():
                  {"distill_full_launches_per_step": distilled[
                      "teacher_fwd_per_step"] if name == "flash_fwd_sm90"
                   else 0})
+        # a rank's launches a step on the (2, 2) mesh (16 of the 32 query
+        # heads, 4 of the 8 KV heads), and the pipeline's a rank (fp32)
+        extra["mesh_train_launches_per_step"] = mesh_steps[dn][name]
+        extra["pipeline_launches"] = (
+            mesh_steps["pipeline"].get(name, 0)
+            if dtype == torch.float32 else None)
         rows.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/csrc/{src}",
                      "replaces": f"src/repro/kernels/flash_attention.py:"
@@ -4665,7 +5164,7 @@ def main():
                      "max_abs_err": flash_worst[wrapper][dn], "dtype": dn,
                      **_timing_keys(flash_timing[wrapper][dn]),
                      # gemma2-2b's shape; launches a step of train_archs
-                     # (fp32: the identity run's depth, bf16: full depth)
+                     # (fp32: the identity run's depth, bf16: 6 layers)
                      "d256": {**_timing_keys(d256),
                               "device_ms": d256["device_ms"],
                               "library_kernel": d256["library_kernel"],

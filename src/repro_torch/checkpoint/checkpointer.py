@@ -12,9 +12,14 @@ directory and renames it into place (atomic publish); with
 ``async_save`` a background thread writes a host copy while training goes
 on, and ``wait()`` joins it before the next save. Restore verifies the
 sha256 and puts each leaf on the device and in the dtype of the tree it
-restores into. bfloat16 leaves are stored as their int16 bits. Restoring
-onto a different mesh (JAX's elastic restore) is multi-GPU work, not
-ported.
+restores into. bfloat16 leaves are stored as their int16 bits.
+
+On a mesh (``distributed/sharding.py``) a tree of the ranks' slices is
+saved whole: ``save(..., shardings=)`` gathers the whole leaves, rank 0
+writes and every rank waits for it. ``restore(like, mesh=)`` is JAX's
+elastic restore: each rank keeps its slices of the whole leaves by
+``params_shardings`` on ``mesh`` (which may differ from the mesh that
+saved them), under the active rules and fsdp flag.
 """
 from __future__ import annotations
 
@@ -28,7 +33,9 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.distributed import sharding as sh
 from repro_torch.models import param as pm
 
 
@@ -56,8 +63,23 @@ class Checkpointer:
         self._thread: Optional[threading.Thread] = None
 
     # ------------------------------------------------------------- save ---
-    def save(self, step: int, tree, extra: Optional[Dict] = None):
+    def save(self, step: int, tree, extra: Optional[Dict] = None,
+             shardings=None):
+        """Write ``tree`` as step ``step``. ``shardings`` (a tree of
+        ``sharding.LeafShard``, inside a mesh): ``tree`` holds this rank's
+        slices; every rank calls this, the whole leaves are gathered, rank
+        0 writes and all wait for it (collective; never in the
+        background)."""
         self.wait()
+        if shardings is not None:
+            tree = sh.gather_tree(tree, shardings)
+            if dist.get_rank() == 0:
+                flat = pm.flatten(tree)
+                self._write(step, {k: _to_numpy(v) for k, v in flat.items()},
+                            {k: str(v.dtype).replace("torch.", "")
+                             for k, v in flat.items()}, extra)
+            dist.barrier()
+            return
         flat = pm.flatten(tree)
         host = {k: _to_numpy(v) for k, v in flat.items()}
         dtypes = {k: str(torch.as_tensor(v).dtype).replace("torch.", "")
@@ -101,9 +123,12 @@ class Checkpointer:
             "step_*") if p.is_dir())
         return steps[-1] if steps else None
 
-    def restore(self, like_tree, step: Optional[int] = None):
+    def restore(self, like_tree, step: Optional[int] = None, mesh=None):
         """Restore into the structure, devices and dtypes of ``like_tree``.
-        Returns (tree, extra)."""
+        With ``mesh`` (a rank's view of a mesh), each leaf is this rank's
+        slice of the saved whole leaf by ``params_shardings`` on ``mesh``
+        (``like_tree`` may hold whole leaves or slices). Returns (tree,
+        extra)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -118,6 +143,11 @@ class Checkpointer:
             missing = [k for k in flat_like if k not in data]
             if missing:
                 raise KeyError(f"missing leaves in checkpoint: {missing}")
-            flat = {k: _from_numpy(data[k], like)
+            if mesh is None:
+                flat = {k: _from_numpy(data[k], like)
+                        for k, like in flat_like.items()}
+            else:
+                flat = {k: _from_numpy(np.ascontiguousarray(data[k][
+                    sh.leaf_shard(k, data[k].shape, mesh).index]), like)
                     for k, like in flat_like.items()}
         return pm.unflatten_like(like_tree, flat), manifest.get("extra", {})

@@ -1,4 +1,4 @@
-"""Logical-axis rules and the mesh context (twin, in part, of
+"""Logical-axis rules, the mesh context and the parameter rules (twin of
 ``repro/distributed/sharding.py``).
 
 Usage, inside every rank of a process group (``launch/mesh.py``)::
@@ -11,11 +11,29 @@ Outside a ``use_sharding`` context (or with ``mesh=None``) every reader
 sees no mesh and the model code runs as on one device. Of the rules
 ``batch`` (:func:`batch_run`: the rank's run of a wave's rows),
 ``kv_seq`` (``distributed/spdecode.py``) and ``experts``
-(``distributed/ep.py``) are read. :func:`logical_to_pspec` and
+(``distributed/ep.py``) are read by decoding; training on the mesh
+(``distributed/train_mesh.py``) reads ``heads``, ``ffn``, ``vocab``,
+``act_seq`` and ``embed_fsdp``. :func:`logical_to_pspec` and
 :func:`fit_spec` are JAX's, on plain tuples of axis names (an entry is
-None, one axis name or a tuple of them). The parameter rules
-(``param_pspec``, ``params_shardings``, ``constrain``) are ROADMAP.md
-queue 1, item 10.
+None, one axis name or a tuple of them).
+
+Parameters are placed by path name (JAX's ``_PARAM_RULES``, as they are;
+``param_logical_axes``, ``param_pspec``): a leaf's storage on a rank is
+its slice of ``fit_spec(param_pspec(path, ndim), shape)`` by the rank's
+mesh coordinates (:func:`params_shardings` gives each leaf's
+:class:`LeafShard`; :func:`shard_tree` cuts a whole tree into the rank's
+slices, :func:`gather_tree` puts the whole leaves back). The port's
+paths (``layers/<i>/attn/wq``) have no scanned layer axis, so JAX's
+prepended None for it drops out. ``use_sharding(..., fsdp=True)`` maps
+``p_embed`` to ``embed_fsdp`` (FSDP).
+
+``constrain`` has no twin: in JAX it is a layout hint with no SPMD
+meaning of its own, which pjit turns into collectives; the port makes
+those collectives explicitly at the same sites (``train_mesh.py``: the
+sequence gather and reduce-scatter around attention and the MLP, the
+vocab-parallel reductions, the FSDP gathers). :func:`constrain_params`
+cuts a tree to the rank's storage, which is what the train step's
+``constrain_params`` means under SPMD.
 
 Rows over the batch axes (SPMD form of JAX's ``P(("pod", "data"))``): a
 rank holds only its run of a wave's rows (:class:`BatchRun`), and while
@@ -32,6 +50,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import re
 import threading
 import time
 from typing import Dict, Optional, Sequence, Tuple
@@ -40,8 +59,7 @@ import torch
 import torch.distributed as dist
 
 # logical axis -> mesh axis (or a tuple of mesh axes, or None = replicate);
-# the JAX table as it is, of which the port reads ``batch``, ``kv_seq``
-# and ``experts``
+# the JAX table as it is ("embed_fsdp" is read only under fsdp=True)
 LOGICAL_RULES: Dict[str, object] = {
     "batch": ("pod", "data"),
     "seq": None,
@@ -141,11 +159,25 @@ class Mesh:
         dist.all_gather(parts, host, group=grp)
         return torch.stack(parts).to(t.device)
 
+    def reduce_scatter(self, t: torch.Tensor, axis: Axes) -> torch.Tensor:
+        """``t`` holds a slot for each rank along ``axis`` on its leading
+        axis (in rank order); returns this rank's slot summed over the
+        ranks (staged through pinned host memory, on ``t``'s device)."""
+        grp = self.group(axis)
+        if grp is None:
+            return t[0]
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=t.is_cuda)
+        host.copy_(t.detach())
+        out = torch.empty_like(host[0])
+        dist.reduce_scatter(out, list(host.unbind(0)), group=grp)
+        return out.to(t.device)
+
 
 class _Ctx(threading.local):
     def __init__(self):
         self.mesh: Optional[Mesh] = None
         self.rules: Dict[str, object] = dict(LOGICAL_RULES)
+        self.fsdp: bool = False
         # (rows of the whole batch, this rank's rows among them)
         self.rows: Optional[Tuple[int, Tuple[int, ...]]] = None
 
@@ -155,19 +187,26 @@ _CTX = _Ctx()
 
 @contextlib.contextmanager
 def use_sharding(mesh: Optional[Mesh],
-                 rules: Optional[Dict[str, object]] = None):
-    """Make ``mesh`` and ``rules`` this thread's sharding context."""
-    old = (_CTX.mesh, _CTX.rules)
+                 rules: Optional[Dict[str, object]] = None,
+                 fsdp: bool = False):
+    """Make ``mesh`` and ``rules`` this thread's sharding context; with
+    ``fsdp`` the parameters' embed dims go over ``embed_fsdp``."""
+    old = (_CTX.mesh, _CTX.rules, _CTX.fsdp)
     _CTX.mesh = mesh
     _CTX.rules = dict(rules) if rules is not None else dict(LOGICAL_RULES)
+    _CTX.fsdp = fsdp
     try:
         yield
     finally:
-        _CTX.mesh, _CTX.rules = old
+        _CTX.mesh, _CTX.rules, _CTX.fsdp = old
 
 
 def active_mesh() -> Optional[Mesh]:
     return _CTX.mesh
+
+
+def fsdp_enabled() -> bool:
+    return _CTX.fsdp
 
 
 def active_rules() -> Dict[str, object]:
@@ -358,3 +397,239 @@ def gather_rows(t: torch.Tensor, run: BatchRun) -> torch.Tensor:
     with RESULTS.timing(t.device):
         RESULTS.bytes += t.numel() * t.element_size()
         return _CTX.mesh.all_gather(t, run.axes).flatten(0, 1)
+
+
+# ---------------------------------------------------------------------------
+# Parameter sharding by path name (JAX's table and naming convention):
+#   embedding -> (vocab, embed*); lm_head -> (embed*, vocab)
+#   attn/wq -> (embed*, heads); attn/wk, attn/wv -> (embed*, kv_heads)
+#   attn/wo -> (heads, embed*); mlp w_in / w_gate -> (embed*, ffn)
+#   w_out -> (ffn, embed*); moe stacks -> (experts, embed*, expert_ffn)
+#   norms, biases and anything unnamed -> replicated
+# embed* is "embed_fsdp" under fsdp=True (params only). A leaf of more
+# dims than its rule gets None prepended (JAX's scanned layer axis, the
+# optimizer's stacked periods).
+# ---------------------------------------------------------------------------
+
+_PARAM_RULES: Tuple[Tuple[str, Tuple[Optional[str], ...]], ...] = (
+    # --- decoding state (caches) ---
+    (r"(^|/)(k|v)$", ("batch", "kv_seq", "kv_heads_p", None)),
+    (r"(^|/)(ck|cv)$", ("batch", None, "kv_heads_p", None)),
+    (r"tm_s$", ("batch", "heads", None, None)),
+    (r"(rg_h)$", ("batch", "ffn")),
+    (r"(conv_buf)$", ("batch", None, "ffn")),
+    (r"(tm_x_prev|cm_x_prev)$", ("batch", None)),
+    (r"length$", ("batch",)),
+    # --- RWKV time/channel mix (before generic wk/wv rules) ---
+    (r"rwkv_tm/(wr|wk|wv|wg)$", ("p_embed", "heads")),
+    (r"rwkv_tm/wo$", ("heads", "p_embed")),
+    (r"rwkv_tm/w_lora_b$", (None, "heads")),
+    (r"rwkv_cm/wk$", ("p_embed", "ffn")),
+    (r"rwkv_cm/wv$", ("ffn", "p_embed")),
+    (r"rwkv_cm/wr$", ("p_embed", "p_embed")),
+    # --- RG-LRU ---
+    (r"(w_branch)$", ("p_embed", "ffn")),
+    (r"(wa|wx)$", ("p_embed", "ffn")),
+    (r"conv_w$", (None, "ffn")),
+    # --- embeddings / heads ---
+    (r"embedding$", ("vocab", "p_embed")),
+    (r"lm_head$", ("p_embed", "vocab")),
+    (r"head$", ("p_embed", "vocab")),
+    # --- attention / MLP ---
+    (r"(wq|wqkv)$", ("p_embed", "heads")),
+    (r"(wk|wv)$", ("p_embed", "kv_heads_p")),
+    (r"wo$", ("heads", "p_embed")),
+    (r"(w_in|w_gate|w_up)$", ("p_embed", "ffn")),
+    (r"w_out$", ("ffn", "p_embed")),
+    (r"moe_w_(in|gate)$", ("experts", "p_embed", "expert_ffn")),
+    (r"moe_w_out$", ("experts", "expert_ffn", "p_embed")),
+    (r"router$", ("p_embed", None)),
+    (r"feat_proj$", ("p_embed", "p_embed")),
+)
+
+# parameter-only logical axes
+_PARAM_AXES = {
+    "p_embed": lambda: "embed_fsdp" if _CTX.fsdp else None,
+    "kv_heads_p": lambda: "kv_heads",
+}
+
+
+def _resolve_param_axes(axes: Sequence[Optional[str]]
+                        ) -> Tuple[Optional[str], ...]:
+    return tuple(_PARAM_AXES[a]() if a in _PARAM_AXES else a for a in axes)
+
+
+def param_logical_axes(path: str, ndim: int) -> Tuple[Optional[str], ...]:
+    """Logical axes of a parameter or state leaf from its '/'-joined path
+    and rank. Optimizer-state suffixes map onto the base parameter's
+    axes: Adafactor row stats (/vr) drop the last axis, column stats (/vc)
+    the second-to-last; int8 moments (/q) inherit, their scales (/s)
+    replicate."""
+    stat = None
+    for suffix in ("/vr", "/vc", "/q", "/s"):
+        if path.endswith(suffix):
+            stat = suffix[1:]
+            path = path[: -len(suffix)]
+            break
+    if stat == "s":
+        return (None,) * ndim
+
+    def base_axes(nd):
+        for pat, axes in _PARAM_RULES:
+            if re.search(pat, path):
+                axes = _resolve_param_axes(axes)
+                if nd == len(axes):
+                    return axes
+                if nd > len(axes):
+                    return (None,) * (nd - len(axes)) + axes
+                return axes[-nd:] if nd > 0 else ()
+        return (None,) * nd
+
+    if stat == "vr":
+        return base_axes(ndim + 1)[:-1]
+    if stat == "vc":
+        ax = base_axes(ndim + 1)
+        return ax[:-2] + ax[-1:]
+    return base_axes(ndim)
+
+
+def param_pspec(path: str, ndim: int,
+                mesh: Optional[Mesh] = None) -> Tuple[object, ...]:
+    return logical_to_pspec(param_logical_axes(path, ndim), mesh)
+
+
+def tree_paths(tree) -> Dict[str, object]:
+    """A tree flattened into {'/'.join(path): leaf} (dict keys sorted, list
+    entries by index, as ``models.param.flatten``)."""
+    from repro_torch.models import param as pm
+    return pm.flatten(tree)
+
+
+def entry_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes of one partition-spec entry (None, a name or a
+    tuple of names)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _entry_index(mesh: Mesh, axes: Tuple[str, ...]) -> Tuple[int, int]:
+    """(this rank's flattened index over ``axes`` in their order, first
+    major; their product)."""
+    i, n = 0, 1
+    for a in axes:
+        j = mesh.axis_names.index(a)
+        i = i * mesh.shape[j] + mesh.coords[j]
+        n *= mesh.shape[j]
+    return i, n
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafShard:
+    """Where a leaf lives on this rank: the whole leaf's ``shape``, the
+    fitted partition ``spec`` and this rank's slice of it (``index``, one
+    slice a dim)."""
+    shape: Tuple[int, ...]
+    spec: Tuple[object, ...]
+    index: Tuple[slice, ...]
+
+    @property
+    def local_shape(self) -> Tuple[int, ...]:
+        return tuple(s.stop - s.start for s in self.index)
+
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        """Every mesh axis the leaf is sharded over."""
+        return tuple(a for e in self.spec for a in entry_axes(e))
+
+    def take(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of the whole leaf ``t``, as a copy of its own
+        (a replicated leaf: ``t`` itself)."""
+        if self.local_shape == self.shape:
+            return t
+        return t[self.index].clone()
+
+
+def leaf_shard(path: str, shape: Sequence[int],
+               mesh: Optional[Mesh] = None) -> LeafShard:
+    """The :class:`LeafShard` of a leaf of whole ``shape`` at ``path``."""
+    mesh = mesh if mesh is not None else _CTX.mesh
+    shape = tuple(int(n) for n in shape)
+    spec = fit_spec(param_pspec(path, len(shape), mesh), shape, mesh)
+    index = []
+    for n, entry in zip(shape, spec):
+        i, parts = _entry_index(mesh, entry_axes(entry))
+        step = n // parts
+        index.append(slice(i * step, (i + 1) * step))
+    return LeafShard(shape, spec, tuple(index))
+
+
+def params_shardings(params, mesh: Optional[Mesh] = None):
+    """A :class:`LeafShard` for every leaf of a tree of whole leaves
+    (params, optimizer states; anything with a ``shape``), in the tree's
+    structure (JAX's ``params_shardings``, whose NamedShardings become
+    the rank's slices)."""
+    from repro_torch.models import param as pm
+    mesh = mesh if mesh is not None else _CTX.mesh
+    if mesh is None:
+        raise ValueError("params_shardings needs a mesh")
+    flat = pm.flatten(params)
+    return pm.unflatten_like(params, {
+        k: leaf_shard(k, tuple(v.shape), mesh) for k, v in flat.items()})
+
+
+def shard_tree(full, mesh: Optional[Mesh] = None):
+    """This rank's slices of a tree of whole leaves: copies of the sharded
+    leaves, the replicated ones as they are."""
+    from repro_torch.models import param as pm
+    recs = pm.flatten(params_shardings(full, mesh))
+    return pm.unflatten_like(full, {k: recs[k].take(v)
+                                    for k, v in pm.flatten(full).items()})
+
+
+def gather_tree(sharded, shardings, mesh: Optional[Mesh] = None):
+    """The whole leaves of a tree of this rank's slices (``shardings``:
+    :func:`params_shardings` of the whole tree), all-gathered over each
+    sharded dim's axes in turn; every rank gets every leaf. Collective:
+    every rank of the mesh calls it on the same tree."""
+    from repro_torch.models import param as pm
+    mesh = mesh if mesh is not None else _CTX.mesh
+    recs = pm.flatten(shardings)
+    out = {}
+    for k, t in pm.flatten(sharded).items():
+        rec = recs[k]
+        if tuple(t.shape) != rec.local_shape:
+            raise ValueError(f"{k}: {tuple(t.shape)} is not this rank's "
+                             f"slice {rec.local_shape} of {rec.shape}")
+        for d, entry in enumerate(rec.spec):
+            axes = entry_axes(entry)
+            if axes:
+                t = mesh.all_gather(t, axes).movedim(0, d).flatten(d, d + 1)
+        out[k] = t
+    return pm.unflatten_like(sharded, out)
+
+
+def constrain_params(params, shardings=None):
+    """Each leaf as this rank's storage (JAX's ``constrain_params``, which
+    constrains each leaf to its rule-derived sharding): a whole leaf is
+    cut to the rank's slice, a leaf already of the slice's shape is kept.
+    ``shardings``: the whole tree's :func:`params_shardings` (default: the
+    leaves given are whole). The tree itself outside a mesh."""
+    from repro_torch.models import param as pm
+    if _CTX.mesh is None:
+        return params
+    if shardings is None:
+        shardings = params_shardings(params)
+    recs = pm.flatten(shardings)
+    out = {}
+    for k, t in pm.flatten(params).items():
+        rec = recs[k]
+        if tuple(t.shape) == rec.local_shape:
+            out[k] = t
+        elif tuple(t.shape) == rec.shape:
+            out[k] = rec.take(t)
+        else:
+            raise ValueError(f"{k}: {tuple(t.shape)} is neither the whole "
+                             f"leaf {rec.shape} nor this rank's slice "
+                             f"{rec.local_shape}")
+    return pm.unflatten_like(params, out)

@@ -32,7 +32,7 @@ def make_production_mesh(*, multi_pod: bool = False):
     """The 16x16 (or 2x16x16) production mesh: queued with the dry run."""
     raise NotImplementedError(
         "make_production_mesh: the production meshes (16x16, 2x16x16) "
-        "come with the dry run (ROADMAP.md queue 1, item 10)")
+        "come with the dry run (ROADMAP.md queue 1, item 10b)")
 
 
 def make_mesh(data: int, model: int, pod: int = 1) -> Mesh:
@@ -83,27 +83,31 @@ def make_mesh(data: int, model: int, pod: int = 1) -> Mesh:
     return Mesh(names, shape, coords, groups, multi)
 
 
-def run_ranks(fn, n: int, *args, threads=None):
+def run_ranks(fn, n: int, *args, threads=None, timeout=None):
     """``fn(rank, *args)`` in each of ``n`` spawned gloo ranks; returns
     the ``n`` results in rank order (each saved with ``torch.save``, so
     keep tensors on the CPU). A rank that raises fails the call: the
     others are stopped and the error is raised here. ``fn`` must be a
     module-level function; ``threads`` sets each rank's torch threads
-    (default: this machine's cores shared out among the ranks)."""
+    (default: this machine's cores shared out among the ranks);
+    ``timeout`` (seconds, default :data:`RANK_TIMEOUT`) bounds each
+    collective, so that ranks whose collectives do not pair up fail."""
     if threads is None:
         threads = max(1, (os.cpu_count() or 1) // n)
+    wait = (RANK_TIMEOUT if timeout is None
+            else datetime.timedelta(seconds=timeout))
     with tempfile.TemporaryDirectory(prefix="ranks_") as d:
-        mp.spawn(_rank_main, args=(fn, n, d, args, threads), nprocs=n,
+        mp.spawn(_rank_main, args=(fn, n, d, args, threads, wait), nprocs=n,
                  join=True)
         return [torch.load(os.path.join(d, f"{r}.pt"), weights_only=False)
                 for r in range(n)]
 
 
-def _rank_main(rank, fn, n, d, args, threads):
+def _rank_main(rank, fn, n, d, args, threads, wait):
     torch.set_num_threads(threads)
     store = dist.FileStore(os.path.join(d, "store"), n)
     dist.init_process_group("gloo", store=store, rank=rank, world_size=n,
-                            timeout=RANK_TIMEOUT)
+                            timeout=wait)
     try:
         out = fn(rank, *args)
         torch.save(out, os.path.join(d, f"{rank}.pt"))

@@ -1,12 +1,19 @@
 """Training step, optimizer choice, the production drafter's size and the
 prefill and serve steps (twin of ``repro/launch/steps.py`` but its
-``build_cell`` and abstract specs, which only the multi-device dry run
-uses).
+``build_cell`` and the rest of its abstract specs, which only the
+multi-device dry run uses: ROADMAP.md queue 1, item 10b).
 
 The step is ``loss.backward()`` on ``models.api.train_loss`` with
 ``attn_impl="kernel"``: on the card every attention layer runs the CUDA
 flash forward kernel (again under remat) and both flash backward
 kernels. Then the optimizer updates params and moments in place.
+
+Inside a mesh (``use_sharding``) the step is the SPMD form of JAX's
+sharded step (``distributed/train_mesh.py``): it runs
+``constrain_params`` first, as JAX does (the params become the rank's
+storage by the parameter rules), takes its run of the global batch's
+rows, computes the loss with the model's collectives, sums each
+gradient by the plan's table, and updates the rank's shards.
 
 The prefill step of a cross-attention target takes its context: an
 encoder-decoder encodes the audio frames and prefills with the encoder's
@@ -24,6 +31,8 @@ from repro_torch.config.base import ModelConfig, OptimizerConfig
 from repro_torch.core import pipeline as pl
 from repro_torch.core import state as state_lib
 from repro_torch.core.drafter import DrafterConfig
+from repro_torch.distributed import sharding as sh
+from repro_torch.distributed import train_mesh as tm
 from repro_torch.models import api, encdec, lm
 from repro_torch.models import param as pm
 from repro_torch.optim import optimizers as opt_lib
@@ -59,6 +68,63 @@ def optimizer_for(cfg: ModelConfig) -> OptimizerConfig:
     return OptimizerConfig(name="adamw")
 
 
+def abstract_params(cfg: ModelConfig):
+    """``cfg``'s params drawn on the meta device: the whole leaves' shapes
+    and dtypes, no values (JAX's ``abstract_params``)."""
+    return api.init_model(cfg, device="meta")
+
+
+def make_grad_fn(cfg: ModelConfig, loss_seq_chunk: Optional[int] = None,
+                 attn_impl: str = "kernel", device="cuda"):
+    """``grad_fn(params, batch) -> (loss, grads, plan)``: the loss and the
+    gradient tree of the train step (``plan`` None outside a mesh).
+    Inside a mesh ``params`` must be the rank's storage
+    (``sharding.constrain_params``); the batch is the whole batch, of
+    which the rank runs its rows, and each gradient is this rank's shard
+    of the whole gradient, summed by the plan's table."""
+    dev = resolve_device(device)
+    plans = {}
+
+    def plan():
+        mesh = sh.active_mesh()
+        if mesh is None:
+            return None
+        key = (id(mesh), sh.fsdp_enabled(),
+               tuple(sorted((k, str(v)) for k, v in sh.active_rules()
+                            .items())))
+        if key not in plans:
+            plans[key] = tm.make_plan(cfg, mesh, abstract_params(cfg))
+        return plans[key]
+
+    def grad_fn(params, batch):
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        pl_ = plan()
+        scope = None
+        if pl_ is not None:
+            b, t = batch["tokens"].shape[:2]
+            scope = tm.make_scope(pl_, b, t)
+            batch = {k: scope.rows_mine(v) for k, v in batch.items()}
+        flat = pm.flatten(params)
+        for p in flat.values():
+            p.requires_grad_(True)
+        try:
+            with tm.train_scope(scope):
+                loss = api.train_loss(params, batch, cfg,
+                                      attn_impl=attn_impl,
+                                      loss_seq_chunk=loss_seq_chunk)
+                grads = torch.autograd.grad(loss, list(flat.values()))
+        finally:
+            for p in flat.values():
+                p.requires_grad_(False)
+        grads = dict(zip(flat, grads))
+        if pl_ is not None:
+            grads = pl_.reduce_grads(grads, scope.run)
+        return loss.detach(), pm.unflatten_like(params, grads), pl_
+
+    grad_fn.plan = plan
+    return grad_fn
+
+
 def make_train_step(cfg: ModelConfig, loss_seq_chunk: Optional[int] = None,
                     hp: Optional[OptimizerConfig] = None,
                     attn_impl: str = "kernel", device="cuda"):
@@ -68,28 +134,34 @@ def make_train_step(cfg: ModelConfig, loss_seq_chunk: Optional[int] = None,
     moved to ``device``). ``loss_seq_chunk``: the cross entropy over
     sequence chunks of that length (``lm.loss_fn``), so the [B,S,V]
     logits and their gradient never exist whole. ``hp`` defaults to
-    :func:`optimizer_for`."""
-    dev = resolve_device(device)
+    :func:`optimizer_for`.
+
+    Inside a mesh both take whole params or the rank's storage and cut
+    them to the storage (``constrain_params``; the returned params are
+    the storage), the batch is the whole batch, and the loss and grad
+    norm are the whole step's, the same on every rank."""
     hp = hp if hp is not None else optimizer_for(cfg)
     opt_init, opt_update = opt_lib.make_optimizer(hp, cfg)
+    grad_fn = make_grad_fn(cfg, loss_seq_chunk, attn_impl, device)
+
+    def constrain(params):
+        pl_ = grad_fn.plan()
+        if pl_ is None:
+            return params, None
+        return sh.constrain_params(params, pl_.shardings), pl_
+
+    def init(params):
+        return opt_init(constrain(params)[0])
 
     def train_step(params, opt_state, batch):
-        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-        flat = pm.flatten(params)
-        for p in flat.values():
-            p.requires_grad_(True)
-        try:
-            loss = api.train_loss(params, batch, cfg, attn_impl=attn_impl,
-                                  loss_seq_chunk=loss_seq_chunk)
-            grads = torch.autograd.grad(loss, list(flat.values()))
-        finally:
-            for p in flat.values():
-                p.requires_grad_(False)
-        grads = pm.unflatten_like(params, dict(zip(flat, grads)))
-        new_p, new_o, metrics = opt_update(grads, opt_state, params)
-        return new_p, new_o, {"loss": loss.detach(), **metrics}
+        params, pl_ = constrain(params)
+        loss, grads, _ = grad_fn(params, batch)
+        new_p, new_o, metrics = opt_update(
+            grads, opt_state, params,
+            shard_axes=None if pl_ is None else pl_.norm_axes)
+        return new_p, new_o, {"loss": loss, **metrics}
 
-    return train_step, opt_init
+    return train_step, init
 
 
 def ctx_len_for(cfg: ModelConfig) -> int:

@@ -295,13 +295,28 @@ def _rms_head(x, scale, eps):
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(dt)
 
 
-def project_qkv(p, x, cfg, positions=None, rope: bool = True):
-    """x:[B,T,d] -> q:[B,T,Hq,Dh], k,v:[B,T,Hkv,Dh] (+rope, +qknorm)."""
+def project_qkv(p, x, cfg, positions=None, rope: bool = True, tp=None):
+    """x:[B,T,d] -> q:[B,T,Hq,Dh], k,v:[B,T,Hkv,Dh] (+rope, +qknorm).
+
+    ``tp``: a train step's view of the mesh (``distributed/
+    train_mesh.py``). With a model axis of m, ``wq`` holds the rank's
+    Hq/m heads' columns, and the rank projects the KV heads those heads
+    read from the whole ``wk`` / ``wv`` (and the biases' matching
+    columns): q [B,T,Hq/m,Dh], k,v [B,T,max(Hkv/m, 1),Dh], the GQA group
+    of the unsharded model."""
     b, t, _ = x.shape
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = dense(p["wq"], x, p.get("bq")).reshape(b, t, hq, dh)
-    k = dense(p["wk"], x, p.get("bk")).reshape(b, t, hkv, dh)
-    v = dense(p["wv"], x, p.get("bv")).reshape(b, t, hkv, dh)
+    wk, wv = p["wk"], p["wv"]
+    bq, bk, bv = p.get("bq"), p.get("bk"), p.get("bv")
+    if tp is not None and tp.m > 1:
+        hq, hkv = tp.plan.hq, tp.plan.hkv
+        qs, ks = tp.head_slices(dh)
+        wk, wv = wk[:, ks], wv[:, ks]
+        bq, bk, bv = (None if w is None else w[s]
+                      for w, s in ((bq, qs), (bk, ks), (bv, ks)))
+    q = dense(p["wq"], x, bq).reshape(b, t, hq, dh)
+    k = dense(wk, x, bk).reshape(b, t, hkv, dh)
+    v = dense(wv, x, bv).reshape(b, t, hkv, dh)
     if cfg.qk_norm:
         q = _rms_head(q, p["q_norm"], cfg.norm_eps)
         k = _rms_head(k, p["k_norm"], cfg.norm_eps)
@@ -312,5 +327,7 @@ def project_qkv(p, x, cfg, positions=None, rope: bool = True):
 
 
 def out_proj(p, attn_out):
+    """The output projection; at a rank's heads (``wo`` its rows) the
+    result is the rank's partial sum."""
     b, t, hq, dh = attn_out.shape
     return dense(p["wo"], attn_out.reshape(b, t, hq * dh))

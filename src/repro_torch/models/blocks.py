@@ -188,8 +188,17 @@ def block_apply(p, x, cfg: ModelConfig, spec: BlockSpec2, *, state=None,
                 cache_len=None, positions=None, write_kv: bool = False,
                 extra_mask=None, ctx=None, attn_impl: str = "auto",
                 kv_chunk: int = 1024, attend_cache_on_write: bool = False,
-                snap_at=None):
+                snap_at=None, tp=None):
     """Apply one block. Returns (y, kv_out); cache writes are in place.
+
+    tp: a train step's view of the mesh (``distributed/train_mesh.py``;
+    stateless passes only), whose ``p`` holds the rank's storage with the
+    FSDP leaves gathered: ``x`` is the rank's tokens, the sequence is
+    gathered before the attention and the MLP, which run at the rank's
+    heads and ffn columns, and their partial sums are reduce-scattered
+    back to its tokens (JAX's ``constrain`` sites of the residual
+    stream); a MoE FFN runs on the whole batch's rows, gathered over the
+    batch axes, as JAX fits its capacity over the whole batch.
 
     kv_out: (k, v) of this pass in decode/verify mode, for the commit
     (None for recurrent and rwkv blocks).
@@ -215,11 +224,16 @@ def block_apply(p, x, cfg: ModelConfig, spec: BlockSpec2, *, state=None,
                                    snap_at=snap_at)
         _write_states_(state, new, write_kv)
     else:
+        if tp is not None:
+            h = tp.seq_gather(h)
         y, kv_out = _attention(
             p, h, cfg, kind, state=state, cache_len=cache_len,
             positions=positions, write_kv=write_kv, extra_mask=extra_mask,
             attn_impl=attn_impl, kv_chunk=kv_chunk,
-            attend_cache_on_write=attend_cache_on_write, snap_at=snap_at)
+            attend_cache_on_write=attend_cache_on_write, snap_at=snap_at,
+            tp=tp)
+        if tp is not None:
+            y = tp.seq_scatter(y)
     if cfg.use_post_norm:
         y = rmsnorm(p["ln1_post"], y, cfg.norm_eps)
     x = x + y
@@ -229,9 +243,17 @@ def block_apply(p, x, cfg: ModelConfig, spec: BlockSpec2, *, state=None,
                                       snap_at=snap_at)
         _write_states_(state, new, write_kv)
     elif cfg.moe is not None:
-        y = moe_lib.moe_apply(p["ffn"], h, cfg)
+        if tp is not None:
+            y = tp.rows_mine(moe_lib.moe_apply(p["ffn"], tp.rows_whole(h),
+                                               cfg))
+        else:
+            y = moe_lib.moe_apply(p["ffn"], h, cfg)
     else:
+        if tp is not None:
+            h = tp.seq_gather(h)
         y = mlp(p["ffn"], h, cfg.mlp_act, cfg.mlp_gated)
+        if tp is not None:
+            y = tp.seq_scatter(y)
     if cfg.use_post_norm:
         y = rmsnorm(p["ln2_post"], y, cfg.norm_eps)
     return x + y, kv_out
@@ -283,11 +305,11 @@ def _write_states_(state, new, write_kv):
 
 def _attention(p, h, cfg, kind, *, state, cache_len, positions, write_kv,
                extra_mask, attn_impl, kv_chunk, attend_cache_on_write,
-               snap_at):
+               snap_at, tp=None):
     """The attention mixer of a global or local block: (y, kv_out)."""
     kv_out = None
     window = cfg.sliding_window if kind == "local" else None
-    q, k, v = project_qkv(p["attn"], h, cfg, positions=positions)
+    q, k, v = project_qkv(p["attn"], h, cfg, positions=positions, tp=tp)
     if state is None:
         y = attend(q, k, v, causal=True, q_offset=0, window=window,
                    extra_mask=extra_mask, attn_softcap=cfg.attn_softcap,

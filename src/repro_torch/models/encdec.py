@@ -19,6 +19,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.config.base import ModelConfig
+from repro_torch.distributed import train_mesh
 from repro_torch.models import lm
 from repro_torch.models import param as pm
 from repro_torch.models.attention import (attend, attn_init, out_proj,
@@ -67,7 +68,14 @@ def encdec_init(cfg: ModelConfig, seed: int = 0, device="cuda"):
 
 
 def encdec_loss(params, batch, cfg: ModelConfig, **kw):
-    """batch: dict(tokens, labels, mask, audio_feats [B, T_enc, d])."""
-    enc = encode(params["encoder"], batch["audio_feats"], cfg,
+    """batch: dict(tokens, labels, mask, audio_feats [B, T_enc, d]). In a
+    train step on the mesh (data parallelism and FSDP,
+    ``distributed/train_mesh.py``) the encoder's FSDP leaves are gathered
+    as the loss starts, the decoder's as each of its layers does."""
+    tp = train_mesh.active()
+    enc_p = (params["encoder"] if tp is None
+             else tp.gather(params["encoder"], "encoder"))
+    enc = encode(enc_p, batch["audio_feats"], cfg,
                  attn_impl=kw.get("attn_impl", "auto"))
-    return lm.loss_fn(params["decoder"], batch, cfg, ctx=enc, **kw)
+    with train_mesh.within("decoder"):
+        return lm.loss_fn(params["decoder"], batch, cfg, ctx=enc, **kw)

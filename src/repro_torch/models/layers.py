@@ -73,10 +73,17 @@ def act_fn(name):
 
 
 # ------------------------------------------------------------ embedding ----
-def embed(p, tokens, dtype):
+def embed(p, tokens, dtype, tp=None):
+    """The embedding of ``tokens``; ``tp``: a train step's view of the
+    mesh (``distributed/train_mesh.py``), in which ``p`` holds the rank's
+    shard and the result is the rank's tokens (a vocab-parallel lookup
+    whose partial sums meet over the model axis)."""
+    if tp is not None:
+        return tp.embed(p["embedding"], tokens, dtype)
     return p["embedding"][tokens].to(dtype)
 
 
 def unembed(w, x):
-    """lm head: x [..., d] @ w [d, vocab]."""
+    """lm head: x [..., d] @ w [d, vocab] (in a train step on the mesh,
+    ``w`` holds the rank's vocab columns and so do the logits)."""
     return x @ w.to(x.dtype)

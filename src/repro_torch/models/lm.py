@@ -20,6 +20,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.config.base import ModelConfig
+from repro_torch.distributed import train_mesh
 from repro_torch.models import kvcache
 from repro_torch.models import param as pm
 from repro_torch.models.blocks import (block_apply, block_init,
@@ -120,10 +121,20 @@ def forward(params, tokens, cfg: ModelConfig, *, states=None, cache_len=None,
     matmul outputs) runs as "full" here. It applies to the stateless
     (training) pass with autograd on; a pass over caches writes them in
     place and is never recomputed.
+
+    Inside a train step on the mesh (``distributed/train_mesh.py``, a
+    stateless pass) ``params`` are the rank's storage: each layer gathers
+    its FSDP leaves as it starts, the residual stream holds the rank's
+    tokens, the final norm's output is gathered over the sequence
+    (``hidden``) and the logits are the rank's vocab columns.
     """
+    tp = train_mesh.active() if states is None else None
+    if tp is not None and want_features:
+        raise NotImplementedError("drafter features from a train step on "
+                                  f"the mesh ({train_mesh.ITEM_TP})")
     dtype = getattr(torch, cfg.dtype)
-    x = embed(params["tok"], tokens, dtype)
-    b, t = x.shape[:2]
+    x = embed(params["tok"], tokens, dtype, tp=tp)
+    b, t = tokens.shape[:2]
     dev = x.device
     if states is not None and cache_len is None:
         cache_len = states["length"]
@@ -143,12 +154,16 @@ def forward(params, tokens, cfg: ModelConfig, *, states=None, cache_len=None,
         st = states["layers"][i] if states is not None else None
 
         def layer(x, i=i, bs=bs, st=st):
+            lp = params["layers"][i]
+            if tp is not None:
+                lp = tp.gather(lp, f"layers/{i}")
             return block_apply(
-                params["layers"][i], x, cfg, bs, state=st,
+                lp, x, cfg, bs, state=st,
                 cache_len=cache_len, positions=positions, write_kv=write_kv,
                 extra_mask=extra_mask, ctx=ctx, attn_impl=attn_impl,
                 kv_chunk=kv_chunk,
-                attend_cache_on_write=attend_cache_on_write, snap_at=snap_at)
+                attend_cache_on_write=attend_cache_on_write, snap_at=snap_at,
+                tp=tp)
 
         if remat:
             x, kv = checkpoint(layer, x, use_reentrant=False)
@@ -159,6 +174,8 @@ def forward(params, tokens, cfg: ModelConfig, *, states=None, cache_len=None,
             hiddens.append(x)
             del hiddens[:-FEATURE_LAYERS]
     x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
+    if tp is not None:
+        x = tp.seq_gather(x)
 
     features = None
     if want_features:
@@ -167,7 +184,8 @@ def forward(params, tokens, cfg: ModelConfig, *, states=None, cache_len=None,
 
     logits = None
     if want_logits:
-        logits = softcap(unembed(_head(params, cfg), x), cfg.logit_softcap)
+        logits = softcap(unembed(_head(params, cfg, tp), x),
+                         cfg.logit_softcap)
 
     out_states = None
     if states is not None:
@@ -182,23 +200,39 @@ def forward(params, tokens, cfg: ModelConfig, *, states=None, cache_len=None,
             "kv_outs": kv_outs, "hidden": x}
 
 
-def _head(params, cfg: ModelConfig):
-    return (params["tok"]["embedding"].T if cfg.tie_embeddings
-            else params["lm_head"])
+def _head(params, cfg: ModelConfig, tp=None):
+    """The head [d, V] (in a train step on the mesh: the rank's vocab
+    columns, FSDP-gathered)."""
+    if cfg.tie_embeddings:
+        w = params["tok"]["embedding"]
+        return (w if tp is None else tp.gather(w, "tok/embedding")).T
+    w = params["lm_head"]
+    return w if tp is None else tp.gather(w, "lm_head")
 
 
 # ------------------------------------------------------------ loss/train ---
-def _token_nll(logits, labels, z_loss: float = 1e-4):
+def _token_nll(logits, labels, z_loss: float = 1e-4, tp=None):
+    if tp is not None and tp.m > 1:
+        return tp.token_nll(logits, labels, z_loss)
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     nll = lse - torch.gather(lf, -1, labels.long()[..., None])[..., 0]
     return nll + z_loss * torch.square(lse) if z_loss else nll
 
 
-def cross_entropy(logits, labels, mask=None, z_loss: float = 1e-4):
+def cross_entropy(logits, labels, mask=None, z_loss: float = 1e-4, tp=None):
     """logits [B,T,V] (any float), labels [B,T] integer; mean NLL (over
-    the mask's ones) plus ``z_loss * lse^2``."""
-    nll = _token_nll(logits, labels, z_loss)
+    the mask's ones) plus ``z_loss * lse^2``. ``tp``: a train step's view
+    of the mesh: the logits are the rank's rows and vocab columns, the
+    NLL vocab-parallel, and the mean is the whole batch's (numerator and
+    count summed over the batch axes apart)."""
+    nll = _token_nll(logits, labels, z_loss, tp)
+    if tp is not None:
+        if mask is None:
+            return tp.batch_sum(nll.sum()) / (nll.numel() * tp.run.b
+                                              // tp.run.n)
+        return (tp.batch_sum((nll * mask).sum())
+                / tp.batch_sum(mask.sum()).clamp_min(1.0))
     if mask is not None:
         nll = nll * mask
         denom = mask.sum().clamp_min(1.0)
@@ -207,9 +241,9 @@ def cross_entropy(logits, labels, mask=None, z_loss: float = 1e-4):
     return nll.sum() / denom
 
 
-def _chunk_nll(head, hj, lj, mj, logit_softcap):
-    return (_token_nll(softcap(unembed(head, hj), logit_softcap), lj)
-            * mj).sum()
+def _chunk_nll(head, hj, lj, mj, logit_softcap, tp=None):
+    return (_token_nll(softcap(unembed(head, hj), logit_softcap), lj,
+                       tp=tp) * mj).sum()
 
 
 def loss_fn(params, batch, cfg: ModelConfig, *, attn_impl="auto",
@@ -219,15 +253,19 @@ def loss_fn(params, batch, cfg: ModelConfig, *, attn_impl="auto",
 
     ``loss_seq_chunk``: the cross entropy over sequence chunks of that
     length, each rematerialized, so [B,S,V] logits never exist at once.
+    In a train step on the mesh (``distributed/train_mesh.py``): the
+    rank's rows, chunks of the gathered sequence at the rank's vocab
+    columns, the whole batch's mean.
     """
+    tp = train_mesh.active()
     out = forward(params, batch["tokens"], cfg, attn_impl=attn_impl,
                   kv_chunk=kv_chunk, ctx=ctx,
                   want_logits=loss_seq_chunk is None)
     if loss_seq_chunk is None:
         return cross_entropy(out["logits"], batch["labels"],
-                             batch.get("mask"))
+                             batch.get("mask"), tp=tp)
     h = out["hidden"]
-    head = _head(params, cfg)
+    head = _head(params, cfg, tp)
     s = h.shape[1]
     c = loss_seq_chunk
     if s % c:
@@ -243,8 +281,10 @@ def loss_fn(params, batch, cfg: ModelConfig, *, attn_impl="auto",
         mj = mask[:, j:j + c]
         tot = tot + checkpoint(_chunk_nll, head, h[:, j:j + c],
                                batch["labels"][:, j:j + c], mj,
-                               cfg.logit_softcap, use_reentrant=False)
+                               cfg.logit_softcap, tp, use_reentrant=False)
         cnt = cnt + mj.sum()
+    if tp is not None:
+        tot, cnt = tp.batch_sum(tot), tp.batch_sum(cnt)
     return tot / cnt.clamp_min(1.0)
 
 

@@ -15,6 +15,10 @@ def mlp_init(gen, d_model, d_ff, gated=True):
 
 
 def mlp(p, x, act="silu", gated=True):
+    """The MLP of ``x`` [..., d]. In a train step on a mesh with a model
+    axis (``distributed/train_mesh.py``), ``w_in`` / ``w_gate`` hold the
+    rank's ffn columns and ``w_out`` its rows: the result is the rank's
+    partial sum, reduce-scattered by the block."""
     h = dense(p["w_in"], x)
     if gated:
         g = dense(p["w_gate"], x)

@@ -37,7 +37,19 @@ def ones(shape, device, dtype=torch.float32):
     return torch.ones(shape, dtype=dtype, device=device)
 
 
+class _MetaGenerator(torch.Generator):
+    """A generator whose draws land on the meta device: an init run with
+    it makes tensors of the right shapes and no values (JAX's
+    ``jax.eval_shape`` of an init)."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
 def make_generator(seed: int, device: torch.device) -> torch.Generator:
+    if torch.device(device).type == "meta":
+        return _MetaGenerator()
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     return gen

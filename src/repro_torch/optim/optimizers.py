@@ -22,6 +22,15 @@ AdamW proper is elementwise and updates one layer at a time, into views
 of the stacked moments. Without a config (a drafter: ``tok``,
 ``feat_proj``, ``ln_f``, ``head``, ``layer{i}``) every leaf is a group of
 its own, as JAX lays out the moments of a tree with no period axis.
+
+On the mesh (``distributed/train_mesh.py``) the params, grads and
+moments are the rank's shards, and ``update`` takes ``shard_axes``
+({path: the mesh axes a leaf is sharded over}). AdamW is elementwise and
+runs on the shards; the global norm is the whole gradient's (each
+sharded leaf's squares summed over the ranks that hold its pieces, a
+replicated leaf counted once). The int8 moments' blocks span a stacked
+leaf and Adafactor's statistics its rows and columns, so both refuse a
+sharded leaf (ROADMAP.md queue 1, item 10c).
 """
 from __future__ import annotations
 
@@ -29,9 +38,11 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.config.base import ModelConfig, OptimizerConfig
+from repro_torch.distributed import sharding as sh
 from repro_torch.models import param as pm
 from repro_torch.models.blocks import period_spec
 
@@ -47,14 +58,31 @@ def lr_schedule(hp: OptimizerConfig, step):
     return hp.lr * warm * (0.1 + 0.9 * cos)
 
 
-def global_norm(tree):
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in pm.flatten(tree).values()))
+def global_norm(tree, shard_axes=None):
+    """The gradient's L2 norm. ``shard_axes`` ({path: mesh axes}; inside a
+    mesh): a leaf's squares are summed over the axes it is sharded over,
+    one all-reduce for the leaves of each set of axes, in tree order."""
+    flat = pm.flatten(tree)
+    if not shard_axes or not any(shard_axes.values()):
+        return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                              for g in flat.values()))
+    mesh = sh.active_mesh()
+    groups = {}
+    for path, g in flat.items():
+        groups.setdefault(tuple(shard_axes.get(path, ())), []).append(
+            torch.sum(torch.square(g.float())))
+    total = 0.0
+    for axes, sq in groups.items():
+        s = torch.stack(sq).sum()
+        if axes:
+            s = mesh.all_reduce_(s, dist.ReduceOp.SUM, axes)
+        total = total + s
+    return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, max_norm):
+def clip_by_global_norm(grads, max_norm, shard_axes=None):
     """Grads scaled to global norm <= ``max_norm`` (fp32 grads in place)."""
-    gn = global_norm(grads)
+    gn = global_norm(grads, shard_axes)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     return pm.tree_map(lambda g: g.mul_(scale) if g.dtype == torch.float32
                        else g.float() * scale, grads), gn
@@ -156,12 +184,22 @@ def adamw_init(params, cfg: Optional[ModelConfig],
             "v": _init_state(params, cfg, zero_like), "step": _step0()}
 
 
+def _refuse_shards(name, shard_axes):
+    if shard_axes and any(shard_axes.values()):
+        raise NotImplementedError(
+            f"{name} on sharded leaves: its statistics span a whole "
+            "(stacked) leaf (ROADMAP.md queue 1, item 10c)")
+
+
 @torch.no_grad()
 def adamw_update(grads, state, params, hp: OptimizerConfig,
-                 cfg: Optional[ModelConfig], quantized: bool = False):
+                 cfg: Optional[ModelConfig], quantized: bool = False,
+                 shard_axes=None):
+    if quantized:
+        _refuse_shards("adamw8bit", shard_axes)
     step = state["step"] + 1
     lr = lr_schedule(hp, step)
-    grads, gn = clip_by_global_norm(grads, hp.grad_clip)
+    grads, gn = clip_by_global_norm(grads, hp.grad_clip, shard_axes)
     b1, b2, eps = hp.b1, hp.b2, hp.eps
     bc1 = 1 - b1 ** step.float()
     bc2 = 1 - b2 ** step.float()
@@ -218,10 +256,11 @@ def adafactor_init(params, cfg: Optional[ModelConfig]):
 
 @torch.no_grad()
 def adafactor_update(grads, state, params, hp: OptimizerConfig,
-                     cfg: Optional[ModelConfig]):
+                     cfg: Optional[ModelConfig], shard_axes=None):
+    _refuse_shards("adafactor", shard_axes)
     step = state["step"] + 1
     lr = lr_schedule(hp, step)
-    grads, gn = clip_by_global_norm(grads, hp.grad_clip)
+    grads, gn = clip_by_global_norm(grads, hp.grad_clip, shard_axes)
     decay = 1.0 - step.float() ** -0.8
     eps = 1e-30
     g_groups = _groups(grads, cfg)
@@ -253,14 +292,18 @@ def adafactor_update(grads, state, params, hp: OptimizerConfig,
 # ------------------------------------------------------------- dispatcher --
 def make_optimizer(hp: OptimizerConfig, cfg: Optional[ModelConfig] = None):
     """(init, update) for ``hp.name``; ``cfg`` gives the period layout of
-    a target's moments (None: one group a leaf, for any other tree)."""
+    a target's moments (None: one group a leaf, for any other tree).
+    ``update(g, s, p, shard_axes=None)``: ``shard_axes`` on the mesh."""
     if hp.name == "adamw":
         return (lambda p: adamw_init(p, cfg, False),
-                lambda g, s, p: adamw_update(g, s, p, hp, cfg, False))
+                lambda g, s, p, shard_axes=None: adamw_update(
+                    g, s, p, hp, cfg, False, shard_axes))
     if hp.name == "adamw8bit":
         return (lambda p: adamw_init(p, cfg, True),
-                lambda g, s, p: adamw_update(g, s, p, hp, cfg, True))
+                lambda g, s, p, shard_axes=None: adamw_update(
+                    g, s, p, hp, cfg, True, shard_axes))
     if hp.name == "adafactor":
         return (lambda p: adafactor_init(p, cfg),
-                lambda g, s, p: adafactor_update(g, s, p, hp, cfg))
+                lambda g, s, p, shard_axes=None: adafactor_update(
+                    g, s, p, hp, cfg, shard_axes))
     raise ValueError(hp.name)

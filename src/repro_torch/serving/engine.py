@@ -212,6 +212,7 @@ class ServingEngine:
         self._mesh = sh.active_mesh()
         self._rules = (dict(sh.active_rules()) if self._mesh is not None
                        else None)
+        self._fsdp = sh.fsdp_enabled()
         self.kv_shards = spdecode.kv_seq_shards()
         self.batch_shards = sh.batch_shards()
         if cache_impl == "paged" and page_size % self.kv_shards != 0:
@@ -287,7 +288,7 @@ class ServingEngine:
         if self._mesh is None:
             yield
         else:
-            with sh.use_sharding(self._mesh, self._rules):
+            with sh.use_sharding(self._mesh, self._rules, fsdp=self._fsdp):
                 yield
 
     def agree_across_ranks(self, wave: Optional[Wave] = None) -> None:

@@ -1,0 +1,91 @@
+"""JAX references for ``tests/test_torch_mesh_train.py`` (not a test
+module).
+
+Run as ``python _torch_mesh_train_jax.py OUT`` under
+``XLA_FLAGS=--xla_force_host_platform_device_count=8`` with ``src`` and
+``tests`` on ``PYTHONPATH``: for each case of
+``_torch_mesh_train_inputs.CASES`` it runs JAX's sharded train step
+(``tests/test_distributed.py:73``'s: ``constrain_params``, then
+``value_and_grad`` of ``lm.loss_fn`` and the AdamW update, jitted with
+the parameter shardings) for ``STEPS`` steps inside the case's mesh,
+and ``pipeline_apply`` on the (pod 4, data 2) mesh. It writes
+``OUT/ref.npz``: ``{case}/loss``, ``{case}/grad_norm`` (a step each),
+``{case}/grad/<path>`` (step 1), ``{case}/param/<path>`` (after the last
+step), ``pipeline``.
+"""
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+from _torch_mesh_train_inputs import (CASES, HP, MODEL, STEPS, batch,
+                                      pipeline_inputs)
+
+from repro.config.base import ModelConfig, OptimizerConfig
+from repro.distributed import compat
+from repro.distributed import sharding as sh
+from repro.distributed.pipeline_parallel import pipeline_apply
+from repro.launch.mesh import make_mesh
+from repro.models import lm
+from repro.optim import optimizers as opt_lib
+
+
+def step_case(name, out):
+    data, model, fsdp, uneven = CASES[name]
+    cfg = ModelConfig(remat=False, **MODEL)
+    params = lm.lm_init(jax.random.PRNGKey(0), cfg)
+    opt_init, opt_update = opt_lib.make_optimizer(OptimizerConfig(**HP))
+    opt = opt_init(params)
+    bt = {k: jnp.asarray(v) for k, v in batch(uneven).items()}
+
+    def step(params, opt, batch):
+        params = sh.constrain_params(params)
+        loss, g = jax.value_and_grad(
+            lambda p: lm.loss_fn(p, batch, cfg))(params)
+        p2, o2, metrics = opt_update(g, opt, params)
+        return p2, o2, loss, g, metrics["grad_norm"]
+
+    mesh = make_mesh(data=data, model=model)
+    with sh.use_sharding(mesh, sh.LOGICAL_RULES, fsdp=fsdp):
+        fn = jax.jit(step, in_shardings=(sh.params_shardings(params, mesh),
+                                         sh.params_shardings(opt, mesh),
+                                         sh.params_shardings(bt, mesh)))
+        losses, gnorms = [], []
+        for i in range(STEPS):
+            params, opt, loss, g, gn = fn(params, opt, bt)
+            losses.append(float(loss))
+            gnorms.append(float(gn))
+            if i == 0:
+                for k, v in sh.tree_paths(g).items():
+                    out[f"{name}/grad/{k}"] = np.asarray(v)
+    for k, v in sh.tree_paths(params).items():
+        out[f"{name}/param/{k}"] = np.asarray(v)
+    out[f"{name}/loss"] = np.asarray(losses)
+    out[f"{name}/grad_norm"] = np.asarray(gnorms)
+
+
+def pipeline(out):
+    w, xs = pipeline_inputs()
+    mesh = compat.make_mesh((4, 2), ("pod", "data"))
+
+    def stage(wi, x):
+        return jnp.tanh(x @ wi["w"])
+
+    with sh.use_sharding(mesh, sh.LOGICAL_RULES):
+        out["pipeline"] = np.asarray(jax.jit(
+            lambda w, xs: pipeline_apply(stage, {"w": w}, xs))(
+                jnp.asarray(w), jnp.asarray(xs)))
+
+
+def main(out_dir):
+    assert jax.device_count() >= 8, jax.device_count()
+    out = {}
+    for name in CASES:
+        step_case(name, out)
+    pipeline(out)
+    np.savez(Path(out_dir) / "ref.npz", **out)
+
+
+if __name__ == "__main__":
+    main(*sys.argv[1:])

@@ -770,3 +770,49 @@ def test_serving_engine_on_card(dev, name):
         assert eng.pool.pages_in_use == tree
     if name == "prefix":
         assert stats["prefix_hits"] >= 3 and stats["prefill_tokens_saved"] > 0
+
+
+def _exchange_rank(rank, round_bytes):
+    """Both transports of one rank of a (1, 2) mesh on the card: the
+    on-card exchange (in rounds of ``round_bytes``) and gloo's host path,
+    on the same payloads."""
+    import torch.distributed as dist
+    from repro_torch.distributed import device_exchange
+    from repro_torch.launch.mesh import make_mesh
+    device_exchange.ROUND_BYTES = round_bytes
+    mesh = make_mesh(1, 2)
+    ex = device_exchange.DeviceExchange(mesh)
+    gen = torch.Generator(device="cuda").manual_seed(rank)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((2, 3, 70), generator=gen, device="cuda").to(dtype)
+        big = torch.randn((2, 4096), generator=gen, device="cuda").to(dtype)
+        pairs = {
+            "gather": (ex.all_gather(x, "model"), mesh.all_gather(x, "model")),
+            "scatter": (ex.reduce_scatter(x, "model"),
+                        mesh.reduce_scatter(x, "model")),
+            "sum": (ex.all_reduce_(x.clone(), dist.ReduceOp.SUM, "model"),
+                    mesh.all_reduce_(x.clone(), dist.ReduceOp.SUM, "model")),
+            "max": (ex.all_reduce_(x.clone(), dist.ReduceOp.MAX, "model"),
+                    mesh.all_reduce_(x.clone(), dist.ReduceOp.MAX, "model")),
+            # a payload larger than the buffer so far: the buffers grow
+            "grown": (ex.all_gather(big, "model"),
+                      mesh.all_gather(big, "model"))}
+        out[str(dtype)] = {k: (a.cpu(), b.cpu()) for k, (a, b) in
+                           pairs.items()}
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("round_bytes", [256 << 20, 256])
+def test_device_exchange_matches_gloo(dev, round_bytes):
+    """Two ranks on the card: the on-card exchange's all-gather,
+    reduce-scatter and SUM / MAX all-reduce give gloo's results bit for
+    bit, in fp32 and bf16 (two addends: one rounding either way), also
+    after its buffers grow, in one round and in many."""
+    from repro_torch.launch.mesh import run_ranks
+    for res in run_ranks(_exchange_rank, 2, round_bytes, threads=1,
+                         timeout=120):
+        for dtype, pairs in res.items():
+            for name, (a, b) in pairs.items():
+                assert torch.equal(a, b), (dtype, name)
