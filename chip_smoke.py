@@ -106,7 +106,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
            #2 (paged) from the wrappers, and #2 held to its plain version
            on a live page table with shared pages and sentinel tails
   bf16     the same runs in bfloat16 (the config's dtype), paged and dense,
-           32 new tokens a row (the run's time limit):
+           24 new tokens a row (the run's time limit):
            tokens/s, agreement with the gather path (where a row first
            leaves it, the top-2 gap of a plain bf16 forward over the shared
            context must be a near tie in bf16 ulps), and at least 40
@@ -221,7 +221,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
            its 4 of the 8 experts from the seeds (the rest of the model
            whole on every rank), kv_seq and experts on the same axis
            (pages of 64: 32 slots a rank); the moe phase's four prompts
-           as engine requests of 8 new tokens (one wave, prefix
+           as engine requests of 6 new tokens (one wave, prefix
            cache; the moe phase runs 16: the time limit): the kernel
            and gather paths at capacity factor 1.25 and the kernel path
            at E/k; tokens equal across ranks; on every rank #2's launches
@@ -257,7 +257,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
   archs    qwen2.5-3b, gemma2-2b, stablelm-3b and internlm2-20b at
            full width cut to 18 of 36, 13 of 26, 16 of 32 and 8 of 48
            layers (the run's time limit), fp32, paged: the kernel path held to the gather path and plain
-           greedy. Each of these three phases: 4 prompts of 512, 16 new
+           greedy. Each of these three phases: 4 prompts of 512, 8 new
            tokens, random seeded weights, drafters by JAX's
            production_drafter rule, exact cascade launches a host cycle
   train_fp32   paper_target.full() cut to 4 layers (the only cut; 2.02e9
@@ -289,7 +289,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
            tokens/s, peak memory and one step profiled; flash launches a
            step exact (remat: 2 / 1 / 1 an attention layer, so 12 / 6 /
            6 for gemma2-2b and 4 / 2 / 2 for recurrentgemma-2b in
-           bf16); rwkv6-1.6b cut to 2 of 24 layers in
+           bf16); rwkv6-1.6b cut to 1 of 24 layers in
            bf16 at batch 2 x 1024: finite losses that fall over four
            steps, ms a step, no flash launch
   mesh_train  training on a (data 2, model 2) mesh with FSDP: 4 gloo
@@ -325,6 +325,27 @@ Phases, each printing one JSON line (any failure exits non-zero):
            rank's result held to sequential application of both blocks
            (1e-5 of the largest magnitude), 5 #3 launches a rank (M + S
            - 1, JAX's schedule)
+  mesh_optimizers  the mesh_train cell with adamw8bit and with Adafactor
+           (one more spawn of 4 ranks): three fp32 steps held to the
+           unsharded step with the same optimizer (loss, grad norm, the
+           params after; every moment leaf against the rank's slice of
+           the unsharded state: int8 moments within a quantum a step,
+           under 1 % of them differing at all, a block's scale within a
+           quantum of its own a step, Adafactor's statistics within 1e-4
+           of their leaf's largest); state bytes a rank beside AdamW's;
+           bf16 ms a step a rank
+  dryrun   the multi-device dry run (``launch/dryrun.py``): the mesh
+           cell of each optimizer traced on the meta device for each
+           rank of a shape-only (2, 2) mesh (on a thread while the ranks
+           run) and held to the ranks' real fp32 step: storage bytes of
+           the params and the optimizer state and the collectives a step
+           by kind exactly equal, the flash stand-ins' calls equal to
+           the launches a step, the peak estimate beside the peak
+           allocated; and the launcher, started niced as the mesh phases
+           begin, on qwen2.5-3b's train_4k (16x16 and 2x16x16) and
+           decode_32k (16x16): each ok, its FLOPs, collective bytes,
+           argument bytes, peak estimate and roofline terms a rank
+           (modelled at the H100 SXM's peaks)
   study    the empirical study at its own size: ``run_study.main`` at
            its defaults but the steps (paper_target.smoke() in fp32
            pretrained 120 steps, 48 greedy rollouts a task of 32 + 160
@@ -335,8 +356,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
            below the first tenth's), flash launches exact (4 forward, dq
            and dk/dv a pretrain step, 4 forward a teacher pass); then
            ``load_study`` and the held-out decode of
-           benchmarks/common.py::measure (12 prompts of 48 tokens a task
-           from seed 777 at offset 5e6, 48 new tokens) in d2sd, dflash,
+           benchmarks/common.py::measure (8 prompts of 48 tokens a task
+           from seed 777 at offset 5e6, 24 new tokens) in d2sd, dflash,
            eagle, naive_k and dflash_second, the kernel path on the paged
            cache (and for d2sd the dense one: the run's time limit) and
            the gather path (host loop): tokens held to
@@ -349,7 +370,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
            time limit) in bf16, random seeded weights: 16 greedy
            rollouts of 128 + 128 tokens, then d1 (DFlash) and d2 (VP)
            for ``production_drafter`` (d 1024, 8 heads over 2, vocab
-           151936, features 3 x 4096) distilled 100 steps each at batch
+           151936, features 3 x 4096) distilled 60 steps each at batch
            16, the teacher through the bf16 flash forward (6 launches a
            step, exact): falling losses, ms a step, peak memory; then d2sd
            through the bf16 graph loop (paged, 4 prompts of 128, 64 new)
@@ -369,12 +390,17 @@ prints no result. It takes no arguments.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import gc
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -386,7 +412,8 @@ T_START = time.perf_counter()
 DEVICE = "cuda"
 MAX_NEW = 64                                # tokens generated per row
 ORACLE_NEW = 32     # a row's tokens with the oracle's drafts (time limit)
-BF16_NEW = 32       # a row's tokens in the bf16 phases at 36 layers (time)
+BF16_NEW = 24       # a row's tokens in the bf16 phases at 36 layers (time;
+                    # 32 before the dryrun phases)
 GAMMA, K_BRANCHES = 16, 4                   # 76 tree nodes per row
 PEAK_BYTES_S = 3.35e12                      # H100 SXM HBM3
 PEAK_BF16 = 989e12                          # bf16 tensor cores, dense
@@ -2391,8 +2418,9 @@ def profile_train_step(run, ms_per_step):
 TRAIN_ARCHS = {"gemma2-2b": (2, 6), "recurrentgemma-2b": (3, 6)}
 # arch, layers, sequence length: T 1024, since a four-layer step at T 4096
 # takes 18.2 s on an H100 (the time-mix scan is a host-bound loop of T
-# steps a layer); 2 layers (4 once: cut for the mesh phases' time)
-RWKV_TRAIN = ("rwkv6-1.6b", 2, 1024)
+# steps a layer); 1 layer (4, then 2: cut for the mesh and dryrun phases'
+# time)
+RWKV_TRAIN = ("rwkv6-1.6b", 1, 1024)
 LOSS_SEQ_CHUNK = 512                      # the cross entropy's chunks
 TRAIN_ARCH_TIMED = 3                      # bf16 steps timed after a warm-up
 
@@ -2482,6 +2510,26 @@ MESH_BF16_TIMED = 2            # bf16 steps timed after a warm-up
 TOL_MESH_GRAD = 1e-4    # fp32 step-1 gradient, each leaf's max |diff| over
                         # its largest magnitude: sums in other orders (the
                         # ranks' partial products, gloo's host sums)
+#: production cells the dryrun phase runs through the launcher
+DRYRUN_CELLS = (("qwen2.5-3b", "train_4k", "single"),
+                ("qwen2.5-3b", "train_4k", "multi"),
+                ("qwen2.5-3b", "decode_32k", "single"))
+DRYRUN_TIMEOUT = 300           # s a launcher cell may take
+#: the sharded optimizers held to their unsharded steps (ROADMAP item 10c)
+MESH_OPTS = ("adamw8bit", "adafactor")
+TOL_MESH_MOMENT = 1e-4  # Adafactor's statistics after MESH_STEPS: each
+                        # leaf's max |diff| over its largest magnitude;
+                        # they are running means of the gradient's square,
+                        # whose shards the gradient gate holds to
+                        # TOL_MESH_GRAD
+# adamw8bit's int8 moments: gradients that agree to the last bits land an
+# element near a rounding boundary on either side, and the next steps
+# carry that quantum (dequantized) and may move its block's maximum; so
+# after MESH_STEPS steps an int8 entry may differ by one quantum a step,
+# a block's scale (its maximum over 127) by one quantum of its own a
+# step, MESH_STEPS / 127 relative; and the share of entries that differ
+# at all stays small (a misplaced block would scramble most of them)
+TOL_Q_SHARE = 1e-2
 PIPE_M, PIPE_T = 4, 512        # microbatches of 1 x 512 through 2 stages
 TOL_PIPE = 1e-5         # pipeline vs sequential, relative to the largest
                         # magnitude (the same kernels on the same inputs)
@@ -2512,7 +2560,7 @@ def _first_step(cfg, params, batch, grad_hook=None):
     """Step 1 of ``make_train_step`` taken in its two parts, so that its
     gradient can be read: ``make_grad_fn`` (loss and gradient, on the
     mesh the rank's summed shards), ``grad_hook(grads, plan)`` on it,
-    then the optimizer's update (``shard_axes`` on the mesh). Returns
+    then the optimizer's update (``shards`` on the mesh). Returns
     (params, state, step, loss, grad norm, seconds)."""
     from repro_torch.launch.steps import (make_grad_fn, make_train_step,
                                           optimizer_for)
@@ -2527,8 +2575,8 @@ def _first_step(cfg, params, batch, grad_hook=None):
     loss, grads, plan = gf(params, batch)
     if grad_hook is not None:
         grad_hook(grads, plan)
-    params, state, m = update(grads, state, params, shard_axes=None
-                              if plan is None else plan.norm_axes)
+    params, state, m = update(grads, state, params, shards=None
+                              if plan is None else plan.leaves)
     gnorm = float(m["grad_norm"])
     torch.cuda.synchronize()
     return params, state, step, float(loss), gnorm, time.perf_counter() - t0
@@ -2615,14 +2663,26 @@ def _collectives(steps):
                             ("all_reduces", tm.REDUCES))}
 
 
+def _kinds(steps):
+    """Calls and bytes sent a step of every collective by kind
+    (``sharding.COLLECTIVES``) since the last reset."""
+    from repro_torch.distributed import sharding as sh
+    return {k: {"calls": c["calls"] / steps, "bytes": c["bytes"] / steps}
+            for k, c in sh.collective_counts().items()}
+
+
 def _mesh_fp32(ref, mesh_heads):
     """The fp32 phase on one rank: step 1's gradient shards against the
     unsharded gradient's slices, then MESH_STEPS steps (losses, grad
     norms, launches a step, the params after against the unsharded
-    params' slices)."""
+    params' slices), and what the ``dryrun`` phase holds its trace to:
+    the rank's storage bytes, the collectives a step by kind (steps 2 on)
+    and the peak allocated."""
+    from repro_torch.distributed import sharding as sh
     from repro_torch.distributed import train_mesh as tm
     from repro_torch.launch.steps import make_grad_fn
     from repro_torch.models import param as pm
+    from repro_torch.roofline.trace_analysis import storage_bytes
     cfg = mesh_train_cfg("float32")
     plan = make_grad_fn(cfg, loss_seq_chunk=MESH_CHUNK,
                         device=DEVICE).plan()
@@ -2643,11 +2703,15 @@ def _mesh_fp32(ref, mesh_heads):
             errs[path] = ((g - r).abs().max() / r.abs().max().clamp_min(
                 1e-30)).item()
 
+    storage = {"params": storage_bytes(params)}
     params, state, step, loss1, gn1, s1 = _first_step(cfg, params,
                                                       batches[0], hold)
+    storage["opt_state"] = storage_bytes(state)
     times = [s1]
+    sh.reset_collectives()
     params, state, losses, gnorms, secs = _run_list(params, state, step,
                                                     batches[1:], times)
+    kinds = _kinds(MESH_STEPS - 1)
     losses, gnorms, secs = [loss1] + losses, [gn1] + gnorms, secs + s1
     launches = _flash_launches()
     coll = _collectives(MESH_STEPS)
@@ -2672,7 +2736,9 @@ def _mesh_fp32(ref, mesh_heads):
                              pm.flatten(params).values()) / 1e9,
            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "plan": {"hq": plan.hq, "hkv": plan.hkv, "q_lo": plan.q_lo,
-                    "kv_lo": plan.kv_lo}}
+                    "kv_lo": plan.kv_lo},
+           "dryrun": {"storage": storage, "collectives": kinds,
+                      "peak_bytes": torch.cuda.max_memory_allocated()}}
     del params, state, init_p, step
     _free()
     return out
@@ -2713,6 +2779,163 @@ def _mesh_bf16(ref, mesh_heads):
                torch.cuda.max_memory_allocated() / 2 ** 30}
     del params, state, step
     _free()
+    return out
+
+
+def _param_diffs(params, ref_params, init, plan):
+    """(max |diff|, sum |diff|, sum |ref - init|, count) of the rank's
+    param shards against the unsharded run's slices."""
+    from repro_torch.models import param as pm
+    init_p = pm.flatten(init)
+    dmax = dsum = msum = 0.0
+    count = 0
+    for path, p in pm.flatten(params).items():
+        index = plan.leaves[path].index
+        r = ref_params[path][index]
+        d = (p - r).abs()
+        dmax = max(dmax, d.max().item())
+        dsum += d.sum().item()
+        msum += (r - init_p[path][index]).abs().sum().item()
+        count += p.numel()
+    return dmax, dsum, msum, count
+
+
+def _mesh_opt_ref(init, name):
+    """The unsharded fp32 kernel steps with optimizer ``name`` from the
+    seed-0 params ``init`` (MESH_STEPS of them): the params and the whole
+    state after, losses, grad norms, ms a step; kept on the card for the
+    ranks to map."""
+    from repro_torch.config.base import OptimizerConfig
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import param as pm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    step, init_o = make_train_step(mesh_train_cfg("float32"),
+                                   loss_seq_chunk=MESH_CHUNK,
+                                   hp=OptimizerConfig(name=name),
+                                   device=DEVICE)
+    params = pm.tree_map(torch.clone, init)
+    params, state, losses, gnorms, secs = _run_list(
+        params, init_o(params), step, mesh_batches(MESH_STEPS))
+    del step
+    _free()
+    # the ranks map what is on the card; a CPU tensor would go through
+    # shared memory
+    state["step"] = state["step"].to(DEVICE)
+    return {"name": name, "init": init, "params": pm.flatten(params),
+            "state": state, "losses": losses, "grad_norms": gnorms,
+            "ms_per_step": 1e3 * secs / MESH_STEPS}
+
+
+def _mesh_opt(ref):
+    """One rank's fp32 MESH_STEPS steps with ``ref``'s optimizer on the
+    mesh (from the seed-0 params): losses, grad norms, the params after
+    against the unsharded run's slices, every moment leaf against the
+    rank's slice of the unsharded state (``optimizers.shard_state``:
+    int8 moments in quanta, the rest relative to the leaf's largest
+    magnitude), and the ``dryrun`` readings (storage, collectives a
+    step by kind from step 2, peak allocated)."""
+    from repro_torch.config.base import OptimizerConfig
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import param as pm
+    from repro_torch.optim import optimizers as opt_lib
+    from repro_torch.roofline.trace_analysis import storage_bytes
+    cfg = mesh_train_cfg("float32")
+    step, init = make_train_step(cfg, loss_seq_chunk=MESH_CHUNK,
+                                 hp=OptimizerConfig(name=ref["name"]),
+                                 device=DEVICE)
+    plan = step.plan()
+    params = _mesh_params(ref["init"], plan)
+    torch.cuda.reset_peak_memory_stats()
+    state = init(params)
+    storage = {"params": storage_bytes(params),
+               "opt_state": storage_bytes(state)}
+    batches = mesh_batches(MESH_STEPS)
+    params, state, l1, g1, s1 = _run_list(params, state, step, batches[:1])
+    sh.reset_collectives()
+    params, state, losses, gnorms, secs = _run_list(params, state, step,
+                                                    batches[1:])
+    kinds = _kinds(MESH_STEPS - 1)
+    want = pm.flatten(opt_lib.shard_state(ref["state"], params, cfg,
+                                          plan.leaves))
+    quanta, differ, n_q, rel, scale_rel = 0, 0, 0, {}, 0.0
+    for k, t in pm.flatten(state).items():
+        w = want[k]
+        if t.dtype == torch.int8:
+            d = (t.int() - w.int()).abs()
+            quanta = max(quanta, d.max().item())
+            differ += (d > 0).sum().item()
+            n_q += d.numel()
+        elif k.endswith("/s"):
+            # a block's scale against its own
+            scale_rel = max(scale_rel, ((t - w).abs() / w.abs().clamp_min(
+                1e-30)).max().item())
+        elif t.is_floating_point():
+            rel[k] = ((t - w).abs().max() / w.abs().max().clamp_min(
+                1e-30)).item()
+    dmax, dsum, msum, count = _param_diffs(params, ref["params"],
+                                           ref["init"], plan)
+    worst = max(rel, key=rel.get) if rel else None
+    out = {"losses": l1 + losses, "grad_norms": g1 + gnorms,
+           "q_max_quanta": quanta, "q_share_differing": differ / max(n_q, 1),
+           "scale_rel_err": scale_rel,
+           "moment_rel_err": rel[worst] if rel else 0.0,
+           "moment_worst_leaf": worst, "param_max_abs_diff": dmax,
+           "param_diff_sum": dsum, "param_move_sum": msum,
+           "param_count": count,
+           "ms_per_step": 1e3 * (s1 + secs) / MESH_STEPS,
+           "dryrun": {"storage": storage, "collectives": kinds,
+                      "peak_bytes": torch.cuda.max_memory_allocated()}}
+    del params, state, step, want
+    _free()
+    return out
+
+
+def _mesh_opt_bf16(ref):
+    """One rank's bf16 steps with ``ref``'s optimizer from the seed-0
+    params (a bf16 model keeps fp32 params): a warm-up, then
+    MESH_BF16_TIMED timed steps (median ms a step), and the rank's
+    optimizer state bytes."""
+    from repro_torch.config.base import OptimizerConfig
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.roofline.trace_analysis import storage_bytes
+    step, init = make_train_step(mesh_train_cfg("bfloat16"),
+                                 loss_seq_chunk=MESH_CHUNK,
+                                 hp=OptimizerConfig(name=ref["name"]),
+                                 device=DEVICE)
+    params = _mesh_params(ref["init"], step.plan())
+    state = init(params)
+    state_bytes = storage_bytes(state)
+    batches = mesh_batches(1 + MESH_BF16_TIMED)
+    params, state, warm, _, _ = _run_list(params, state, step, batches[:1])
+    times = []
+    params, state, losses, _, _ = _run_list(params, state, step,
+                                            batches[1:], times)
+    out = {"losses": warm + losses, "state_bytes": state_bytes,
+           "ms_per_step": 1e3 * float(np.median(times))}
+    del params, state, step
+    _free()
+    return out
+
+
+def mesh_opt_rank(rank, n, refs):
+    """One rank of ``mesh_optimizers``: each optimizer of ``refs`` ({name:
+    its unsharded run}) on the (data 2, model 2) mesh with FSDP, fp32
+    against the unsharded run, then bf16 timed."""
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(*MESH_SHAPE)
+    out = {"rank": rank}
+    with sh.use_sharding(mesh, sh.LOGICAL_RULES, fsdp=True):
+        for name, ref in refs.items():
+            out[name] = {"fp32": _mesh_opt(ref), "bf16": _mesh_opt_bf16(ref)}
+    # every rank lets go of its peers' exchange buffers before any exits
+    _free()
+    dist.barrier()
     return out
 
 
@@ -2793,8 +3016,10 @@ def mesh_train_path():
     """The mesh phases: the unsharded kernel steps first (fp32, bf16),
     then 4 ranks on this card (:func:`mesh_rank`), held here: ``mesh_train``
     (fp32 against the unsharded step), ``mesh_train_bf16`` (readings) and
-    ``pipeline``. Returns the flash launches a step a rank by dtype and
-    the pipeline's #3 launches a rank."""
+    ``pipeline``; then the same cell with each of MESH_OPTS in one more
+    spawn (``mesh_optimizers``). Returns the flash launches a step a
+    rank by dtype, the pipeline's #3 launches a rank, the ranks' dryrun
+    readings by optimizer and the dryrun phase's traces."""
     from repro_torch.launch.mesh import run_ranks
     from repro_torch.launch.steps import optimizer_for
     from repro_torch.optim.optimizers import lr_schedule
@@ -2802,6 +3027,11 @@ def mesh_train_path():
     ref = _mesh_unsharded()
     ref_s = time.perf_counter() - t0
     n = MESH_SHAPE[0] * MESH_SHAPE[1]
+    # the dryrun phase's traces, on a thread of this process while the
+    # ranks run on the card
+    traces = {}
+    tracer = threading.Thread(target=lambda: traces.update(dryrun_traces()))
+    tracer.start()
     recs = run_ranks(mesh_rank, n, n, ref)
     cfg = mesh_train_cfg("float32")
     r32 = [r["fp32"] for r in recs]
@@ -2898,10 +3128,222 @@ def mesh_train_path():
           "rel_err": [p["rel_err"] for p in pipe], "tol": TOL_PIPE,
           "ms": [p["ms"] for p in pipe], "gpu": nvidia_smi_line(),
           "seconds": time.perf_counter() - t0})
-    del ref
+    readings = {"adamw": [r["fp32"]["dryrun"] for r in recs]}
+    adamw_state = [r["fp32"]["dryrun"]["storage"]["opt_state"] for r in recs]
+    # the optimizers' runs: one more spawn, with only their unsharded
+    # runs on the card beside the seed-0 params
+    init = ref["init"]
+    del ref, recs
     _free()
+    t_opt = time.perf_counter()
+    refs = {name: _mesh_opt_ref(init, name) for name in MESH_OPTS}
+    recs = run_ranks(mesh_opt_rank, n, n, refs)
+    opts = {}
+    for name in MESH_OPTS:
+        u = refs[name]
+        rs = [r[name]["fp32"] for r in recs]
+        for r in rs[1:]:
+            if r["losses"] != rs[0]["losses"] or \
+                    r["grad_norms"] != rs[0]["grad_norms"]:
+                fail(f"mesh_optimizers: the ranks' {name} losses differ")
+        o = {"losses": rs[0]["losses"], "unsharded_losses": u["losses"],
+             "loss_rel_err": max(abs(x - y) / abs(y) for x, y in
+                                 zip(rs[0]["losses"], u["losses"])),
+             "grad_norm_rel_err": max(abs(x - y) / abs(y) for x, y in
+                                      zip(rs[0]["grad_norms"],
+                                          u["grad_norms"])),
+             "param_max_abs_diff": max(r["param_max_abs_diff"] for r in rs),
+             "param_rel_err": sum(r["param_diff_sum"] for r in rs) / max(
+                 sum(r["param_move_sum"] for r in rs), 1e-30),
+             "q_max_quanta": max(r["q_max_quanta"] for r in rs),
+             "q_share_differing": max(r["q_share_differing"] for r in rs),
+             "scale_rel_err": max(r["scale_rel_err"] for r in rs),
+             "moment_rel_err": max(r["moment_rel_err"] for r in rs),
+             "moment_worst_leaf": max(rs, key=lambda r: r[
+                 "moment_rel_err"])["moment_worst_leaf"],
+             "ms_per_step_fp32": [r["ms_per_step"] for r in rs],
+             "unsharded_ms_per_step_fp32": u["ms_per_step"],
+             "state_bytes_per_rank": [r["dryrun"]["storage"]["opt_state"]
+                                      for r in rs],
+             "adamw_state_bytes_per_rank": adamw_state,
+             "bf16_ms_per_step": [r[name]["bf16"]["ms_per_step"]
+                                  for r in recs],
+             "bf16_losses": recs[0][name]["bf16"]["losses"]}
+        if o["loss_rel_err"] > TOL_TRAIN_LOSS or \
+                o["grad_norm_rel_err"] > TOL_TRAIN_GNORM or \
+                o["param_rel_err"] > TOL_TRAIN_PARAM or \
+                o["q_max_quanta"] > MESH_STEPS or \
+                o["q_share_differing"] > TOL_Q_SHARE or \
+                o["scale_rel_err"] > MESH_STEPS / 127 or \
+                o["moment_rel_err"] > TOL_MESH_MOMENT or \
+                not np.isfinite(o["bf16_losses"]).all():
+            fail(f"mesh_optimizers: sharded {name} disagrees with the "
+                 f"unsharded step: {o}")
+        opts[name] = o
+        readings[name] = [r["dryrun"] for r in rs]
+    del refs, recs
+    _free()
+    emit({"phase": "mesh_optimizers", "ok": True, "mesh": list(MESH_SHAPE),
+          "fsdp": True, "ranks": n, "layers": MESH_LAYERS, "batch": MESH_B,
+          "seq": MESH_T, "steps": MESH_STEPS, **opts,
+          "tol": {"loss": TOL_TRAIN_LOSS, "grad_norm": TOL_TRAIN_GNORM,
+                  "param": TOL_TRAIN_PARAM, "q_quanta": MESH_STEPS,
+                  "q_share": TOL_Q_SHARE, "scale": MESH_STEPS / 127,
+                  "moment": TOL_MESH_MOMENT},
+          "gpu": nvidia_smi_line(), "note": "ranks time-share one card",
+          "seconds": time.perf_counter() - t_opt})
+    del init
+    _free()
+    tracer.join()
     return {"float32": per_step[0], "bfloat16": per16[0],
-            "pipeline": pipe[0]["launches"]}
+            "pipeline": pipe[0]["launches"], "readings": readings,
+            "traces": traces}
+
+
+def start_dryrun_cells():
+    """Start ``python -m repro_torch.launch.dryrun`` on DRYRUN_CELLS, all
+    together and niced (they trace on the host while the mesh phases
+    run on the card): (their output directory, [(cell, start, process)])."""
+    out_dir = tempfile.mkdtemp(prefix="dryrun_")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    procs = []
+    for arch, shape, mesh in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mesh", mesh, "--out-dir", out_dir]
+        procs.append(((arch, shape, mesh), time.perf_counter(),
+                      subprocess.Popen(cmd, env=env,
+                                       stdout=subprocess.DEVNULL,
+                                       stderr=subprocess.PIPE,
+                                       preexec_fn=lambda: os.nice(10))))
+    # a phase that fails before the dryrun phase exits the script: stop
+    # them and remove their directory then too
+    atexit.register(_stop_dryrun_cells, out_dir, procs)
+    return out_dir, procs
+
+
+def _stop_dryrun_cells(out_dir, procs):
+    for _, _, proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def _finish_dryrun_cells(started):
+    """Wait for :func:`start_dryrun_cells`' processes: {cell: (exit code,
+    record, seconds)}; their directory is removed."""
+    out_dir, procs = started
+    out = {}
+    try:
+        for key, t0, proc in procs:
+            try:
+                _, err = proc.communicate(timeout=DRYRUN_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                fail(f"dryrun: {key} ran past {DRYRUN_TIMEOUT} s")
+            path = Path(out_dir) / f"{'_'.join(key)}.json"
+            rec = json.loads(path.read_text()) if path.exists() else {
+                "error": err.decode()[-2000:]}
+            out[key] = (proc.returncode, rec, time.perf_counter() - t0)
+    finally:
+        _stop_dryrun_cells(out_dir, procs)
+    return out
+
+
+def dryrun_traces():
+    """The mesh phases' (2, 2) FSDP cell of AdamW and of each of MESH_OPTS
+    traced on the meta device for each rank of a shape-only mesh:
+    {optimizer: [(parts, counts, seconds) a rank]}. Runs on a thread of
+    the parent while the ranks run on the card."""
+    from repro_torch.config.base import OptimizerConfig, ShapeSpec
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.launch.steps import build_cell
+    cfg = mesh_train_cfg("float32")
+    names = ("data", "model")
+    out = {}
+    for name in ("adamw",) + MESH_OPTS:
+        cell = build_cell("paper-target", "mesh", cfg=cfg,
+                          shape=ShapeSpec("mesh", MESH_T, MESH_B, "train"),
+                          loss_seq_chunk=MESH_CHUNK,
+                          hp=OptimizerConfig(name=name))
+        out[name] = []
+        for r in range(MESH_SHAPE[0] * MESH_SHAPE[1]):
+            coords = tuple(int(c) for c in np.unravel_index(r, MESH_SHAPE))
+            mesh = sh.Mesh(names, MESH_SHAPE, coords,
+                           tuple(sh.ShapeOnlyGroup((a,)) for a in names))
+            t1 = time.perf_counter()
+            parts, counts = trace_cell(cell, mesh, sh.LOGICAL_RULES, True)
+            out[name].append((parts, counts, time.perf_counter() - t1))
+    return out
+
+
+def dryrun_path(mesh_steps, started):
+    """The multi-device dry run on this machine (``launch/dryrun.py``).
+    (a) The mesh phases' (2, 2) FSDP cell of each optimizer traced on the
+    meta device for each rank of a shape-only mesh (:func:`dryrun_traces`,
+    ``mesh_steps["traces"]``), held to the ranks'
+    real fp32 step: storage bytes of the params and the optimizer state
+    and the collectives a step by kind exactly equal, the flash kernels'
+    stand-ins called as often a step as the kernels launched; the peak
+    estimate beside each rank's peak allocated. (b) The launcher as
+    subprocesses on DRYRUN_CELLS (production cells of the 16x16 and
+    2x16x16 meshes; ``started``: :func:`start_dryrun_cells`), each ok;
+    its headline numbers, modelled at the H100 SXM's peaks."""
+    t0 = time.perf_counter()
+    want_kernels = mesh_steps["float32"]
+    cells = {}
+    for name, reals in mesh_steps["readings"].items():
+        ranks = []
+        for r, (real, (parts, counts, trace_s)) in enumerate(zip(
+                reals, mesh_steps["traces"][name])):
+            got = {k: {"calls": counts["coll_calls"][k],
+                       "bytes": counts[k]}
+                   for k in real["collectives"]}
+            calls = counts["kernels"]
+            est = (sum(parts.values()) + counts["temp_peak_bytes"])
+            rec = {"rank": r, "storage": parts,
+                   "real_storage": real["storage"],
+                   "collectives": got,
+                   "real_collectives": real["collectives"],
+                   "attention_calls": calls,
+                   "peak_estimate_gib": est / 2 ** 30,
+                   "peak_allocated_gib": real["peak_bytes"] / 2 ** 30,
+                   "peak_ratio": est / real["peak_bytes"],
+                   "flops": counts["flops"], "trace_s": trace_s}
+            if parts["params"] != real["storage"]["params"] or \
+                    parts["opt_state"] != real["storage"][
+                        "opt_state"] or got != real["collectives"] or \
+                    calls != want_kernels:
+                fail(f"dryrun: the {name} trace of rank {r} disagrees "
+                     f"with its real step (kernels a step "
+                     f"{want_kernels}): {rec}")
+            ranks.append(rec)
+        cells[name] = ranks
+    sub = _finish_dryrun_cells(started)
+    launched = {}
+    for key, (rc, rec, secs) in sub.items():
+        if rc != 0 or not rec.get("ok"):
+            fail(f"dryrun: the launcher's {key} cell failed (rc {rc}): "
+                 f"{ {k: v for k, v in rec.items() if k != 'traceback'} }")
+        t = rec["terms"]
+        launched["_".join(key)] = {
+            "seconds": secs, "trace_s": rec["trace_s"],
+            "flops_per_rank": rec["counts"]["flops"],
+            "coll_bytes_per_rank": rec["counts"]["coll_bytes"],
+            "argument_gib_per_rank": rec["memory"][
+                "argument_bytes_per_dev"] / 2 ** 30,
+            "peak_estimate_gb": rec["memory"]["peak_estimate_gb"],
+            "dominant": t["dominant"],
+            "roofline_fraction": t["roofline_fraction"],
+            "compute_s": t["compute_s"], "memory_s": t["memory_s"],
+            "collective_s": t["collective_s"],
+            "read_path": rec["read_path"]}
+    emit({"phase": "dryrun", "ok": True, "mesh": list(MESH_SHAPE),
+          "layers": MESH_LAYERS, "batch": MESH_B, "seq": MESH_T,
+          "traced": cells, "launcher": launched,
+          "terms": "modelled at H100 SXM peaks (roofline/analysis.py)",
+          "gpu": nvidia_smi_line(), "seconds": time.perf_counter() - t0})
 
 
 # --------------------------------------------------------------- serving --
@@ -3923,7 +4365,8 @@ def serving_recurrent():
 
 
 # ---------------------------------------------- MoE, cross, other archs --
-ARCH_PROMPT, ARCH_NEW = 512, 16   # 4 prompts a phase, tokens a row
+ARCH_PROMPT, ARCH_NEW = 512, 8    # 4 prompts a phase, tokens a row (16
+                                  # before the dryrun phases)
 # full width; depth cut where one card cannot hold the model:
 # grok-1-314b 4.92e9 parameters a layer and 1.61e9 in the embedding and
 # head (fp32 2 layers: 45.8 GB; bf16 4 layers: 42.6 GB); kimi-k2's 384
@@ -4231,7 +4674,8 @@ def moe_path():
 # shards the pools over the same axis (page 64: 32 or 16 slots a rank)
 EP = {"ep": (2, "float32", "grok-1-314b", GROK_LAYERS, 21),
       "ep_bf16": (4, "bfloat16", "kimi-k2-1t-a32b", KIMI_LAYERS, 22)}
-EP_NEW = 8      # new tokens a request (the moe phase's first ARCH_NEW: time)
+EP_NEW = 6      # new tokens a request (the moe phase's first ARCH_NEW: time;
+                # 8 before the dryrun phases)
 
 
 class CycleReduces:
@@ -4727,10 +5171,11 @@ def archs_path():
 
 
 # ------------------------------------------------------------------ study --
-# The held-out decode of benchmarks/common.py::measure: 12 prompts of 48
-# tokens a task from seed 777 at offset 5e6, 96 new tokens, gamma from the
-# study, K 4
-STUDY_PROMPTS, STUDY_PROMPT_LEN, STUDY_NEW = 12, 48, 48
+# The held-out decode of benchmarks/common.py::measure: prompts of 48
+# tokens a task from seed 777 at offset 5e6, gamma from the study, K 4;
+# 8 prompts of 24 new tokens (12 of 96 there; 12 of 48 before the dryrun
+# phases took the time)
+STUDY_PROMPTS, STUDY_PROMPT_LEN, STUDY_NEW = 8, 48, 24
 STUDY_SEED, STUDY_OFFSET, STUDY_K = 777, 5 * 10 ** 6, 4
 STUDY_METHODS = ("d2sd", "dflash", "eagle", "naive_k", "dflash_second")
 # the target's pretraining steps and each drafter's (below run_study's
@@ -4876,7 +5321,7 @@ def study_path():
 # -------------------------------------------------- distillation at width --
 DISTILL_LAYERS = 6       # paper-target cut in depth (the run's time limit)
 DISTILL_ROWS, DISTILL_PROMPT, DISTILL_NEW = 16, 128, 128   # rollouts
-DISTILL_STEPS, DISTILL_BATCH = 100, 16
+DISTILL_STEPS, DISTILL_BATCH = 60, 16    # 100 before the dryrun phases
 DISTILL_DECODE = (4, 128, 64)     # rows, prompt, new tokens of the decode
 
 
@@ -5071,7 +5516,13 @@ def main():
     _free()
     # training on a (data 2, model 2) mesh of ranks on this card (fp32
     # held to the unsharded step, bf16 readings) and GPipe over pod 2
+    # the multi-device dry run's production cells, traced on the host
+    # while the mesh phases run
+    started = start_dryrun_cells()
     mesh_steps = mesh_train_path()
+    # the mesh cell traced on meta held to the ranks' real step, and the
+    # production cells' records
+    dryrun_path(mesh_steps, started)
     study = study_path()
     distilled = distill_full()
 

@@ -1,8 +1,8 @@
 """Model, speculative-decoding and training configs of the PyTorch port.
 
 A copy of ``repro/config/base.py`` (``ModelConfig``, ``SpecConfig``,
-``MoEConfig``, ``OptimizerConfig``, ``TrainConfig`` and the enums): the
-port imports nothing of the JAX package, so it keeps its own. Field
+``MoEConfig``, ``OptimizerConfig``, ``TrainConfig``, the enums and the
+assigned shapes, ``ShapeSpec``): the port imports nothing of the JAX package, so it keeps its own. Field
 names, defaults and derived properties are unchanged; the differences
 are the read-path switch ``attn_impl``, whose values here are
 ``"gather"`` (plain torch over the cache's logical view) and
@@ -187,6 +187,15 @@ class ModelConfig:
             total += self.num_layers * (attn + norms)
         return int(total)
 
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only routed experts count)."""
+        if self.moe is None:
+            return self.param_count()
+        d, dff = self.d_model, self.d_ff
+        dense_ffn = d * dff * (3 if self.mlp_gated else 2)
+        inactive = (self.moe.num_experts - self.moe.top_k) * dense_ffn
+        return int(self.param_count() - self.num_layers * inactive)
+
 
 # Built-in draft strategies, all five registered by the port
 # (core/strategies.py).
@@ -263,3 +272,27 @@ class TrainConfig:
     log_every: int = 10
     # fault tolerance
     max_restarts: int = 3
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One assigned (shape) cell: train / prefill / decode / long-decode."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+ASSIGNED_SHAPES: Tuple[ShapeSpec, ...] = (
+    ShapeSpec("train_4k", 4096, 256, "train"),
+    ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    ShapeSpec("decode_32k", 32768, 128, "decode"),
+    ShapeSpec("long_500k", 524288, 1, "decode"),
+)
+
+
+def shape_by_name(name: str) -> ShapeSpec:
+    for s in ASSIGNED_SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(name)

@@ -44,6 +44,14 @@ fits the whole batch's (``ep.py``).
 
 ``mesh_tag`` has no twin: in JAX it splits the jit caches between traces
 made inside and outside a mesh, and the port has no jit cache to split.
+
+Every collective of a :class:`Mesh` is counted by kind in
+:data:`COLLECTIVES` (bytes a rank sends, by JAX's replica-group
+factors). On a meta tensor a collective sends nothing and gives a result
+of the right shape, so one rank's step traces on the meta device
+(``launch/dryrun.py``); a mesh whose groups are
+:class:`ShapeOnlyGroup` (``launch/mesh.py::make_production_mesh``
+without a process group) takes meta tensors only.
 """
 from __future__ import annotations
 
@@ -128,16 +136,41 @@ class Mesh:
             return None
         if len(live) == 1:
             return self.groups[self.axis_names.index(live[0])]
+        if any(isinstance(g, ShapeOnlyGroup) for g in self.groups):
+            return ShapeOnlyGroup(live)
         if live == self._live(self.axis_names):
             return dist.group.WORLD
         return self.multi[live]
+
+    def _route(self, kind: str, t: torch.Tensor, axis: Axes):
+        """(live axes, their group) of a collective of ``kind`` on ``t``,
+        counted in :data:`COLLECTIVES`; the group is None where the
+        collective is the identity (no live axis, or a mesh built without
+        process groups) and :data:`_META` for a meta tensor, which has no
+        data to send: the collective only gives a result of the right
+        shape. A real tensor on a shape-only mesh raises."""
+        live = self._live(axis)
+        if not live:
+            return live, None
+        if t.device.type == "meta":
+            count_sent(kind, t, self.size(live))
+            return live, _META
+        grp = self.group(live)
+        if isinstance(grp, ShapeOnlyGroup):
+            raise RuntimeError(
+                "a shape-only mesh (launch/mesh.py::make_production_mesh "
+                "without a process group) runs collectives on meta tensors "
+                f"only, not on {t.device.type} ones")
+        if grp is not None:
+            count_sent(kind, t, self.size(live))
+        return live, grp
 
     def all_reduce_(self, t: torch.Tensor, op, axis: Axes) -> torch.Tensor:
         """``t`` reduced over ``axis`` by ``op`` (a ``dist.ReduceOp``), in
         place. A CUDA tensor travels through a pinned host buffer: gloo
         reduces on the host either way, and the staging is explicit."""
-        grp = self.group(axis)
-        if grp is None:
+        _, grp = self._route("all-reduce", t, axis)
+        if grp is None or grp is _META:
             return t
         if t.device.type == "cpu":
             dist.all_reduce(t, op=op, group=grp)
@@ -150,12 +183,14 @@ class Mesh:
     def all_gather(self, t: torch.Tensor, axis: Axes) -> torch.Tensor:
         """Every rank's ``t`` along ``axis``, stacked in rank order on a new
         leading axis (on ``t``'s device; staged through the host)."""
-        grp = self.group(axis)
+        live, grp = self._route("all-gather", t, axis)
         if grp is None:
             return t[None]
+        n = self.size(live)
+        if grp is _META:
+            return t.new_empty((n,) + tuple(t.shape))
         host = t.detach().cpu().contiguous()
-        parts = [torch.empty_like(host) for _ in range(self.size(
-            self._live(axis)))]
+        parts = [torch.empty_like(host) for _ in range(n)]
         dist.all_gather(parts, host, group=grp)
         return torch.stack(parts).to(t.device)
 
@@ -163,14 +198,32 @@ class Mesh:
         """``t`` holds a slot for each rank along ``axis`` on its leading
         axis (in rank order); returns this rank's slot summed over the
         ranks (staged through pinned host memory, on ``t``'s device)."""
-        grp = self.group(axis)
+        _, grp = self._route("reduce-scatter", t, axis)
         if grp is None:
             return t[0]
+        if grp is _META:
+            return t.new_empty(tuple(t.shape[1:]))
         host = torch.empty(t.shape, dtype=t.dtype, pin_memory=t.is_cuda)
         host.copy_(t.detach())
         out = torch.empty_like(host[0])
         dist.reduce_scatter(out, list(host.unbind(0)), group=grp)
         return out.to(t.device)
+
+
+#: the group :meth:`Mesh._route` gives a meta tensor
+_META = object()
+
+
+class ShapeOnlyGroup:
+    """The process group of an axis of a mesh that no process group backs
+    (``launch/mesh.py::make_production_mesh`` traced on one process): its
+    collectives take meta tensors only."""
+
+    def __init__(self, axes: Tuple[str, ...]):
+        self.axes = axes
+
+    def __repr__(self):
+        return f"ShapeOnlyGroup({self.axes})"
 
 
 class _Ctx(threading.local):
@@ -385,6 +438,44 @@ WRITES = PayloadCounter()
 #: the gathers of a batch-split cycle's per-row host results and of the
 #: install anchors (``core/pipeline.py``, ``serving/engine.py``)
 RESULTS = PayloadCounter()
+
+#: every collective of a :class:`Mesh`, by kind (JAX's HLO names): calls
+#: and the bytes this rank sends in a ring over the group's ``n`` ranks
+#: (:func:`count_sent`), on real and meta tensors alike, so that a
+#: shape-only trace (``roofline/trace_analysis.py``) and a real run
+#: count the same
+COLLECTIVES: Dict[str, PayloadCounter] = {
+    k: PayloadCounter() for k in ("all-reduce", "all-gather",
+                                  "reduce-scatter")}
+
+#: bytes a rank sends a byte of the collective's operand, over ``n``
+#: ranks: JAX's replica-group factors (``roofline/hlo_analysis.py``),
+#: all-reduce 2(n-1)/n, all-gather and reduce-scatter (n-1)/n of the
+#: whole buffer (an all-gather's result is n operands; a reduce-scatter's
+#: operand is the whole buffer, where JAX's HLO reading applies the
+#: factor to its result, one rank's slot)
+_SENT = {"all-reduce": lambda n: 2.0 * (n - 1) / n,
+         "all-gather": lambda n: float(n - 1),
+         "reduce-scatter": lambda n: (n - 1) / n}
+
+
+def count_sent(kind: str, t: torch.Tensor, n: int):
+    """Count one collective of ``kind`` over ``n`` ranks on operand ``t``
+    in :data:`COLLECTIVES`."""
+    c = COLLECTIVES[kind]
+    c.calls += 1
+    c.bytes += _SENT[kind](n) * t.numel() * t.element_size()
+
+
+def reset_collectives():
+    for c in COLLECTIVES.values():
+        c.reset()
+
+
+def collective_counts() -> Dict[str, Dict[str, float]]:
+    """{kind: {"calls", "bytes"}} of :data:`COLLECTIVES`."""
+    return {k: {"calls": c.calls, "bytes": c.bytes}
+            for k, c in COLLECTIVES.items()}
 
 
 def gather_rows(t: torch.Tensor, run: BatchRun) -> torch.Tensor:

@@ -223,22 +223,34 @@ class CountingMesh:
     def _on_card(self, t, axis):
         return t.is_cuda and bool(self.mesh._live(axis))
 
+    def _exchange(self, kind, fn, t, axis, *args):
+        """``fn`` (the collective on the card, ``device_exchange.py``),
+        counted in ``sharding.COLLECTIVES`` as the mesh counts its own;
+        None where the exchange does not take it (a CPU or meta payload,
+        a group across cards)."""
+        if not self._on_card(t, axis):
+            return None
+        out = fn(t, *args, axis)
+        if out is not None:
+            sh.count_sent(kind, t, self.mesh.size(self.mesh._live(axis)))
+        return out
+
     def all_gather(self, t, axis):
         with _count(GATHERS, t):
-            out = (self.exchange.all_gather(t, axis)
-                   if self._on_card(t, axis) else None)
+            out = self._exchange("all-gather", self.exchange.all_gather, t,
+                                 axis)
             return self.mesh.all_gather(t, axis) if out is None else out
 
     def reduce_scatter(self, t, axis):
         with _count(SCATTERS, t):
-            out = (self.exchange.reduce_scatter(t, axis)
-                   if self._on_card(t, axis) else None)
+            out = self._exchange("reduce-scatter",
+                                 self.exchange.reduce_scatter, t, axis)
             return self.mesh.reduce_scatter(t, axis) if out is None else out
 
     def all_reduce_(self, t, op, axis):
         with _count(REDUCES, t):
-            out = (self.exchange.all_reduce_(t, op, axis)
-                   if self._on_card(t, axis) else None)
+            out = self._exchange("all-reduce", self.exchange.all_reduce_,
+                                 t, axis, op)
             return self.mesh.all_reduce_(t, op, axis) if out is None else out
 
 
@@ -301,13 +313,6 @@ class TrainPlan:
             out[path] = tuple(a for a in self.mesh.axis_names
                               if a in ax and self.mesh.size(a) > 1)
         return out
-
-    @property
-    def norm_axes(self) -> Dict[str, Tuple[str, ...]]:
-        """Each leaf's storage axes: the ranks that hold distinct pieces
-        of it (``optimizers.global_norm``)."""
-        return {p: tuple(a for a in rec.axes if self.mesh.size(a) > 1)
-                for p, rec in self.leaves.items()}
 
     def reduce_grads(self, grads: Dict[str, torch.Tensor],
                      run: sh.BatchRun) -> Dict[str, torch.Tensor]:

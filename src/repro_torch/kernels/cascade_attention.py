@@ -13,7 +13,9 @@ phase 2 (torch, :func:`merge_with_tree_block`): log-sum-exp merge of the
 Every kernel wrapper dispatches on the device of its query tensor: a CPU
 tensor runs the plain torch version (``*_plain``, the same arithmetic
 the kernel does, and the oracle the kernel is held to on the card), a
-CUDA tensor launches the kernel or raises. There is no fallback. Each
+CUDA tensor launches the kernel or raises. There is no fallback (a meta
+tensor runs the plain version only inside
+``kernels/trace.py::plain_on_meta``, counted by name). Each
 wrapper counts its launches in ``<wrapper>.launches``, and those of them
 that went to the bf16 kernel in ``<wrapper>.sm90_launches``; the paged
 one also counts in ``sharded_launches`` those made with a ``pos_stride``
@@ -30,6 +32,8 @@ kernels write ``acc = l = 0`` for a split with no key in range at all).
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels import trace
 
 NEG_INF = -1e30
 
@@ -136,7 +140,7 @@ def cascade_phase1(q, cache_k, cache_v, *, cache_len, q_abs, window=None,
     kw = dict(cache_len=cache_len, q_abs=q_abs, window=window,
               attn_softcap=attn_softcap, scale=scale, rolling=rolling,
               n_splits=n_splits, bk=bk)
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" or trace.meta_plain("cascade_phase1", q):
         return cascade_phase1_plain(q, cache_k, cache_v, **kw)
     fn, sm90 = _entry("cascade_phase1_dense", q, cache_k, cache_v)
     b, hq, tq, d = q.shape
@@ -264,7 +268,7 @@ def cascade_phase1_paged(q, pool_k, pool_v, page_table, *, cache_len, q_abs,
     kw = dict(cache_len=cache_len, q_abs=q_abs, window=window,
               attn_softcap=attn_softcap, scale=scale, n_splits=n_splits,
               pos_stride=pos_stride, pos_offset=pos_offset)
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" or trace.meta_plain("cascade_phase1_paged", q):
         return cascade_phase1_paged_plain(q, pool_k, pool_v, page_table, **kw)
     fn, sm90 = _entry("cascade_phase1_paged", q, pool_k, pool_v)
     b, hq, tq, d = q.shape

@@ -25,7 +25,8 @@ tensor runs the plain torch version (``*_plain``: the running softmax
 over 128-key blocks forward, ``p = exp(s - lse)`` and the explicit ``ds``
 backward, the arithmetic the kernels do, and the oracle they are held to
 on the card); a CUDA tensor launches the kernel for its dtype or raises.
-There is no fallback. Each wrapper counts its launches in
+There is no fallback (a meta tensor runs the plain version only inside
+``kernels/trace.py::plain_on_meta``, counted by name). Each wrapper counts its launches in
 ``<wrapper>.launches`` and those of its tensor-core kernel again in
 ``<wrapper>.sm90_launches``. The tensor-core kernels read their
 inputs by TMA, which takes 16-byte-aligned bases, head dims that are a
@@ -46,6 +47,8 @@ No row is padded (the Pallas wrapper pads T to 128-multiples and so needs
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels import trace
 
 NEG_INF = -1e30
 BLOCK = 128          # keys per block of the plain versions (the Pallas bk)
@@ -119,7 +122,7 @@ def flash_attention_fwd(q, k, v, *, causal=True, q_offset=0, window=None,
     fp32). ``q_offset`` is a scalar; ``kv_len`` None, a scalar or [B]."""
     kw = dict(causal=causal, q_offset=q_offset, window=window, kv_len=kv_len,
               attn_softcap=attn_softcap, scale=scale)
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" or trace.meta_plain("flash_fwd", q):
         return flash_attention_fwd_plain(q, k, v, **kw)
     _check_cuda(q, k, v)
     b, hq, tq, d = q.shape
@@ -206,7 +209,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal=True,
     forward and ``delta = sum(do * o, -1)``, both [B,Hq,Tq] fp32."""
     kw = dict(causal=causal, q_offset=q_offset, window=window, kv_len=kv_len,
               attn_softcap=attn_softcap, scale=scale)
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" or trace.meta_plain("flash_bwd_dq", q):
         return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
     _check_cuda(q, k, v, do)
     dq = torch.empty_like(q)
@@ -232,7 +235,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal=True,
     head's group of query heads, in k's dtype."""
     kw = dict(causal=causal, q_offset=q_offset, window=window, kv_len=kv_len,
               attn_softcap=attn_softcap, scale=scale)
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" or trace.meta_plain("flash_bwd_dkv", q):
         return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)
     _check_cuda(q, k, v, do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)

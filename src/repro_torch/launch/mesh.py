@@ -8,7 +8,9 @@ taken), runs one function in each and returns what each returned; inside
 a rank, :func:`make_mesh` builds that rank's :class:`Mesh` from the
 initialised process group, with a process group for each of its axes.
 Every rank on a card uses device 0: ranks time-share one card, and the
-collectives go through gloo on the host.
+collectives go through gloo on the host. :func:`make_production_mesh`
+gives the 16x16 and 2x16x16 meshes, shape-only for one rank without a
+process group (the dry run).
 """
 from __future__ import annotations
 
@@ -22,17 +24,34 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-from repro_torch.distributed.sharding import Mesh
+from repro_torch.distributed.sharding import Mesh, ShapeOnlyGroup
 
 #: how long a rank waits in a collective or the rendezvous before it fails
 RANK_TIMEOUT = datetime.timedelta(minutes=10)
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The 16x16 (or 2x16x16) production mesh: queued with the dry run."""
-    raise NotImplementedError(
-        "make_production_mesh: the production meshes (16x16, 2x16x16) "
-        "come with the dry run (ROADMAP.md queue 1, item 10b)")
+def make_production_mesh(*, multi_pod: bool = False, rank: int = 0) -> Mesh:
+    """The production mesh (JAX's ``make_production_mesh``): ``("data",
+    "model")`` of (16, 16), or with ``multi_pod`` ``("pod", "data",
+    "model")`` of (2, 16, 16). Over an initialised process group of 256
+    (512) ranks it is :func:`make_mesh` there. Without one it is the
+    shape-only mesh of rank ``rank`` (its row-major coordinates, as
+    :func:`make_mesh` places it): every axis's group is a
+    ``sharding.ShapeOnlyGroup``, whose collectives take meta tensors only
+    (the multi-device dry run, ``launch/dryrun.py``, traces one rank of
+    the mesh on the meta device)."""
+    names, shape = ("data", "model"), (16, 16)
+    if multi_pod:
+        names, shape = ("pod",) + names, (2,) + shape
+    if dist.is_initialized():
+        return make_mesh(*shape[-2:], pod=2 if multi_pod else 1)
+    if not 0 <= rank < math.prod(shape):
+        raise ValueError(f"rank {rank} is not in a {shape} mesh")
+    coords = tuple(int(c) for c in np.unravel_index(rank, shape))
+    groups = tuple(ShapeOnlyGroup((a,)) for a in names)
+    multi = {("pod", "data"): ShapeOnlyGroup(("pod", "data"))} \
+        if multi_pod else {}
+    return Mesh(names, shape, coords, groups, multi)
 
 
 def make_mesh(data: int, model: int, pod: int = 1) -> Mesh:

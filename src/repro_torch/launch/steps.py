@@ -1,7 +1,7 @@
-"""Training step, optimizer choice, the production drafter's size and the
-prefill and serve steps (twin of ``repro/launch/steps.py`` but its
-``build_cell`` and the rest of its abstract specs, which only the
-multi-device dry run uses: ROADMAP.md queue 1, item 10b).
+"""Training step, optimizer choice, the production drafter's size, the
+prefill and serve steps, and the abstract (meta-device) specs of every
+(arch x shape) cell that the multi-device dry run traces
+(``launch/dryrun.py``; twin of ``repro/launch/steps.py``).
 
 The step is ``loss.backward()`` on ``models.api.train_loss`` with
 ``attn_impl="kernel"``: on the card every attention layer runs the CUDA
@@ -22,15 +22,18 @@ the engine's cross caches for them).
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.config.base import ModelConfig, OptimizerConfig
+from repro_torch.config.base import (ModelConfig, OptimizerConfig,
+                                     SpecConfig, shape_by_name)
+from repro_torch.config.registry import get_config
 from repro_torch.core import pipeline as pl
 from repro_torch.core import state as state_lib
-from repro_torch.core.drafter import DrafterConfig
+from repro_torch.core.drafter import DrafterConfig, drafter_init
 from repro_torch.distributed import sharding as sh
 from repro_torch.distributed import train_mesh as tm
 from repro_torch.models import api, encdec, lm
@@ -68,10 +71,50 @@ def optimizer_for(cfg: ModelConfig) -> OptimizerConfig:
     return OptimizerConfig(name="adamw")
 
 
-def abstract_params(cfg: ModelConfig):
+def _cap_for(seq_len: int) -> int:
+    return seq_len + 1024
+
+
+# ---------------------------------------------------------------- specs ----
+def _cast(tree, dtype):
+    """``tree`` with its floating leaves in ``dtype`` (None: as they are)."""
+    if dtype is None:
+        return tree
+    return pm.tree_map(lambda t: t.to(dtype) if t.is_floating_point()
+                       else t, tree)
+
+
+def abstract_params(cfg: ModelConfig, dtype=None):
     """``cfg``'s params drawn on the meta device: the whole leaves' shapes
-    and dtypes, no values (JAX's ``abstract_params``)."""
-    return api.init_model(cfg, device="meta")
+    and dtypes, no values (JAX's ``abstract_params``); ``dtype``: the
+    floating leaves in it."""
+    return _cast(api.init_model(cfg, device="meta"), dtype)
+
+
+def abstract_tree(fn, *args):
+    """What ``fn`` returns on meta ``args`` (JAX's ``eval_shape``): the
+    same code run on the meta device, shapes and dtypes only."""
+    with torch.no_grad():
+        return fn(*args)
+
+
+def _sds_tree(tree):
+    """Meta stand-ins of a tree's leaves (JAX's ``ShapeDtypeStruct``s)."""
+    return pm.tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                             device="meta"), tree)
+
+
+def make_bundle_abstract(cfg: ModelConfig, spec: SpecConfig,
+                         serve_dtype=torch.bfloat16):
+    """The served bundle on meta: ``cfg``'s params and the two production
+    drafters' (:func:`production_drafter`), floating leaves in
+    ``serve_dtype``."""
+    d1_cfg = production_drafter(cfg, spec.gamma)
+    d2_cfg = production_drafter(cfg, spec.gamma)
+    tp = abstract_params(cfg, serve_dtype)
+    dp1 = _cast(drafter_init(d1_cfg, device="meta"), serve_dtype)
+    dp2 = _cast(drafter_init(d2_cfg, device="meta"), serve_dtype)
+    return pl.SpecBundle(cfg, d1_cfg, d2_cfg, spec, tp, dp1, dp2)
 
 
 def make_grad_fn(cfg: ModelConfig, loss_seq_chunk: Optional[int] = None,
@@ -151,16 +194,18 @@ def make_train_step(cfg: ModelConfig, loss_seq_chunk: Optional[int] = None,
         return sh.constrain_params(params, pl_.shardings), pl_
 
     def init(params):
-        return opt_init(constrain(params)[0])
+        params, pl_ = constrain(params)
+        return opt_init(params, None if pl_ is None else pl_.leaves)
 
     def train_step(params, opt_state, batch):
         params, pl_ = constrain(params)
         loss, grads, _ = grad_fn(params, batch)
         new_p, new_o, metrics = opt_update(
             grads, opt_state, params,
-            shard_axes=None if pl_ is None else pl_.norm_axes)
+            shards=None if pl_ is None else pl_.leaves)
         return new_p, new_o, {"loss": loss, **metrics}
 
+    train_step.plan = grad_fn.plan
     return train_step, init
 
 
@@ -171,6 +216,19 @@ def ctx_len_for(cfg: ModelConfig) -> int:
     if cfg.cross_attn_every:
         return max(cfg.num_vision_tokens, 1)
     return 0
+
+
+def engine_state_abstract(bundle, batch: int, max_len: int,
+                          run: Optional[sh.BatchRun] = None):
+    """The engine state of a wave of ``batch`` rows on meta
+    (``engine_init``, the cross caches sized by :func:`ctx_len_for`);
+    ``run``: this rank's run of the rows. Paged, where JAX's is dense:
+    the port's serving path on a mesh, whose pools hold a rank's kv_seq
+    run of every page (a dense cache is whole on every kv_seq rank)."""
+    return state_lib.engine_init(bundle, batch, max_len,
+                                 ctx_len=ctx_len_for(bundle.target_cfg),
+                                 cache_impl="paged", device="meta",
+                                 run=run)
 
 
 def make_prefill_step(cfg: ModelConfig):
@@ -198,3 +256,130 @@ def make_serve_step():
     def serve_step(bundle, est, gen):
         return pl.decode_cycle(bundle, est, gen, collect_stats=False)
     return serve_step
+
+
+# ----------------------------------------------------------- cell specs ----
+@dataclasses.dataclass
+class CellSpec:
+    """Everything needed to trace one (arch x shape) cell: the step, its
+    whole abstract arguments (meta tensors; a serving cell's engine state
+    is made for the rank, :func:`rank_args`), the logical rules, FSDP,
+    the kind, and (``opt_init``, ``cfg``, ``shape``) what the rank's
+    arguments are made from."""
+    fn: Any
+    args: Tuple[Any, ...]
+    rules: Dict[str, Any]
+    fsdp: bool
+    kind: str
+    cfg: Any = None
+    shape: Any = None
+    opt_init: Any = None
+
+
+def build_cell(arch: str, shape_name: str,
+               gamma: int = GAMMA_PROD, k_branches: int = K_PROD,
+               loss_seq_chunk: Optional[int] = None,
+               remat_policy: Optional[str] = None,
+               cfg: Optional[ModelConfig] = None, shape=None,
+               hp: Optional[OptimizerConfig] = None) -> Optional[CellSpec]:
+    """JAX's ``build_cell``: None when the cell is skipped (``long_500k``
+    on a target that is not subquadratic). The rules per kind are JAX's:
+    train ``act_seq`` on ``model``, ``kv_seq`` None, FSDP on; prefill
+    ``act_seq`` and ``kv_seq`` on ``model``; decode ``act_seq`` None,
+    ``kv_seq`` on ``model``; serving FSDP only above 1e11 parameters.
+    The train step runs the flash kernels; a serving cell's bundle reads
+    its caches through the cascade kernels (``attn_impl="kernel"``).
+    ``cfg`` and ``shape`` (a ``ShapeSpec``) stand in for the registry's
+    config and the named shape, ``hp`` for :func:`optimizer_for`'s
+    choice (a small cell)."""
+    cfg = get_config(arch) if cfg is None else cfg
+    if remat_policy is not None:
+        cfg = dataclasses.replace(cfg, remat_policy=remat_policy)
+    shape = shape_by_name(shape_name) if shape is None else shape
+    if shape.name == "long_500k" and not cfg.is_subquadratic:
+        return None
+
+    rules = dict(sh.LOGICAL_RULES)
+    if shape.kind == "train":
+        rules["act_seq"] = "model"
+        rules["kv_seq"] = None
+        hp = optimizer_for(cfg) if hp is None else hp
+        step, opt_init = make_train_step(cfg, loss_seq_chunk, hp=hp,
+                                         device="meta")
+        params = abstract_params(cfg)
+        opt_state = opt_lib.make_optimizer(hp, cfg)[0](params)
+        batch = api.batch_specs(cfg, shape.global_batch, shape.seq_len)
+        return CellSpec(step, (params, opt_state, batch), rules, True,
+                        "train", cfg, shape, opt_init)
+
+    cfg = dataclasses.replace(cfg, attn_impl="kernel")
+    spec_c = SpecConfig(gamma=gamma, top_k_branches=k_branches)
+    bundle = make_bundle_abstract(cfg, spec_c)
+    # serving: weights replicated across data, except the giant MoEs
+    # whose weights do not fit a single model-axis shard
+    serve_fsdp = cfg.param_count() > 1e11
+    meta = lambda shp, dt: torch.empty(shp, dtype=dt, device="meta")  # noqa: E731
+
+    if shape.kind == "prefill":
+        rules["act_seq"] = "model"
+        rules["kv_seq"] = "model"
+        prompts = meta((shape.global_batch, shape.seq_len), torch.int32)
+        step = make_prefill_step(cfg)
+        if cfg.is_encoder_decoder:
+            enc = abstract_params(cfg, torch.bfloat16)["encoder"]
+            audio = meta((shape.global_batch, cfg.enc_max_len, cfg.d_model),
+                         torch.bfloat16)
+            bundle_dec = dataclasses.replace(
+                bundle, target_params=bundle.target_params["decoder"])
+            args = (enc, bundle_dec, None, prompts, audio)
+        elif cfg.cross_attn_every:
+            img = meta((shape.global_batch, max(cfg.num_vision_tokens, 1),
+                        cfg.d_model), torch.bfloat16)
+            args = (bundle, None, prompts, img)
+        else:
+            args = (bundle, None, prompts)
+        return CellSpec(step, args, rules, serve_fsdp, "prefill", cfg, shape)
+
+    # decode
+    rules["act_seq"] = None
+    rules["kv_seq"] = "model"
+    if cfg.is_encoder_decoder:
+        bundle = dataclasses.replace(
+            bundle, target_params=bundle.target_params["decoder"])
+    return CellSpec(make_serve_step(), (bundle, None, None), rules,
+                    serve_fsdp, "decode", cfg, shape)
+
+
+def rank_args(cell: CellSpec):
+    """The arguments one rank of the active mesh passes to ``cell.fn``:
+    a train cell's params cut to the rank's storage and its optimizer
+    state made from them (the rank's moments), the whole batch (the step
+    takes the rank's rows); a serving cell's engine state made for the
+    rank's run of the rows (the first ``None`` in ``cell.args`` marks
+    it; a decode cell's generator stays None: greedy), the prompts and
+    context of a prefill the run's rows, a MoE target's expert stacks
+    the rank's part (``ep.ep_shard_target``). JAX's ``in_shardings`` cut the whole arguments
+    alike."""
+    if cell.kind == "train":
+        params, _, batch = cell.args
+        pl_ = cell.fn.plan()
+        params = sh.constrain_params(params, pl_.shardings)
+        return params, cell.opt_init(params), batch
+    from repro_torch.distributed import ep
+    b = cell.shape.global_batch
+    run = sh.batch_run(b)
+    args = list(cell.args)
+    at = next(i for i, a in enumerate(args) if isinstance(a, pl.SpecBundle))
+    bundle = args[at]
+    # a MoE target's expert stacks: the rank's part (expert parallelism)
+    bundle = args[at] = dataclasses.replace(
+        bundle, target_params=ep.ep_shard_target(
+            bundle.target_params, bundle.target_cfg, sh.active_mesh()))
+    est = engine_state_abstract(bundle, b, _cap_for(cell.shape.seq_len),
+                                run=run)
+    at = args.index(None)
+    args[at] = est
+    if cell.kind == "prefill":
+        # the prompts and the context that follow the state: the run's rows
+        args[at + 1:] = [a[run.rows].clone() for a in args[at + 1:]]
+    return tuple(args)

@@ -247,6 +247,8 @@ def sync_replicas_(pools: Sequence[torch.Tensor], log, mesh, axes) -> int:
     slot indices and values, staged through the host). The ranks write
     disjoint pages (a shared page is never written), so the order of the
     copies does not matter. Returns the bytes this rank sent."""
+    if any(p.device.type == "meta" for p in pools):
+        return _sync_replicas_meta(pools, log, mesh, axes)
     at = {id(p): j for j, p in enumerate(pools)}
     written = [[] for _ in pools]
     for pool, flat, ok in log:
@@ -263,8 +265,7 @@ def sync_replicas_(pools: Sequence[torch.Tensor], log, mesh, axes) -> int:
     n = torch.tensor(counts, dtype=torch.long)
     all_n = mesh.all_gather(n, axes)                 # [ranks, pools]
     # bytes a written slot takes: its index, then its values
-    per = torch.tensor([8 + p.numel() // (p.shape[-4] * p.shape[-3])
-                        * p.element_size() for p in pools], dtype=torch.long)
+    per = torch.tensor([_slot_bytes(p) for p in pools], dtype=torch.long)
     sizes = (all_n * per).sum(1)
     payload = torch.zeros((int(sizes.max()),), dtype=torch.uint8)
     mine = torch.cat(parts) if parts else payload[:0]
@@ -289,6 +290,29 @@ def sync_replicas_(pools: Sequence[torch.Tensor], log, mesh, axes) -> int:
                 view.index_copy_(dim, idx.to(pool.device),
                                  vals.to(pool.device))
     return int(n.numel() * 8 + mine.numel())
+
+
+def _slot_bytes(p) -> int:
+    """Bytes a written slot of pool ``p`` takes in the exchange: its
+    index, then its values."""
+    return 8 + p.numel() // (p.shape[-4] * p.shape[-3]) * p.element_size()
+
+
+def _sync_replicas_meta(pools, log, mesh, axes) -> int:
+    """:func:`sync_replicas_` on meta pools (a shape-only trace, which
+    cannot read which writes landed): the same two gathers, the payload
+    sized as if every logged write landed on a slot of its own, the most
+    the exchange can carry."""
+    at = {id(p): j for j, p in enumerate(pools)}
+    slots = [0] * len(pools)
+    for pool, flat, _ in log:
+        slots[at[id(pool)]] += flat.numel()
+    mesh.all_gather(torch.empty((len(pools),), dtype=torch.long,
+                                device="meta"), axes)
+    size = sum(c * _slot_bytes(p) for c, p in zip(slots, pools))
+    mesh.all_gather(torch.empty((size,), dtype=torch.uint8, device="meta"),
+                    axes)
+    return len(pools) * 8 + size
 
 
 def drop_put_(buf, dim, idx, src, ok):

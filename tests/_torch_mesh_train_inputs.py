@@ -14,7 +14,22 @@ STEPS = 2
 #: runs each, the port's ranks too (the (2, 4) cases with remat on)
 CASES = {"2x4_fsdp": (2, 4, True, False),
          "2x4_fsdp_uneven": (2, 4, True, True),
-         "2x2": (2, 2, False, False)}
+         "2x2": (2, 2, False, False),
+         "2x4_fsdp_adamw8bit": (2, 4, True, False),
+         "2x2_adamw8bit": (2, 2, False, False),
+         "2x4_fsdp_adafactor": (2, 4, True, False),
+         "2x2_adafactor": (2, 2, False, False)}
+#: the optimizers; a case's is the one its name ends in, else AdamW
+OPTIMIZERS = ("adamw", "adamw8bit", "adafactor")
+
+
+def optimizer(case: str) -> str:
+    return next((o for o in OPTIMIZERS[1:] if case.endswith(o)), "adamw")
+
+
+def hp(case: str) -> dict:
+    """The case's optimizer hyperparameters (``OptimizerConfig`` fields)."""
+    return dict(HP, name=optimizer(case))
 #: loss_seq_chunk of the chunked case on the (2, 2) mesh
 CHUNK = 8
 #: each row's mask length in the uneven cases: data rank 0 holds rows

@@ -10,8 +10,9 @@ Run as ``python _torch_mesh_train_jax.py OUT`` under
 the parameter shardings) for ``STEPS`` steps inside the case's mesh,
 and ``pipeline_apply`` on the (pod 4, data 2) mesh. It writes
 ``OUT/ref.npz``: ``{case}/loss``, ``{case}/grad_norm`` (a step each),
-``{case}/grad/<path>`` (step 1), ``{case}/param/<path>`` (after the last
-step), ``pipeline``.
+``{case}/grad/<path>`` (step 1), ``{case}/param/<path>`` and, for an
+adamw8bit or Adafactor case, ``{case}/opt/<path>`` (after the last
+step), ``dryrun/flops`` (:func:`dryrun_flops`), ``pipeline``.
 """
 import sys
 from pathlib import Path
@@ -19,7 +20,7 @@ from pathlib import Path
 import jax
 import jax.numpy as jnp
 import numpy as np
-from _torch_mesh_train_inputs import (CASES, HP, MODEL, STEPS, batch,
+from _torch_mesh_train_inputs import (CASES, MODEL, STEPS, batch, hp,
                                       pipeline_inputs)
 
 from repro.config.base import ModelConfig, OptimizerConfig
@@ -29,13 +30,14 @@ from repro.distributed.pipeline_parallel import pipeline_apply
 from repro.launch.mesh import make_mesh
 from repro.models import lm
 from repro.optim import optimizers as opt_lib
+from repro.roofline.hlo_analysis import analyze_hlo_text
 
 
 def step_case(name, out):
     data, model, fsdp, uneven = CASES[name]
     cfg = ModelConfig(remat=False, **MODEL)
     params = lm.lm_init(jax.random.PRNGKey(0), cfg)
-    opt_init, opt_update = opt_lib.make_optimizer(OptimizerConfig(**HP))
+    opt_init, opt_update = opt_lib.make_optimizer(OptimizerConfig(**hp(name)))
     opt = opt_init(params)
     bt = {k: jnp.asarray(v) for k, v in batch(uneven).items()}
 
@@ -48,11 +50,15 @@ def step_case(name, out):
 
     mesh = make_mesh(data=data, model=model)
     with sh.use_sharding(mesh, sh.LOGICAL_RULES, fsdp=fsdp):
-        fn = jax.jit(step, in_shardings=(sh.params_shardings(params, mesh),
-                                         sh.params_shardings(opt, mesh),
-                                         sh.params_shardings(bt, mesh)))
+        shardings = (sh.params_shardings(params, mesh),
+                     sh.params_shardings(opt, mesh))
+        fn = jax.jit(step, in_shardings=shardings + (
+            sh.params_shardings(bt, mesh),))
         losses, gnorms = [], []
         for i in range(STEPS):
+            # the step's outputs back at the rule shardings (XLA may lay
+            # an int8 moment out otherwise)
+            params, opt = jax.device_put((params, opt), shardings)
             params, opt, loss, g, gn = fn(params, opt, bt)
             losses.append(float(loss))
             gnorms.append(float(gn))
@@ -61,8 +67,38 @@ def step_case(name, out):
                     out[f"{name}/grad/{k}"] = np.asarray(v)
     for k, v in sh.tree_paths(params).items():
         out[f"{name}/param/{k}"] = np.asarray(v)
+    if hp(name)["name"] != "adamw":
+        for k, v in sh.tree_paths(opt).items():
+            out[f"{name}/opt/{k}"] = np.asarray(v)
     out[f"{name}/loss"] = np.asarray(losses)
     out[f"{name}/grad_norm"] = np.asarray(gnorms)
+
+
+def dryrun_flops(out):
+    """The per-device FLOPs of the (2, 2) FSDP AdamW step (the dry run's
+    tiny cell, one step, no remat), from ``analyze_hlo_text`` of the
+    compiled step: ``dryrun/flops``."""
+    cfg = ModelConfig(remat=False, **MODEL)
+    params = lm.lm_init(jax.random.PRNGKey(0), cfg)
+    opt_init, opt_update = opt_lib.make_optimizer(OptimizerConfig(**hp("")))
+    opt = opt_init(params)
+    bt = {k: jnp.asarray(v) for k, v in batch(False).items()}
+    rules = dict(sh.LOGICAL_RULES, act_seq="model", kv_seq=None)
+
+    def step(params, opt, batch):
+        params = sh.constrain_params(params)
+        loss, g = jax.value_and_grad(
+            lambda p: lm.loss_fn(p, batch, cfg))(params)
+        p2, o2, _ = opt_update(g, opt, params)
+        return p2, o2, loss
+
+    mesh = make_mesh(data=2, model=2)
+    with sh.use_sharding(mesh, rules, fsdp=True):
+        fn = jax.jit(step, in_shardings=(sh.params_shardings(params, mesh),
+                                         sh.params_shardings(opt, mesh),
+                                         sh.params_shardings(bt, mesh)))
+        text = fn.lower(params, opt, bt).compile().as_text()
+    out["dryrun/flops"] = np.asarray(analyze_hlo_text(text)["flops"])
 
 
 def pipeline(out):
@@ -83,6 +119,7 @@ def main(out_dir):
     out = {}
     for name in CASES:
         step_case(name, out)
+    dryrun_flops(out)
     pipeline(out)
     np.savez(Path(out_dir) / "ref.npz", **out)
 

@@ -8,18 +8,25 @@ torch and the port only: the spawned ranks never load JAX.
 import dataclasses
 
 import torch
-from _torch_mesh_train_inputs import (B, CASES, CHUNK, HP, MODEL, STEPS,
-                                      batch, pipeline_inputs)
+from _torch_mesh_train_inputs import (B, CASES, CHUNK, HP, MODEL,
+                                      OPTIMIZERS, STEPS, T, batch, hp,
+                                      pipeline_inputs)
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
-from repro_torch.config.base import ModelConfig, OptimizerConfig
+from repro_torch.config.base import ModelConfig, OptimizerConfig, ShapeSpec
 from repro_torch.config.registry import get_config
 from repro_torch.distributed import pipeline_parallel as pp
 from repro_torch.distributed import sharding as sh
 from repro_torch.launch.mesh import make_mesh
-from repro_torch.launch.steps import make_grad_fn, make_train_step
+from repro_torch.launch.steps import build_cell, make_grad_fn, make_train_step
 from repro_torch.models import api
 from repro_torch.models import param as pm
+from repro_torch.optim import optimizers as opt_lib
+from repro_torch.roofline.trace_analysis import storage_bytes
+
+# the sharded int8 update works in chunks of its tile's rows: at this
+# width, several chunks a leaf, as at full width
+opt_lib._Q8_CHUNK = 1000
 
 #: the targets of other kinds trained on (data 4, model 1) with FSDP
 OTHER_KINDS = ("recurrentgemma-2b", "rwkv6-1.6b", "grok-1-314b",
@@ -40,8 +47,10 @@ def _clone(tree):
 
 def train(cfg, full, bt, mesh, fsdp, chunk=None, steps=STEPS, hp=None):
     """Step 1's loss and whole gradient, then ``steps`` train steps from
-    ``full``: (loss, grads, losses, grad norms, whole params after), the
-    whole trees gathered; ``mesh`` None: unsharded."""
+    ``full``: (loss, grads, losses, grad norms, whole params after and,
+    for adamw8bit or Adafactor, the optimizer state after), the whole
+    trees gathered (the state in JAX's layout); ``mesh`` None:
+    unsharded."""
     hp = OptimizerConfig(**(hp or HP))
     ctx = (sh.use_sharding(mesh, sh.LOGICAL_RULES, fsdp=fsdp)
            if mesh is not None else _null())
@@ -62,9 +71,47 @@ def train(cfg, full, bt, mesh, fsdp, chunk=None, steps=STEPS, hp=None):
             gnorms.append(float(m["grad_norm"]))
         if plan is not None:
             grads = sh.gather_tree(grads, plan.shardings)
+            params = sh.constrain_params(params, plan.shardings)
+            whole = opt_lib.gather_state(state, params, cfg, plan.leaves)
+            back = pm.flatten(opt_lib.shard_state(whole, params, cfg,
+                                                  plan.leaves))
+            # the rank's state cut back from the whole is its own
+            round_trip = all(torch.equal(back[k], v) for k, v in
+                             pm.flatten(state).items())
+            state = whole
             params = sh.gather_tree(params, plan.shardings)
-    return {"loss": float(loss), "grads": _np(grads), "losses": losses,
-            "grad_norms": gnorms, "params": _np(params)}
+    out = {"loss": float(loss), "grads": _np(grads), "losses": losses,
+           "grad_norms": gnorms, "params": _np(params)}
+    if hp.name != "adamw":
+        out["opt"] = _np(state)
+        if plan is not None:
+            out["state_round_trip"] = round_trip
+    return out
+
+
+def dryrun_cell(cfg, name):
+    """The dry run's tiny cell: the (2, 2) FSDP train step of ``cfg`` on
+    ``B`` x ``T`` tokens with optimizer ``name`` (JAX's train rules)."""
+    return build_cell("tiny", "tiny", cfg=cfg,
+                      shape=ShapeSpec("tiny", T, B, "train"),
+                      hp=OptimizerConfig(**dict(HP, name=name)))
+
+
+def real_counts(cfg, full, mesh, name):
+    """One real step of :func:`dryrun_cell`: this rank's storage bytes
+    (params, optimizer state) and the step's collectives by kind
+    (``sharding.COLLECTIVES``)."""
+    cell = dryrun_cell(cfg, name)
+    with sh.use_sharding(mesh, cell.rules, fsdp=cell.fsdp):
+        step, init = make_train_step(cfg, hp=OptimizerConfig(
+            **dict(HP, name=name)), device="cpu")
+        params = sh.constrain_params(_clone(full), step.plan().shardings)
+        state = init(params)
+        storage = {"params": storage_bytes(params),
+                   "opt_state": storage_bytes(state)}
+        sh.reset_collectives()
+        step(params, state, batch(False))
+        return {"storage": storage, "collectives": sh.collective_counts()}
 
 
 class _null:
@@ -103,16 +150,16 @@ def _storage(cfg, full, mesh, fsdp):
 
 def scenarios(rank, n, full, ckpt_dir):
     """n 8: the (2, 4) step cases (remat on), the checkpoint saved from
-    (2, 4), the pipeline on (pod 4, data 2); n 4: the (2, 2) case, its
-    chunked loss, and the other kinds under data parallelism and FSDP on
-    (4, 1)."""
+    (2, 4), the pipeline on (pod 4, data 2); n 4: the (2, 2) cases, the
+    dry run's cell's real step with each optimizer, the chunked loss,
+    and the other kinds under data parallelism and FSDP on (4, 1)."""
     out = {"rank": rank}
     if n == 8:
         mesh = make_mesh(2, 4)
-        for name in ("2x4_fsdp", "2x4_fsdp_uneven"):
-            _, _, fsdp, uneven = CASES[name]
-            out[name] = train(model_cfg(remat=True), full, batch(uneven),
-                              mesh, fsdp)
+        for name, (data, model, fsdp, uneven) in CASES.items():
+            if data * model == 8:
+                out[name] = train(model_cfg(remat=True), full, batch(uneven),
+                                  mesh, fsdp, hp=hp(name))
         out["storage"] = _storage(model_cfg(), full, mesh, True)
         with sh.use_sharding(mesh, sh.LOGICAL_RULES):
             shards = sh.params_shardings(full)
@@ -134,7 +181,11 @@ def scenarios(rank, n, full, ckpt_dir):
         return out
     mesh = make_mesh(2, 2)
     cfg = model_cfg()
-    out["2x2"] = train(cfg, full, batch(False), mesh, False)
+    for name, (data, model, fsdp, uneven) in CASES.items():
+        if data * model == 4:
+            out[name] = train(cfg, full, batch(uneven), mesh, fsdp,
+                              hp=hp(name))
+    out["dryrun"] = {o: real_counts(cfg, full, mesh, o) for o in OPTIMIZERS}
     out["2x2_chunk"] = train(cfg, full, batch(True), mesh, False,
                              chunk=CHUNK, steps=1)
     out["2x2_unchunked"] = train(cfg, full, batch(True), mesh, False,

@@ -18,9 +18,12 @@ imports no JAX). The weights are JAX's, converted.
 Tolerances (fp32): losses and grad norms rtol 1e-6; every gradient leaf
 within 1e-6 of JAX's sharded step's and the port's unsharded step's
 (absolute: the leaves are at most about 0.1, and the sums run in other
-orders); every leaf after two AdamW steps within 1e-5 (an element whose
+orders); every leaf after two steps within 1e-5 (an element whose
 gradient rounds near zero moves by lr times a sign that rounding may
-flip; JAX's own test allows 1e-4).
+flip; JAX's own test allows 1e-4); adamw8bit's int8 moments within one
+quantum and every other moment leaf within 1e-5 of its leaf's largest
+(``_close_moments``). The dry run's tiny cell: storage and collective
+bytes exact; FLOPs within 2 % of JAX's HLO count less a named excess.
 """
 import dataclasses
 import os
@@ -36,8 +39,8 @@ import pytest
 import torch
 
 import _torch_mesh_train_ranks as ranks
-from _torch_mesh_train_inputs import (CASES, CHUNK, M, MODEL, S, UNEVEN,
-                                      batch, pipeline_inputs)
+from _torch_mesh_train_inputs import (CASES, CHUNK, M, MODEL, OPTIMIZERS,
+                                      S, UNEVEN, batch, hp, pipeline_inputs)
 from _torch_parity import jax_lm_init, port_lm, port_model_cfg
 from repro.config import registry as jreg
 from repro.config.base import ModelConfig as JModelConfig
@@ -52,7 +55,8 @@ from repro_torch.config.registry import get_config
 from repro_torch.distributed import pipeline_parallel as pp
 from repro_torch.distributed import sharding as tsh
 from repro_torch.distributed import train_mesh as tm
-from repro_torch.launch.mesh import make_production_mesh, run_ranks
+from repro_torch.launch.mesh import run_ranks
+from repro_torch.launch import dryrun
 from repro_torch.launch.steps import abstract_params, make_train_step
 from repro_torch.models import api
 from repro_torch.models import lm as tlm
@@ -64,6 +68,7 @@ SRC = TESTS.parent / "src"
 TOL_LOSS = 1e-6      # relative
 TOL_GRAD = 1e-6      # absolute
 TOL_PARAM = 1e-5     # absolute, after two steps
+TOL_MOMENT = 1e-5    # of a moment leaf's largest entry, after two steps
 RANK_WAIT = 120      # s a collective may wait: ranks out of step fail fast
 SPEC_KINDS = {"dense": None, "gemma2": "gemma2-2b", "moe": "grok-1-314b",
               "rglru": "recurrentgemma-2b", "rwkv": "rwkv6-1.6b"}
@@ -112,7 +117,8 @@ def runs(tmp_path_factory):
         full = port_lm(jax_lm_init(jax.random.PRNGKey(0), _jax_cfg()), cfg)
         port = {n: run_ranks(ranks.scenarios, n, n, full, str(ckpt),
                              threads=1, timeout=RANK_WAIT) for n in (8, 4)}
-        meshless = {name: ranks.train(cfg, full, batch(uneven), None, False)
+        meshless = {name: ranks.train(cfg, full, batch(uneven), None, False,
+                                      hp=hp(name))
                     for name, (_, _, _, uneven) in CASES.items()}
         meshless["chunk"] = ranks.train(cfg, full, batch(True), None, False,
                                         chunk=CHUNK, steps=1)
@@ -149,6 +155,25 @@ def _close_trees(got, want, atol, what):
                                    err_msg=f"{what} {k}")
 
 
+def _close_moments(got, want, what):
+    """adamw8bit's int8 moments within one quantum (an element next to a
+    rounding boundary may land on either side: its moment comes from
+    gradients that agree to ``TOL_GRAD``), every other moment leaf (the
+    int8 scales, Adafactor's row, column and vector statistics) within
+    ``TOL_MOMENT`` of the largest of its leaf, the step counter
+    exactly."""
+    assert set(got) == set(want), set(got) ^ set(want)
+    for k in want:
+        g, w = got[k], want[k]
+        assert g.shape == w.shape and g.dtype == w.dtype, (what, k)
+        if k.endswith("/q"):
+            assert np.abs(g.astype(np.int32) - w).max() <= 1, (what, k)
+            continue
+        scale = max(float(np.abs(w).max()), 1e-30)
+        np.testing.assert_allclose(g, w, rtol=0, atol=TOL_MOMENT * scale,
+                                   err_msg=f"{what} {k}")
+
+
 def _hold(run, want, atol_grad=TOL_GRAD, what=""):
     np.testing.assert_allclose(run["losses"], want["losses"], rtol=TOL_LOSS)
     np.testing.assert_allclose(run["grad_norms"], want["grad_norms"],
@@ -158,6 +183,8 @@ def _hold(run, want, atol_grad=TOL_GRAD, what=""):
     if "params" in want:
         _close_trees(run["params"], want["params"], TOL_PARAM,
                      f"{what} param")
+    if "opt" in want:
+        _close_moments(run["opt"], want["opt"], what)
 
 
 def _jax_run(ref, name, cfg):
@@ -165,22 +192,35 @@ def _jax_run(ref, name, cfg):
              if k.startswith(f"{name}/grad/")}
     params = {k[len(f"{name}/param/"):]: v for k, v in ref.items()
               if k.startswith(f"{name}/param/")}
-    return {"losses": list(ref[f"{name}/loss"]),
-            "grad_norms": list(ref[f"{name}/grad_norm"]),
-            "grads": _port_flat(grads, cfg),
-            "params": _port_flat(params, cfg)}
+    out = {"losses": list(ref[f"{name}/loss"]),
+           "grad_norms": list(ref[f"{name}/grad_norm"]),
+           "grads": _port_flat(grads, cfg),
+           "params": _port_flat(params, cfg)}
+    opt = {k[len(f"{name}/opt/"):]: v for k, v in ref.items()
+           if k.startswith(f"{name}/opt/")}
+    if opt:
+        out["opt"] = opt
+    return out
 
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_sharded_step_matches_jax(runs, name):
-    """JAX's sharded AdamW step (``test_distributed.py:73``'s model, 8 x 32
+    """JAX's sharded step (``test_distributed.py:73``'s model, 8 x 32
     tokens) on (2, 4) with FSDP, the same with uneven masks, and on (2,
-    2) without FSDP: the port's ranks give the same loss and grad norm on
-    every rank, and the loss and grad norm of both steps, every gradient
-    leaf of step 1 (gathered from the ranks' shards) and every leaf after
-    step 2 equal JAX's sharded step and the port's unsharded step."""
+    2) without FSDP, with AdamW; adamw8bit and Adafactor on (2, 4) with
+    FSDP and on (2, 2) (ROADMAP.md item 10c): the port's ranks give the
+    same loss and grad norm on every rank, and the loss and grad norm of
+    both steps, every gradient leaf of step 1 (gathered from the ranks'
+    shards), every leaf after step 2 and (adamw8bit, Adafactor) every
+    moment leaf after step 2 (gathered into JAX's layout,
+    ``optimizers.gather_state``) equal JAX's sharded step and the port's
+    unsharded step; each rank's state cut back from the gathered one
+    (``optimizers.shard_state``) is its own, bit for bit."""
     data, model, _, _ = CASES[name]
     run = _same_on_ranks(runs["port"][data * model], name)
+    if "opt" in run:
+        assert all(r[name]["state_round_trip"]
+                   for r in runs["port"][data * model])
     cfg = ranks.model_cfg()
     _hold(run, _jax_run(runs["ref"], name, cfg), what=f"{name} vs JAX")
     _hold(run, runs["meshless"][name], what=f"{name} vs unsharded")
@@ -399,22 +439,15 @@ def _view(data, model):
     return tsh.Mesh(("data", "model"), (data, model), (0, 0), (None, None))
 
 
-REFUSALS = ["adamw8bit", "adafactor", "rwkv", "moe", "half_head",
-            "pipeline_grad", "production_mesh"]
+REFUSALS = ["rwkv", "moe", "half_head", "pipeline_grad"]
 
 
 @pytest.mark.parametrize("case", REFUSALS)
 def test_refusals_name_their_item(case):
     """What this slice does not cover raises and names the ROADMAP item
-    that will: adamw8bit and Adafactor on sharded leaves (10c); an RWKV
-    or MoE target, or 6 query heads (6 x 16 columns divide, heads do
-    not: half a head a rank) on a model axis of 4 (10d); a
-    ``pipeline_apply`` that autograd would record (10e); the production
-    mesh (10b)."""
-    if case == "production_mesh":
-        with pytest.raises(NotImplementedError, match="item 10b"):
-            make_production_mesh()
-        return
+    that will: an RWKV or MoE target, or 6 query heads (6 x 16 columns
+    divide, heads do not: half a head a rank) on a model axis of 4
+    (10d); a ``pipeline_apply`` that autograd would record (10e)."""
     if case == "pipeline_grad":
         mesh = tsh.Mesh(("pod", "data", "model"), (2, 1, 1), (0, 0, 0),
                         (None, None, None))
@@ -423,20 +456,6 @@ def test_refusals_name_their_item(case):
                                                    match="item 10e"):
             pp.pipeline_apply(lambda p, x: x @ p["w"], {"w": w},
                               torch.zeros((3, 1, 4)))
-        return
-    if case in ("adamw8bit", "adafactor"):
-        cfg = ranks.model_cfg()
-        params = tlm.lm_init(cfg, device="cpu")
-        hp = OptimizerConfig(name=case)
-        init, update = topt.make_optimizer(hp, cfg)
-        grads = pm.tree_map(torch.zeros_like, params)
-        axes = {k: () for k in pm.flatten(params)}
-        axes["layers/0/attn/wq"] = ("model",)
-        with pytest.raises(NotImplementedError, match="item 10c"):
-            update(grads, init(params), params, shard_axes=axes)
-        # replicated leaves (pure data parallelism): the update runs
-        update(grads, init(params), params,
-               shard_axes={k: () for k in axes})
         return
     if case == "half_head":
         cfg = dataclasses.replace(ranks.model_cfg(), num_heads=6,
@@ -452,3 +471,55 @@ def test_refusals_name_their_item(case):
     # under data parallelism alone the plan is made
     with tsh.use_sharding(_view(4, 1), tsh.LOGICAL_RULES):
         assert tm.make_plan(cfg, _view(4, 1), abstract_params(cfg)).m == 1
+
+
+def _shape_only_mesh(rank):
+    names, shape = ("data", "model"), (2, 2)
+    return tsh.Mesh(names, shape,
+                    tuple(int(c) for c in np.unravel_index(rank, shape)),
+                    tuple(tsh.ShapeOnlyGroup((a,)) for a in names))
+
+
+@pytest.mark.parametrize("opt", OPTIMIZERS)
+def test_shape_only_trace_matches_gloo_run(runs, opt):
+    """The dry run's tiny cell (the (2, 2) FSDP train step, JAX's train
+    rules, 8 x 32 tokens) traced on the meta device for each rank of a
+    shape-only mesh (``launch/dryrun.py::trace_cell``) against the 4
+    gloo ranks' real step on the CPU: every rank's storage bytes of the
+    params and of the optimizer state, and the step's collectives by
+    kind (calls and bytes sent), exactly equal; the flash kernels'
+    stand-ins called 2 / 2 / 2 times (two layers, no remat)."""
+    cfg = ranks.model_cfg()
+    for r, res in enumerate(runs["port"][4]):
+        real = res["dryrun"][opt]
+        parts, counts = dryrun.trace_cell(ranks.dryrun_cell(cfg, opt),
+                                          _shape_only_mesh(r))
+        assert parts["params"] == real["storage"]["params"], r
+        assert parts["opt_state"] == real["storage"]["opt_state"], r
+        for kind, c in real["collectives"].items():
+            assert counts[kind] == c["bytes"], (r, kind)
+            assert counts["coll_calls"][kind] == c["calls"], (r, kind)
+        assert counts["kernels"] == {"flash_fwd": 2, "flash_bwd_dq": 2,
+                                     "flash_bwd_dkv": 2}
+
+
+def test_trace_flops_match_jax_hlo(runs):
+    """The tiny cell's per-rank FLOPs from the trace
+    (``FlopCounterMode``) against JAX's ``analyze_hlo_text`` of the same
+    step compiled over 4 host devices (``dryrun/flops``). The trace
+    counts more by a known amount: the port's flash backward (the plain
+    stand-ins of kernels #4 and #5, the kernels' arithmetic) forms the
+    scores ``q k^T`` again in each of its two passes and ``do v^T`` in
+    each, where XLA's autodiff of the reference attention keeps the
+    forward's probabilities: 2 x 2 products of ``2 B_r Hq_r T^2 Dh``
+    FLOPs a layer (B_r 4 rows and Hq_r 2 heads a rank, T 32, Dh 16).
+    Less that excess, the counts agree within 2 %."""
+    cfg = ranks.model_cfg()
+    _, counts = dryrun.trace_cell(ranks.dryrun_cell(cfg, "adamw"),
+                                  _shape_only_mesh(0))
+    jax_flops = float(runs["ref"]["dryrun/flops"])
+    b_r, hq_r, t, dh = 4, MODEL["num_heads"] // 2, 32, 16
+    excess = MODEL["num_layers"] * 4 * 2 * b_r * hq_r * t * t * dh
+    assert counts["flops"] > jax_flops
+    np.testing.assert_allclose(counts["flops"] - excess, jax_flops,
+                               rtol=0.02)
