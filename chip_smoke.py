@@ -2515,6 +2515,11 @@ DRYRUN_CELLS = (("qwen2.5-3b", "train_4k", "single"),
                 ("qwen2.5-3b", "train_4k", "multi"),
                 ("qwen2.5-3b", "decode_32k", "single"))
 DRYRUN_TIMEOUT = 300           # s a launcher cell may take
+#: the dryrun phase's small serving cell: a decode cycle of the mesh
+#: phases' target (bf16) with its production drafters, this many rows and
+#: prompt tokens (dense caches of 1280 slots, 640 a rank), JAX's serving
+#: rules on the (2, 2) mesh
+DRYRUN_SERVE_B, DRYRUN_SERVE_T = 4, 256
 #: the sharded optimizers held to their unsharded steps (ROADMAP item 10c)
 MESH_OPTS = ("adamw8bit", "adafactor")
 TOL_MESH_MOMENT = 1e-4  # Adafactor's statistics after MESH_STEPS: each
@@ -2978,6 +2983,58 @@ def _pipeline_rank(rank, group):
             "ms": 1e3 * secs}
 
 
+def dryrun_serve_cell():
+    """The dryrun phase's small serving cell (``launch/steps.py::
+    build_cell``): a decode cycle of the mesh phases' target in bf16 at
+    DRYRUN_SERVE_B rows of DRYRUN_SERVE_T tokens."""
+    from repro_torch.config.base import ShapeSpec
+    from repro_torch.launch.steps import build_cell
+    cfg = dataclasses.replace(mesh_train_cfg("bfloat16"), remat=False)
+    return build_cell("paper-target", "serve", cfg=cfg, shape=ShapeSpec(
+        "serve", DRYRUN_SERVE_T, DRYRUN_SERVE_B, "decode"))
+
+
+def _serve_cell_real(mesh):
+    """One real run of :func:`dryrun_serve_cell` on this rank: the cell's
+    meta bundle replaced by random weights (seeds 0, 1, 2, cast to bf16)
+    on the card, cut as ``rank_args`` cuts them (the whole let go), and
+    one decode cycle from the zeroed state: the rank's argument bytes by
+    part, the cycle's collectives by kind (the weight gathers through the
+    on-card exchange among them)."""
+    from repro_torch.core.drafter import drafter_init
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.steps import rank_args
+    from repro_torch.models import api
+    from repro_torch.models import param as pm
+    cell = dryrun_serve_cell()
+    meta = cell.args[0]
+
+    def bf16(tree):
+        return pm.tree_map(lambda t: t.to(torch.bfloat16)
+                           if t.is_floating_point() else t, tree)
+
+    cell.args = (dataclasses.replace(
+        meta, target_params=bf16(api.init_model(meta.target_cfg, seed=0,
+                                                device=DEVICE)),
+        d1_params=bf16(drafter_init(meta.d1_cfg, 1, DEVICE)),
+        d2_params=bf16(drafter_init(meta.d2_cfg, 2, DEVICE))),
+        ) + cell.args[1:]
+    with sh.use_sharding(mesh, cell.rules, fsdp=cell.fsdp), \
+            torch.no_grad():
+        args = rank_args(cell)
+        cell.args = None
+        _free()
+        parts = dryrun.arg_parts(cell, args)
+        sh.reset_collectives()
+        cell.fn(*args)
+        torch.cuda.synchronize()
+        out = {"parts": parts, "collectives": sh.collective_counts()}
+    del args
+    _free()
+    return out
+
+
 def mesh_rank(rank, n, ref):
     """One rank of the mesh phases: fp32 and bf16 training on the (data
     2, model 2) mesh with FSDP, then (ranks 0 and 1) the pipeline.
@@ -3002,6 +3059,8 @@ def mesh_rank(rank, n, ref):
         out["fp32"] = _mesh_fp32(ref, heads)
         out["bf16"] = _mesh_bf16(ref, heads)
     kops.flash_attention = flash
+    _free()
+    out["serve_cell"] = _serve_cell_real(mesh)
     # every rank lets go of its peers' exchange buffers before any exits
     _free()
     dist.barrier()
@@ -3129,6 +3188,7 @@ def mesh_train_path():
           "ms": [p["ms"] for p in pipe], "gpu": nvidia_smi_line(),
           "seconds": time.perf_counter() - t0})
     readings = {"adamw": [r["fp32"]["dryrun"] for r in recs]}
+    serve_cell = [r["serve_cell"] for r in recs]
     adamw_state = [r["fp32"]["dryrun"]["storage"]["opt_state"] for r in recs]
     # the optimizers' runs: one more spawn, with only their unsharded
     # runs on the card beside the seed-0 params
@@ -3197,7 +3257,7 @@ def mesh_train_path():
     tracer.join()
     return {"float32": per_step[0], "bfloat16": per16[0],
             "pipeline": pipe[0]["launches"], "readings": readings,
-            "traces": traces}
+            "serve_cell": serve_cell, "traces": traces}
 
 
 def start_dryrun_cells():
@@ -3275,6 +3335,14 @@ def dryrun_traces():
             t1 = time.perf_counter()
             parts, counts = trace_cell(cell, mesh, sh.LOGICAL_RULES, True)
             out[name].append((parts, counts, time.perf_counter() - t1))
+    out["serve_cell"] = []
+    for r in range(MESH_SHAPE[0] * MESH_SHAPE[1]):
+        coords = tuple(int(c) for c in np.unravel_index(r, MESH_SHAPE))
+        mesh = sh.Mesh(names, MESH_SHAPE, coords,
+                       tuple(sh.ShapeOnlyGroup((a,)) for a in names))
+        t1 = time.perf_counter()
+        parts, counts = trace_cell(dryrun_serve_cell(), mesh)
+        out["serve_cell"].append((parts, counts, time.perf_counter() - t1))
     return out
 
 
@@ -3320,6 +3388,19 @@ def dryrun_path(mesh_steps, started):
                      f"{want_kernels}): {rec}")
             ranks.append(rec)
         cells[name] = ranks
+    serve = []
+    for r, (real, (parts, counts, trace_s)) in enumerate(zip(
+            mesh_steps["serve_cell"], mesh_steps["traces"]["serve_cell"])):
+        got = {k: {"calls": counts["coll_calls"][k], "bytes": counts[k]}
+               for k in real["collectives"]}
+        rec = {"rank": r, "argument_bytes": parts,
+               "real_argument_bytes": real["parts"], "collectives": got,
+               "real_collectives": real["collectives"], "trace_s": trace_s}
+        if parts != real["parts"] or got != real["collectives"] or \
+                real["collectives"]["all-gather"]["calls"] <= 0:
+            fail(f"dryrun: the serving cell's trace of rank {r} disagrees "
+                 f"with its real run: {rec}")
+        serve.append(rec)
     sub = _finish_dryrun_cells(started)
     launched = {}
     for key, (rc, rec, secs) in sub.items():
@@ -3342,6 +3423,8 @@ def dryrun_path(mesh_steps, started):
     emit({"phase": "dryrun", "ok": True, "mesh": list(MESH_SHAPE),
           "layers": MESH_LAYERS, "batch": MESH_B, "seq": MESH_T,
           "traced": cells, "launcher": launched,
+          "serve_cell": {"rows": DRYRUN_SERVE_B, "seq": DRYRUN_SERVE_T,
+                         "kind": "decode", "ranks": serve},
           "terms": "modelled at H100 SXM peaks (roofline/analysis.py)",
           "gpu": nvidia_smi_line(), "seconds": time.perf_counter() - t0})
 
@@ -3743,6 +3826,109 @@ def _merge_bytes(bundle, batches, md=4):
                for b in batches)
 
 
+class WeightGathers:
+    """``serve_run``'s ``in_cycle``: the serving weight gathers inside
+    decode cycles (``sharding.WEIGHTS``, timed after a synchronize while
+    inside): calls, bytes a rank received, host seconds; ``inner``: an
+    ``in_cycle`` it runs inside."""
+
+    def __init__(self, inner=contextlib.nullcontext):
+        self.calls = self.bytes = 0
+        self.seconds = 0.0
+        self.inner = inner
+
+    @contextlib.contextmanager
+    def __call__(self):
+        from repro_torch.distributed import sharding as sh
+        w = sh.WEIGHTS
+        before = (w.calls, w.bytes, w.merge_s)
+        w.timed = True
+        try:
+            with self.inner():
+                yield
+        finally:
+            w.timed = False
+            self.calls += w.calls - before[0]
+            self.bytes += w.bytes - before[1]
+            self.seconds += w.merge_s - before[2]
+
+    def per_cycle(self, cycles):
+        return {"weight_gathers_per_cycle": self.calls / cycles,
+                "weight_gather_bytes_per_cycle": self.bytes / cycles,
+                "weight_gather_ms_per_cycle": 1e3 * self.seconds / cycles}
+
+
+def _bundle_bytes(bundle):
+    from repro_torch.roofline.trace_analysis import storage_bytes
+    return storage_bytes(bundle.target_params, bundle.d1_params,
+                         bundle.d2_params)
+
+
+def stored_bundle(build):
+    """A mesh serving phase's bundle on this rank (inside the mesh):
+    ``build()``'s whole bundle cut to the rank's serving storage
+    (``pipeline.serve_storage``: every weight's slice by the parameter
+    rules, a MoE's expert stacks EP's part) and the whole one let go.
+    Returns (the stored bundle, its record: the weight bytes it stores
+    beside the whole bundle's, and the bytes allocated on the card with
+    the whole bundle and with the storage alone)."""
+    from repro_torch.core import pipeline as pl
+    bundle = build()
+    _free()
+    rec = {"whole_weight_bytes": _bundle_bytes(bundle),
+           "allocated_gib_whole": torch.cuda.memory_allocated() / 2 ** 30}
+    stored = pl.serve_storage(bundle)
+    del bundle
+    _free()
+    rec.update(weight_bytes=_bundle_bytes(stored),
+               allocated_gib_storage=torch.cuda.memory_allocated() / 2 ** 30)
+    rec["weight_share"] = rec["weight_bytes"] / rec["whole_weight_bytes"]
+    return stored, rec
+
+
+class StateBytes:
+    """A ``serve_run`` snoop: at the first cycle, the bytes of the wave's
+    engine state this rank holds beside the unsharded engine's (the same
+    wave's state made outside the mesh, on meta); ``inner``: a snoop it
+    calls too."""
+
+    def __init__(self, inner=None):
+        self.rec = None
+        self.inner = inner
+
+    def __call__(self, eng, state):
+        if self.inner is not None:
+            self.inner(eng, state)
+        if self.rec is not None:
+            return
+        from repro_torch.core.state import engine_init
+        from repro_torch.distributed import sharding as sh
+        from repro_torch.models import kvcache as kvc
+        from repro_torch.roofline.trace_analysis import storage_bytes
+        b = state.run.b if state.run is not None else state.batch
+        paged = state.cache_impl == "paged"
+        kw = (dict(cache_impl="paged", page_size=state.page_size,
+                   pool_pages=kvc.page_geometry(state.d1_feat)[2])
+              if paged else {})
+        max_len = state.max_len
+        with sh.use_sharding(None):
+            whole = engine_init(eng.bundle, b, max_len, device="meta", **kw)
+        self.rec = {"state_bytes": storage_bytes(state),
+                    "unsharded_state_bytes": storage_bytes(whole)}
+
+
+def _layout_gate(where, layout, cut):
+    """A mesh serving phase's rank holds less than the whole bundle where
+    its rules cut a weight (``cut``), and gathers weights in its cycles;
+    its state no more than the unsharded engine's."""
+    if cut and (layout["weight_bytes"] >= layout["whole_weight_bytes"]
+                or layout["weight_gathers_per_cycle"] <= 0):
+        fail(f"{where}: the rank's weights are not its storage: {layout}")
+    if layout["state_bytes"] > layout["unsharded_state_bytes"]:
+        fail(f"{where}: the rank's state exceeds the unsharded one: "
+             f"{layout}")
+
+
 def sharded_rank(rank, n, dtype, reqs):
     """One rank of a sharded phase: the serving bundle built from the
     seeds (one rank after another, so that at most one fp32 build is on
@@ -3760,29 +3946,39 @@ def sharded_rank(rank, n, dtype, reqs):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     mesh = make_mesh(1, n)
+    rules = dict(sh.LOGICAL_RULES, kv_seq="model")
+
+    def build():
+        b = build_bundle("float32", layers=SERVE_LAYERS)
+        return to_bf16(b) if dtype == "bfloat16" else b
+
     for i in range(n):
         if i == rank:
-            bundle = build_bundle("float32", layers=SERVE_LAYERS)
-            if dtype == "bfloat16":
-                bundle = to_bf16(bundle)
+            with sh.use_sharding(mesh, rules):
+                bundle, layout = stored_bundle(build)
         dist.barrier()
     torch.cuda.reset_peak_memory_stats()
     paged = casc.cascade_phase1_paged
     runs, toks = {}, {}
-    with sh.use_sharding(mesh, dict(sh.LOGICAL_RULES, kv_seq="model")):
+    with sh.use_sharding(mesh, rules):
         for impl in ("kernel", "gather"):
             _zero_launches()
             paged.sharded_launches = 0
             sp.PAYLOAD.reset()
             sp.PAYLOAD.timed = impl == "kernel"
             batches = []
+            gathers, state_bytes = WeightGathers(), StateBytes(
+                lambda _, state: batches.append(state.batch))
             eng, toks[impl], info = serve_run(
                 pl.with_attn_impl(bundle, impl), reqs, f"sharded_{impl}",
-                snoop=lambda _, state: batches.append(state.batch),
+                snoop=state_bytes, in_cycle=gathers,
                 cache_impl="paged", page_size=SERVE_PAGE,
                 pool_pages=SERVE_POOL, prefix_cache=True)
             sp.PAYLOAD.timed = False
             st = eng.stats
+            if impl == "kernel":
+                layout.update(state_bytes.rec, **gathers.per_cycle(
+                    info["decode_cycles"]))
             info.update(
                 launches=_launches(), sharded_launches=paged.sharded_launches,
                 kv_shards=st["kv_shards"],
@@ -3796,12 +3992,16 @@ def sharded_rank(rank, n, dtype, reqs):
             del eng
             gc.collect()
             torch.cuda.empty_cache()
-    rec = {"rank": rank, "runs": runs,
+    rec = {"rank": rank, "runs": runs, "layout": layout,
            "tokens": {impl: {u: t.tolist() for u, t in tk.items()}
                       for impl, tk in toks.items()},
            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del bundle
+    _free()
     if rank == 0:
-        # single-rank plain forwards, outside the mesh (no collective)
+        # single-rank plain forwards, outside the mesh (no collective),
+        # on the whole bundle built again from the seeds
+        bundle = build()
         if dtype == "float32":
             rec["near_ties"] = {impl: _serve_agreement(
                 f"sharded {impl}", bundle, reqs, toks[impl])
@@ -3832,6 +4032,7 @@ def sharded_path(phase, reqs, unsharded):
         if any(r["tokens"][impl] != recs[0]["tokens"][impl] for r in recs):
             fail(f"{phase} {impl}: the ranks' tokens differ")
     for r in recs:
+        _layout_gate(f"{phase} rank {r['rank']}", r["layout"], True)
         for impl, info in r["runs"].items():
             where = f"{phase} rank {r['rank']} {impl}"
             counts = info["launches"]
@@ -3868,6 +4069,7 @@ def sharded_path(phase, reqs, unsharded):
           "collective_bytes_per_cycle": kern["decode_collective_bytes"]
           / kern["decode_cycles"],
           "peak_gib_per_rank": [r["peak_gib"] for r in recs],
+          "layout_per_rank": [r["layout"] for r in recs],
           "sharded_launches_per_cycle": kern["sharded_launches"]
           / kern["decode_cycles"],
           "unsharded_launches_per_cycle": unsharded["launches_per_cycle"],
@@ -3944,16 +4146,20 @@ def data_rank(rank, n, phase, reqs):
     torch.backends.cudnn.allow_tf32 = False
     data, model, dtype = DATA[phase]
     mesh = make_mesh(data, model)
+    rules = dict(sh.LOGICAL_RULES, kv_seq="model" if model > 1 else None)
+
+    def build():
+        b = build_bundle("float32", layers=SERVE_LAYERS)
+        return to_bf16(b) if dtype == "bfloat16" else b
+
     for i in range(n):
         if i == rank:
-            bundle = build_bundle("float32", layers=SERVE_LAYERS)
-            if dtype == "bfloat16":
-                bundle = to_bf16(bundle)
+            with sh.use_sharding(mesh, rules):
+                bundle, layout = stored_bundle(build)
         dist.barrier()
     torch.cuda.reset_peak_memory_stats()
     paged = casc.cascade_phase1_paged
     counters = (sp.PAYLOAD, sh.WRITES, sh.RESULTS)
-    rules = dict(sh.LOGICAL_RULES, kv_seq="model" if model > 1 else None)
     prompts = np.random.default_rng(0).integers(
         0, bundle.target_cfg.vocab_size, size=(4, 512))
     runs, toks, gen = {}, {}, None
@@ -3967,6 +4173,7 @@ def data_rank(rank, n, phase, reqs):
                 c.timed = impl == "kernel"
             batches, splits, live = [], [], LiveRead(when=_split_run)
             gathers = CycleGathers()
+            weights = WeightGathers(gathers)
 
             def snoop(eng, state):
                 batches.append(state.batch)
@@ -3974,11 +4181,15 @@ def data_rank(rank, n, phase, reqs):
                 if impl == "kernel":
                     live(eng, state)
 
+            state_bytes = StateBytes(snoop)
             eng, toks[impl], info = serve_run(
                 pl.with_attn_impl(bundle, impl), reqs, f"{phase}_{impl}",
-                snoop=snoop, in_cycle=gathers, cache_impl="paged",
+                snoop=state_bytes, in_cycle=weights, cache_impl="paged",
                 page_size=SERVE_PAGE, pool_pages=SERVE_POOL,
                 prefix_cache=True)
+            if impl == "kernel":
+                layout.update(state_bytes.rec, **weights.per_cycle(
+                    info["decode_cycles"]))
             for c in counters:
                 c.timed = False
             st, cyc = eng.stats, info["decode_cycles"]
@@ -4015,12 +4226,16 @@ def data_rank(rank, n, phase, reqs):
                                         max_new=DATA_NEW)
             gen = {"tokens": gtoks.tolist(), **ginfo,
                    "launches": _launches()}
-    rec = {"rank": rank, "runs": runs, "generate": gen,
+    rec = {"rank": rank, "runs": runs, "generate": gen, "layout": layout,
            "tokens": {impl: {u: t.tolist() for u, t in tk.items()}
                       for impl, tk in toks.items()},
            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del bundle
+    _free()
     if rank == 0:
-        # single-rank plain forwards and runs, outside the mesh
+        # single-rank plain forwards and runs, outside the mesh, on the
+        # whole bundle built again from the seeds
+        bundle = build()
         if dtype == "float32":
             rec["near_ties"] = {impl: _serve_agreement(
                 f"{phase} {impl}", bundle, reqs, toks[impl])
@@ -4067,6 +4282,7 @@ def data_path(phase, reqs, unsharded):
         if any(r["tokens"][impl] != recs[0]["tokens"][impl] for r in recs):
             fail(f"{phase} {impl}: the ranks' tokens differ")
     for r in recs:
+        _layout_gate(f"{phase} rank {r['rank']}", r["layout"], model > 1)
         for impl, info in r["runs"].items():
             where = f"{phase} rank {r['rank']} {impl}"
             counts = info["launches"]
@@ -4140,6 +4356,7 @@ def data_path(phase, reqs, unsharded):
           "results_gather_ms_per_cycle": kern["results_ms_per_cycle"],
           "merge_ms_per_cycle": kern["merge_ms_per_cycle"],
           "peak_gib_per_rank": [r["peak_gib"] for r in recs],
+          "layout_per_rank": [r["layout"] for r in recs],
           "launches_per_cycle": kern["launches"][entry]
           / kern["decode_cycles"],
           "unsharded_launches_per_cycle": unsharded["launches_per_cycle"],
@@ -4906,7 +5123,8 @@ def ep_rank(rank, n, phase, nodrop_ref):
         t0 = time.perf_counter()
         for i in range(n):
             if i == rank:
-                bundle, _ = arch_bundle(arch, dtype, layers, mesh=mesh)
+                bundle, layout = stored_bundle(lambda: arch_bundle(
+                    arch, dtype, layers, mesh=mesh)[0])
                 torch.cuda.empty_cache()
             dist.barrier()
         build_s = time.perf_counter() - t0
@@ -4946,7 +5164,8 @@ def ep_rank(rank, n, phase, nodrop_ref):
             sp.PAYLOAD.reset()
             sp.PAYLOAD.timed = impl == "kernel"
             ep.REDUCES.reset()
-            red = CycleReduces()
+            red = WeightGathers(CycleReduces())
+            state_bytes = StateBytes(live if name == "kernel" else None)
             with sh.use_sharding(mesh, dict(
                     sh.LOGICAL_RULES, kv_seq="model" if kv else None)), \
                     MoeProbe() as probe, (
@@ -4954,11 +5173,14 @@ def ep_rank(rank, n, phase, nodrop_ref):
                         else contextlib.nullcontext()):
                 eng, toks[name], info = serve_run(
                     pl.with_attn_impl(b, impl), reqs, f"{phase}_{name}",
-                    snoop=live if name == "kernel" else None,
-                    first_alone=False, in_cycle=red, cache_impl="paged",
-                    page_size=SERVE_PAGE, prefix_cache=True)
+                    snoop=state_bytes, first_alone=False, in_cycle=red,
+                    cache_impl="paged", page_size=SERVE_PAGE,
+                    prefix_cache=True)
             sp.PAYLOAD.timed = False
             cycles = info["decode_cycles"]
+            if name == "kernel":
+                layout.update(state_bytes.rec, **red.per_cycle(cycles))
+            red = red.inner
             drops = probe.drops()
             info.update(
                 launches=_launches(), sharded_launches=paged.sharded_launches,
@@ -5004,7 +5226,7 @@ def ep_rank(rank, n, phase, nodrop_ref):
                 nodrop_ref["tokens"][:, :EP_NEW],
                 nodrop_ref["gaps"][:, :EP_NEW])
         dist.barrier()
-    return {"rank": rank, "runs": runs, "holds": holds,
+    return {"rank": rank, "runs": runs, "holds": holds, "layout": layout,
             "want": want[f"cascade_phase1_paged{sfx}"], "entry":
             f"cascade_phase1_paged{sfx}", "layers": cfg.num_layers,
             "tokens": {k: {u: t.tolist() for u, t in v.items()}
@@ -5026,6 +5248,8 @@ def ep_path(phase, nodrop_ref):
     n, dtype, arch, layers, _ = EP[phase]
     recs = run_ranks(ep_rank, n, n, phase, nodrop_ref)
     r0 = recs[0]
+    for r in recs:
+        _layout_gate(f"{phase} rank {r['rank']}", r["layout"], True)
     for name in r0["tokens"]:
         if any(r["tokens"][name] != r0["tokens"][name] for r in recs):
             fail(f"{phase} {name}: the ranks' tokens differ")
@@ -5060,6 +5284,7 @@ def ep_path(phase, nodrop_ref):
           "merge_ms_per_cycle": kern["merge_ms_per_cycle"],
           "dropped_per_cycle": kern["dropped_per_cycle"],
           "peak_gib_per_rank": [r["peak_gib"] for r in recs],
+          "layout_per_rank": [r["layout"] for r in recs],
           "expert_gib_per_rank": [r["expert_gib"] for r in recs],
           "build_s_per_rank": [r["build_s"] for r in recs],
           "ep_launches_per_cycle": kern["sharded_launches"]

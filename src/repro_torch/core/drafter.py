@@ -15,6 +15,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.config.base import ATTN_IMPLS
+from repro_torch.distributed import sharding as sh
 from repro_torch.distributed import spdecode as sp
 from repro_torch.models import kvcache as kvc
 from repro_torch.models import param as pm
@@ -87,7 +88,8 @@ def drafter_init(dcfg: DrafterConfig, seed: int = 0, device="cuda"):
 def init_feat_cache(dcfg: DrafterConfig, batch: int, max_len: int, dtype,
                     device, cache_impl: str = "dense", page_size: int = 64,
                     pool_pages=None, page_table=None, ext_pool=None):
-    """Dense: k/v [L, B, S_max, Hkv, Dh]. Paged: stacked page pools
+    """Dense: k/v [L, B, S_max, Hkv, Dh] (inside a kv_seq mesh this rank's
+    run of the slots, ``kvcache.dense_cache``). Paged: stacked page pools
     [L, P, page, Hkv, Dh] plus the page table ``pt`` [B, max_pages] (the
     same page-id space as the target's pools). ``ext_pool``: ``(k, v)``
     pools retained from an earlier wave, adopted as they are."""
@@ -110,8 +112,8 @@ def init_feat_cache(dcfg: DrafterConfig, batch: int, max_len: int, dtype,
                                       device=device),
                 "length": length}
     shape = (l, batch, max_len, hkv, dh)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
+    return {"k": kvc.dense_cache(shape, 2, dtype, device),
+            "v": kvc.dense_cache(shape, 2, dtype, device),
             "length": length}
 
 
@@ -119,13 +121,17 @@ def project_features(p, dcfg: DrafterConfig, target_features, positions):
     """target_features: [B,T,Fd]; positions: [B,T] absolute.
 
     Returns per-layer context (k, v): ([L,B,T,Hkv,Dh], [L,B,T,Hkv,Dh]).
+    ``p`` may hold a serving rank's storage (``sharding.Stored``): the
+    projection and each layer's K/V weights are made whole at their use.
     """
     b, t, _ = target_features.shape
     hkv, dh = dcfg.num_kv_heads, dcfg.head_dim
-    f = dense(p["feat_proj"], target_features.to(getattr(torch, dcfg.dtype)))
+    f = dense(sh.whole(p, p["feat_proj"], "feat_proj"),
+              target_features.to(getattr(torch, dcfg.dtype)))
     ks, vs = [], []
     for i in range(dcfg.num_layers):
-        lp = p[f"layer{i}"]
+        lp = sh.whole(p, {"wk": p[f"layer{i}"]["wk"],
+                          "wv": p[f"layer{i}"]["wv"]}, f"layer{i}")
         k = dense(lp["wk"], f).reshape(b, t, hkv, dh)
         ks.append(apply_rope(k, positions, dcfg.rope_theta))
         vs.append(dense(lp["wv"], f).reshape(b, t, hkv, dh))
@@ -139,7 +145,9 @@ def extend_feat_cache(p, dcfg, cache, target_features, positions, n_new):
     ``length`` advanced. A paged cache is written through
     ``kvcache.pool_scatter_``, so under a batch split the writes reach
     the other ranks' replicas in the cycle's (or install's) one gather;
-    the reads see the rank's run of the rows over its whole replica."""
+    the reads see the rank's run of the rows over its whole replica. A
+    dense cache under a kv_seq mesh keeps the writes to its run of the
+    slots (``kvcache.dense_slots``)."""
     k_new, v_new = project_features(p, dcfg, target_features, positions)
     b, pl = positions.shape
     dev = positions.device
@@ -148,13 +156,13 @@ def extend_feat_cache(p, dcfg, cache, target_features, positions, n_new):
         kvc.pool_scatter_(cache["k"], cache["pt"], k_new, positions, valid)
         kvc.pool_scatter_(cache["v"], cache["pt"], v_new, positions, valid)
     else:
-        l, cap = cache["k"].shape[0], cache["k"].shape[2]
-        pos = positions.long()
-        ok = (valid & (pos >= 0) & (pos < cap)).reshape(-1)
-        flat = (torch.arange(b, device=dev)[:, None] * cap + pos).reshape(-1)
+        l, n = cache["k"].shape[0], cache["k"].shape[2]
+        pos, ok = kvc.dense_slots(cache["k"], 2, positions, False)
+        ok = (valid & ok).reshape(-1)
+        flat = (torch.arange(b, device=dev)[:, None] * n + pos).reshape(-1)
         for name, new in (("k", k_new), ("v", v_new)):
             buf = cache[name]
-            kvc.drop_put_(buf.view(l, b * cap, *buf.shape[3:]), 1, flat,
+            kvc.drop_put_(buf.view(l, b * n, *buf.shape[3:]), 1, flat,
                           new.reshape(l, b * pl, *new.shape[3:]), ok)
     out = dict(cache)
     out["length"] = (cache["length"] + n_new).to(torch.int32)
@@ -170,7 +178,9 @@ def drafter_forward(p, dcfg: DrafterConfig, block_tokens, feat_cache,
     positions: [B,T] absolute positions of block slots (default:
     feat_len + i). block_mask: optional [T,T] or [B,T,T] intra-block mask;
     default bidirectional (diffusion) or causal when dcfg.causal.
-    Returns logits [B,T,V].
+    Returns logits [B,T,V]. ``p`` may hold a serving rank's storage
+    (``sharding.Stored``): the embedding, each layer and the head are
+    made whole at their use.
     """
     b, t = block_tokens.shape
     dev = block_tokens.device
@@ -179,7 +189,8 @@ def drafter_forward(p, dcfg: DrafterConfig, block_tokens, feat_cache,
     feat_len = feat_cache["length"]
     if positions is None:
         positions = feat_len[:, None] + torch.arange(t, device=dev)[None, :]
-    x = p["tok"]["embedding"][block_tokens].to(dtype)
+    x = sh.whole(p, p["tok"]["embedding"], "tok/embedding")[
+        block_tokens].to(dtype)
     if block_mask is None:
         block_mask = torch.ones((t, t), dtype=torch.bool, device=dev)
         if dcfg.causal:
@@ -202,21 +213,24 @@ def drafter_forward(p, dcfg: DrafterConfig, block_tokens, feat_cache,
     full_mask = None
     use_sp = False
     if not (use_kernel or use_sharded):
+        run = None if paged else kvc.slot_run(ctx_k, 2)
+        # a dense feature cache stored as runs of at least 128 slots a
+        # rank of a kv_seq mesh: the dense hook on the local run (merged
+        # in bfloat16: JAX passes no merge dtype here either)
+        use_sp = run is not None and not run.whole and run.n >= 128
         if paged:
             # logical per-row view gathered once for all drafter layers
             ctx_k = kvc.pool_view(ctx_k, feat_cache["pt"])
             ctx_v = kvc.pool_view(ctx_v, feat_cache["pt"])
+        elif not use_sp:
+            ctx_k, ctx_v = kvc.dense_view(ctx_k, 2), kvc.dense_view(ctx_v, 2)
         cap = ctx_k.shape[2]
         ctx_ok = (torch.arange(cap, device=dev)[None, None, :]
                   < feat_len[:, None, None]).expand(b, t, cap)
         full_mask = torch.cat([ctx_ok, blk], dim=-1)
-        # a dense feature cache under a kv_seq mesh: the dense hook
-        # (merged in bfloat16: JAX passes no merge dtype here either)
-        n_sh = sp.kv_seq_shards()
-        use_sp = axis is not None and cap % n_sh == 0 and cap // n_sh >= 128
 
     for i in range(dcfg.num_layers):
-        lp = p[f"layer{i}"]
+        lp = sh.whole(p, p[f"layer{i}"], f"layer{i}")
         h = rmsnorm(lp["ln1"], x, dcfg.norm_eps)
         q = dense(lp["wq"], h).reshape(b, t, hq, dh)
         k = dense(lp["wk"], h).reshape(b, t, hkv, dh)
@@ -250,8 +264,9 @@ def drafter_forward(p, dcfg: DrafterConfig, block_tokens, feat_cache,
         x = x + dense(lp["wo"], y.reshape(b, t, hq * dh))
         h = rmsnorm(lp["ln2"], x, dcfg.norm_eps)
         x = x + mlp(lp["mlp"], h)
+        del lp
     x = rmsnorm(p["ln_f"], x, dcfg.norm_eps)
-    return dense(p["head"], x)
+    return dense(sh.whole(p, p["head"], "head"), x)
 
 
 def dflash_block(anchor, gamma: int, mask_token: int):

@@ -56,6 +56,38 @@ class SpecBundle:
     d2_params: Any
 
 
+def serve_storage(bundle: SpecBundle) -> SpecBundle:
+    """Inside a mesh, ``bundle`` at this rank's serving storage: the slice
+    of every leaf of the target and both drafters by the active parameter
+    rules (``sharding.serve_storage``; JAX's serving cells put them at
+    ``params_shardings``), which the model functions make whole one layer
+    at a time. A MoE target's expert stacks must already be the rank's
+    expert-parallel part (``ep.ep_shard_target``), which stays as it is:
+    the experts dim is never gathered. Outside a mesh, and for a bundle
+    already at its storage, ``bundle`` itself. The caller drops its whole
+    bundle for the memory to fall."""
+    mesh = sh.active_mesh()
+    if mesh is None:
+        return bundle
+    from repro_torch.distributed import ep
+    owned = ([(ep.STACKS_PATTERN, (ep.experts_axis(mesh),))]
+             if ep.mesh_expert_part(bundle.target_cfg, mesh) is not None
+             else [])
+    return dataclasses.replace(
+        bundle,
+        target_params=sh.serve_storage(bundle.target_params, mesh, owned),
+        d1_params=sh.serve_storage(bundle.d1_params, mesh),
+        d2_params=sh.serve_storage(bundle.d2_params, mesh))
+
+
+def at_storage(bundle: SpecBundle) -> bool:
+    """Whether some leaf of ``bundle`` is stored as a rank's slice (its
+    forward gathers weights)."""
+    return any(getattr(t, "layout", None) is not None and t.layout.cut
+               for t in (bundle.target_params, bundle.d1_params,
+                         bundle.d2_params))
+
+
 def with_attn_impl(bundle: SpecBundle, impl: str) -> SpecBundle:
     """Bundle with the KV/feature-cache read path set to ``impl``
     ("gather" | "kernel") on the target and both drafters."""
@@ -196,12 +228,16 @@ def generate(bundle: SpecBundle, prompts, max_new: int, seed: int = 0,
     prefill; the port's is fixed storage), and every cycle reads them.
     The graph loop takes no ``ctx``, as JAX's ``generate_ondevice``.
 
-    Inside a mesh whose batch axes split the B rows
+    Inside a mesh the bundle runs at the rank's serving storage
+    (:func:`serve_storage`: each layer's weights made whole as it
+    starts), and a dense cache under a kv_seq axis holds the rank's run
+    of the slots. Where the mesh's batch axes split the B rows
     (``sharding.batch_run``), each rank decodes its run of them (dense
     caches of its rows; a paged pool of every row's pages, replicated
     over the batch axes) and every cycle's results are gathered, so every
     rank returns the whole batch's tokens and stats.
     """
+    bundle = serve_storage(bundle)
     dev = resolve_device(device)
     gen = pm.make_generator(seed, dev)
     prompts = torch.as_tensor(np.asarray(prompts), device=dev).long()
@@ -418,19 +454,27 @@ def _lengths(true_len, dev):
 
 def _refuse_collective_mesh(bundle):
     """A cycle under a kv_seq mesh merges its reads, a MoE target's cycle
-    under an experts axis its experts' outputs, and a cycle in a mesh
-    with batch axes gathers its rows' results and pool writes, by gloo
-    collectives on the host, which no CUDA graph can hold."""
+    under an experts axis its experts' outputs, a cycle in a mesh with
+    batch axes gathers its rows' results and pool writes, and a bundle at
+    a rank's storage (inside any mesh whose rules cut a weight) gathers
+    its weights a layer at a time, by collectives between processes,
+    which no CUDA graph can hold."""
     from repro_torch.distributed import ep, spdecode
-    if spdecode.kv_seq_axis() is not None \
+    mesh = sh.active_mesh()
+    cuts = at_storage(bundle) or (mesh is not None and any(
+        sh.serve_layout(t, mesh).cut for t in (
+            bundle.target_params, bundle.d1_params, bundle.d2_params)))
+    if spdecode.kv_seq_axis() is not None or cuts \
             or ep.ep_available(bundle.target_cfg) or sh.batch_shards() > 1:
         raise NotImplementedError(
             "generate_ondevice / OnDeviceLoop inside a kv_seq mesh, an "
-            "experts mesh over a MoE target or a mesh with batch axes: the "
-            "ranks merge and gather through gloo collectives on the host, "
-            "which a CUDA graph cannot capture; use generate (the eager "
-            "cycle). The graph-captured mesh loop comes with NCCL "
-            "(ROADMAP.md queue 1, item 9b)")
+            "experts mesh over a MoE target, a mesh with batch axes or a "
+            "mesh that cuts the weights (a rank's serving storage, "
+            "gathered a layer at a time): the ranks merge and gather "
+            "through collectives between processes, which a CUDA graph "
+            "cannot capture; use generate (the eager cycle). The "
+            "graph-captured mesh loop comes with NCCL (ROADMAP.md queue 1, "
+            "item 9b)")
 
 
 def generate_ondevice(bundle: SpecBundle, prompts, max_new: int,
@@ -451,8 +495,10 @@ def generate_ondevice(bundle: SpecBundle, prompts, max_new: int,
     capture alone and graph_pool_bytes the memory its private pool took
     (both 0 on the CPU). ``true_len``: ragged prompts, as in
     :func:`generate`. Inside a kv_seq mesh, an experts mesh over a MoE
-    target or a mesh with batch axes, it raises ``NotImplementedError``
-    (collectives cannot go into a CUDA graph: ROADMAP.md item 9b).
+    target, a mesh with batch axes or a mesh whose rules cut a weight
+    (the bundle at a rank's storage, :func:`serve_storage`), it raises
+    ``NotImplementedError`` (collectives cannot go into a CUDA graph:
+    ROADMAP.md item 9b).
     """
     _refuse_collective_mesh(bundle)
     dev = resolve_device(device)

@@ -89,7 +89,7 @@ class EngineState:
         """Logical cache capacity (max_pages * page_size when paged)."""
         if kvc.is_paged(self.d1_feat):
             return kvc.logical_len(self.d1_feat)
-        return self.d1_feat["k"].shape[2]
+        return kvc.slot_run(self.d1_feat["k"], 2).cap
 
     @property
     def page_size(self) -> int:
@@ -343,8 +343,8 @@ def rows_template(state: EngineState, row_tables) -> EngineState:
             elif name == "pt":
                 out[name] = rt
             else:
-                out[name] = _zeros_rows(v, 0 if name == "length" else axis,
-                                        k)
+                out[name] = kvc.like(v, _zeros_rows(
+                    v, 0 if name == "length" else axis, k))
         return out
 
     return EngineState(
@@ -466,6 +466,16 @@ def _install(bundle, state, rows, prompts, gen, temperature, row_tables,
 
 
 # ------------------------------------------------------- install accounting -
+def _whole_share(a) -> int:
+    """How many times the leaf ``a`` a rank stores goes into the whole
+    leaf (a dense run of the slots, a recurrent state's slice)."""
+    run = getattr(a, "slot_run", None)
+    if run is not None:
+        return run.cap // run.n
+    cut = getattr(a, "state_slice", None)
+    return 1 if cut is None else cut.size // cut.n
+
+
 def _row_nbytes(a, axis) -> int:
     if a.ndim == 0 or axis >= a.ndim:
         return 0
@@ -481,7 +491,9 @@ def refill_copy_bytes(state: EngineState, n_tokens: int) -> int:
     and drafter features whatever the prompt's length. Paged: only the
     ``n_tokens`` prompt positions land in the pools, plus one page-table
     row per paged cache and the small dense leaves (window-capped local
-    KV, lengths, anchor, active)."""
+    KV, lengths, anchor, active). A row counts at its whole width where a
+    rank holds a run of its slots or a slice of a recurrent state (JAX's
+    count is of the whole arrays)."""
     def block_bytes(d, axis) -> int:
         total = 0
         paged = kvc.is_paged(d)
@@ -493,7 +505,8 @@ def refill_copy_bytes(state: EngineState, n_tokens: int) -> int:
             elif name == "pt":
                 total += _row_nbytes(v, 0)
             else:
-                total += _row_nbytes(v, 0 if name == "length" else axis)
+                total += _row_nbytes(v, 0 if name == "length" else axis) \
+                    * _whole_share(v)
         return total
 
     total = sum(block_bytes(d, 0) for d in state.target["layers"])

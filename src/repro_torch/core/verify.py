@@ -273,7 +273,7 @@ def _repeat_rows(target, r):
     def blk(d):
         paged = kvc.is_paged(d)
         return {name: (v if paged and name in ("k", "v")
-                       else v.repeat_interleave(r, dim=0))
+                       else kvc.like(v, v.repeat_interleave(r, dim=0)))
                 for name, v in d.items()}
 
     return {"layers": [blk(d) for d in target["layers"]],

@@ -18,6 +18,10 @@ with ``all_gather_object``), and a collective is
 
 A payload over ``ROUND_BYTES`` goes in rounds of that many bytes.
 
+Before a rank leaves, :func:`close_all` drops every peer buffer it maps
+and meets each group at a barrier, so that no rank's process ends while a
+peer still maps its buffer.
+
 Sums run in rank order on every rank, in fp32 for a half-precision
 payload, so every rank gets the same bits. :class:`DeviceExchange`
 decides per group, at the group's first CUDA collective, whether its
@@ -27,6 +31,8 @@ cards, and every CPU payload, goes through the mesh's gloo collectives.
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
+
+import weakref
 
 import torch
 import torch.distributed as dist
@@ -38,18 +44,50 @@ from torch.multiprocessing.reductions import reduce_tensor
 ROUND_BYTES = 256 << 20
 
 
+#: every exchange of this process, for :func:`close_all`
+_LIVE: "weakref.WeakSet[DeviceExchange]" = weakref.WeakSet()
+
+
 def _uuid(device: torch.device) -> str:
     return str(torch.cuda.get_device_properties(device).uuid)
+
+
+def close_all():
+    """:meth:`DeviceExchange.close` of every exchange of this process, in
+    the order they were made (the same on every rank)."""
+    for ex in sorted(_LIVE, key=lambda e: e.serial):
+        ex.close()
 
 
 class DeviceExchange:
     """A rank's exchange buffers on its card, one a group of ``mesh``
     (a ``sharding.Mesh``); see the module docstring."""
 
+    _made = 0
+
     def __init__(self, mesh):
         self.mesh = mesh
         # live axes -> None (a group across cards) or [own, peers...]
         self._bufs: Dict[Tuple[str, ...], Optional[List[torch.Tensor]]] = {}
+        DeviceExchange._made += 1
+        self.serial = DeviceExchange._made
+        _LIVE.add(self)
+
+    def close(self):
+        """Drop the peers' buffers this rank maps, then meet each group
+        whose buffers it shared at a barrier: past it no peer maps this
+        rank's buffer, so its process may end. Collective over those
+        groups, in the order they were first used (the same on every
+        rank). The exchange can be used again afterwards."""
+        shared = [live for live, bufs in self._bufs.items() if bufs]
+        devices = {bufs[0].device for bufs in self._bufs.values() if bufs}
+        self._bufs.clear()
+        for dev in devices:
+            torch.cuda.synchronize(dev)
+        for live in shared:
+            self._meet(live)
+        if devices:
+            torch.cuda.ipc_collect()
 
     def _buffers(self, axes, device, nbytes) -> Optional[List[torch.Tensor]]:
         """The group's buffers (this rank's at its own index), grown to

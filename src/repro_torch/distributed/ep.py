@@ -56,6 +56,8 @@ from repro_torch.distributed.spdecode import PayloadCounter
 REDUCES = PayloadCounter()
 
 _STACKS = ("moe_w_in", "moe_w_gate", "moe_w_out")
+#: the paths of the expert stacks in a target's params
+STACKS_PATTERN = r"(^|/)moe_w_(in|gate|out)$"
 
 
 def experts_axis(mesh) -> Optional[str]:

@@ -700,6 +700,171 @@ def gather_tree(sharded, shardings, mesh: Optional[Mesh] = None):
     return pm.unflatten_like(sharded, out)
 
 
+def _gathered(t: torch.Tensor, d: int, every: torch.Tensor) -> torch.Tensor:
+    """``every`` [n, *t.shape] (each rank's slice in rank order) joined
+    along ``t``'s dim ``d``."""
+    return every.movedim(0, d).flatten(d, d + 1).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Serving storage: a rank keeps its slice of every weight by the parameter
+# rules and makes one subtree whole at its use (JAX's serving cells put the
+# weights at ``params_shardings`` and GSPMD gathers what a layer reads).
+# ---------------------------------------------------------------------------
+
+#: the serving weight gathers (:meth:`ServeLayout.gather`): calls, bytes a
+#: rank receives (the whole less its own slice) and, ``timed``, host seconds
+WEIGHTS = PayloadCounter()
+
+#: each mesh's exchange buffers on the card (``device_exchange.py``), made
+#: at its first CUDA gather of serving storage
+_EXCHANGES: Dict[Mesh, object] = {}
+
+
+def card_all_gather(mesh: Mesh, t: torch.Tensor, axes) -> torch.Tensor:
+    """Every rank's ``t`` over ``axes``, stacked in rank order: a CUDA
+    tensor of a group whose ranks share one card through CUDA IPC
+    (``device_exchange.py``, counted in :data:`COLLECTIVES` as the mesh
+    counts its own), anything else through :meth:`Mesh.all_gather`."""
+    live = mesh._live(axes)
+    if t.is_cuda and live:
+        if mesh not in _EXCHANGES:
+            from repro_torch.distributed.device_exchange import \
+                DeviceExchange
+            _EXCHANGES[mesh] = DeviceExchange(mesh)
+        out = _EXCHANGES[mesh].all_gather(t, live)
+        if out is not None:
+            count_sent("all-gather", t, mesh.size(live))
+            return out
+    return mesh.all_gather(t, live)
+
+
+class ServeLayout:
+    """Where each leaf of a serving tree lives on this rank of ``mesh``: its
+    :class:`LeafShard` by path (the tree's own paths). :meth:`gather` makes
+    a subtree whole; ranks on one card exchange through CUDA IPC
+    (``device_exchange.py``), others through the mesh's gloo collectives,
+    each counted in :data:`COLLECTIVES` and :data:`WEIGHTS`."""
+
+    def __init__(self, mesh: Mesh, leaves: Dict[str, LeafShard]):
+        self.mesh = mesh
+        self.leaves = leaves
+
+    @property
+    def cut(self) -> bool:
+        """Whether any leaf is stored as a slice."""
+        return any(r.local_shape != r.shape for r in self.leaves.values())
+
+    def _all_gather(self, t: torch.Tensor, axes) -> torch.Tensor:
+        n = self.mesh.size(self.mesh._live(axes))
+        with WEIGHTS.timing(t.device):
+            WEIGHTS.bytes += (n - 1) * t.numel() * t.element_size()
+            return card_all_gather(self.mesh, t, axes)
+
+    def gather(self, sub, path: str):
+        """``sub`` (a leaf or the subtree at ``path``) with every leaf
+        whole: each sharded dim all-gathered in turn, the leaves of one
+        dtype and axes in one collective. Collective: every rank of the
+        mesh calls it at the same point. ``sub`` itself when no leaf of it
+        is a slice."""
+        from repro_torch.models import param as pm
+        flat = pm.flatten(sub)
+        todo = {}
+        for k, t in flat.items():
+            full = f"{path}/{k}" if k else path
+            rec = self.leaves[full]
+            if tuple(t.shape) != rec.local_shape:
+                raise ValueError(f"{full}: {tuple(t.shape)} is not this "
+                                 f"rank's slice {rec.local_shape}")
+            dims = [(d, entry_axes(e)) for d, e in enumerate(rec.spec)
+                    if rec.local_shape[d] != rec.shape[d]]
+            if dims:
+                todo[k] = dims
+        if not todo:
+            return sub
+        out = dict(flat)
+        while todo:
+            groups: Dict[tuple, list] = {}
+            for k, dims in todo.items():
+                d, axes = dims[0]
+                groups.setdefault((axes, out[k].dtype), []).append((k, d))
+            for (axes, _), items in groups.items():
+                ts = [out[k] for k, _ in items]
+                every = self._all_gather(
+                    torch.cat([t.reshape(-1) for t in ts]), axes)
+                off = 0
+                for (k, d), t in zip(items, ts):
+                    m = t.numel()
+                    out[k] = _gathered(t, d, every[:, off:off + m].reshape(
+                        -1, *t.shape))
+                    off += m
+            todo = {k: dims[1:] for k, dims in todo.items() if len(dims) > 1}
+        return out[""] if list(flat) == [""] else pm.unflatten_like(sub, out)
+
+
+class Stored(dict):
+    """A tree (a dict) of this rank's serving storage, its
+    :class:`ServeLayout` as ``layout``: the model functions make each
+    subtree whole at its use (:func:`whole`)."""
+
+    layout: ServeLayout
+
+
+def serve_layout(tree, mesh: Optional[Mesh] = None,
+                 owned: Sequence[Tuple[str, Tuple[str, ...]]] = ()
+                 ) -> ServeLayout:
+    """The :class:`ServeLayout` of a tree of whole leaves in ``mesh``
+    (default the active one) by the active rules (``embed_fsdp`` under
+    ``fsdp``): JAX's ``params_shardings``. ``owned``: (path pattern, mesh
+    axes) pairs: a leaf whose path the pattern matches is already the
+    part of it this rank holds along those axes (a MoE's expert stacks
+    under expert parallelism, ``ep.ep_shard_target``: the ranks along
+    the experts axis hold different experts), so no dim of it is cut or
+    gathered over them."""
+    from repro_torch.models import param as pm
+    mesh = mesh if mesh is not None else _CTX.mesh
+    if mesh is None:
+        raise ValueError("serve_layout needs a mesh")
+    leaves = {}
+    for k, v in pm.flatten(tree).items():
+        shape = tuple(int(n) for n in v.shape)
+        rec = leaf_shard(k, shape, mesh)
+        mine = {a for pat, axes in owned if re.search(pat, k) for a in axes}
+        if mine and any(mine & set(entry_axes(e)) for e in rec.spec):
+            spec = tuple(None if mine & set(entry_axes(e)) else e
+                         for e in rec.spec)
+            rec = LeafShard(shape, spec, tuple(
+                slice(0, n) if e is None else sl
+                for n, e, sl in zip(shape, spec, rec.index)))
+        leaves[k] = rec
+    return ServeLayout(mesh, leaves)
+
+
+def serve_storage(tree, mesh: Optional[Mesh] = None,
+                  owned: Sequence[Tuple[str, Tuple[str, ...]]] = ()
+                  ) -> "Stored":
+    """This rank's storage of a serving tree of whole leaves (copies of
+    its slices; the replicated leaves as they are), as a :class:`Stored`
+    that carries its layout. A tree that is already :class:`Stored` is
+    returned as it is."""
+    from repro_torch.models import param as pm
+    if isinstance(tree, Stored):
+        return tree
+    lay = serve_layout(tree, mesh, owned)
+    out = Stored(pm.unflatten_like(tree, {
+        k: lay.leaves[k].take(v) for k, v in pm.flatten(tree).items()}))
+    out.layout = lay
+    return out
+
+
+def whole(tree, sub, path: str):
+    """``sub``, the subtree at ``path`` of ``tree``, made whole when
+    ``tree`` holds a rank's serving storage (:class:`Stored`); ``sub``
+    itself otherwise."""
+    lay = getattr(tree, "layout", None)
+    return sub if lay is None else lay.gather(sub, path)
+
+
 def constrain_params(params, shardings=None):
     """Each leaf as this rank's storage (JAX's ``constrain_params``, which
     constrains each leaf to its rule-derived sharding): a whole leaf is

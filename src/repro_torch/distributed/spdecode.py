@@ -15,9 +15,10 @@ A rank holds its run of the batch's rows (every row when the batch axes
 do not split them: ``sharding.batch_run``), which is JAX's ``bspec``
 slice of its ``shard_map``: queries, blocks, lengths and page tables are
 the run's, the same on every rank of the kv_seq axis; a dense cache
-holds the run's rows, replicated over kv_seq, and each rank reads its
-slice of it; a page pool holds this rank's run of every page
-(``models/kvcache.py``), replicated over the batch axes.
+holds the run's rows and this rank's run of the slots
+(``kvcache.dense_cache``), which it reads; a page pool holds this rank's
+run of every page (``models/kvcache.py``), replicated over the batch
+axes.
 """
 from __future__ import annotations
 
@@ -86,8 +87,8 @@ def sharded_cache_attend(q, cache_k, cache_v, blk_k, blk_v, *, cache_len,
                          kv_chunk: int = 1024, merge_dtype=torch.bfloat16):
     """Single-softmax attention over [sharded cache ++ replicated block].
 
-    q: [B,Tq,Hq,Dh]; cache_k/v: [B,S,Hkv,Dh], the whole (replicated) dense
-    cache, of which rank r reads slots ``[r*S/P, (r+1)*S/P)``;
+    q: [B,Tq,Hq,Dh]; cache_k/v: [B,S/P,Hkv,Dh], this rank's run of a
+    dense cache of S slots, slots ``[r*S/P, (r+1)*S/P)`` on rank r;
     blk_k/v: [B,Tblk,Hkv,Dh]; blk_mask [B,Tq,Tblk] or [Tq,Tblk];
     cache_len: [B] or scalar; q_abs: [B,Tq] or [Tq] absolute positions.
 
@@ -103,14 +104,13 @@ def sharded_cache_attend(q, cache_k, cache_v, blk_k, blk_v, *, cache_len,
     blk_mask = _block_mask(blk_mask, b, tq)
     clen = _rows(cache_len, b, None, dev)
     qa = _rows(q_abs, b, tq, dev)
-    cap = cache_k.shape[1]
-    s_loc = cap // mesh.size(axis)
+    s_loc = cache_k.shape[1]
+    cap = s_loc * mesh.size(axis)
     offset = mesh.index(axis) * s_loc
-    ck = cache_k[:, offset:offset + s_loc]
-    cv = cache_v[:, offset:offset + s_loc]
     # mask by absolute key position (rolling caches store position p at
     # slot p % cap, recovered against the local slot offset)
-    acc, m, l = _cache_stats(q, ck, cv, offset=offset, cap=cap, clen=clen,
+    acc, m, l = _cache_stats(q, cache_k, cache_v, offset=offset, cap=cap,
+                             clen=clen,
                              qab=qa, window=window,
                              attn_softcap=attn_softcap, rolling=rolling,
                              kv_chunk=kv_chunk)

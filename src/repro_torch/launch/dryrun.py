@@ -55,10 +55,29 @@ def _item(err: BaseException):
     return m.group(1) if m else None
 
 
+def arg_parts(cell, args):
+    """A rank's argument bytes of ``cell`` by part: a train cell's params,
+    optimizer state and batch; a serving cell's weights (the bundle at
+    the rank's storage, an encoder's params), engine state and inputs
+    (the prompts, the context)."""
+    from repro_torch.core.state import EngineState
+    from repro_torch.roofline import trace_analysis as ta
+    if cell.kind == "train":
+        params, opt, batch = args
+        return {"params": ta.storage_bytes(params),
+                "opt_state": ta.storage_bytes(opt),
+                "batch": ta.storage_bytes(batch)}
+    at = next(i for i, a in enumerate(args) if isinstance(a, EngineState))
+    return {"params": ta.storage_bytes(args[:at]),
+            "state": ta.storage_bytes(args[at]),
+            "inputs": ta.storage_bytes(args[at + 1:])}
+
+
 def trace_cell(cell, mesh, rules=None, fsdp=None):
     """(argument bytes by part, trace counts) of ``cell`` for the rank of
-    ``mesh`` (a ``sharding.Mesh``; shape-only or real)."""
-    from repro_torch.core.state import EngineState
+    ``mesh`` (a ``sharding.Mesh``; shape-only or real): its arguments as
+    JAX's ``in_shardings`` cut them (``steps.rank_args``), parts by
+    :func:`arg_parts`."""
     from repro_torch.distributed import sharding as sh
     from repro_torch.launch import steps as steps_lib
     from repro_torch.roofline import trace_analysis as ta
@@ -66,17 +85,7 @@ def trace_cell(cell, mesh, rules=None, fsdp=None):
     fsdp = cell.fsdp if fsdp is None else fsdp
     with sh.use_sharding(mesh, rules, fsdp=fsdp):
         args = steps_lib.rank_args(cell)
-        if cell.kind == "train":
-            params, opt, batch = args
-            parts = {"params": ta.storage_bytes(params),
-                     "opt_state": ta.storage_bytes(opt),
-                     "batch": ta.storage_bytes(batch)}
-        else:
-            at = next(i for i, a in enumerate(args)
-                      if isinstance(a, EngineState))
-            parts = {"params": ta.storage_bytes(args[:at]),
-                     "state": ta.storage_bytes(args[at]),
-                     "inputs": ta.storage_bytes(args[at + 1:])}
+        parts = arg_parts(cell, args)
         counts = ta.trace_counts(cell.fn, *args)
     return parts, counts
 

@@ -24,6 +24,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from repro_torch.distributed import device_exchange
 from repro_torch.distributed.sharding import Mesh, ShapeOnlyGroup
 
 #: how long a rank waits in a collective or the rendezvous before it fails
@@ -130,5 +131,7 @@ def _rank_main(rank, fn, n, d, args, threads, wait):
     try:
         out = fn(rank, *args)
         torch.save(out, os.path.join(d, f"{rank}.pt"))
+        # no rank leaves while a peer still maps its exchange buffers
+        device_exchange.close_all()
     finally:
         dist.destroy_process_group()

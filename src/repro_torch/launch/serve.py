@@ -20,7 +20,11 @@ decode reads merge across ranks (``--kv-seq-axis off`` keeps the mesh
 and replicates the pool). A MoE target (``--arch grok-1-314b``) runs its
 experts in parallel over the same axis (``distributed/ep.py``: each rank
 keeps its share of every expert stack, ``ep_shard_target``), with the
-kv_seq axis on or off. ``--mesh-data N`` adds a data axis: the launcher
+kv_seq axis on or off. Every rank keeps its slice of every weight by
+the parameter rules (heads, ffn and vocab over ``model``; FSDP over
+``data`` too above 1e11 parameters) and gathers a layer's weights as the
+layer starts (``pipeline.serve_storage``); a dense cache holds the
+rank's run of the slots. ``--mesh-data N`` adds a data axis: the launcher
 starts ``N * P`` ranks of a ``(N, P)`` mesh, a wave's rows split over
 the data axis where N divides them, and the pool is replicated over it
 (``serving/engine.py``). Rank 0 prints (with a mesh, ``batch_shards=N
@@ -173,18 +177,23 @@ def main(argv=None):
 
 def _serve_rank(rank, args):
     """One rank of a ``--mesh-data`` / ``--mesh-model`` run: the engine
-    inside the mesh, a MoE target's expert stacks cut to this rank's
-    part."""
+    inside the mesh, a MoE target's expert stacks cut to this rank's part,
+    then every weight to the rank's serving storage (FSDP too above 1e11
+    parameters, as JAX's serving cells), whole a layer at a time."""
+    from repro_torch.core.pipeline import serve_storage
     from repro_torch.distributed.ep import ep_shard_target
     from repro_torch.distributed.sharding import LOGICAL_RULES, use_sharding
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import serve_fsdp
     rules = dict(LOGICAL_RULES,
                  kv_seq=None if args.kv_seq_axis == "off" else "model")
     mesh = make_mesh(args.mesh_data, args.mesh_model)
     with use_sharding(mesh, rules):
         bundle = build_bundle(args, resolve_device(args.device))
-        bundle = dataclasses.replace(bundle, target_params=ep_shard_target(
-            bundle.target_params, bundle.target_cfg, mesh))
+    with use_sharding(mesh, rules, fsdp=serve_fsdp(bundle.target_cfg)):
+        bundle = serve_storage(dataclasses.replace(
+            bundle, target_params=ep_shard_target(
+                bundle.target_params, bundle.target_cfg, mesh)))
         with contextlib.redirect_stdout(None) if rank else \
                 contextlib.nullcontext():
             return _serve(args, bundle)

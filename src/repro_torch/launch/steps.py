@@ -219,16 +219,24 @@ def ctx_len_for(cfg: ModelConfig) -> int:
 
 
 def engine_state_abstract(bundle, batch: int, max_len: int,
-                          run: Optional[sh.BatchRun] = None):
-    """The engine state of a wave of ``batch`` rows on meta
-    (``engine_init``, the cross caches sized by :func:`ctx_len_for`);
-    ``run``: this rank's run of the rows. Paged, where JAX's is dense:
-    the port's serving path on a mesh, whose pools hold a rank's kv_seq
-    run of every page (a dense cache is whole on every kv_seq rank)."""
+                          run: Optional[sh.BatchRun] = None,
+                          device="meta"):
+    """The engine state of a wave of ``batch`` rows on meta (or zeroed on
+    ``device``): JAX's dense ``engine_init`` (the cross caches sized by
+    :func:`ctx_len_for`).
+    Inside a mesh it is what a rank holds by JAX's state rules: ``run``
+    (this rank's run of the rows) sets its rows, a kv_seq axis its run of
+    every dense cache's slots (``kvcache.dense_cache``), the model axis
+    its slice of each recurrent state (``kvcache.state_leaf``)."""
     return state_lib.engine_init(bundle, batch, max_len,
                                  ctx_len=ctx_len_for(bundle.target_cfg),
-                                 cache_impl="paged", device="meta",
-                                 run=run)
+                                 cache_impl="dense", device=device, run=run)
+
+
+def serve_fsdp(cfg: ModelConfig) -> bool:
+    """Whether a serving cell stores its weights FSDP over ``data`` too:
+    only the giant MoEs, whose weights do not fit a model-axis shard."""
+    return cfg.param_count() > 1e11
 
 
 def make_prefill_step(cfg: ModelConfig):
@@ -238,17 +246,27 @@ def make_prefill_step(cfg: ModelConfig):
     prompts)``; each returns the prefilled ``EngineState``."""
     if cfg.is_encoder_decoder:
         def step(enc_params, bundle, est, prompts, audio_feats):
-            ctx = encdec.encode(enc_params, audio_feats, cfg)
-            return state_lib.prefill(bundle, est, prompts, ctx=ctx)
+            ctx = encdec.encode(enc_params, _run_rows(est, audio_feats),
+                                cfg)
+            return state_lib.prefill(bundle, est, _run_rows(est, prompts),
+                                     ctx=ctx)
         return step
     if cfg.cross_attn_every:
         def step(bundle, est, prompts, image_embeds):
-            return state_lib.prefill(bundle, est, prompts, ctx=image_embeds)
+            return state_lib.prefill(bundle, est, _run_rows(est, prompts),
+                                     ctx=_run_rows(est, image_embeds))
         return step
 
     def step(bundle, est, prompts):
-        return state_lib.prefill(bundle, est, prompts)
+        return state_lib.prefill(bundle, est, _run_rows(est, prompts))
     return step
+
+
+def _run_rows(est, x):
+    """The rows of ``x`` (a whole batch's prompts or context) that the
+    state ``est`` holds: its run of a batch-split wave, else all."""
+    run = est.run
+    return x if run is None or not run.split else x[run.rows]
 
 
 def make_serve_step():
@@ -315,9 +333,9 @@ def build_cell(arch: str, shape_name: str,
     cfg = dataclasses.replace(cfg, attn_impl="kernel")
     spec_c = SpecConfig(gamma=gamma, top_k_branches=k_branches)
     bundle = make_bundle_abstract(cfg, spec_c)
-    # serving: weights replicated across data, except the giant MoEs
-    # whose weights do not fit a single model-axis shard
-    serve_fsdp = cfg.param_count() > 1e11
+    # serving: TP-sharded weights replicated across data, except the giant
+    # MoEs whose weights don't fit a single model-axis shard
+    fsdp = serve_fsdp(cfg)
     meta = lambda shp, dt: torch.empty(shp, dtype=dt, device="meta")  # noqa: E731
 
     if shape.kind == "prefill":
@@ -338,7 +356,7 @@ def build_cell(arch: str, shape_name: str,
             args = (bundle, None, prompts, img)
         else:
             args = (bundle, None, prompts)
-        return CellSpec(step, args, rules, serve_fsdp, "prefill", cfg, shape)
+        return CellSpec(step, args, rules, fsdp, "prefill", cfg, shape)
 
     # decode
     rules["act_seq"] = None
@@ -347,19 +365,25 @@ def build_cell(arch: str, shape_name: str,
         bundle = dataclasses.replace(
             bundle, target_params=bundle.target_params["decoder"])
     return CellSpec(make_serve_step(), (bundle, None, None), rules,
-                    serve_fsdp, "decode", cfg, shape)
+                    fsdp, "decode", cfg, shape)
 
 
 def rank_args(cell: CellSpec):
-    """The arguments one rank of the active mesh passes to ``cell.fn``:
-    a train cell's params cut to the rank's storage and its optimizer
-    state made from them (the rank's moments), the whole batch (the step
-    takes the rank's rows); a serving cell's engine state made for the
-    rank's run of the rows (the first ``None`` in ``cell.args`` marks
-    it; a decode cell's generator stays None: greedy), the prompts and
-    context of a prefill the run's rows, a MoE target's expert stacks
-    the rank's part (``ep.ep_shard_target``). JAX's ``in_shardings`` cut the whole arguments
-    alike."""
+    """The arguments one rank of the active mesh passes to ``cell.fn``, as
+    JAX's ``in_shardings`` (``params_shardings`` of every argument) cut
+    the whole ones. A train cell: the params cut to the rank's storage
+    and its optimizer state made from them (the rank's moments), the
+    whole batch (the step takes the rank's rows). A serving cell: the
+    bundle at the rank's storage (``pipeline.serve_storage``; a MoE
+    target's expert stacks first cut to its expert-parallel part,
+    ``ep.ep_shard_target``), an encoder's params likewise; the engine
+    state (the first ``None`` in ``cell.args``) made as the rank holds it
+    (:func:`engine_state_abstract`: its rows, its run of the dense
+    caches' slots, its slice of each recurrent state; on the bundle's
+    device, so a cell of real weights gives a real run); every other
+    argument (the prompts, the context; a decode cell's generator stays
+    None: greedy) at its rule's slice, which leaves them whole, as JAX's
+    rules match no bare argument."""
     if cell.kind == "train":
         params, _, batch = cell.args
         pl_ = cell.fn.plan()
@@ -367,19 +391,21 @@ def rank_args(cell: CellSpec):
         return params, cell.opt_init(params), batch
     from repro_torch.distributed import ep
     b = cell.shape.global_batch
-    run = sh.batch_run(b)
     args = list(cell.args)
     at = next(i for i, a in enumerate(args) if isinstance(a, pl.SpecBundle))
     bundle = args[at]
-    # a MoE target's expert stacks: the rank's part (expert parallelism)
-    bundle = args[at] = dataclasses.replace(
-        bundle, target_params=ep.ep_shard_target(
-            bundle.target_params, bundle.target_cfg, sh.active_mesh()))
-    est = engine_state_abstract(bundle, b, _cap_for(cell.shape.seq_len),
-                                run=run)
-    at = args.index(None)
-    args[at] = est
-    if cell.kind == "prefill":
-        # the prompts and the context that follow the state: the run's rows
-        args[at + 1:] = [a[run.rows].clone() for a in args[at + 1:]]
+    bundle = dataclasses.replace(bundle, target_params=ep.ep_shard_target(
+        bundle.target_params, bundle.target_cfg, sh.active_mesh()))
+    args[at] = pl.serve_storage(bundle)
+    st = args.index(None)
+    dev = next(iter(pm.flatten(bundle.target_params).values())).device
+    args[st] = engine_state_abstract(bundle, b, _cap_for(cell.shape.seq_len),
+                                     run=sh.batch_run(b), device=dev)
+    for i, a in enumerate(args):
+        if i in (at, st) or a is None:
+            continue
+        if isinstance(a, torch.Tensor):
+            args[i] = sh.leaf_shard(str(i), a.shape).take(a)
+        else:
+            args[i] = sh.serve_storage(a)
     return tuple(args)

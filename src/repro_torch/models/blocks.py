@@ -131,7 +131,10 @@ def block_state_init(cfg: ModelConfig, spec: BlockSpec2, batch: int,
     """Per-layer decode state: a page pool + table for global layers under
     ``cache_impl="paged"``, else a dense [B, cap, Hkv, Dh] buffer (local
     layers keep a window-capped rolling buffer in both modes); recurrent
-    and rwkv layers hold their fp32 recurrent states in both modes. A
+    and rwkv layers hold their fp32 recurrent states in both modes. Inside
+    a mesh a dense buffer holds this rank's run of the slots under a
+    kv_seq axis (``kvcache.dense_cache``) and a recurrent state its slice
+    by JAX's state rules (``kvcache.state_leaf``). A
     cross block also holds its context's K/V, ``ck``/``cv`` [B,
     max(ctx_len, 1), Hkv, Dh], which a pass with ``ctx`` writes in place.
 
@@ -149,10 +152,11 @@ def block_state_init(cfg: ModelConfig, spec: BlockSpec2, batch: int,
 
 def _self_state(cfg, kind, batch, max_len, dtype, device, cache_impl,
                 page_size, pool_pages, page_table, ext_pool):
-    if kind == "recurrent":
-        return rglru_lib.rglru_state_init(cfg, batch, device)
-    if kind == "rwkv":
-        return rwkv_lib.rwkv_state_init(cfg, batch, device)
+    if kind in ("recurrent", "rwkv"):
+        init = (rglru_lib.rglru_state_init if kind == "recurrent"
+                else rwkv_lib.rwkv_state_init)
+        return {k: kvc.state_leaf(k, v)
+                for k, v in init(cfg, batch, device).items()}
     hkv, dh = cfg.num_kv_heads, cfg.head_dim
     if kind == "global" and cache_impl == "paged":
         if ext_pool is not None:
@@ -167,10 +171,8 @@ def _self_state(cfg, kind, batch, max_len, dtype, device, cache_impl,
                                    device),
                 "pt": page_table}
     cap = max_len if kind == "global" else min(max_len, cfg.sliding_window)
-    return {"k": torch.zeros((batch, cap, hkv, dh), dtype=dtype,
-                             device=device),
-            "v": torch.zeros((batch, cap, hkv, dh), dtype=dtype,
-                             device=device)}
+    return {name: kvc.dense_cache((batch, cap, hkv, dh), 1, dtype, device)
+            for name in ("k", "v")}
 
 
 def default_block_mask(tb: int, window, device):
@@ -317,14 +319,16 @@ def _attention(p, h, cfg, kind, *, state, cache_len, positions, write_kv,
     else:
         paged = kvc.is_paged(state)
         rolling = kind == "local"
-        cap = kvc.logical_len(state) if paged else state["k"].shape[1]
+        cap = (kvc.logical_len(state) if paged
+               else kvc.slot_run(state["k"], 1).cap)
 
         def cache_view():
             if paged:
                 ck = kvc.logical_view(state["k"], state["pt"])
                 cv = kvc.logical_view(state["v"], state["pt"])
             else:
-                ck, cv = state["k"], state["v"]
+                ck = kvc.dense_view(state["k"], 1)
+                cv = kvc.dense_view(state["v"], 1)
             return ck.to(k.dtype), cv.to(v.dtype)
 
         def q_abs():
@@ -407,21 +411,22 @@ def _sharded_read(q, k, v, state, cfg, paged, rolling, window, cap,
     windowless cache goes to ``sharded_paged_cache_attend`` with
     ``read_impl=cfg.attn_impl`` (the local pool: kernel #2 with
     pos_stride/pos_offset, or the gather of the local run); a dense one
-    whose capacity the axis divides into runs of at least 128 slots to
-    ``sharded_cache_attend`` (merged in bfloat16, as JAX's hook passes no
-    merge dtype); anything else reads unsharded (and so does every
-    read without a kv_seq axis). ``q_abs``: a function that gives the
-    queries' absolute positions."""
+    stored as runs of at least 128 slots a rank to
+    ``sharded_cache_attend`` on the local run (merged in bfloat16, as
+    JAX's hook passes no merge dtype); anything else reads unsharded,
+    through the gathered view (and so does every read without a kv_seq
+    axis). ``q_abs``: a function that gives the queries' absolute
+    positions."""
     if spdecode.kv_seq_axis() is None:
         return None
-    n_sh = spdecode.kv_seq_shards()
     blk_mask = extra_mask
     if blk_mask is None:
         tb = k.shape[1]
         blk_mask = torch.ones((tb, tb), dtype=torch.bool,
                               device=q.device).tril()
     if not paged:
-        if cap % n_sh or cap // n_sh < 128:
+        run = kvc.slot_run(state["k"], 1)
+        if run.whole or run.n < 128:
             return None
         return spdecode.sharded_cache_attend(
             q, state["k"].to(k.dtype), state["v"].to(v.dtype), k, v,
@@ -442,8 +447,10 @@ def _scatter_kv_(buf, new, start, rolling: bool, write_len=None):
     """Write [B,T,H,D] into [B,cap,H,D] at ``start`` (scalar or [B]; mod
     cap when rolling), in place. Out-of-range writes are dropped
     (``kvcache.drop_put_``); so are entries at or past ``write_len`` [B]
-    (a padded prompt's tail)."""
-    b, cap = buf.shape[:2]
+    (a padded prompt's tail), and under a kv_seq mesh those whose slot
+    lies outside this rank's run (``kvcache.dense_slots``)."""
+    b, n = buf.shape[:2]
+    cap = kvc.slot_run(buf, 1).cap
     t = new.shape[1]
     dev = buf.device
     start = torch.as_tensor(start, device=dev).long().reshape(-1).expand(b)
@@ -453,10 +460,7 @@ def _scatter_kv_(buf, new, start, rolling: bool, write_len=None):
         start = start + (t - cap)
         t = cap
     ar = torch.arange(t, device=dev)[None, :]
-    idx = start[:, None] + ar
-    if rolling:
-        idx = torch.remainder(idx, cap)
-    ok = (idx >= 0) & (idx < cap)
+    idx, ok = kvc.dense_slots(buf, 1, start[:, None] + ar, rolling)
     if write_len is not None:
         keep = ar < write_len[:, None]
         if rolling:
@@ -465,7 +469,7 @@ def _scatter_kv_(buf, new, start, rolling: bool, write_len=None):
             keep = keep & (ar >= write_len[:, None] - cap)
         ok = ok & keep
     ok = ok.reshape(-1)
-    flat = (torch.arange(b, device=dev)[:, None] * cap + idx).reshape(-1)
-    kvc.drop_put_(buf.view(b * cap, *buf.shape[2:]), 0, flat,
+    flat = (torch.arange(b, device=dev)[:, None] * n + idx).reshape(-1)
+    kvc.drop_put_(buf.view(b * n, *buf.shape[2:]), 0, flat,
                   new.reshape(b * t, *new.shape[2:]), ok)
     return buf

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.config.base import ModelConfig
+from repro_torch.distributed import sharding as sh
 from repro_torch.distributed import train_mesh
 from repro_torch.models import lm
 from repro_torch.models import param as pm
@@ -44,11 +45,14 @@ def encode(p, feats, cfg: ModelConfig, attn_impl: str = "auto"):
     """feats: [B, T_enc, d] (the stub frontend's output) -> [B, T_enc, d].
     Under ``attn_impl="auto"`` a long input (T_enc^2 > 256 * 1024, as
     whisper's 1500 frames) attends in 1024-key chunks, the last one short.
+    ``p`` may hold a serving rank's storage (``sharding.Stored``): each
+    layer is made whole as it starts.
     """
     x = feats.to(getattr(torch, cfg.dtype))
     t = x.shape[1]
     positions = torch.arange(t, device=x.device)[None, :]
-    for lp in p["layers"]:
+    for i in range(len(p["layers"])):
+        lp = sh.whole(p, p["layers"][i], f"layers/{i}")
         h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
         q, k, v = project_qkv(lp["attn"], h, cfg, positions=positions)
         y = attend(q, k, v, causal=False, impl=attn_impl)

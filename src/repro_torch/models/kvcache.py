@@ -39,12 +39,13 @@ batch axes (``sharding.batch_run``), every batch rank holds the whole
 pool (its kv_seq run of every page) and writes only its own rows'
 pages. Inside :func:`log_pool_writes` each :func:`pool_scatter_` records
 the slots it kept, and :func:`sync_replicas_` then ships every rank's
-written slots to every other replica in one gather (``core/state.py``:
-one a cycle, one an install).
+written slots to every other replica (``core/state.py``: once a cycle,
+once an install), in rounds of a bounded size.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import threading
 from typing import List, Optional, Sequence
 
@@ -126,6 +127,149 @@ def init_pool(pool_pages: int, page_size: int, num_kv_heads: int,
     global."""
     return torch.zeros((*lead, pool_pages, local_page(page_size),
                         num_kv_heads, head_dim), dtype=dtype, device=device)
+
+
+# --------------------------------------------------- dense runs, slices ----
+@dataclasses.dataclass(frozen=True)
+class SlotRun:
+    """The slots ``[lo, lo + n)`` of a dense cache of ``cap`` slots that
+    this rank stores (JAX's rule ``(batch, kv_seq, kv_heads_p, None)``,
+    fitted: under a kv_seq axis of P that divides ``cap``, rank r holds
+    ``[r cap/P, (r+1) cap/P)``; otherwise every slot)."""
+    lo: int
+    n: int
+    cap: int
+
+    @property
+    def whole(self) -> bool:
+        return self.n == self.cap
+
+
+def dense_cache(shape, seq_dim: int, dtype, device) -> torch.Tensor:
+    """A zeroed dense cache of whole ``shape`` whose slot axis is
+    ``seq_dim``: inside a kv_seq mesh, this rank's :class:`SlotRun` of it,
+    which the tensor carries (``slot_run``)."""
+    shape = list(shape)
+    cap, p = shape[seq_dim], sp.kv_seq_shards()
+    run = SlotRun(0, cap, cap)
+    if p > 1 and cap % p == 0:
+        n = cap // p
+        run = SlotRun(sp.kv_seq_index() * n, n, cap)
+    shape[seq_dim] = run.n
+    t = torch.zeros(shape, dtype=dtype, device=device)
+    if p > 1:
+        t.slot_run = run
+    return t
+
+
+def slot_run(buf: torch.Tensor, seq_dim: int) -> SlotRun:
+    """The :class:`SlotRun` a dense cache ``buf`` stores. Outside a kv_seq
+    mesh every slot; inside one, the run it was made with
+    (:func:`dense_cache`, kept by :func:`like`). A dense cache made
+    outside the mesh raises there: its slots cannot be placed."""
+    run = getattr(buf, "slot_run", None)
+    if run is not None:
+        return run
+    if sp.kv_seq_shards() > 1:
+        raise RuntimeError(
+            "a dense cache inside a kv_seq mesh must be made there "
+            "(kvcache.dense_cache): its slot run is not known")
+    n = buf.shape[seq_dim]
+    return SlotRun(0, n, n)
+
+
+def like(src: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """``t`` (made from ``src``'s rows: a row template, repeated rows)
+    carrying ``src``'s slot run or slice, if it has one."""
+    for name in ("slot_run", "state_slice"):
+        if hasattr(src, name):
+            setattr(t, name, getattr(src, name))
+    return t
+
+
+def dense_slots(buf: torch.Tensor, seq_dim: int, pos, rolling: bool):
+    """(local slot, kept) of absolute positions ``pos`` in the dense cache
+    ``buf``: position p at slot p (a rolling cache: p % cap), kept where
+    that slot lies in this rank's run (and in the cache)."""
+    run = slot_run(buf, seq_dim)
+    pos = pos.long()
+    idx = torch.remainder(pos, run.cap) if rolling else pos
+    loc = idx - run.lo
+    ok = (idx >= 0) & (idx < run.cap) & (loc >= 0) & (loc < run.n)
+    return loc, ok
+
+
+def dense_view(buf: torch.Tensor, seq_dim: int) -> torch.Tensor:
+    """Every slot of the dense cache ``buf``: ``buf`` itself, or under a
+    kv_seq mesh every rank's run all-gathered in order (what JAX's GSPMD
+    gathers for a read outside the sharded decode hook)."""
+    run = slot_run(buf, seq_dim)
+    if run.whole:
+        return buf
+    mesh, axis = sh.active_mesh(), sp.kv_seq_axis()
+    every = sh.card_all_gather(mesh, buf.contiguous(), axis)
+    return every.movedim(0, seq_dim).flatten(seq_dim, seq_dim + 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class StateSlice:
+    """A recurrent state leaf stored at this rank's slice over the model
+    axes (JAX's state rules: ``rg_h`` and ``conv_buf`` by ``ffn``,
+    ``tm_s`` by ``heads``): dim ``dim`` holds ``[lo, lo + n)`` of ``size``
+    over mesh ``axes``."""
+    dim: int
+    lo: int
+    n: int
+    size: int
+    axes: tuple
+
+
+def state_leaf(name: str, t: torch.Tensor) -> torch.Tensor:
+    """A freshly made (zeroed) recurrent state leaf ``name`` [B, ...] as
+    this rank stores it in the active mesh: cut by the state rules over
+    every axis but the batch axes (the state already holds the rank's
+    rows), carrying its :class:`StateSlice`; ``t`` itself where nothing
+    is cut."""
+    mesh = sh.active_mesh()
+    if mesh is None:
+        return t
+    rec = sh.leaf_shard(name, tuple(t.shape), mesh)
+    logical = sh.param_logical_axes(name, t.ndim)
+    cut = [(d, e) for d, (a, e) in enumerate(zip(logical, rec.spec))
+           if e is not None and a != "batch"]
+    if not cut:
+        return t
+    if len(cut) > 1:
+        raise NotImplementedError(f"state leaf {name}: cut over two dims")
+    d, entry = cut[0]
+    sl = rec.index[d]
+    out = torch.zeros(t.shape[:d] + (sl.stop - sl.start,) + t.shape[d + 1:],
+                      dtype=t.dtype, device=t.device)
+    out.state_slice = StateSlice(d, sl.start, sl.stop - sl.start,
+                                 t.shape[d], sh.entry_axes(entry))
+    return out
+
+
+@contextlib.contextmanager
+def whole_states(st):
+    """One layer's state dict with each leaf stored at a slice
+    (:func:`state_leaf`) all-gathered whole; on leaving, this rank's slice
+    of what the layer wrote into the whole leaves is kept. ``st`` itself
+    (None, or nothing cut)."""
+    cut = ({k: v.state_slice for k, v in st.items()
+            if isinstance(v, torch.Tensor) and hasattr(v, "state_slice")}
+           if st is not None else {})
+    if not cut:
+        yield st
+        return
+    mesh = sh.active_mesh()
+    work = dict(st)
+    for k, s in cut.items():
+        every = sh.card_all_gather(mesh, st[k].contiguous(), s.axes)
+        work[k] = every.movedim(0, s.dim).flatten(s.dim, s.dim + 1)
+    yield work
+    for k, s in cut.items():
+        st[k].copy_(work[k].narrow(s.dim, s.lo, s.n))
 
 
 def pool_view(pool, table):
@@ -242,13 +386,18 @@ def _slots(pool):
 
 def sync_replicas_(pools: Sequence[torch.Tensor], log, mesh, axes) -> int:
     """Every batch rank's logged writes (:func:`log_pool_writes`) into
-    this rank's replica of ``pools``, in place: one gather over ``axes``
-    (each rank's written slot count per pool, then the padded payload of
-    slot indices and values, staged through the host). The ranks write
+    this rank's replica of ``pools``, in place. One gather over ``axes``
+    of each rank's written slot count per pool, then each rank's stream
+    of written slots (pool by pool, each slot its index and then its
+    values) in rounds of at most ``device_exchange.ROUND_BYTES`` a rank,
+    staged through the host: each round is copied into the replica before
+    the next is gathered, so a rank never holds more than one round of its
+    peers' writes (and a slot that straddles two rounds). The ranks write
     disjoint pages (a shared page is never written), so the order of the
     copies does not matter. Returns the bytes this rank sent."""
     if any(p.device.type == "meta" for p in pools):
         return _sync_replicas_meta(pools, log, mesh, axes)
+    from repro_torch.distributed.device_exchange import ROUND_BYTES
     at = {id(p): j for j, p in enumerate(pools)}
     written = [[] for _ in pools]
     for pool, flat, ok in log:
@@ -258,38 +407,59 @@ def sync_replicas_(pools: Sequence[torch.Tensor], log, mesh, axes) -> int:
         view, dim = _slots(pool)
         idx = (torch.unique(torch.cat(w)) if w else
                torch.zeros((0,), dtype=torch.long, device=pool.device))
-        vals = view.index_select(dim, idx).cpu().contiguous()
-        parts += [idx.cpu().view(torch.uint8),
-                  vals.view(torch.uint8).reshape(-1)]
-        counts.append(idx.numel())
+        vals = view.index_select(dim, idx).movedim(dim, 0).cpu()
+        c = idx.numel()
+        parts.append(torch.cat([
+            idx.cpu().view(torch.uint8).reshape(c, 8),
+            vals.contiguous().view(torch.uint8).reshape(
+                c, _slot_bytes(pool) - 8)], 1).reshape(-1))
+        counts.append(c)
     n = torch.tensor(counts, dtype=torch.long)
     all_n = mesh.all_gather(n, axes)                 # [ranks, pools]
-    # bytes a written slot takes: its index, then its values
-    per = torch.tensor([_slot_bytes(p) for p in pools], dtype=torch.long)
-    sizes = (all_n * per).sum(1)
-    payload = torch.zeros((int(sizes.max()),), dtype=torch.uint8)
-    mine = torch.cat(parts) if parts else payload[:0]
-    payload[:mine.numel()] = mine
-    everyone = mesh.all_gather(payload, axes)
+    per = [_slot_bytes(p) for p in pools]
+    sizes = [sum(int(all_n[r, j]) * per[j] for j in range(len(pools)))
+             for r in range(all_n.shape[0])]
+    mine = torch.cat(parts)
     me = mesh.index(axes)
-    for r in range(everyone.shape[0]):
-        if r == me:
-            continue
-        buf, o = everyone[r], 0
-        for j, pool in enumerate(pools):
-            c = int(all_n[r, j])
-            view, dim = _slots(pool)
-            idx = buf[o:o + 8 * c].clone().view(torch.long)
-            o += 8 * c
-            nb = c * (int(per[j]) - 8)
-            shape = list(view.shape)
-            shape[dim] = c
-            vals = buf[o:o + nb].clone().view(view.dtype).reshape(shape)
-            o += nb
-            if c:
-                view.index_copy_(dim, idx.to(pool.device),
-                                 vals.to(pool.device))
+    # each peer's place in its stream: (pool, slots of it copied, the
+    # bytes of a slot the last round cut)
+    place = {r: [0, 0, mine[:0]] for r in range(len(sizes)) if r != me}
+    total = max(sizes)
+    for a in range(0, total, ROUND_BYTES):
+        w = min(ROUND_BYTES, total - a)
+        chunk = torch.zeros((w,), dtype=torch.uint8)
+        piece = mine[a:a + w]
+        chunk[:piece.numel()] = piece
+        every = mesh.all_gather(chunk, axes)         # [ranks, w]
+        for r, pos in place.items():
+            got = every[r, :max(0, min(w, sizes[r] - a))]
+            pos[2] = _copy_slots_(pools, all_n[r], per, pos,
+                                  torch.cat([pos[2], got]))
     return int(n.numel() * 8 + mine.numel())
+
+
+def _copy_slots_(pools, counts, per, pos, buf):
+    """Copy the whole slots at the front of ``buf`` (a peer's stream from
+    its place ``pos`` = [pool, slots of it copied, ...]) into ``pools``,
+    advancing ``pos``; returns the bytes of a slot left over."""
+    while pos[0] < len(pools):
+        j = pos[0]
+        k = min(int(counts[j]) - pos[1], buf.numel() // per[j])
+        if k:
+            pool = pools[j]
+            view, dim = _slots(pool)
+            ent = buf[:k * per[j]].reshape(k, per[j])
+            idx = ent[:, :8].clone().view(torch.long).reshape(k)
+            shape = [k] + [s for i, s in enumerate(view.shape) if i != dim]
+            vals = ent[:, 8:].clone().view(view.dtype).reshape(shape)
+            view.index_copy_(dim, idx.to(pool.device),
+                             vals.movedim(0, dim).to(pool.device))
+            buf = buf[k * per[j]:]
+            pos[1] += k
+        if pos[1] < int(counts[j]):
+            break
+        pos[0], pos[1] = j + 1, 0
+    return buf
 
 
 def _slot_bytes(p) -> int:
@@ -300,9 +470,10 @@ def _slot_bytes(p) -> int:
 
 def _sync_replicas_meta(pools, log, mesh, axes) -> int:
     """:func:`sync_replicas_` on meta pools (a shape-only trace, which
-    cannot read which writes landed): the same two gathers, the payload
-    sized as if every logged write landed on a slot of its own, the most
-    the exchange can carry."""
+    cannot read which writes landed): the same gathers, the payload sized
+    as if every logged write landed on a slot of its own, the most the
+    exchange can carry, in the same rounds."""
+    from repro_torch.distributed.device_exchange import ROUND_BYTES
     at = {id(p): j for j, p in enumerate(pools)}
     slots = [0] * len(pools)
     for pool, flat, _ in log:
@@ -310,8 +481,9 @@ def _sync_replicas_meta(pools, log, mesh, axes) -> int:
     mesh.all_gather(torch.empty((len(pools),), dtype=torch.long,
                                 device="meta"), axes)
     size = sum(c * _slot_bytes(p) for c, p in zip(slots, pools))
-    mesh.all_gather(torch.empty((size,), dtype=torch.uint8, device="meta"),
-                    axes)
+    for a in range(0, size, ROUND_BYTES):
+        mesh.all_gather(torch.empty((min(ROUND_BYTES, size - a),),
+                                    dtype=torch.uint8, device="meta"), axes)
     return len(pools) * 8 + size
 
 

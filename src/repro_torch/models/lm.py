@@ -20,6 +20,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.config.base import ModelConfig
+from repro_torch.distributed import sharding as sh
 from repro_torch.distributed import train_mesh
 from repro_torch.models import kvcache
 from repro_torch.models import param as pm
@@ -133,7 +134,7 @@ def forward(params, tokens, cfg: ModelConfig, *, states=None, cache_len=None,
         raise NotImplementedError("drafter features from a train step on "
                                   f"the mesh ({train_mesh.ITEM_TP})")
     dtype = getattr(torch, cfg.dtype)
-    x = embed(params["tok"], tokens, dtype, tp=tp)
+    x = embed(sh.whole(params, params["tok"], "tok"), tokens, dtype, tp=tp)
     b, t = tokens.shape[:2]
     dev = x.device
     if states is not None and cache_len is None:
@@ -154,16 +155,17 @@ def forward(params, tokens, cfg: ModelConfig, *, states=None, cache_len=None,
         st = states["layers"][i] if states is not None else None
 
         def layer(x, i=i, bs=bs, st=st):
-            lp = params["layers"][i]
+            lp = sh.whole(params, params["layers"][i], f"layers/{i}")
             if tp is not None:
                 lp = tp.gather(lp, f"layers/{i}")
-            return block_apply(
-                lp, x, cfg, bs, state=st,
-                cache_len=cache_len, positions=positions, write_kv=write_kv,
-                extra_mask=extra_mask, ctx=ctx, attn_impl=attn_impl,
-                kv_chunk=kv_chunk,
-                attend_cache_on_write=attend_cache_on_write, snap_at=snap_at,
-                tp=tp)
+            with kvcache.whole_states(st) as st:
+                return block_apply(
+                    lp, x, cfg, bs, state=st,
+                    cache_len=cache_len, positions=positions,
+                    write_kv=write_kv, extra_mask=extra_mask, ctx=ctx,
+                    attn_impl=attn_impl, kv_chunk=kv_chunk,
+                    attend_cache_on_write=attend_cache_on_write,
+                    snap_at=snap_at, tp=tp)
 
         if remat:
             x, kv = checkpoint(layer, x, use_reentrant=False)
@@ -202,11 +204,11 @@ def forward(params, tokens, cfg: ModelConfig, *, states=None, cache_len=None,
 
 def _head(params, cfg: ModelConfig, tp=None):
     """The head [d, V] (in a train step on the mesh: the rank's vocab
-    columns, FSDP-gathered)."""
+    columns, FSDP-gathered; from a serving rank's storage: whole)."""
     if cfg.tie_embeddings:
-        w = params["tok"]["embedding"]
+        w = sh.whole(params, params["tok"]["embedding"], "tok/embedding")
         return (w if tp is None else tp.gather(w, "tok/embedding")).T
-    w = params["lm_head"]
+    w = sh.whole(params, params["lm_head"], "lm_head")
     return w if tp is None else tp.gather(w, "lm_head")
 
 
@@ -305,7 +307,8 @@ def commit_kv(states, kv_outs, cfg: ModelConfig, path_idx, n_commit):
     written (a fixed-shape write, ``kvcache.drop_put_``). Returns the states with ``length`` advanced by ``n_commit``.
     Paged writes go through ``kvcache.pool_scatter_``, so under a batch
     split (``core/state.py::on_run``) they reach the other ranks' pool
-    replicas in the cycle's one gather.
+    replicas in the cycle's one gather; a dense cache under a kv_seq mesh
+    keeps the writes to its run of the slots (``kvcache.dense_slots``).
     """
     length = states["length"].long()
     b, p = path_idx.shape
@@ -326,13 +329,13 @@ def commit_kv(states, kv_outs, cfg: ModelConfig, path_idx, n_commit):
             kvcache.pool_scatter_(st["k"], st["pt"], k_path, wpos, valid)
             kvcache.pool_scatter_(st["v"], st["pt"], v_path, wpos, valid)
             continue
-        cap = st["k"].shape[1]
-        pos = torch.remainder(wpos, cap) if kind == "local" else wpos
-        flat = (rows * cap + pos).reshape(-1)
-        ok = (valid & (pos < cap)).reshape(-1)
+        n = st["k"].shape[1]
+        pos, ok = kvcache.dense_slots(st["k"], 1, wpos, kind == "local")
+        flat = (rows * n + pos).reshape(-1)
+        ok = (valid & ok).reshape(-1)
         for name, new in (("k", k_path), ("v", v_path)):
             buf = st[name]
-            kvcache.drop_put_(buf.view(b * cap, *buf.shape[2:]), 0, flat,
+            kvcache.drop_put_(buf.view(b * n, *buf.shape[2:]), 0, flat,
                               new.reshape(b * p, *new.shape[2:]), ok)
     out = dict(states)
     out["length"] = (length + n_commit).to(torch.int32)

@@ -134,13 +134,18 @@ def get_path(tree, path: str):
 
 def unflatten_like(tree, flat):
     """``tree``'s structure with the leaves of ``flat`` ({path: leaf})."""
-    def build(node, prefix):
-        kids = _children(node)
-        if kids is None:
-            return flat[prefix]
-        vals = {k: build(v, f"{prefix}/{k}" if prefix else k)
-                for k, v in kids}
-        if isinstance(node, dict):
-            return {k: vals[str(k)] for k in node}
-        return type(node)(vals[str(i)] for i in range(len(node)))
-    return build(tree, "")
+    return _build(tree, "", flat)
+
+
+def _build(node, prefix, flat):
+    # a module-level function, not a closure that calls itself: such a
+    # closure is a reference cycle, which would keep ``flat`` (gathered
+    # weights, say) alive until the garbage collector runs
+    kids = _children(node)
+    if kids is None:
+        return flat[prefix]
+    vals = {k: _build(v, f"{prefix}/{k}" if prefix else k, flat)
+            for k, v in kids}
+    if isinstance(node, dict):
+        return {k: vals[str(k)] for k in node}
+    return type(node)(vals[str(i)] for i in range(len(node)))

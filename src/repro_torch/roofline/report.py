@@ -150,6 +150,25 @@ def summary_table(root: Optional[Path] = None) -> str:
     return "\n".join(lines)
 
 
+def serving_parts_table(mesh: str = "single",
+                        root: Optional[Path] = None) -> str:
+    """The serving cells' argument bytes a rank by part (the weights, the
+    engine state, the inputs; GB) and the all-gather bytes a rank sends
+    a step (GB): what a rank holds and gathers at JAX's layouts."""
+    lines = [f"| arch | shape ({mesh}) | params GB | state GB | inputs GB "
+             "| all-gather GB | peak GB |", "|---|---|---|---|---|---|---|"]
+    for (arch, shape), c in sorted(load_cells(mesh, root=root).items()):
+        if not c.get("ok") or c.get("skipped") or c.get("kind") == "train":
+            continue
+        p = c["memory"]["argument_parts"]
+        lines.append(
+            f"| {arch} | {shape} | {p['params'] / 1e9:.2f} | "
+            f"{p['state'] / 1e9:.2f} | {p['inputs'] / 1e9:.3f} | "
+            f"{c['counts'].get('all-gather', 0.0) / 1e9:.2f} | "
+            f"{c['memory']['peak_estimate_gb']:.1f} |")
+    return "\n".join(lines)
+
+
 def pick_hillclimb_cells(mesh: str = "single",
                          root: Optional[Path] = None) -> List:
     """worst roofline fraction / most collective-bound / most
@@ -175,3 +194,6 @@ if __name__ == "__main__":
     print("\nhillclimb picks:", pick_hillclimb_cells(root=where))
     print("\n===== every cell, both meshes =====")
     print(summary_table(where))
+    for mesh in ("single", "multi"):
+        print(f"\n===== serving cells by part, {mesh} =====")
+        print(serving_parts_table(mesh, where))

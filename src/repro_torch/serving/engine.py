@@ -66,6 +66,12 @@ context is captured at construction and re-entered around the engine's
 work. A MoE target inside a mesh whose ``experts`` axis is active runs
 its experts in parallel (``distributed/ep.py``): the caller builds each
 rank's bundle with its part of the expert stacks (``ep_shard_target``).
+Weights: built inside a mesh, the engine keeps the rank's serving
+storage of the bundle (``pipeline.serve_storage``: every leaf's slice by
+the parameter rules, the expert stacks EP's part), and each layer's
+weights are gathered whole as the layer starts and dropped after it
+(``sharding.WEIGHTS`` counts the gathers). A dense cache under a kv_seq
+axis holds the rank's run of the slots (``kvcache.dense_cache``).
 Batch axes (``--mesh-data``; ``pod``): a wave's rows split over them
 where they divide its width (``sharding.batch_run``), and slot b lives
 on the rank whose run holds it. That rank installs and decodes it; every
@@ -221,7 +227,9 @@ class ServingEngine:
                 f"mesh axis size ({self.kv_shards}): page payloads are "
                 "split WITHIN the page, each rank owns page_size // "
                 "n_shards slots of every page")
-        self.bundle = bundle
+        # inside a mesh: the rank's serving storage, each layer's weights
+        # gathered as it starts (the caller drops its whole bundle)
+        self.bundle = bundle = pl.serve_storage(bundle)
         self.batch_size = batch_size
         self.early_exit = early_exit
         self.refill = refill

@@ -14,13 +14,17 @@ from _torch_sharded_inputs import engine_requests
 
 from repro_torch.core import pipeline as pl
 from repro_torch.core.state import capture_pools
-from repro_torch.distributed import ep
+from repro_torch.distributed import device_exchange, ep
 from repro_torch.distributed import sharding as sh
 from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import kvcache as kvc
 from repro_torch.serving.engine import ServingEngine
 
 RULES = dict(sh.LOGICAL_RULES, kv_seq="model")
 IMPLS = ("gather", "kernel")
+#: the rounds' bound of :func:`sync_rounds`: under a slot of the bf16
+#: pool (8 + 2 x 2 x 5 x 2 bytes), so slots straddle rounds
+SYNC_ROUND = 37
 
 
 def _replica(eng):
@@ -37,10 +41,62 @@ def _replica(eng):
     return h.hexdigest()
 
 
+class _Recording:
+    """A mesh whose all-gathers record the bytes each rank sends."""
+
+    def __init__(self, mesh):
+        self.mesh, self.sizes = mesh, []
+
+    def all_gather(self, t, axes):
+        self.sizes.append(t.numel() * t.element_size())
+        return self.mesh.all_gather(t, axes)
+
+    def index(self, axes):
+        return self.mesh.index(axes)
+
+
+def sync_rounds(mesh, rank, round_bytes):
+    """Two pools (a [P, page, H, D] fp32 pool and a stacked [L, P, page,
+    H, D] bf16 one) whose pages the batch ranks write apart (rank r the
+    pages r, r + 2, ..., their values drawn from seed 10 + r), synced by
+    ``sync_replicas_`` over the batch axes in one round and in rounds of
+    ``round_bytes``: both replicas after each, and the bytes each
+    all-gather of the rounds' exchange carried a rank."""
+    g = torch.Generator().manual_seed(10 + rank)
+    pools = [torch.zeros((6, PAGE, 2, 3)),
+             torch.zeros((2, 6, PAGE, 2, 5), dtype=torch.bfloat16)]
+    table = torch.arange(6, dtype=torch.int32)[None]
+    pos = torch.arange(6 * PAGE)[None]
+    mine = (pos // PAGE) % 2 == rank
+    writes = [torch.randn((1, 6 * PAGE, 2, 3), generator=g),
+              torch.randn((2, 1, 6 * PAGE, 2, 5), generator=g).to(
+                  torch.bfloat16)]
+    out = {}
+    saved = device_exchange.ROUND_BYTES
+    for name, rb in (("one", saved), ("rounds", round_bytes)):
+        for pool in pools:
+            pool.zero_()
+        with kvc.log_pool_writes() as log:
+            for pool, w in zip(pools, writes):
+                kvc.pool_scatter_(pool, table, w, pos, mine)
+        rec = _Recording(mesh)
+        device_exchange.ROUND_BYTES = rb
+        try:
+            kvc.sync_replicas_(pools, log, rec, ("data",))
+        finally:
+            device_exchange.ROUND_BYTES = saved
+        out[name] = {"pools": [p.float().numpy() for p in pools],
+                     "gathers": rec.sizes}
+    return out
+
+
 def serve(bundle, batch=2, steps=False):
     """The two-phase workload through one engine: tokens, stats, the
     replica hash after every engine step (``steps``) and the run's
-    pool-write and host-result gathers."""
+    pool-write and host-result gathers, and ``storage``: whether the
+    engine keeps the rank's serving storage of the weights and the weight
+    gathers (``sharding.WEIGHTS``) of its run."""
+    sh.WEIGHTS.reset()
     eng = ServingEngine(bundle, batch_size=batch, seed=0,
                         cache_impl="paged", page_size=PAGE,
                         prefix_cache=True, pool_scope="engine", device="cpu")
@@ -67,7 +123,9 @@ def serve(bundle, batch=2, steps=False):
     return {"tokens": {r.uid: r.out.tolist() for r in eng.done},
             "stats": stats, "replicas": hashes,
             "writes": (sh.WRITES.calls, sh.WRITES.bytes),
-            "results": sh.RESULTS.calls}
+            "results": sh.RESULTS.calls,
+            "storage": {"cut": pl.at_storage(eng.bundle),
+                        "gathers": (sh.WEIGHTS.calls, sh.WEIGHTS.bytes)}}
 
 
 def _rank_bundle(bundle, mesh):
@@ -95,6 +153,7 @@ def scenarios(rank, n, x):
                                           GEN_NEW, device="cpu")["tokens"]
             res["sampled"] = pl.generate(x["sampled"], prompts, GEN_NEW,
                                          seed=5, device="cpu")["tokens"]
+        res["sync"] = sync_rounds(mesh, rank, SYNC_ROUND)
         return res
     mesh = make_mesh(2, 2)
     with sh.use_sharding(mesh, RULES):

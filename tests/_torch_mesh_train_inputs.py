@@ -54,3 +54,10 @@ def pipeline_inputs():
     w = (rng.standard_normal((S, D, D)) * 0.3).astype(np.float32)
     xs = rng.standard_normal((M, MB, D)).astype(np.float32)
     return w, xs
+
+#: the dry run's small serving cells (a decode and a prefill cell of a
+#: dense bf16 target on the (2, 2) mesh): the model, the rows and prompt
+#: length of the cell's shape, gamma and the branches of its spec
+SERVE_MODEL = dict(MODEL, dtype="bfloat16")
+SERVE_B, SERVE_T, SERVE_GAMMA, SERVE_K = 4, 64, 4, 2
+SERVE_KINDS = ("decode", "prefill")

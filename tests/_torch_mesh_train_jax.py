@@ -12,7 +12,9 @@ and ``pipeline_apply`` on the (pod 4, data 2) mesh. It writes
 ``OUT/ref.npz``: ``{case}/loss``, ``{case}/grad_norm`` (a step each),
 ``{case}/grad/<path>`` (step 1), ``{case}/param/<path>`` and, for an
 adamw8bit or Adafactor case, ``{case}/opt/<path>`` (after the last
-step), ``dryrun/flops`` (:func:`dryrun_flops`), ``pipeline``.
+step), ``dryrun/flops`` (:func:`dryrun_flops`),
+``serve/{kind}/argument_bytes`` and ``serve/{kind}/pruned_bytes``
+(:func:`serve_cells`), ``pipeline``.
 """
 import sys
 from pathlib import Path
@@ -20,13 +22,16 @@ from pathlib import Path
 import jax
 import jax.numpy as jnp
 import numpy as np
-from _torch_mesh_train_inputs import (CASES, MODEL, STEPS, batch, hp,
+from _torch_mesh_train_inputs import (CASES, MODEL, SERVE_B, SERVE_GAMMA,
+                                      SERVE_K, SERVE_KINDS, SERVE_MODEL,
+                                      SERVE_T, STEPS, batch, hp,
                                       pipeline_inputs)
 
-from repro.config.base import ModelConfig, OptimizerConfig
+from repro.config.base import ModelConfig, OptimizerConfig, SpecConfig
 from repro.distributed import compat
 from repro.distributed import sharding as sh
 from repro.distributed.pipeline_parallel import pipeline_apply
+from repro.launch import steps as steps_lib
 from repro.launch.mesh import make_mesh
 from repro.models import lm
 from repro.optim import optimizers as opt_lib
@@ -101,6 +106,42 @@ def dryrun_flops(out):
     out["dryrun/flops"] = np.asarray(analyze_hlo_text(text)["flops"])
 
 
+def serve_cells(out):
+    """The per-device argument bytes of the dry run's small serving cells
+    as JAX's ``run_cell`` builds them (``launch/dryrun.py:75``): the
+    bundle (``make_bundle_abstract``), the dense engine state
+    (``engine_state_abstract``), the prompts or the key, every argument
+    at ``params_shardings`` under the cell's rules, on the (2, 2) mesh;
+    ``memory_analysis().argument_size_in_bytes`` of the compiled step with
+    every argument kept (``keep_unused``: ``serve/{kind}/argument_bytes``)
+    and as ``run_cell`` compiles it (arguments the step never reads
+    dropped: ``serve/{kind}/pruned_bytes``)."""
+    cfg = ModelConfig(**SERVE_MODEL)
+    bundle = steps_lib.make_bundle_abstract(
+        cfg, SpecConfig(gamma=SERVE_GAMMA, top_k_branches=SERVE_K))
+    est = steps_lib.engine_state_abstract(bundle, SERVE_B,
+                                          steps_lib._cap_for(SERVE_T))
+    mesh = make_mesh(data=2, model=2)
+    for kind in SERVE_KINDS:
+        rules = dict(sh.LOGICAL_RULES, kv_seq="model",
+                     act_seq=None if kind == "decode" else "model")
+        if kind == "decode":
+            fn = steps_lib.make_serve_step()
+            args = (bundle, est, jax.ShapeDtypeStruct((2,), jnp.uint32))
+        else:
+            fn = steps_lib.make_prefill_step(cfg)
+            args = (bundle, est,
+                    jax.ShapeDtypeStruct((SERVE_B, SERVE_T), jnp.int32))
+        with sh.use_sharding(mesh, rules, fsdp=False):
+            ins = sh.params_shardings(args, mesh)
+            for key, keep in (("argument_bytes", True),
+                              ("pruned_bytes", False)):
+                mem = jax.jit(fn, in_shardings=ins, keep_unused=keep).lower(
+                    *args).compile().memory_analysis()
+                out[f"serve/{kind}/{key}"] = np.asarray(
+                    mem.argument_size_in_bytes)
+
+
 def pipeline(out):
     w, xs = pipeline_inputs()
     mesh = compat.make_mesh((4, 2), ("pod", "data"))
@@ -120,6 +161,7 @@ def main(out_dir):
     for name in CASES:
         step_case(name, out)
     dryrun_flops(out)
+    serve_cells(out)
     pipeline(out)
     np.savez(Path(out_dir) / "ref.npz", **out)
 

@@ -9,16 +9,21 @@ import dataclasses
 
 import torch
 from _torch_mesh_train_inputs import (B, CASES, CHUNK, HP, MODEL,
-                                      OPTIMIZERS, STEPS, T, batch, hp,
+                                      OPTIMIZERS, SERVE_B, SERVE_GAMMA,
+                                      SERVE_K, SERVE_KINDS, SERVE_MODEL,
+                                      SERVE_T, STEPS, T, batch, hp,
                                       pipeline_inputs)
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.config.base import ModelConfig, OptimizerConfig, ShapeSpec
 from repro_torch.config.registry import get_config
+from repro_torch.core.drafter import drafter_init
 from repro_torch.distributed import pipeline_parallel as pp
 from repro_torch.distributed import sharding as sh
 from repro_torch.launch.mesh import make_mesh
-from repro_torch.launch.steps import build_cell, make_grad_fn, make_train_step
+from repro_torch.launch import dryrun
+from repro_torch.launch.steps import (build_cell, make_grad_fn,
+                                      make_train_step, rank_args)
 from repro_torch.models import api
 from repro_torch.models import param as pm
 from repro_torch.optim import optimizers as opt_lib
@@ -114,6 +119,43 @@ def real_counts(cfg, full, mesh, name):
         return {"storage": storage, "collectives": sh.collective_counts()}
 
 
+def serve_cell(kind):
+    """The dry run's small serving cell of ``kind`` ("decode" or
+    "prefill"): the bf16 target of ``SERVE_MODEL`` and its two production
+    drafters, ``SERVE_B`` rows, a ``SERVE_T``-token prompt (JAX's
+    serving rules, the dense engine state)."""
+    return build_cell("tiny", "tiny", cfg=ModelConfig(**SERVE_MODEL),
+                      shape=ShapeSpec("tiny", SERVE_T, SERVE_B, kind),
+                      gamma=SERVE_GAMMA, k_branches=SERVE_K)
+
+
+def real_serve_counts(kind, mesh):
+    """One real run of :func:`serve_cell` on this rank: the cell's meta
+    arguments replaced by random weights (seed 0, in the cell's bf16) and
+    zero prompts, cut as ``rank_args`` cuts them; the rank's argument
+    bytes by part (``dryrun.trace_cell``'s parts) and the step's
+    collectives by kind."""
+    cell = serve_cell(kind)
+    bundle = cell.args[0]
+    bf16 = lambda t: t.to(torch.bfloat16) if t.is_floating_point() else t  # noqa: E731
+    cell.args = (dataclasses.replace(
+        bundle,
+        target_params=pm.tree_map(bf16, api.init_model(
+            bundle.target_cfg, seed=0, device="cpu")),
+        d1_params=pm.tree_map(bf16, drafter_init(bundle.d1_cfg, 0, "cpu")),
+        d2_params=pm.tree_map(bf16, drafter_init(bundle.d2_cfg, 1, "cpu"))),
+        ) + tuple(torch.zeros(a.shape, dtype=a.dtype)
+                  if isinstance(a, torch.Tensor) else a
+                  for a in cell.args[1:])
+    with sh.use_sharding(mesh, cell.rules, fsdp=cell.fsdp), \
+            torch.no_grad():
+        args = rank_args(cell)
+        parts = dryrun.arg_parts(cell, args)
+        sh.reset_collectives()
+        cell.fn(*args)
+        return {"parts": parts, "collectives": sh.collective_counts()}
+
+
 class _null:
     def __enter__(self):
         return self
@@ -151,8 +193,9 @@ def _storage(cfg, full, mesh, fsdp):
 def scenarios(rank, n, full, ckpt_dir):
     """n 8: the (2, 4) step cases (remat on), the checkpoint saved from
     (2, 4), the pipeline on (pod 4, data 2); n 4: the (2, 2) cases, the
-    dry run's cell's real step with each optimizer, the chunked loss,
-    and the other kinds under data parallelism and FSDP on (4, 1)."""
+    dry run's cell's real step with each optimizer and its serving cells'
+    real runs, the chunked loss, and the other kinds under data
+    parallelism and FSDP on (4, 1)."""
     out = {"rank": rank}
     if n == 8:
         mesh = make_mesh(2, 4)
@@ -186,6 +229,7 @@ def scenarios(rank, n, full, ckpt_dir):
             out[name] = train(cfg, full, batch(uneven), mesh, fsdp,
                               hp=hp(name))
     out["dryrun"] = {o: real_counts(cfg, full, mesh, o) for o in OPTIMIZERS}
+    out["serve"] = {k: real_serve_counts(k, mesh) for k in SERVE_KINDS}
     out["2x2_chunk"] = train(cfg, full, batch(True), mesh, False,
                              chunk=CHUNK, steps=1)
     out["2x2_unchunked"] = train(cfg, full, batch(True), mesh, False,

@@ -13,6 +13,7 @@ from repro_torch.core import pipeline as pl
 from repro_torch.distributed import sharding as sh
 from repro_torch.distributed import spdecode as sp
 from repro_torch.launch.mesh import make_mesh
+from repro_torch.roofline.trace_analysis import storage_bytes
 from repro_torch.serving.engine import ServingEngine
 
 RULES = dict(sh.LOGICAL_RULES, kv_seq="model")
@@ -23,12 +24,21 @@ def _t(x):
     return torch.from_numpy(np.array(x))
 
 
-def _dense(x):
+def _run(a, r, n):
+    """Rank ``r``'s run of the slots (axis 1) of a dense cache ``a`` of a
+    kv_seq axis of ``n``."""
+    s = a.shape[1] // n
+    return _t(a)[:, r * s:(r + 1) * s].contiguous()
+
+
+def _dense(x, r, n):
+    """The dense hook on this rank's run of each cache."""
     out = {}
+    ck, cv = _run(x["ck"], r, n), _run(x["cv"], r, n)
     for name, rolling, window, cap in DENSE_CASES:
         for md in (torch.float32, torch.bfloat16):
             o = sp.sharded_cache_attend(
-                _t(x["q"]), _t(x["ck"]), _t(x["cv"]), _t(x["bk"]),
+                _t(x["q"]), ck, cv, _t(x["bk"]),
                 _t(x["bv"]), cache_len=_t(x["cache_len"]),
                 q_abs=_t(x["q_abs"]), window=window, attn_softcap=cap,
                 blk_mask=_t(x["mask"]), rolling=rolling, merge_dtype=md)
@@ -68,9 +78,17 @@ def _drafter(bundle, x):
     return out
 
 
+def _weights(bundle):
+    return storage_bytes(bundle.target_params, bundle.d1_params,
+                         bundle.d2_params)
+
+
 def _serve(bundle, phase1, phase2):
     """The two-phase workload through one engine: tokens, stats, this
-    rank's pools at the end, the pool's refcounts."""
+    rank's pools at the end, the pool's refcounts, and ``storage``: the
+    weight bytes the engine keeps beside the whole bundle's and the
+    serving weight gathers (``sharding.WEIGHTS``) of its run."""
+    sh.WEIGHTS.reset()
     eng = ServingEngine(bundle, batch_size=2, seed=0, cache_impl="paged",
                         page_size=PAGE, prefix_cache=True,
                         pool_scope="engine", device="cpu")
@@ -81,6 +99,10 @@ def _serve(bundle, phase1, phase2):
     eng.agree_across_ranks()
     return eng, {"tokens": {r.uid: r.out.tolist() for r in eng.done},
                  "stats": stats,
+                 "storage": {"cut": pl.at_storage(eng.bundle),
+                             "bytes": _weights(eng.bundle),
+                             "whole": _weights(bundle),
+                             "gathers": (sh.WEIGHTS.calls, sh.WEIGHTS.bytes)},
                  "pools": {k: (a.numpy(), b.numpy())
                            for k, (a, b) in eng._pools.items()},
                  "refcounts": eng.pool.refcounts()}
@@ -98,10 +120,11 @@ def _catches_disagreement(eng, r):
     return False
 
 
-def _quirk(x):
+def _quirk(x, r, n):
     """The dense hook's default merge (bfloat16) on the quirk's input."""
     return sp.sharded_cache_attend(
-        _t(x["q"]), _t(x["k"]), _t(x["v"]), _t(x["bk"]), _t(x["bv"]),
+        _t(x["q"]), _run(x["k"], r, n), _run(x["v"], r, n), _t(x["bk"]),
+        _t(x["bv"]),
         cache_len=_t(x["cache_len"]), q_abs=_t(x["q_abs"]), window=None,
         attn_softcap=None, blk_mask=torch.ones((1, 1), dtype=torch.bool),
         rolling=False).numpy()
@@ -155,7 +178,7 @@ def scenarios(rank, n, bundles, x):
                 if k.startswith(prefix + "/")}
 
     with sh.use_sharding(mesh, RULES):
-        res["dense"] = _dense(part("dense"))
+        res["dense"] = _dense(part("dense"), rank, n)
         res["paged"] = _paged(part("paged"), rank, PAGE // n)
         res["drafter"] = _drafter(bundles["gather"], part("drafter"))
         phase1, phase2 = x["engine/phase1"], x["engine/phase2"]
@@ -164,9 +187,11 @@ def scenarios(rank, n, bundles, x):
             eng, res["engine"][impl] = _serve(bundles[impl], phase1, phase2)
         res["hash_check_raises"] = _catches_disagreement(eng, rank)
         if n == 2:
+            sh.WEIGHTS.reset()
             g = pl.generate(bundles["gather"], x["generate/prompts"], 16,
                             max_len=256, device="cpu")
             res["generate"] = g["tokens"]
-            res["quirk"] = _quirk(part("quirk"))
+            res["generate_gathers"] = (sh.WEIGHTS.calls, sh.WEIGHTS.bytes)
+            res["quirk"] = _quirk(part("quirk"), rank, n)
             res["refusals"] = _refusals(bundles["gather"])
     return res

@@ -255,6 +255,22 @@ def test_engine_matches_jax_engine(runs, mesh, impl):
         assert sent > 0
 
 
+@pytest.mark.parametrize("mesh,impl", ENGINE_CASES)
+def test_engine_runs_at_rank_storage(runs, mesh, impl):
+    """F1 in the data engines (ROADMAP.md item 10f): the engine of
+    :func:`test_engine_matches_jax_engine` keeps the rank's serving
+    storage of the bundle (``pipeline.serve_storage``). Where the model
+    axis cuts a weight ((2, 2)) the rank stores its slices and gathers
+    its weights a layer at a time (``sharding.WEIGHTS``); at model 1
+    ((2, 1)) the rules cut nothing and nothing is gathered."""
+    cut = MESH_SHAPES[mesh][1][1] > 1
+    for r in runs["port"][SPAWN[mesh]]:
+        st = r["engine"][impl]["storage"]
+        calls, received = st["gathers"]
+        assert st["cut"] == cut
+        assert (calls > 0) == cut and (received > 0) == cut
+
+
 def test_wave_of_three_rows_is_not_split(runs):
     """Batch 3 over data 2: a wave of three rows is not split (every rank
     runs every row, as JAX's fit replicates it), a wave of two is; the
@@ -311,6 +327,29 @@ def test_pool_replicas_equal_after_every_engine_step(runs):
     a, b = (r["engine"]["gather"]["replicas"] for r in runs["port"][2])
     assert len(a) >= 10 and a == b
     assert len(set(a)) > len(a) // 2          # the pools moved
+
+
+def test_replica_sync_in_rounds_equals_one_gather(runs):
+    """F2's pin (ROADMAP.md queue 3): ``kvcache.sync_replicas_`` with
+    ``device_exchange.ROUND_BYTES`` set to 37 bytes (under one slot of the
+    stacked bf16 pool, so slots straddle rounds) leaves each batch rank's
+    replicas of two pools bit for bit equal to the one-round sync, and
+    equal on both ranks with every rank's pages; no round carries more
+    than 37 bytes a rank (the first gather is the slot counts, 8 bytes a
+    pool), so a rank holds at most one round of its peers' writes. Before
+    the rounds the one gather carried every rank's whole payload
+    at once."""
+    a, b = (r["sync"] for r in runs["port"][2])
+    for rank in (a, b):
+        for one, rounds in zip(rank["one"]["pools"], rank["rounds"]["pools"]):
+            np.testing.assert_array_equal(one, rounds)
+            assert np.count_nonzero(one) > 0
+        counts, *payload = rank["rounds"]["gathers"]
+        assert counts == 2 * 8
+        assert len(payload) > 10 and max(payload) <= ranks.SYNC_ROUND
+        assert len(rank["one"]["gathers"]) == 2
+    for x, y in zip(a["rounds"]["pools"], b["rounds"]["pools"]):
+        np.testing.assert_array_equal(x, y)
 
 
 def test_serve_launcher_mesh_data_model():

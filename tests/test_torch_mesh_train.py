@@ -24,6 +24,9 @@ flip; JAX's own test allows 1e-4); adamw8bit's int8 moments within one
 quantum and every other moment leaf within 1e-5 of its leaf's largest
 (``_close_moments``). The dry run's tiny cell: storage and collective
 bytes exact; FLOPs within 2 % of JAX's HLO count less a named excess.
+Its small serving cells: storage and collective bytes exact against the
+ranks' real run, argument bytes exact against JAX's ``memory_analysis``
+less the named leaves.
 """
 import dataclasses
 import os
@@ -40,7 +43,8 @@ import torch
 
 import _torch_mesh_train_ranks as ranks
 from _torch_mesh_train_inputs import (CASES, CHUNK, M, MODEL, OPTIMIZERS,
-                                      S, UNEVEN, batch, hp, pipeline_inputs)
+                                      SERVE_B, SERVE_KINDS, S, UNEVEN, batch,
+                                      hp, pipeline_inputs)
 from _torch_parity import jax_lm_init, port_lm, port_model_cfg
 from repro.config import registry as jreg
 from repro.config.base import ModelConfig as JModelConfig
@@ -523,3 +527,59 @@ def test_trace_flops_match_jax_hlo(runs):
     assert counts["flops"] > jax_flops
     np.testing.assert_allclose(counts["flops"] - excess, jax_flops,
                                rtol=0.02)
+
+
+@pytest.mark.parametrize("kind", SERVE_KINDS)
+def test_serving_cell_trace_matches_gloo_run(runs, kind):
+    """The dry run's small serving cell (``_torch_mesh_train_ranks.
+    serve_cell``: a bf16 target of two layers and its production drafters
+    at the rank's storage, JAX's dense engine state, 4 rows of a 64-token
+    prompt, the serving rules with kv_seq on ``model``) traced on the
+    meta device for each rank of a shape-only (2, 2) mesh against the 4
+    gloo ranks' real run of the same cell: every rank's argument bytes by
+    part and the step's collectives by kind (calls and bytes sent, the
+    weight gathers among them), exactly equal."""
+    for r, res in enumerate(runs["port"][4]):
+        real = res["serve"][kind]
+        parts, counts = dryrun.trace_cell(ranks.serve_cell(kind),
+                                          _shape_only_mesh(r))
+        assert parts == real["parts"], r
+        for k, c in real["collectives"].items():
+            assert counts[k] == c["bytes"], (r, k)
+            assert counts["coll_calls"][k] == c["calls"], (r, k)
+        assert real["collectives"]["all-gather"]["calls"] > 0
+
+
+@pytest.mark.parametrize("kind", SERVE_KINDS)
+def test_serving_cell_argument_bytes_match_jax(runs, kind):
+    """A rank's argument bytes of the small serving cell
+    (``dryrun.trace_cell``, rank 0 of a shape-only (2, 2) mesh) against
+    JAX's ``memory_analysis().argument_size_in_bytes`` of the same cell
+    built as JAX's ``run_cell`` builds it (``serve/{kind}/
+    argument_bytes``: every argument at ``params_shardings`` under the
+    serving rules, 8 host devices, every argument kept), to the byte but
+    for the leaves named here, each with its reason:
+
+    * the key (decode): JAX's cell takes a ``[2]`` uint32 key, the port's
+      greedy cell no generator (8 bytes);
+    * ``anchor``: JAX's rules match no path of it, so each device holds
+      the whole ``[B]`` int32; the port holds its run's ``B / 2`` rows in
+      int64 (it indexes with them);
+    * ``active``: likewise whole ``[B]`` bool in JAX, the run's rows in
+      the port.
+
+    The weights (the target's and both drafters' slices by the parameter
+    rules, heads, ffn and vocab over ``model``), the dense caches (rows
+    over ``data``, slots over ``model``), the lengths and the prompts
+    agree exactly. The dry run itself compiles as ``run_cell`` does,
+    dropping the arguments a step never reads (``serve/{kind}/
+    pruned_bytes``: the prefill reads none of the drafters' weights but
+    the feature projection's); the port counts what a rank holds."""
+    parts, _ = dryrun.trace_cell(ranks.serve_cell(kind), _shape_only_mesh(0))
+    b, n = SERVE_B, SERVE_B // 2
+    named = {"key": 8 if kind == "decode" else 0,
+             "anchor": 4 * b - 8 * n,
+             "active": b - n}
+    jax_bytes = int(runs["ref"][f"serve/{kind}/argument_bytes"])
+    assert sum(parts.values()) + sum(named.values()) == jax_bytes
+    assert int(runs["ref"][f"serve/{kind}/pruned_bytes"]) <= jax_bytes

@@ -253,6 +253,25 @@ def test_gathered_pools_equal_unsharded_pools(runs, p, impl):
             _close(got[..., live, :, :, :], want[..., live, :, :, :], 1e-5)
 
 
+@pytest.mark.parametrize("p,impl", MESH_IMPLS)
+def test_engine_runs_at_rank_storage(runs, p, impl):
+    """F1 in the sharded engine (ROADMAP.md item 10f): built inside the
+    mesh, the engine of :func:`test_sharded_engine_matches_jax_engine`
+    keeps the rank's serving storage of the bundle
+    (``pipeline.serve_storage``), fewer weight bytes than the whole
+    bundle, and gathers its weights a layer at a time in its run
+    (``sharding.WEIGHTS``); so does the dense ``generate`` of
+    :func:`test_generate_dense_mesh_matches_jax` on 2 ranks."""
+    for r in runs["port"][p]:
+        st = r["engine"][impl]["storage"]
+        assert st["cut"] and st["bytes"] < st["whole"]
+        calls, received = st["gathers"]
+        assert calls > 0 and received > 0
+        if p == 2:
+            calls, received = r["generate_gathers"]
+            assert calls > 0 and received > 0
+
+
 @pytest.mark.parametrize("p", MESHES)
 def test_rank_hash_check_catches_disagreement(runs, p):
     """One rank's spoiled committed token makes every rank's check raise."""
